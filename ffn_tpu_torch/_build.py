@@ -1,0 +1,111 @@
+"""Builds and loads the port's hand-written CUDA kernels.
+
+`ffn_tpu_torch/csrc/*.cu` compile with one `nvcc` call into a shared library
+with a plain C interface, loaded through ctypes. The library sits under
+`build/ffn_tpu_torch_kernels/<hash of the sources>/`, so an edit to any
+source builds anew and an unchanged tree reuses the last build. Nothing is
+compiled when this module is imported: the first kernel launch builds.
+
+A missing `nvcc` or a failed build raises. There is no fallback.
+
+`launches` counts kernel launches by kernel name. Each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that the
+main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build",
+                          "ffn_tpu_torch_kernels")
+LIB_NAME = "libffn_tpu_torch_kernels.so"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+launches: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: each returns the cudaError_t of its launch.
+_SIGNATURES = {
+    "ffn_conv3d_ndhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "ffn_step_gather": [_P, _P, _P, _P] + [_I] * 12 + [_F, _P],
+    "ffn_step_update": [_P, _P, _P] + [_I] * 12 + [_F, _F, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    candidates = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME \
+        else []
+    candidates.append(shutil.which("nvcc"))
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA kernels of ffn_tpu_torch "
+                       "need the CUDA toolkit (set CUDA_HOME)")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _SOURCES:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compiles the kernels if needed; returns the shared library's path."""
+    out_dir = os.path.join(BUILD_ROOT, source_hash())
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + _SOURCES
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib_path)  # atomic: concurrent builders race safely
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def check(err: int, name: str):
+    """Raises if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")

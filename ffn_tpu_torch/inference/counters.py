@@ -1,0 +1,132 @@
+"""Thread-safe counters and timers for inference instrumentation.
+
+Counterpart of ffn_tpu/inference/counters.py (StatCounter, Counters,
+timer_counter, TimedIter) without protobuf: `dumps` writes the counters as
+JSON bytes where the JAX package writes a TaskCounters proto.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import threading
+import time
+from typing import Iterable, Iterator, Optional
+
+import numpy as np
+
+MSEC_IN_SEC = 1000
+
+
+class StatCounter:
+    """A thread-safe integer counter that also propagates to a parent."""
+
+    def __init__(self, parent: Optional["StatCounter"] = None):
+        self._value = 0
+        self._lock = threading.Lock()
+        self._parent = parent
+
+    def IncrementBy(self, x):
+        with self._lock:
+            self._value += int(x)
+        if self._parent is not None:
+            self._parent.IncrementBy(x)
+
+    def Increment(self):
+        self.IncrementBy(1)
+
+    def Set(self, x):
+        with self._lock:
+            self._value = int(x)
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._value
+
+    def Get(self) -> int:
+        return self.value
+
+    def Reset(self):
+        self.Set(0)
+
+
+class Counters:
+    """A registry of named StatCounters with optional parent propagation."""
+
+    def __init__(self, parent: Optional["Counters"] = None):
+        self._lock = threading.Lock()
+        self._parent = parent
+        self._counters: dict[str, StatCounter] = {}
+
+    def __getitem__(self, name: str) -> StatCounter:
+        with self._lock:
+            counter = self._counters.get(name)
+            if counter is None:
+                parent_counter = None
+                if self._parent is not None:
+                    parent_counter = self._parent[name]
+                counter = StatCounter(parent=parent_counter)
+                self._counters[name] = counter
+            return counter
+
+    def get_sub_counters(self) -> "Counters":
+        return Counters(parent=self)
+
+    def reset(self):
+        with self._lock:
+            for counter in self._counters.values():
+                counter.Reset()
+
+    def __iter__(self):
+        with self._lock:
+            return iter(sorted(self._counters.items()))
+
+    def dump(self, path: str):
+        with open(path, "w") as f:
+            for name, counter in self:
+                f.write(f"{name}: {counter.value}\n")
+
+    def dumps(self) -> bytes:
+        """All counters as JSON bytes ({name: value})."""
+        return json.dumps({name: c.value for name, c in self},
+                          sort_keys=True).encode()
+
+    def loads(self, encoded: bytes):
+        for name, value in json.loads(bytes(encoded)).items():
+            self[name].Set(value)
+
+    def dumps_np(self) -> np.ndarray:
+        """dumps() as a uint8 array, which round-trips through npz."""
+        return np.frombuffer(self.dumps(), dtype=np.uint8)
+
+    def loads_np(self, obj):
+        self.loads(np.asarray(obj, dtype=np.uint8).tobytes())
+
+
+@contextlib.contextmanager
+def timer_counter(counters: Counters, name: str):
+    """Counts calls ('<name>-calls') and wall time ('<name>-time-ms')."""
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        dt = time.time() - t0
+        counters[name + "-calls"].Increment()
+        counters[name + "-time-ms"].IncrementBy(dt * MSEC_IN_SEC)
+
+
+class TimedIter:
+    """Wraps an iterator, charging the time of each next() to a counter."""
+
+    def __init__(self, it: Iterable, counters: Counters, name: str):
+        self.it = iter(it)
+        self.counters = counters
+        self.name = name
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        with timer_counter(self.counters, self.name):
+            return next(self.it)
