@@ -1,7 +1,8 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
-`ffn_tpu_torch/csrc/*.cu` compile with one `nvcc` call into a shared library
-with a plain C interface, loaded through ctypes. The library sits under
+Each `ffn_tpu_torch/csrc/*.cu` compiles in its own `nvcc` process, all
+started together, and one more `nvcc` links the objects into a shared
+library with a plain C interface, loaded through ctypes. The library sits under
 `build/ffn_tpu_torch_kernels/<hash of the sources>/`, so an edit to any
 source builds anew and an unchanged tree reuses the last build. Nothing is
 compiled when this module is imported: the first kernel launch builds.
@@ -32,7 +33,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build",
 LIB_NAME = "libffn_tpu_torch_kernels.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 launches: collections.Counter = collections.Counter()
 
@@ -44,6 +45,12 @@ _SIGNATURES = {
     "ffn_conv3d_ndhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "ffn_step_gather": [_P, _P, _P, _P] + [_I] * 12 + [_F, _P],
     "ffn_step_update": [_P, _P, _P] + [_I] * 12 + [_F, _F, _P],
+    "ffn_hop_pop": [_P] * 21 + [_I] * 18 + [_F, _P],
+    "ffn_hop_gather": [_P] * 7 + [_I] * 11 + [_F, _F, _P],
+    "ffn_hop_update": [_P] * 17 + [_I] * 20 + [_F, _F, _P],
+    "ffn_hop_screen": [_P] * 2 + [_I] * 7 + [_F] * 3 + [_P],
+    "ffn_lane_verdicts": [_P] * 6 + [_I] * 4 + [_F, _F, _P],
+    "ffn_lane_mask": [_P] * 3 + [_I] * 13 + [_F, _F, _P],
 }
 
 _lib = None
@@ -78,14 +85,34 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _SOURCES:
+        fd, obj = tempfile.mkstemp(suffix=".o", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc] + NVCC_FLAGS + ["-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + _SOURCES
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    if not failed:
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+               "-o", tmp] + objs
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        os.unlink(obj)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib_path)  # atomic: concurrent builders race safely
     return lib_path
 

@@ -1,0 +1,522 @@
+"""BatchCanvas with the device-resident movement policy (HopEngine).
+
+Counterpart of ffn_tpu/inference/hop_canvas.py with host finalization (its
+default; FFN_TPU_DEVFIN is off). The movement FIFO and dedup grid of every
+lane live on the device (hop_engine.LaneState), and the host talks to the
+device every `hops` moves: per round it reseeds idle lanes, runs
+`run_hops`, ingests a small per-lane status array, and finalizes finished
+lanes. Segmentation claims are mirrored into a device `blocked` volume so
+candidate validity is evaluated on the device at pop time.
+
+Semantics: per object the same as the serial Canvas (pop-time checks, FIFO
+order, weak-seed and min-size gates; lanes=1 matches it exactly). Another
+lane's claim becomes visible at the next round boundary; contested voxels go
+to whichever object finalizes first.
+
+Queue overflow never truncates objects: a lane whose device FIFO cannot
+take a move's pushes STALLS (hop_engine.STALLED_FULL); the host drains the
+queue (dropping stale entries, spilling the newest overflow to a host-side
+list) and resumes the lane; spilled entries return when the device FIFO
+empties, preserving FIFO order.
+
+Not ported yet (ROADMAP.md, Queue 2): device finalization
+(`device_finalize=True` or FFN_TPU_DEVFIN=1, `apply_finalize_rows`) and
+restoring a round-based BatchCanvas checkpoint.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ffn_tpu_torch.inference import batch_canvas as batch_canvas_lib
+from ffn_tpu_torch.inference import hop_engine as hop_engine_lib
+from ffn_tpu_torch.inference import seed as seed_lib
+from ffn_tpu_torch.inference import storage
+from ffn_tpu_torch.inference.counters import TimedIter, timer_counter
+
+_IDLE = batch_canvas_lib._IDLE
+_RUNNING = batch_canvas_lib._RUNNING
+
+
+class HopBatchCanvas(batch_canvas_lib.BatchCanvas):
+    """Batched flood fill with on-device movement (see module docstring).
+
+    Args (beyond BatchCanvas): hops -- FFN moves executed per device round
+    trip; seed_screening -- reject dud seeds in conv batches before they
+    take a lane.
+    """
+
+    def __init__(self, model_info, engine, image, options, hops: int = 16,
+                 seed_screening: bool = True, device_finalize=None,
+                 **kwargs):
+        if not isinstance(engine, hop_engine_lib.HopEngine):
+            raise TypeError("HopBatchCanvas requires a HopEngine")
+        if device_finalize is None:
+            device_finalize = bool(int(os.environ.get("FFN_TPU_DEVFIN",
+                                                      "0")))
+        if device_finalize:
+            raise NotImplementedError(
+                "device finalization (device_finalize=True, "
+                "FFN_TPU_DEVFIN=1) is not ported to ffn_tpu_torch "
+                "(ROADMAP.md, Queue 2)")
+        kwargs.pop("candidates_per_step", None)
+        super().__init__(model_info, engine, image, options, **kwargs)
+        self.hops = int(hops)
+        self.seed_screening = bool(seed_screening)
+        self._state = engine.init_lane_state(self.lanes, self.shape)
+        self._blocked_dev = engine.put_blocked(self._build_blocked())
+        # Per-lane cumulative device counters at the last ingest (device
+        # counters reset on reseed; host counters are monotonic).
+        self._skip_base = np.zeros((self.lanes, 3), np.int64)
+        # Recent per-round live-lane counts (drives tail compaction);
+        # compaction waits for a full window of low occupancy.
+        self._alive_history = []
+        self._compact_window = 8
+        self._screened_ready = []
+
+    # -- BatchCanvas hooks ----------------------------------------------------
+
+    def _build_blocked(self) -> np.ndarray:
+        """uint8 bit-code volume: BLOCKED_CLAIMED for segmented voxels,
+        BLOCKED_RESTRICTED where the movement restrictor forbids moves.
+        Separate bits keep skip-counter attribution exact on the device."""
+        blocked = np.zeros(self.shape, np.uint8)
+        dense = self.restrictor.dense_invalid_mask(self.shape)
+        if dense is not None:
+            blocked |= np.where(dense, hop_engine_lib.BLOCKED_RESTRICTED,
+                                0).astype(np.uint8)
+        if np.any(self.segmentation > 0):
+            blocked |= np.where(self.segmentation > 0,
+                                hop_engine_lib.BLOCKED_CLAIMED,
+                                0).astype(np.uint8)
+        return blocked
+
+    def _lane_region(self, li, sel_start, size_zyx):
+        return self.engine.lane_seed_region(self._state.seeds, li,
+                                            sel_start, size_zyx)
+
+    def _lane_mask_region(self, li, sel_start, size_zyx, start_pos):
+        return self.engine.lane_mask_region(
+            self._state.seeds, li, sel_start, size_zyx,
+            self.options.segment_threshold, start_pos)
+
+    def _post_segment(self, sid, sel, mask):
+        start = [s.start for s in sel]
+        self._blocked_dev = self.engine.update_blocked_region(
+            self._blocked_dev, start, mask.astype(np.uint8))
+
+    # -- seed pre-screening ---------------------------------------------------
+
+    def _assign_fresh_seeds(self, seed_iter, seeds_exhausted):
+        """BatchCanvas._assign_fresh_seeds plus device pre-screening:
+        candidates whose FIRST FFN update leaves the origin below the move
+        threshold (the DONE_WEAK outcome) are rejected in one conv batch
+        instead of occupying a lane for a round. Dud outcomes match the
+        lane path (origin poisoned, weak counter); surplus strong seeds are
+        cached and revalidated before use."""
+        if not self.seed_screening:
+            return super()._assign_fresh_seeds(seed_iter, seeds_exhausted)
+        idle = [li for li, lane in enumerate(self._lanes)
+                if lane.state == _IDLE]
+        assignments = []
+        ready = self._screened_ready
+        while idle and ready:
+            pos = ready.pop(0)
+            if not self._valid_seed_pos(tuple(pos)):
+                continue
+            assignments.append((idle.pop(0), pos))
+
+        while idle:
+            # Draw even when the policy is exhausted: deferred seeds are
+            # retried inside _draw_seeds; the loop ends when a draw comes
+            # back empty. lanes=1 keeps strict draw order (no batch-ahead),
+            # as exact serial parity needs.
+            demand = min(2 * len(idle) + 8, self.engine.SCREEN_BATCH) \
+                if self.lanes > 1 else 1
+            cands, seeds_exhausted = self._draw_seeds(
+                demand, seed_iter, seeds_exhausted,
+                relax_threshold=self.lanes // 2)
+            if not cands:
+                break
+            strong = self.engine.screen_seeds(
+                self._image_dev, np.array(cands, np.int32),
+                self.options.init_activation)
+            for pos, ok in zip(cands, strong):
+                if not ok:
+                    p = tuple(int(v) for v in pos)
+                    if self.segmentation[p] == 0:
+                        self.segmentation[p] = -1
+                    self.counters["seed_got_too_weak"].Increment()
+                    self.counters["screened-weak-seeds"].Increment()
+                elif idle:
+                    assignments.append((idle.pop(0), pos))
+                else:
+                    ready.append(pos)
+        return assignments, seeds_exhausted
+
+    # -- main loop -------------------------------------------------------------
+
+    def segment_all(self, seed_policy=seed_lib.PolicyPeaks,
+                    partial_segment_iters: int = 0):
+        del partial_segment_iters   # lane progress is restored per lane
+        self.seed_policy = seed_policy(self)
+        if self._seed_policy_state is not None:
+            self.seed_policy.set_state(self._seed_policy_state)
+            self._seed_policy_state = None
+        seed_iter = TimedIter(self.seed_policy, self.counters,
+                              "seed-policy")
+        seeds_exhausted = False
+
+        with timer_counter(self.counters, "segment_all"):
+            while True:
+                self._maybe_save_checkpoint()
+                B = self.lanes
+
+                # 1. Reseed idle lanes.
+                reset_mask = np.zeros(B, bool)
+                reset_pos = np.zeros((B, 3), np.int32)
+                assignments, seeds_exhausted = self._assign_fresh_seeds(
+                    seed_iter, seeds_exhausted)
+                for li, pos in assignments:
+                    self._start_lane(li, pos)
+                    reset_mask[li] = True
+                    reset_pos[li] = pos
+                    self._skip_base[li] = 0
+                if reset_mask.any():
+                    self._state = self.engine.reseed_lanes(
+                        self._state, reset_mask, reset_pos,
+                        self.options.init_activation)
+
+                alive = [li for li, lane in enumerate(self._lanes)
+                         if lane.state == _RUNNING]
+                if not alive:
+                    if seeds_exhausted:
+                        break
+                    continue
+
+                # Tail compaction: once the seed supply is exhausted and
+                # recent rounds used at most 1/4 of the lanes, shrink the
+                # batch so the remaining objects stop paying for dead
+                # lanes' conv slots (peak over a window, so a transient dip
+                # does not over-shrink).
+                self._alive_history.append(len(alive))
+                if len(self._alive_history) > self._compact_window:
+                    self._alive_history.pop(0)
+                peak = max(self._alive_history)
+                if (seeds_exhausted and self.lanes > 8
+                        and len(self._alive_history) == self._compact_window
+                        and peak <= self.lanes // 4):
+                    new_b = max(8, 2 * peak)
+                    self.log_info(
+                        "Compacting %d lanes -> %d (%d alive, seeds "
+                        "exhausted).", self.lanes, new_b, len(alive))
+                    keep = alive + [alive[0]] * (new_b - len(alive))
+                    compacted = self.engine.compact_lanes(self._state, keep)
+                    if compacted is None:
+                        # Input + compacted copy do not fit in device
+                        # memory: keep running full-width and do not retry
+                        # until occupancy drops further.
+                        self.log_info("Compaction to %d lanes skipped "
+                                      "(device memory).", new_b)
+                        self._alive_history = []
+                        continue
+                    self._state = compacted
+                    # Padding lanes duplicate a live lane's buffers but
+                    # start IDLE with nothing to do.
+                    self._state.status[len(alive):] = hop_engine_lib.IDLE
+                    self._lanes = [self._lanes[li] for li in alive] + [
+                        batch_canvas_lib._Lane()
+                        for _ in range(new_b - len(alive))]
+                    self.lanes = new_b
+                    self._skip_base = self._skip_base[keep]
+                    self._skip_base[len(alive):] = 0
+                    self._alive_history = []
+                    continue
+
+                # 2. One multi-hop device round for all lanes. Fresh lanes
+                # have unknown lifetimes (a weak seed dies on hop 1), so
+                # rounds that just reseeded many lanes run short.
+                many_fresh = len(assignments) > max(1, B // 4)
+                hops = max(1, self.hops // 4) if many_fresh else self.hops
+                with timer_counter(self.counters, "predict"):
+                    self._state, aux = self.engine.run_hops(
+                        self._image_dev, self._blocked_dev, self._state,
+                        hops, self.max_iters_per_segment)
+                self._ingest(aux)
+
+        self.log_info("Segmentation done.")
+
+    def _ingest(self, aux):
+        """3. Ingests a round's per-lane results: counters, stall drains,
+        spill requeues, and finalization of finished lanes."""
+        self.counters["fov-moves"].IncrementBy(int(aux["executed"].sum()))
+        skips = np.stack([aux["skip_threshold"], aux["skip_invalid"],
+                          aux["skip_restricted"]], axis=1)
+        delta = skips - self._skip_base
+        self._skip_base = skips
+        self.counters["skip_threshold"].IncrementBy(int(delta[:, 0].sum()))
+        self.counters["skip_invalid_pos"].IncrementBy(int(delta[:, 1].sum()))
+        self.counters["skip_restriced_pos"].IncrementBy(
+            int(delta[:, 2].sum()))
+        overflowed = int(aux["overflow"].sum())
+        if overflowed:
+            # The stall-before-full gate makes device-side drops
+            # impossible; a nonzero counter means an engine bug.
+            raise AssertionError(f"device queue dropped {overflowed} "
+                                 f"pushes despite the stall gate")
+
+        status_host = None
+        # One batched device call (K7) answers weak/too-small for every
+        # finalizing lane, skipping their region downloads.
+        v_counts = v_ok = None
+        if np.any((aux["status"] == hop_engine_lib.DONE_EMPTY)
+                  | (aux["status"] == hop_engine_lib.DONE_CAP)):
+            v_counts, v_ok = self.engine.lane_verdicts(
+                self._state, self._blocked_dev,
+                self.options.segment_threshold, self.options.move_threshold)
+        for li, lane in enumerate(self._lanes):
+            if lane.state != _RUNNING:
+                continue
+            lane.min_pos = np.minimum(lane.min_pos, aux["minp"][li])
+            lane.max_pos = np.maximum(lane.max_pos, aux["maxp"][li])
+            lane.num_iters = int(aux["iters"][li])
+            status = int(aux["status"][li])
+            if status == hop_engine_lib.RUNNING:
+                continue
+            if status == hop_engine_lib.STALLED_FULL:
+                if status_host is None:
+                    status_host = self._state.status.cpu().numpy().copy()
+                self._drain_lane_queue(li, lane)
+                status_host[li] = hop_engine_lib.RUNNING
+                continue
+            if status == hop_engine_lib.DONE_EMPTY and lane.spill:
+                if self._requeue_spill(li, lane):
+                    if status_host is None:
+                        status_host = self._state.status.cpu().numpy().copy()
+                    status_host[li] = hop_engine_lib.RUNNING
+                    continue
+            weak = status == hop_engine_lib.DONE_WEAK
+            too_small = False
+            if weak:
+                self.counters["seed_got_too_weak"].Increment()
+            elif v_counts is not None:
+                if not v_ok[li]:
+                    weak = True
+                elif v_counts[li] < self.options.min_segment_size:
+                    too_small = True
+            if status == hop_engine_lib.DONE_CAP:
+                self.counters["iter-cap-hit"].Increment()
+            self._finalize(li, lane, weak=weak, too_small=too_small)
+        if status_host is not None:
+            self._state.status.copy_(torch.as_tensor(status_host))
+
+    # -- queue overflow handling ----------------------------------------------
+
+    def _screen_entries(self, lane, qpos, qscore, done_grid):
+        """Drops queue entries that are already stale (visited cell, out of
+        bounds, claimed, restricted), with the counter attribution the
+        device pop would apply. Below-threshold entries stay (the seed
+        values live on the device). Order is preserved."""
+        _, grid_off = self.engine.grid_geometry(self.shape)
+        deltas = np.maximum(self._deltas_zyx, 1)
+        keep_pos, keep_score = [], []
+        for pos, score in zip(qpos, qscore):
+            cell = tuple((pos - lane.start_pos + deltas // 2) // deltas
+                         + grid_off)
+            if done_grid[cell]:
+                continue   # dedup: uncounted, like the reference
+            p = tuple(int(v) for v in pos)
+            if not self._pos_in_bounds(p) or self.segmentation[p] > 0:
+                self.counters["skip_invalid_pos"].Increment()
+                continue
+            if not self.restrictor.is_valid_pos(p):
+                self.counters["skip_restriced_pos"].Increment()
+                continue
+            keep_pos.append(pos)
+            keep_score.append(score)
+        return keep_pos, keep_score
+
+    def _drain_lane_queue(self, li: int, lane):
+        """Handles a STALLED_FULL lane: screens out stale entries, keeps
+        the oldest entries on the device, spills the newest remainder to
+        the host-side lane.spill list (FIFO order preserved)."""
+        qpos, qscore = self.engine.download_lane_queue(self._state, li)
+        done_grid = self.engine.download_lane_done(self._state, li)
+        keep_pos, keep_score = self._screen_entries(lane, qpos, qscore,
+                                                    done_grid)
+        # Refill strictly below the stall threshold (Q - 6) so the lane
+        # always executes at least one move before it can stall again.
+        cap = max(1, self.engine.queue_capacity - 6)
+        device_n = min(len(keep_pos), cap)
+        for pos, score in zip(keep_pos[device_n:], keep_score[device_n:]):
+            lane.spill.append((float(score), tuple(int(v) for v in pos)))
+        self._state = self.engine.upload_lane_queue(
+            self._state, li,
+            np.array(keep_pos[:device_n], np.int32).reshape(-1, 3),
+            np.array(keep_score[:device_n], np.float32))
+        self.counters["queue-stall-drains"].Increment()
+        self.log_info(
+            "lane %d: queue stall drained (%d entries -> %d on device, "
+            "%d spilled)", li, len(qpos), device_n, len(lane.spill))
+
+    def _requeue_spill(self, li: int, lane) -> bool:
+        """Moves spilled entries back onto the (now empty) device queue.
+        Returns False when every spilled entry turned out stale (the lane
+        is genuinely done)."""
+        entries = lane.spill
+        lane.spill = []
+        qpos = np.array([p for _, p in entries], np.int64).reshape(-1, 3)
+        qscore = np.array([s for s, _ in entries], np.float32)
+        done_grid = self.engine.download_lane_done(self._state, li)
+        keep_pos, keep_score = self._screen_entries(lane, qpos, qscore,
+                                                    done_grid)
+        if not keep_pos:
+            return False
+        cap = max(1, self.engine.queue_capacity - 6)
+        device_n = min(len(keep_pos), cap)
+        lane.spill = [(float(s), tuple(int(v) for v in p))
+                      for p, s in zip(keep_pos[device_n:],
+                                      keep_score[device_n:])]
+        self._state = self.engine.upload_lane_queue(
+            self._state, li,
+            np.array(keep_pos[:device_n], np.int32).reshape(-1, 3),
+            np.array(keep_score[:device_n], np.float32))
+        return True
+
+    # -- checkpointing ---------------------------------------------------------
+
+    def save_checkpoint(self, path: str):
+        """Writes the hop-format checkpoint (hop_canvas.py:677-740): the
+        shared state plus, per lane in flight, its POM region, device
+        queue, spill, dedup grid and fresh flag."""
+        self.log_info("Saving hop-canvas checkpoint to %s.", path)
+        with timer_counter(self.counters, "save_checkpoint"):
+            lanes_state = []
+            deferred = list(self._deferred)
+            fresh = self._state.fresh.cpu().numpy()
+            for li, lane in enumerate(self._lanes):
+                if lane.state != _RUNNING or lane.num_iters <= 0:
+                    if lane.state == _RUNNING:
+                        deferred.append(tuple(int(v)
+                                              for v in lane.start_pos))
+                    lanes_state.append(None)
+                    continue
+                sel_start = np.maximum(
+                    lane.min_pos - self._pred_size // 2, 0)
+                sel_end = np.minimum(
+                    lane.max_pos + self._pred_size // 2 + 1, self.shape)
+                region, region_start = self._lane_region(
+                    li, sel_start, sel_end - sel_start)
+                qpos, qscore = self.engine.download_lane_queue(self._state,
+                                                               li)
+                lanes_state.append({
+                    "start_pos": np.asarray(lane.start_pos),
+                    "qpos": qpos, "qscore": qscore,
+                    "spill_pos": np.array([p for _, p in lane.spill],
+                                          np.int64).reshape(-1, 3),
+                    "spill_score": np.array(
+                        [s for s, _ in lane.spill], np.float32),
+                    "done_grid": self.engine.download_lane_done(
+                        self._state, li),
+                    "fresh": bool(fresh[li]),
+                    "min_pos": np.asarray(lane.min_pos),
+                    "max_pos": np.asarray(lane.max_pos),
+                    "num_iters": lane.num_iters,
+                    "region": region,
+                    "region_start": np.asarray(region_start),
+                })
+            seed_policy_state = None
+            if self.seed_policy is not None:
+                seed_policy_state = self.seed_policy.get_state()
+            aux = {}
+            if self.keep_probability_maps:
+                aux["seg_qprob"] = self.seg_prob
+            with storage.atomic_file(path) as fd:
+                np.savez_compressed(
+                    fd,
+                    hop_format=np.int64(1),
+                    segmentation=self.segmentation,
+                    origins=self.origins,
+                    overlaps=self.overlaps,
+                    deferred=np.array(deferred, np.int64).reshape(-1, 3),
+                    lanes=np.asarray(lanes_state, dtype=object),
+                    seed_policy_state=np.asarray(seed_policy_state,
+                                                 dtype=object),
+                    counters=self.counters.dumps_np(),
+                    **aux)
+        self.log_info("Hop-canvas checkpoint saved.")
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Restores a hop-format checkpoint (hop_canvas.py:742-823). Lanes
+        beyond this canvas's lane count go back to the deferred pool and
+        re-flood from their seeds."""
+        self.log_info("Restoring hop-canvas checkpoint: %s", path)
+        with open(path, "rb") as f:
+            data = np.load(f, allow_pickle=True)
+            if "hop_format" not in data:
+                raise NotImplementedError(
+                    f"{path}: round-based BatchCanvas checkpoints are not "
+                    f"ported to ffn_tpu_torch (ROADMAP.md, Queue 2)")
+            self.segmentation[...] = data["segmentation"]
+            if self.keep_probability_maps and "seg_qprob" in data:
+                self.seg_prob[...] = data["seg_qprob"]
+            self.origins = data["origins"].item()
+            self.overlaps = data["overlaps"].item()
+            self._deferred = batch_canvas_lib._SeedPool(data["deferred"])
+            self._max_id = int(np.max(self.segmentation, initial=0))
+            self._seed_policy_state = data["seed_policy_state"]
+            self.counters.loads_np(data["counters"])
+            self._blocked_dev = self.engine.put_blocked(self._build_blocked())
+
+            state = self._state
+            host = {name: getattr(state, name).cpu().numpy().copy()
+                    for name in ("status", "fresh", "start", "minp", "maxp",
+                                 "iters")}
+            for li, saved in enumerate(data["lanes"]):
+                if saved is None:
+                    continue
+                if li >= self.lanes:
+                    # The in-flight flood fill cannot be adopted, but the
+                    # object must not be lost: its seed re-floods.
+                    self._deferred.append(tuple(
+                        int(v) for v in saved["start_pos"]))
+                    continue
+                lane = self._lanes[li]
+                lane.state = _RUNNING
+                lane.start_pos = np.asarray(saved["start_pos"])
+                lane.spill = [
+                    (float(s), tuple(int(v) for v in p))
+                    for p, s in zip(saved.get("spill_pos", ()),
+                                    saved.get("spill_score", ()))]
+                lane.min_pos = np.asarray(saved["min_pos"])
+                lane.max_pos = np.asarray(saved["max_pos"])
+                lane.num_iters = int(saved["num_iters"])
+                lane.t_start = time.time()
+                host["status"][li] = hop_engine_lib.RUNNING
+                host["fresh"][li] = bool(saved["fresh"])
+                host["start"][li] = saved["start_pos"]
+                host["minp"][li] = saved["min_pos"]
+                host["maxp"][li] = saved["max_pos"]
+                host["iters"][li] = saved["num_iters"]
+                state = self.engine.upload_lane_queue(
+                    state, li, saved["qpos"], saved["qscore"])
+                state = self.engine.upload_lane_done(state, li,
+                                                     saved["done_grid"])
+                self.engine.set_lane_seed_region(
+                    state.seeds, li, saved["region_start"], saved["region"])
+            for name, value in host.items():
+                getattr(state, name).copy_(torch.as_tensor(value))
+            self._state = state
+            self._skip_base = np.stack(
+                [state.skip_threshold.cpu().numpy(),
+                 state.skip_invalid.cpu().numpy(),
+                 state.skip_restricted.cpu().numpy()],
+                axis=1).astype(np.int64)
+        self.log_info("Hop-canvas checkpoint restored (%d lanes in "
+                      "flight).", sum(1 for lane in self._lanes
+                                      if lane.state == _RUNNING))
+        return 0

@@ -182,3 +182,13 @@ class MovementRestrictor:
 
     def is_valid_pos(self, pos) -> bool:
         return self.mask is None or not self.mask[pos]
+
+    def dense_invalid_mask(self, shape_zyx) -> Optional[np.ndarray]:
+        """is_valid_pos at every voxel of a (z, y, x) volume: a bool array
+        (True = excluded), or None if nothing is restricted. The hop path
+        folds it into its blocked volume (movement.py:213 of the JAX
+        package, whose shift-mask part is not ported)."""
+        if self.mask is None:
+            return None
+        return np.broadcast_to(self.mask.astype(bool),
+                               tuple(shape_zyx)).copy()

@@ -1,9 +1,10 @@
-"""Inference run orchestration: settings -> serial canvas -> saved npz.
+"""Inference run orchestration: settings -> canvas -> saved npz.
 
-Counterpart of ffn_tpu/inference/runner.py (Runner.start, .run) for serial
-requests (concurrent_requests <= 1), which build the serial Canvas. The
-request may be an InferenceSettings or a parsed InferenceRequest proto.
-Model weights load from the JAX package's flat npz checkpoints.
+Counterpart of ffn_tpu/inference/runner.py (Runner.start, .run). A request
+with concurrent_requests <= 1 builds the serial Canvas; a larger one builds
+HopBatchCanvas, whose lanes run on the device through HopEngine.run_hops.
+The request may be an InferenceSettings or a parsed InferenceRequest
+proto. Model weights load from the JAX package's flat npz checkpoints.
 """
 
 from __future__ import annotations
@@ -15,11 +16,14 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 from scipy.special import logit
 
 from ffn_tpu_torch.inference import align as align_lib
 from ffn_tpu_torch.inference import canvas as canvas_lib
 from ffn_tpu_torch.inference import engine as engine_lib
+from ffn_tpu_torch.inference import hop_canvas as hop_canvas_lib
+from ffn_tpu_torch.inference import hop_engine as hop_engine_lib
 from ffn_tpu_torch.inference import movement
 from ffn_tpu_torch.inference import seed as seed_lib
 from ffn_tpu_torch.inference import storage
@@ -46,7 +50,10 @@ class Runner:
     def __init__(self, device="cuda"):
         self.device = engine_lib.resolve_device(device)
         self.counters = Counters()
-        self.engine: Optional[engine_lib.FloodFillEngine] = None
+        # Extra kwargs merged into every batched canvas (e.g. hops,
+        # max_iters_per_segment).
+        self.canvas_defaults = {}
+        self.engine: Optional[hop_engine_lib.HopEngine] = None
         self.canvases = {}
         self._image_volume = None
 
@@ -64,12 +71,6 @@ class Runner:
             raise NotImplementedError(
                 "precision='int8' is not ported to ffn_tpu_torch "
                 "(ROADMAP.md, Queue 1 item 10)")
-        if request.concurrent_requests > 1:
-            raise NotImplementedError(
-                f"concurrent_requests={request.concurrent_requests}: "
-                f"ffn_tpu_torch runs the serial Canvas only; the batched "
-                f"canvases and the hop engine are ROADMAP.md Queue 1 items "
-                f"3-6")
         self.request = request
         os.makedirs(request.segmentation_output_dir, exist_ok=True)
 
@@ -89,12 +90,17 @@ class Runner:
             self.model.to(self.device)
 
         opts = request.inference_options
-        self.engine = engine_lib.FloodFillEngine(
+        # HopEngine is a superset of FloodFillEngine: the serial Canvas
+        # uses its step, HopBatchCanvas its hop programs (runner.py:126).
+        seed_dtype = (torch.bfloat16
+                      if os.environ.get("FFN_TPU_SEED_DTYPE") == "bf16"
+                      else torch.float32)
+        self.engine = hop_engine_lib.HopEngine(
             self.model,
             pad_value=float(logit(opts.pad_value)),
             move_threshold=float(logit(opts.move_threshold)),
             disco_seed_threshold=opts.disco_seed_threshold,
-            device=self.device)
+            device=self.device, seed_dtype=seed_dtype)
 
         self._image_volume = storage.decorated_volume(request.image)
 
@@ -130,9 +136,32 @@ class Runner:
 
     def make_canvas(self, corner: Tuple3i, subvol_size: Tuple3i,
                     **canvas_kwargs):
-        """Builds the serial Canvas for a subvolume; returns (canvas,
-        alignment)."""
+        """Builds the Canvas for a subvolume; returns (canvas, alignment).
+
+        concurrent_requests > 1 builds HopBatchCanvas with that many lanes
+        and `hops` from canvas_defaults, else FFN_TPU_HOPS, else 16
+        (runner.py:278-305).
+        """
         inputs = self.load_subvolume_inputs(corner, subvol_size)
+        lanes = max(1, self.request.concurrent_requests)
+        if lanes > 1:
+            merged = {**self.canvas_defaults, **canvas_kwargs}
+            hops = int(merged.pop("hops",
+                                  os.environ.get("FFN_TPU_HOPS", "16")))
+            if hops <= 0:
+                raise NotImplementedError(
+                    f"hops={hops}: the round-based BatchCanvas is not "
+                    f"ported to ffn_tpu_torch (ROADMAP.md, Queue 1 item 3)")
+            canvas = hop_canvas_lib.HopBatchCanvas(
+                self._model_info, self.engine, inputs["image"],
+                self.request.inference_options, hops=hops, lanes=lanes,
+                counters=inputs["counters"],
+                corner_zyx=inputs["dst_corner"],
+                checkpoint_path=storage.checkpoint_path(
+                    self.request.segmentation_output_dir, corner),
+                checkpoint_interval_sec=self.request.checkpoint_interval,
+                **merged)
+            return canvas, inputs["alignment"]
         canvas = canvas_lib.Canvas(
             self._model_info, self.engine, inputs["image"],
             self.request.inference_options,

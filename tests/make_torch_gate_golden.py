@@ -1,0 +1,71 @@
+#!/usr/bin/env python3
+"""Writes tests/golden/gate_ci_lanes_golden.npz, the JAX package's
+quality-gate pair (tools/quality_eval.py's check 2) with the shipped CI
+checkpoint (depth 2, 16 features, 17^3 FOV), float32, on the CPU: the
+held-out seed-11 100^3 phantom with 8 cells, reflect-padded by 16,
+segmented serially and at 64 lanes. chip_smoke.py holds ffn_tpu_torch on
+the card to it voxel for voxel.
+
+  python tests/make_torch_gate_golden.py     # ~12 min on 8 CPU cores
+
+The golden holds the padded image and the ground truth (another numpy or
+scipy may draw the phantom a voxel differently), and per lane count L in
+(1, 64): seg{L}, the padded box's segmentation; origins{L}, rows (id, z,
+y, x, iterations); moves{L}, the FOV moves (update_at-calls serially,
+fov-moves batched).
+"""
+
+import os
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+os.environ.update(Q_DEPTH="2", Q_FOV="17", Q_DELTAS="6", Q_FEATURES="16")
+
+import h5py  # noqa: E402
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+from ffn_tpu.inference import runner as runner_lib  # noqa: E402
+from tools import quality_eval, synthetic_em  # noqa: E402
+
+CKPT = os.path.join(REPO, "models", "phantom", "model-ci-tiny.npz")
+OUT = os.path.join(REPO, "tests", "golden", "gate_ci_lanes_golden.npz")
+SIZE, SEED, CELLS, PAD, MAX_ITERS = 100, 11, 8, 16, 4000
+
+
+def main():
+    image, gt = synthetic_em.make_volume(size=SIZE, seed=SEED,
+                                         num_cells=CELLS)
+    raw = np.pad(image, PAD, mode="reflect")
+    golden = dict(image=raw, gt=gt)
+    with tempfile.TemporaryDirectory() as tmp:
+        vol = os.path.join(tmp, "gate.h5")
+        with h5py.File(vol, "w") as f:
+            f.create_dataset("raw", data=raw)
+        for lanes in (1, 64):
+            request = quality_eval.build_request(
+                vol, os.path.join(tmp, f"l{lanes}"), CKPT, lanes, "f32")
+            runner = runner_lib.Runner()
+            runner.canvas_defaults["max_iters_per_segment"] = MAX_ITERS
+            runner.start(request)
+            canvas = runner.run((0, 0, 0), raw.shape,
+                                keep_probability_maps=False)
+            seg = np.maximum(canvas.segmentation, 0)
+            golden[f"seg{lanes}"] = seg.astype(np.min_scalar_type(seg.max()))
+            golden[f"origins{lanes}"] = np.array(
+                [(k, *o.start_zyx, o.iters)
+                 for k, o in sorted(canvas.origins.items())], np.int64)
+            golden[f"moves{lanes}"] = runner.counters[
+                "fov-moves" if lanes > 1 else "update_at-calls"].value
+            print(f"{lanes} lanes: {golden[f'moves{lanes}']} moves, "
+                  f"{len(canvas.origins)} origins", flush=True)
+    np.savez_compressed(OUT, **golden)
+    print(f"wrote {OUT}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,143 @@
+"""ffn_tpu_torch's Runner and CLI on the batched hop path.
+
+A request with concurrent_requests: 4 or 64 builds HopBatchCanvas on both
+packages. On the 48^3 phantom of test_torch_runner.py with the shipped tiny
+CI checkpoint (depth 2, 16 features, 17^3 FOV) every move, reject and
+finalize decision agrees, so the saved segmentations are identical, ids
+included, as are the origins and the count counters.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ffn_tpu.inference import runner as jax_runner
+from ffn_tpu.inference import storage as jax_storage
+from ffn_tpu_torch.inference import hop_canvas, hop_engine, runner
+from test_torch_runner import PAD, REPO, SIZE, _request
+
+HOP_MODULES = [
+    "ffn_tpu_torch.ops.hop",
+    "ffn_tpu_torch.ops.lane",
+    "ffn_tpu_torch.inference.hop_engine",
+    "ffn_tpu_torch.inference.batch_canvas",
+    "ffn_tpu_torch.inference.hop_canvas",
+    "ffn_tpu_torch.inference.runner",
+]
+
+
+def _counts(counters):
+    return {name: c.value for name, c in counters if not name.endswith("-ms")}
+
+
+@pytest.mark.parametrize("lanes", [4, 64])
+def test_hop_runner_matches_jax_runner(tmp_path, lanes):
+    """At 64 lanes the six cells leave most lanes idle, so relaxed deferral
+    floods deferred seeds speculatively: both packages make the same
+    duplicate moves (many times the serial run's) and the same drops."""
+    box = (SIZE + 2 * PAD,) * 3
+    request, _ = _request(tmp_path, tmp_path / "jax")
+    request.concurrent_requests = lanes
+    want = jax_runner.Runner()
+    want.start(request)
+    want_canvas = want.run((0, 0, 0), box, keep_probability_maps=False)
+
+    request.segmentation_output_dir = str(tmp_path / "torch")
+    got = runner.Runner(device="cpu")
+    got.start(request)
+    got_canvas = got.run((0, 0, 0), box, keep_probability_maps=False)
+
+    assert isinstance(got_canvas, hop_canvas.HopBatchCanvas)
+    assert isinstance(got.engine, hop_engine.HopEngine)
+    assert got_canvas.lanes == want_canvas.lanes and got_canvas.hops == 16
+    np.testing.assert_array_equal(got_canvas.segmentation,
+                                  want_canvas.segmentation)
+    assert {k: (tuple(v.start_zyx), v.iters)
+            for k, v in got_canvas.origins.items()} == \
+        {k: (tuple(v.start_zyx), v.iters)
+         for k, v in want_canvas.origins.items()}
+    assert _counts(got.counters) == _counts(want.counters)
+    assert got.counters["fov-moves"].value > 0
+    if lanes == 64:
+        assert got.counters["relaxed-deferral-seeds"].value > 0
+
+    # The same seg-0_0_0.npz, through the JAX package's reader.
+    for side in ("jax", "torch"):
+        seg, _ = jax_storage.load_segmentation(str(tmp_path / side),
+                                               (0, 0, 0), split_cc=False)
+        np.testing.assert_array_equal(seg, np.maximum(
+            want_canvas.segmentation, 0).astype(np.uint64))
+
+
+def test_cli_runs_a_batched_request_on_the_cpu(tmp_path):
+    from ffn_tpu_torch.cli import run_inference
+    from ffn_tpu_torch.inference import storage
+    from test_canvas_e2e import make_image
+
+    vol = str(tmp_path / "v.npy")
+    np.save(vol, make_image())
+    out = tmp_path / "out"
+    request = f"""
+image {{ hdf5: "{vol}" }}
+image_mean: 0 image_stddev: 1
+seed_policy: "PolicyPeaks"
+model_name: "oracle.ThresholdOracleModel"
+model_args: "{{\\"fov_size\\": [9, 9, 9], \\"deltas\\": [2, 2, 2]}}"
+segmentation_output_dir: "{out}"
+concurrent_requests: 4
+inference_options {{
+  init_activation: 0.95 pad_value: 0.05 move_threshold: 0.9
+  min_boundary_dist {{ x: 1 y: 1 z: 1 }}
+  segment_threshold: 0.6 min_segment_size: 5
+}}"""
+    run_inference.main([
+        f"--inference_request={request}",
+        "--bounding_box=start { x:0 y:0 z:0 } size { x:36 y:36 z:36 }",
+        "--device=cpu"])
+    seg, origins = jax_storage.load_segmentation(str(out), (0, 0, 0),
+                                                 split_cc=False)
+    assert seg.shape == (36, 36, 36) and len(origins) == 2
+    assert set(np.unique(seg[seg > 0])) == set(origins)
+    assert os.path.exists(storage.object_prob_path(str(out), (0, 0, 0)))
+
+
+@pytest.mark.parametrize("env,canvas_defaults,match", [
+    ({"FFN_TPU_DEVFIN": "1"}, {}, "device finalization"),
+    ({}, {"hops": 0}, "hops=0"),
+    ({"FFN_TPU_HOPS": "0"}, {}, "hops=0"),
+    ({"FFN_TPU_SEED_DTYPE": "bf16"}, {}, "float32 only")])
+def test_runner_refuses_what_it_does_not_run(tmp_path, monkeypatch, env,
+                                             canvas_defaults, match):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    request, _ = _request(tmp_path, tmp_path / "out")
+    request.concurrent_requests = 4
+    r = runner.Runner(device="cpu")
+    r.canvas_defaults.update(canvas_defaults)
+    with pytest.raises(NotImplementedError, match=match):
+        r.start(request)
+        r.make_canvas((0, 0, 0), (SIZE + 2 * PAD,) * 3)
+
+
+def test_hop_runner_refuses_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    request, _ = _request(tmp_path, tmp_path / "out")
+    request.concurrent_requests = 64
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.Runner(device="cuda").start(request)
+
+
+def test_hop_modules_import_without_jax():
+    # A subprocess: this test process has JAX loaded by conftest.py.
+    code = ("import sys, importlib\n"
+            f"for m in {HOP_MODULES!r}: importlib.import_module(m)\n"
+            "bad = [m for m in ('jax', 'flax') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=120)

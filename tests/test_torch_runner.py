@@ -122,9 +122,9 @@ def test_settings_match_the_proto(tmp_path):
         image="v.npy", model_name="m", segmentation_output_dir="o",
         image_mean=128.1).image_mean == np.float32(128.1)
 
+    # concurrent_requests > 1 is the batched hop path (test_torch_hop_runner).
     request.concurrent_requests = 4
-    with pytest.raises(NotImplementedError, match="serial Canvas only"):
-        runner.Runner(device="cpu").start(request)
+    assert InferenceSettings.from_proto(request).concurrent_requests == 4
     request.concurrent_requests = 1
     request.masks.add()
     with pytest.raises(NotImplementedError, match="masks"):
