@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drives ffn_tpu_torch's serial, batched and fused multi-subvolume
-inference paths on one NVIDIA card.
+inference paths and its training path on one NVIDIA card.
 
   python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit, torch/CUDA versions, and
      which of protobuf/absl/h5py/jax this machine has;
-  2. build: the CUDA kernels K1-K8 from ffn_tpu_torch/csrc with nvcc, one
+  2. build: the CUDA kernels K1-K12 from ffn_tpu_torch/csrc with nvcc, one
      process per source;
   3. each kernel against its plain PyTorch version at the main paths'
      shapes (K1 within 1e-4 of max|plain| per layer at N=1, 8, 16, 32, 64
@@ -59,12 +59,28 @@ Phases (any failure ends the run with a non-zero exit):
      (tests/golden/fused_r2_golden.npz): the port on the card must reach
      the same stitched ground-truth agreement; its run with K1 plain shows
      how far rounding alone moves voxels; the serial workers on the same
-     subvolumes are held to 0.95.
+     subvolumes are held to 0.95;
+ 11. training at full width (the train CLI's defaults: depth 12, 32
+     features, 33^3 FOV, deltas 8, batch 4, 27 offsets, sgd) through
+     `python -m ffn_tpu_torch.cli.train`'s entry point for 8 steps on the
+     seed-0 phantom, checkpointing every 4: on kernels (K1 forward, K9,
+     K10, K11, K12), then with all of them plain (step 1's counts equal,
+     per-offset losses within 1e-4 relative, weights within 1e-5), a fresh
+     run resumed at step 4 that must reach step 8's checkpoint bit for bit
+     (its kernels timed by CUDA events), one step under torch.profiler
+     (no cuDNN or other convolution runs, and autograd runs only the
+     port's Functions), the CI model's two steps against the JAX
+     package's (tests/golden/train_ci_golden.npz), and the trained
+     checkpoint in the serial Runner.
 Phase 3 also holds K8 (a crafted 64-lane state over 4 slots of 82^3), K4
 with the device segmentation and K7's batched masks to their plain
-versions, bit for bit. Every kernel's entry in the line before the last,
+versions, bit for bit, and the training kernels at batch 4: K9 and K10
+within 1e-4 of max|plain| for every layer kind (K10 twice bit for bit),
+K11's passes and K12 (sgd and adam over the depth-12 model's 638,433
+parameters). Every kernel's entry in the line before the last,
 {"kernels": [...]}, carries its launches on each main path's run
-(`launches_by_path`: serial, hop, fused, fused_host) and their sum, its
+(`launches_by_path`: serial, hop, fused, fused_host, train) and their
+sum, its
 error against its plain version, its median time, its plain version's, a
 library call's where one PyTorch call computes the same function, and its
 bound (bytes or float32 operations at the H100's published peaks). The
@@ -77,6 +93,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1437,6 +1454,644 @@ def phase_gate_reference(dev, r2, tmp):
                      segs[LANES])
 
 
+# -- the training path (phases 3 and 11) --------------------------------------
+
+TRAIN_B = 4            # the train CLI's default batch
+TRAIN_CANVAS = 49      # 33^3 FOV + 2 * deltas 8
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
+TRAIN_COORDS = 512     # foreground centres of the phantom's coordinate file
+TRAIN_PLAIN_PARAM_ATOL = 1e-5   # kernel vs plain weights after step 1
+# The card against the JAX package's CPU run (tests/make_torch_train_golden:
+# lr 0.001, adam's epsilon 1e-3); the port on the CPU lands within 2.4e-7
+# of its weights and 1.1e-5 of its losses.
+TRAIN_GOLDEN_PARAM_ATOL = 1e-5
+TRAIN_GOLDEN_LOSS_RTOL = 1e-4
+# Every tensor a (non-zero) step of K11 moves; K12's sgd reads p and g and
+# writes p.
+TRAIN_K11 = ("train_prep", "train_gather", "train_loss", "train_eval")
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def phase_train_kernels(dev):
+    """K9-K12 against their plain versions at the training path's shapes:
+    batch 4, the 33^3 FOV at 32 features in a 49^3 canvas, the depth-12
+    model's 50 parameter tensors (638,433 floats). K9 and K10 within 1e-4 of
+    max|plain| for every layer kind (float32 sums in another order than
+    cuDNN's), K10 twice bit for bit (deterministic); K11's prep and gather
+    bit for bit, its loss and eval counts, write-back and counts bit for
+    bit and sums within 1e-5; K12 within 1e-6 for sgd and adam. Median
+    CUDA-event times of kernel, plain version and library call, in turns."""
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.ops import conv3d
+    from ffn_tpu_torch.ops import optim as optim_ops
+    from ffn_tpu_torch.ops import train as train_ops
+    from ffn_tpu_torch.training import optimizer as optimizer_lib
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    results = {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    n, fov = TRAIN_B, (33, 33, 33)
+    vox = n * 33 ** 3
+    worst = {"conv3d_dgrad_f32": 0.0, "conv3d_wgrad_f32": 0.0}
+    for name, (k, cin, cout, pre, post, res) in K1_LAYERS.items():
+        x = randn(n, *fov, cin)
+        w = randn(k, k, k, cin, cout, scale=(2.0 / (k ** 3 * cin)) ** 0.5)
+        dy = randn(n, *fov, cout)
+        y = randn(n, *fov, cout) if post else None
+        xm = x if pre else None
+        # A block's _a layer adds the residual's gradient (accum).
+        acc = randn(n, *fov, cin) if pre and post else None
+        dx_err = None
+        if cin != 2:   # conv0_a takes no input gradient in training
+            got = conv3d.conv3d_dgrad_f32(dy, w, x=xm, y=y, accum=acc)
+            want = conv3d.conv3d_dgrad_plain(dy, w, x=xm, y=y, accum=acc)
+            dx_err = float((got - want).abs().max())
+            require(dx_err <= 1e-4 * float(want.abs().max()),
+                    f"K9 {name}: error {dx_err}")
+        gw, gb = conv3d.conv3d_wgrad_f32(x, dy, k, pre_relu=pre, y=y)
+        ww, wb = conv3d.conv3d_wgrad_plain(x, dy, k, pre_relu=pre, y=y)
+        dw_err = max(float((gw - ww).abs().max()),
+                     float((gb - wb).abs().max()))
+        require(dw_err <= 1e-4 * max(float(ww.abs().max()),
+                                     float(wb.abs().max())),
+                f"K10 {name}: error {dw_err}")
+        again = conv3d.conv3d_wgrad_f32(x, dy, k, pre_relu=pre, y=y)
+        require(torch.equal(again[0], gw) and torch.equal(again[1], gb),
+                f"K10 {name}: two runs differ (not deterministic)")
+        print(f"K9/K10 N={n} {name}: dgrad max_abs_err {dx_err} wgrad "
+              f"max_abs_err {dw_err:.3e}, wgrad deterministic")
+        worst["conv3d_dgrad_f32"] = max(worst["conv3d_dgrad_f32"],
+                                        dx_err or 0.0)
+        worst["conv3d_wgrad_f32"] = max(worst["conv3d_wgrad_f32"], dw_err)
+        if name != "32->32 pre+post_relu":
+            continue
+        # The block's _a layer: 22 of the 25 layers are 32->32.
+        flops = 2 * vox * 27 * 32 * 32
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        gc = dy.permute(0, 4, 1, 2, 3).contiguous()
+        wc = w.permute(4, 3, 0, 1, 2).contiguous()
+        ms, plain_ms, lib_ms = time_many(
+            lambda: conv3d.conv3d_dgrad_f32(dy, w, x=xm, y=y, accum=acc),
+            lambda: conv3d.conv3d_dgrad_plain(dy, w, x=xm, y=y, accum=acc),
+            lambda: torch.nn.grad.conv3d_input(xc.shape, wc, gc, padding=1),
+            reps=REPS)
+        results["conv3d_dgrad_f32"] = entry(
+            dx_err, ms, plain_ms, 4 * (5 * vox * 32 + w.numel()), flops,
+            library_ms=lib_ms)
+        ms, plain_ms, lib_ms = time_many(
+            lambda: conv3d.conv3d_wgrad_f32(x, dy, k, pre_relu=pre, y=y),
+            lambda: conv3d.conv3d_wgrad_plain(x, dy, k, pre_relu=pre, y=y),
+            lambda: torch.nn.grad.conv3d_weight(xc, wc.shape, gc, padding=1),
+            reps=REPS)
+        results["conv3d_wgrad_f32"] = entry(
+            dw_err, ms, plain_ms, 4 * (3 * vox * 32 + w.numel() + 32), flops,
+            library_ms=lib_ms)
+        del xc, gc, wc
+    for name in ("conv3d_dgrad_f32", "conv3d_wgrad_f32"):
+        r = results[name]
+        r["max_abs_err"] = worst[name]
+        print(f"{name} (32->32, N={n}): kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # K11 on a phantom-like batch: prep, the gather and loss of a shell
+    # offset with valid and invalid lanes, and the eval.
+    c = TRAIN_CANVAS
+    rng = np.random.RandomState(11)
+    image_u8 = torch.from_numpy(rng.randint(0, 256, (n, c, c, c, 1)).astype(
+        np.uint8)).to(dev)
+    lom_u8 = torch.from_numpy((rng.rand(n, c, c, c, 1) > 0.5).astype(
+        np.uint8)).to(dev)
+    pad, init = float(np.log(0.05 / 0.95)), float(np.log(0.95 / 0.05))
+    move_t = float(np.log(0.9 / 0.1))
+    prep_args = ((c,) * 3, 128.0, 33.0, 0.05, pad, init)
+    got = train_ops.train_prep(image_u8, lom_u8, *prep_args)
+    want = train_ops.train_prep_plain(image_u8[..., 0], lom_u8[..., 0],
+                                      *prep_args)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "K11 train_prep differs from plain")
+    images, labels, _ = want
+    seeds = randn(n, c, c, c, scale=3.0)
+    off = (8, -8, 0)
+    seeds[:2, c // 2 + 8, c // 2 - 8, c // 2] = 5.0
+    seeds[2:, c // 2 + 8, c // 2 - 8, c // 2] = -5.0
+    gargs = (seeds, images, labels, off, fov, move_t, 0.9)
+    kg = train_ops.train_gather(*gargs)
+    pg = train_ops.train_gather_plain(*gargs)
+    require(all(torch.equal(g, w) for g, w in zip(kg, pg)),
+            "K11 train_gather differs from plain")
+    ticket = train_ops.new_ticket(dev)
+    logits = randn(n, *fov, 1, scale=4.0)
+    ks, ps = seeds.clone(), seeds.clone()
+    km, pm = torch.zeros(5, device=dev), torch.zeros(5, device=dev)
+    kd = train_ops.train_loss(logits, ks, labels, None, kg[2], kg[3], off,
+                              km, ticket)
+    pd = train_ops.train_loss_plain(logits, ps, labels, None, kg[2], kg[3],
+                                    off, pm)
+    loss_err = max(_rel_err(kd, pd), _rel_err(km[:1], pm[:1]))
+    require(torch.equal(ks, ps) and torch.equal(km[1:], pm[1:]),
+            "K11 train_loss: write-back or counts differ from plain")
+    require(loss_err <= 1e-5, f"K11 train_loss: error {loss_err}")
+    kl, kc = train_ops.train_eval(ks, labels, (c,) * 3, ticket)
+    pl, pc = train_ops.train_eval_plain(ks, labels, (c,) * 3)
+    eval_err = _rel_err(kl.view(1), pl.view(1))
+    require(torch.equal(kc, pc) and eval_err <= 1e-5,
+            f"K11 train_eval differs from plain ({eval_err})")
+    canvas_b, patch_b = 4 * n * c ** 3, 4 * n * 33 ** 3
+    k11 = {
+        "train_prep": (0.0, lambda: train_ops.train_prep(image_u8, lom_u8,
+                                                         *prep_args),
+                       lambda: train_ops.train_prep_plain(
+                           image_u8[..., 0], lom_u8[..., 0], *prep_args),
+                       2 * n * c ** 3 + 3 * canvas_b),
+        "train_gather": (0.0, lambda: train_ops.train_gather(*gargs),
+                         lambda: train_ops.train_gather_plain(*gargs),
+                         2 * patch_b + 3 * patch_b),
+        "train_loss": (loss_err,
+                       lambda: train_ops.train_loss(
+                           logits, ks, labels, None, kg[2], kg[3], off, km,
+                           ticket),
+                       lambda: train_ops.train_loss_plain(
+                           logits, ps, labels, None, kg[2], kg[3], off, pm),
+                       4 * patch_b),
+        "train_eval": (eval_err,
+                       lambda: train_ops.train_eval(ks, labels, (c,) * 3,
+                                                    ticket),
+                       lambda: train_ops.train_eval_plain(ks, labels,
+                                                          (c,) * 3),
+                       2 * canvas_b),
+    }
+    for name, (err, kfn, pfn, nbytes) in k11.items():
+        ms, plain_ms = time_pair(kfn, pfn)
+        results[name] = entry(err, ms, plain_ms, nbytes)
+        print(f"K11 {name} (B={n}, {c}^3 canvas, 33^3 FOV): max_rel_err "
+              f"{err:.3e}, kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"{results[name]['bound_ms']:.5f} ms (bytes)")
+
+    # K12 on the depth-12 model's parameters with its gradients' scale.
+    model = convstack_3d.ConvStack3DFFNModel(
+        fov_size=[33] * 3, deltas=[8] * 3, depth=12, features=32)
+    shapes = [tuple(p.shape) for p in model.module.parameters()]
+    total = sum(int(np.prod(s)) for s in shapes)
+    require(total == 638433, f"depth-12 model has {total} parameters")
+    ctrl = optim_ops.ctrl_buffer(dev)
+    errs = []
+    for opt in ("sgd", "adam"):
+        h = optimizer_lib.hyper_from_config(
+            optimizer_lib.OptimizerConfig(optimizer=opt))
+        kp = [randn(*s, scale=0.02) for s in shapes]
+        pp = [t.clone() for t in kp]
+        slots = 2 if opt == "adam" else 0
+        ks1 = [torch.zeros_like(t) for t in kp] if slots else [None] * 50
+        ks2 = [torch.zeros_like(t) for t in kp] if slots else [None] * 50
+        ps1 = [t.clone() if t is not None else None for t in ks1]
+        ps2 = [t.clone() if t is not None else None for t in ks2]
+        counts = [torch.zeros((), dtype=torch.int32, device=dev)
+                  for _ in range(2)]
+        active = torch.tensor(4.0, device=dev)
+        kf = torch.zeros((), dtype=torch.bool, device=dev)
+        pf = kf.clone()
+        for _ in range(3):
+            grads = [randn(*s, scale=0.5) for s in shapes]
+            optim_ops.optim_update(kp, grads, ks1, ks2, None, h, counts[0],
+                                   None, active, kf, ctrl)
+            optim_ops.optim_update_plain(pp, grads, ps1, ps2, None, h,
+                                         counts[1], None, active, pf)
+        errs.append(max(float((a - b).abs().max()) for a, b in zip(
+            kp + [t for t in ks1 + ks2 if t is not None],
+            pp + [t for t in ps1 + ps2 if t is not None])))
+        require(bool(kf) and bool(pf) and errs[-1] <= 1e-6,
+                f"K12 {opt}: error {errs[-1]}")
+        if opt == "sgd":
+            ms, plain_ms = time_pair(
+                lambda: optim_ops.optim_update(kp, grads, ks1, ks2, None, h,
+                                               counts[0], None, active, kf,
+                                               ctrl),
+                lambda: optim_ops.optim_update_plain(
+                    pp, grads, ps1, ps2, None, h, counts[1], None, active,
+                    pf))
+            sgd_ms = (ms, plain_ms)
+    results["optim_update"] = entry(max(errs), *sgd_ms, 3 * 4 * total)
+    r = results["optim_update"]
+    print(f"K12 optim_update (50 tensors, {total} parameters, sgd): "
+          f"max_abs_err {max(errs):.3e} (sgd, adam), kernel {r['ms']:.4f} "
+          f"ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+          f"(bytes); no single torch.optim call has the clip and gate")
+    return results
+
+
+class _StepRecorder:
+    """Wraps the packed step: keeps each step's metrics (device tensors),
+    the weights after step 1 (a device copy) and a CUDA event at the end of
+    each step, with no host read during the run."""
+
+    def __init__(self):
+        self.metrics, self.events, self.params1 = [], [], None
+
+    def make(self, make_step):
+        def make_recorded(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+
+            def run(state, *a):
+                state, metrics = step(state, *a)
+                self.metrics.append(metrics)
+                if self.params1 is None:
+                    self.params1 = {n: p.detach().clone()
+                                    for n, p in state.params.items()}
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                self.events.append(event)
+                return state, metrics
+            return run
+        return make_recorded
+
+
+class _KernelProbe:
+    """Device time of each training kernel: CUDA events around every
+    launch of each wrapper (used on the resumed run only, whose numbers are
+    held bit for bit against the unprobed run's)."""
+
+    def __init__(self):
+        from ffn_tpu_torch.ops import conv3d
+        from ffn_tpu_torch.ops import optim as optim_ops
+        from ffn_tpu_torch.ops import train as train_ops
+        self.targets = [(conv3d, n) for n in ("conv3d_ndhwc_f32",
+                                              "conv3d_dgrad_f32",
+                                              "conv3d_wgrad_f32")]
+        self.targets += [(train_ops, n) for n in TRAIN_K11]
+        self.targets += [(optim_ops, "optim_update")]
+        self.pairs = {n: [] for _, n in self.targets}
+        self.patches = []
+
+    def _wrap(self, name, fn):
+        def probed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.pairs[name].append((start, end))
+            return out
+        return probed
+
+    def __enter__(self):
+        for module, name in self.targets:
+            p = mock.patch.object(module, name,
+                                  self._wrap(name, getattr(module, name)))
+            p.start()
+            self.patches.append(p)
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.patches:
+            p.stop()
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {n: sum(s.elapsed_time(e) for s, e in pairs)
+                for n, pairs in self.pairs.items()}
+
+
+def _train_data(tmp):
+    """The seed-0 phantom as .npy image and labels, and a coordinate file
+    of foreground centres whose 49^3 box fits (a seeded RandomState)."""
+    from tools import synthetic_em
+    image, gt = synthetic_em.make_volume(size=PHANTOM_SIZE, seed=0,
+                                         num_cells=PHANTOM_CELLS)
+    np.save(os.path.join(tmp, "train_img.npy"), image)
+    np.save(os.path.join(tmp, "train_lab.npy"), gt)
+    half = TRAIN_CANVAS // 2
+    inner = gt[half:-half, half:-half, half:-half]
+    fg = np.argwhere(inner > 0) + half
+    rng = np.random.RandomState(0)
+    zyx = fg[rng.choice(len(fg), TRAIN_COORDS, replace=False)]
+    np.savez_compressed(os.path.join(tmp, "train_coords.npz"),
+                        center=zyx[:, ::-1].astype(np.int64),
+                        label_volume_name=np.array(["p"] * TRAIN_COORDS))
+    print(f"training data: the seed-0 phantom ({PHANTOM_SIZE}^3, "
+          f"{PHANTOM_CELLS} cells) as .npy, {TRAIN_COORDS} foreground "
+          f"centres whose {TRAIN_CANVAS}^3 box fits")
+    return image, gt
+
+
+def _train_argv(tmp, train_dir):
+    return ["--train_coords", os.path.join(tmp, "train_coords.npz"),
+            "--data_volumes", "p:" + os.path.join(tmp, "train_img.npy"),
+            "--label_volumes", "p:" + os.path.join(tmp, "train_lab.npy"),
+            "--image_mean", "128", "--image_stddev", "33",
+            "--train_dir", train_dir, "--max_steps", str(TRAIN_STEPS),
+            "--checkpoint_every_steps", str(TRAIN_CKPT_EVERY),
+            "--summary_every_steps", str(TRAIN_CKPT_EVERY),
+            "--device", "cuda"]
+
+
+def _train_run(label, argv, probe=None):
+    """One CLI run in this process; returns (recorder, wall s)."""
+    from ffn_tpu_torch.cli import train as train_cli
+    from ffn_tpu_torch.training import train_lib, train_loop
+    rec = _StepRecorder()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(train_loop.train_lib,
+                           "make_scan_train_step_packed",
+                           rec.make(train_lib.make_scan_train_step_packed)):
+        train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = len(rec.metrics)
+    require(steps > 0, f"{label}: no step ran")
+    # Steady rate: device time between the ends of the second and the
+    # last step (the first steps pay allocation and the kernels' loading).
+    steady = rec.events[1].elapsed_time(rec.events[-1]) / 1e3 \
+        if steps > 2 else float("nan")
+    rate = (steps - 2) / steady if steps > 2 else float("nan")
+    curve = [float(m["loss"][m["active"] > 0].mean()) for m in rec.metrics]
+    for m in rec.metrics:
+        require(all(bool(torch.isfinite(m[k]).all()) for k in
+                    ("loss", "patch_loss")), f"{label}: non-finite loss")
+    print(f"train {label}: {steps} steps in {wall:.3f} s wall; steady "
+          f"{rate:.4f} steps/s (steps 3-{steps}), "
+          f"{rate * 27 * TRAIN_B:.2f} FOV forward+backward/s; mean loss of "
+          f"the active offsets per step {['%.5f' % v for v in curve]}")
+    return rec, wall
+
+
+def _ckpt_arrays(train_dir, step):
+    out = {}
+    for prefix in ("model", "opt"):
+        with np.load(os.path.join(train_dir, "ckpt",
+                                  f"{prefix}.ckpt-{step}.npz")) as f:
+            out.update({f"{prefix}/{k}": f[k] for k in f.files})
+    return out
+
+
+def _train_plain_patches():
+    """K1, K9-K12 on their plain versions: autograd of cuDNN's convolution
+    and torch ops for the step's passes and the optimizer."""
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.ops import conv3d
+    from ffn_tpu_torch.ops import optim as optim_ops
+    from ffn_tpu_torch.ops import train as train_ops
+    return [
+        mock.patch.object(convstack_3d, "conv3d_train",
+                          conv3d.conv3d_ndhwc_plain),
+        mock.patch.object(convstack_3d, "residual_block_train",
+                          conv3d.residual_block_plain),
+        mock.patch.object(train_ops, "train_prep",
+                          lambda img, lom, *a: train_ops.train_prep_plain(
+                              img[..., 0], lom[..., 0], *a)),
+        mock.patch.object(train_ops, "train_gather",
+                          lambda s, i, lab, off, fov, mt, lt, window=None:
+                          train_ops.train_gather_plain(
+                              s, i, lab, tuple(off), tuple(fov), mt, lt,
+                              window)),
+        mock.patch.object(train_ops, "train_loss",
+                          lambda *a: train_ops.train_loss_plain(*a[:8])),
+        mock.patch.object(train_ops, "train_eval",
+                          lambda s, lab, ev, ws: train_ops.train_eval_plain(
+                              s, lab, tuple(ev))),
+        mock.patch.object(optim_ops, "optim_update",
+                          lambda *a: optim_ops.optim_update_plain(*a[:10])),
+    ]
+
+
+def phase_train(have, dev, tmp):
+    """Training at full width through `python -m ffn_tpu_torch.cli.train`'s
+    entry point (the CLI's defaults: depth 12, 32 features, 33^3 FOV,
+    deltas 8, batch 4, the fixed policy's 27 offsets, sgd at 0.001 with the
+    +-0.7 clip, float32) for 8 steps on the seed-0 phantom, checkpointing
+    every 4; the same run with K1 and K9-K12 plain (step 1 held: per-offset
+    losses within 1e-4 relative, counts exactly, weights within 1e-5);
+    a fresh run resumed from the first run's step 4 (weights and optimizer
+    state at step 8 bit for bit; its kernels timed by CUDA events); one
+    step under torch.profiler; the port against the JAX package's CPU run
+    of the CI model
+    (tests/golden/train_ci_golden.npz); the trained checkpoint in the
+    port's inference Runner. Returns the kernel run's launches."""
+    import shutil
+    from ffn_tpu_torch import _build
+
+    _train_data(tmp)
+    kdir = os.path.join(tmp, "train_kernels")
+    _build.launches.clear()
+    krec, kwall = _train_run("on kernels", _train_argv(tmp, kdir))
+    launches = dict(_build.launches)
+    print(f"kernel launches on the training path: {launches}")
+    for name in ("conv3d_ndhwc_f32", "conv3d_dgrad_f32", "conv3d_wgrad_f32",
+                 "optim_update") + TRAIN_K11:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the training path")
+    ks = sorted(os.listdir(os.path.join(kdir, "ckpt")))
+    require(ks == sorted(f"{p}.ckpt-{s}.npz" for p in ("extra", "model",
+                                                       "opt")
+                         for s in (4, 8)), f"checkpoints: {ks}")
+
+    pdir = os.path.join(tmp, "train_plain")
+    patches = _train_plain_patches()
+    for p in patches:
+        p.start()
+    try:
+        prec, pwall = _train_run("on plain versions (cuDNN autograd)",
+                                 _train_argv(tmp, pdir))
+    finally:
+        for p in patches:
+            p.stop()
+    km, pm = krec.metrics[0], prec.metrics[0]
+    for k in ("active", "correct", "missed", "spurious"):
+        require(torch.equal(km[k], pm[k]),
+                f"train step 1 {k}: kernels {km[k].tolist()} plain "
+                f"{pm[k].tolist()}")
+    loss_err = float(((km["loss"] - pm["loss"]).abs()
+                      / pm["loss"].abs().clamp(min=1e-30)).max())
+    param_err = max(float((krec.params1[n] - prec.params1[n]).abs().max())
+                    for n in krec.params1)
+    print(f"train step 1, kernels vs plain: counts equal, per-offset loss "
+          f"max relative error {loss_err:.3e} (bound 1e-4), weights max "
+          f"abs error {param_err:.3e} (bound {TRAIN_PLAIN_PARAM_ATOL})")
+    require(loss_err <= 1e-4, f"train step 1 loss: {loss_err}")
+    require(param_err <= TRAIN_PLAIN_PARAM_ATOL,
+            f"train step 1 weights: {param_err}")
+
+    rdir = os.path.join(tmp, "train_resumed")
+    os.makedirs(os.path.join(rdir, "ckpt"))
+    for p in ("model", "opt", "extra"):
+        shutil.copy(os.path.join(kdir, "ckpt", f"{p}.ckpt-{TRAIN_CKPT_EVERY}"
+                                 ".npz"), os.path.join(rdir, "ckpt"))
+    with _KernelProbe() as probe:
+        rrec, rwall = _train_run(f"resumed at step {TRAIN_CKPT_EVERY}, "
+                                 f"probed", _train_argv(tmp, rdir))
+    device_ms = probe.ms()
+    a = _ckpt_arrays(kdir, TRAIN_STEPS)
+    b = _ckpt_arrays(rdir, TRAIN_STEPS)
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+    print(f"resume from step {TRAIN_CKPT_EVERY} to {TRAIN_STEPS}: "
+          f"model.ckpt-{TRAIN_STEPS} and opt.ckpt-{TRAIN_STEPS} bit for bit "
+          f"{same}")
+    require(same, "the resumed run differs from the uninterrupted one")
+    busy = sum(device_ms.values())
+    steps = len(rrec.metrics)
+    steady_ms = krec.events[1].elapsed_time(krec.events[-1]) / (
+        len(krec.metrics) - 2)
+    print(f"resumed run, device ms by kernel over {steps} steps (CUDA "
+          f"events): " + ", ".join(f"{n} {v:.1f}" for n, v in
+                                   device_ms.items())
+          + f"; kernels {busy / steps:.1f} ms a step against the kernel "
+          f"run's steady {steady_ms:.1f} ms a step: device busy share "
+          f"{busy / steps / steady_ms:.4f}; {busy:.1f} ms of the resumed "
+          f"run's {1e3 * rwall:.1f} ms wall (start-up included)")
+
+    _train_profile(dev)
+    _train_golden(dev)
+    _train_inference(have, dev, tmp, kdir)
+    return launches
+
+
+def _train_profile(dev):
+    """torch.profiler over one full-width packed step (after a warm-up
+    step): what runs on the card is the port's kernels, the autograd nodes
+    are its two Functions, and neither cuDNN nor another convolution
+    runs."""
+    from torch.profiler import ProfilerActivity, profile
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.training import train_lib
+    torch.manual_seed(0)
+    model = convstack_3d.ConvStack3DFFNModel(
+        fov_size=[33] * 3, deltas=[8] * 3, depth=12, features=32)
+    model.module.to(dev)
+    config = train_lib.TrainConfig(batch_size=TRAIN_B)
+    state, opt = train_lib.create_train_state(model, config)
+    step = train_lib.make_scan_train_step_packed(model, opt, config)
+    rng = np.random.RandomState(0)
+    shape = (TRAIN_B,) + (TRAIN_CANVAS,) * 3 + (1,)
+    image = torch.from_numpy(rng.randint(0, 256, shape).astype(
+        np.uint8)).to(dev)
+    lom = torch.from_numpy((rng.rand(*shape) > 0.5).astype(np.uint8)).to(dev)
+    offsets = train_lib.fixed_offsets_zyx(model.info)
+    step(state, image, lom, offsets)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, image, lom, offsets)
+        torch.cuda.synchronize()
+    kernels, nodes, foreign = _profile_findings(prof.key_averages())
+    total = sum(us for _, _, us in kernels)
+    print(f"one training step under torch.profiler: {total / 1e3:.1f} "
+          f"device ms in {len(kernels)} kernels")
+    for name, count, us in kernels:
+        print(f"  {us / 1e3:10.4f} ms {count:5d}x {name}")
+    print(f"  autograd nodes: {nodes}")
+    require(not foreign, f"the training step ran foreign kernels: {foreign}")
+    require(nodes <= {"Conv3dFunctionBackward",
+                      "ResidualBlockFunctionBackward"},
+            f"autograd nodes beyond the port's Functions: {nodes}")
+
+
+def _profile_findings(events):
+    """(kernels as (short name, count, device us), autograd node names,
+    cuDNN or other convolution kernels) of profiler key averages."""
+    def short(name):
+        name = name[len("void "):] if name.startswith("void ") else name
+        return name.replace("(anonymous namespace)::", "").split("(")[0]
+
+    kernels = sorted(((short(e.key), e.count, e.device_time_total)
+                      for e in events
+                      if e.device_time_total > 0 and "::" in e.key
+                      and not e.key.startswith(("aten::", "autograd::"))),
+                     key=lambda r: -r[2])
+    prefix = "autograd::engine::evaluate_function: "
+    nodes = {e.key[len(prefix):] if e.key.startswith(prefix) else e.key
+             for e in events if re.search(r"Backward\d*$", e.key)}
+    foreign = [e.key for e in events if e.device_time_total > 0 and (
+        "cudnn" in e.key.lower() or "xmma" in e.key.lower()
+        or ("conv" in e.key.lower() and "::" in e.key
+            and "(anonymous namespace)::conv3d_" not in e.key
+            and not e.key.startswith(("aten::", "autograd::"))))]
+    return kernels, nodes, foreign
+
+
+def _train_golden(dev):
+    """The CI model's two packed steps against the JAX package's CPU run."""
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.training import optimizer as optimizer_lib
+    from ffn_tpu_torch.training import train_lib
+    g = np.load(os.path.join(REPO, "tests", "golden", "train_ci_golden.npz"))
+    init = {k[len("init/"):]: g[k] for k in g.files if k.startswith("init/")}
+    for opt in ("sgd", "adam"):
+        model = convstack_3d.ConvStack3DFFNModel(
+            fov_size=[17] * 3, deltas=[4] * 3, depth=2, features=16)
+        model.load_params(init)
+        model.module.to(dev)
+        config = train_lib.TrainConfig(
+            fov_size=(17,) * 3, deltas=(4,) * 3, depth=2, features=16,
+            batch_size=4, optimizer=optimizer_lib.OptimizerConfig(
+                optimizer=opt, learning_rate=0.001, epsilon=1e-3))
+        state, optimizer = train_lib.create_train_state(model, config)
+        step = train_lib.make_scan_train_step_packed(model, optimizer,
+                                                     config)
+        loss_err = 0.0
+        for s in range(2):
+            state, m = step(state, torch.from_numpy(g["image_u8"][s]).to(dev),
+                            torch.from_numpy(g["lom_u8"][s]).to(dev),
+                            g["offsets"])
+            for k in ("active", "correct", "missed", "spurious", "tp", "fp",
+                      "fn", "tn"):
+                got = m[k].cpu().numpy()
+                require(np.array_equal(got, g[f"{opt}/{k}"][s]),
+                        f"train golden {opt} step {s + 1} {k}: {got} vs "
+                        f"{g[f'{opt}/{k}'][s]}")
+            for k in ("loss", "patch_loss"):
+                got, want = m[k].cpu().numpy(), g[f"{opt}/{k}"][s]
+                loss_err = max(loss_err, float(np.max(
+                    np.abs(got - want) / np.maximum(np.abs(want), 1e-30))))
+        param_err = max(
+            float(np.abs(p.detach().cpu().numpy()
+                         - g[f"{opt}/final/params/{n.split('.')[0]}/"
+                             f"{'kernel' if n.endswith('weight') else 'bias'}"]
+                         ).max())
+            for n, p in state.params.items())
+        print(f"train golden {opt} (CI model, 2 packed steps, batch 4): "
+              f"counts equal, loss max relative error {loss_err:.3e} (bound "
+              f"{TRAIN_GOLDEN_LOSS_RTOL}), weights max abs error "
+              f"{param_err:.3e} (bound {TRAIN_GOLDEN_PARAM_ATOL})")
+        require(loss_err <= TRAIN_GOLDEN_LOSS_RTOL,
+                f"train golden {opt} loss: {loss_err}")
+        require(param_err <= TRAIN_GOLDEN_PARAM_ATOL,
+                f"train golden {opt} weights: {param_err}")
+
+
+def _train_inference(have, dev, tmp, kdir):
+    """The trained checkpoint in the port's serial Runner, on a 64^3 corner
+    of the training phantom."""
+    from ffn_tpu_torch.inference import runner as runner_lib
+    from ffn_tpu_torch.inference import storage
+    ckpt = os.path.join(kdir, "ckpt", f"model.ckpt-{TRAIN_STEPS}.npz")
+    settings = _settings(have, os.path.join(tmp, "train_img.npy"),
+                         os.path.join(tmp, "train_infer"))
+    settings = dataclasses.replace(settings, model_checkpoint_path=ckpt)
+    runner = runner_lib.Runner(device=dev)
+    runner.start(settings)
+    t0 = time.perf_counter()
+    runner.run((0, 0, 0), (64, 64, 64), keep_probability_maps=False)
+    wall = time.perf_counter() - t0
+    seg_path = storage.segmentation_path(settings.segmentation_output_dir,
+                                         (0, 0, 0))
+    with np.load(seg_path, allow_pickle=True) as data:
+        seg = data["segmentation"]
+    steps = runner.counters["update_at-calls"].value
+    print(f"inference with the trained model.ckpt-{TRAIN_STEPS}.npz (serial "
+          f"Runner, 64^3): {steps} FOV steps in {wall:.3f} s, "
+          f"{len(np.unique(seg[seg > 0]))} objects")
+    require(seg.shape == (64, 64, 64) and steps > 0,
+            "inference with the trained checkpoint did not run")
+
+
 def _lanes_vs_serial(lanes, label, phantom, seg_serial, seg_lanes):
     """Cell-restricted agreement (both masked to the ground-truth cells) and
     raw agreement of a serial and a batched segmentation."""
@@ -1464,6 +2119,7 @@ def main():
     results = phase_kernels(dev)
     results.update(phase_hop_kernels(dev))
     results.update(phase_fused_kernels(dev))
+    results.update(phase_train_kernels(dev))
     phase_golden(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = {}
@@ -1473,6 +2129,7 @@ def main():
         launches.update(phase_fused_slice(dev, tmp))
         phase_fused_golden(dev, tmp)
         phase_fused_r2_reference(dev, tmp)
+        launches["train"] = phase_train(have, dev, tmp)
     # K1 runs on every path: its error is the largest of all phases', its
     # time the 32->32 layer's at N=1 (the serial path's shape).
     results["conv3d_ndhwc_f32"]["max_abs_err"] = max(
@@ -1501,10 +2158,24 @@ def main():
                        "ffn_tpu/inference/engine.py:489"),
         "finalize_pass": ("ffn_tpu_torch/csrc/finalize.cu",
                           "ffn_tpu/inference/hop_engine.py:624"),
+        "conv3d_dgrad_f32": ("ffn_tpu_torch/csrc/conv3d_bwd.cu",
+                             "ffn_tpu/training/train_lib.py:368"),
+        "conv3d_wgrad_f32": ("ffn_tpu_torch/csrc/conv3d_bwd.cu",
+                             "ffn_tpu/training/train_lib.py:368"),
+        "train_prep": ("ffn_tpu_torch/csrc/train.cu",
+                       "ffn_tpu/training/train_lib.py:239"),
+        "train_gather": ("ffn_tpu_torch/csrc/train.cu",
+                         "ffn_tpu/training/train_lib.py:341"),
+        "train_loss": ("ffn_tpu_torch/csrc/train.cu",
+                       "ffn_tpu/training/train_lib.py:357"),
+        "train_eval": ("ffn_tpu_torch/csrc/train.cu",
+                       "ffn_tpu/training/train_lib.py:255"),
+        "optim_update": ("ffn_tpu_torch/csrc/optim.cu",
+                         "ffn_tpu/training/train_lib.py:370"),
     }
     # `launches` sums the main paths' runs; `launches_by_path` splits them
     # (fused and fused_host: the full-width fused slice with device and
-    # with host finalization).
+    # with host finalization; train: the full-width training run).
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(p.get(name, 0) for p in launches.values()),
                     launches_by_path={path: p.get(name, 0)

@@ -55,6 +55,13 @@ _SIGNATURES = {
     "ffn_lane_masks": [_P] * 4 + [_I] * 4 + [_L, _L, _F, _F, _P],
     "ffn_finalize_pass": [_P] * 26 + [_I] * 6 + [_L] + [_I] * 12
                          + [_F] * 3 + [_P],
+    "ffn_conv3d_dgrad_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "ffn_conv3d_wgrad_f32": [_P] * 6 + [_I] * 9 + [_P],
+    "ffn_train_prep": [_P] * 5 + [_L, _L] + [_I] * 4 + [_F] * 6 + [_P],
+    "ffn_train_gather": [_P] * 7 + [_I, _P, _I, _I, _F, _F, _P],
+    "ffn_train_loss": [_P] * 10 + [_I, _P, _I, _P],
+    "ffn_train_eval": [_P] * 7 + [_I, _P, _I, _P],
+    "ffn_optim_update": [_P] * 6 + [_I] + [_P] * 7 + [_I, _P],
 }
 
 _lib = None
@@ -133,6 +140,13 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = handle
     return _lib
+
+
+def host_array(ctype, values):
+    """A ctypes array of `values` and its address, for a C entry point that
+    reads a host table (the array must outlive the call)."""
+    arr = (ctype * len(values))(*values)
+    return arr, ctypes.addressof(arr)
 
 
 def check(err: int, name: str):

@@ -4,7 +4,10 @@ Counterpart of ffn_tpu/models/convstack_3d.py (ConvStack3D and
 ConvStack3DFFNModel): conv0_a (+relu) -> conv0_b -> depth-1 pre-activation
 residual blocks -> relu -> 1x1x1 conv_lom, whose output is added to the
 input seed. Every layer is one call of the K1 conv kernel
-(ffn_tpu_torch.ops.conv3d) with its relus and residual add fused.
+(ffn_tpu_torch.ops.conv3d) with its relus and residual add fused. With
+grad enabled (training, `train_apply`) a layer goes through
+`Conv3dFunction` and a residual block through `ResidualBlockFunction`:
+K1 forward, K9 and K10 backward.
 
 Layout is the JAX package's: activations channels-last (N, z, y, x, C) and
 weights DHWIO, so JAX checkpoints load without a transpose (params_io).
@@ -21,7 +24,8 @@ from torch import nn
 
 from ffn_tpu_torch.models import model_info as model_info_lib
 from ffn_tpu_torch.models import params_io
-from ffn_tpu_torch.ops.conv3d import conv3d_ndhwc_f32
+from ffn_tpu_torch.ops.conv3d import (conv3d_ndhwc_f32, conv3d_train,
+                                      residual_block_train)
 
 
 class Conv3d(nn.Module):
@@ -36,8 +40,9 @@ class Conv3d(nn.Module):
         nn.init.trunc_normal_(self.weight, std=0.01, a=-0.02, b=0.02)
 
     def forward(self, x, *, pre_relu=False, post_relu=False, residual=None):
-        return conv3d_ndhwc_f32(x, self.weight, self.bias, pre_relu=pre_relu,
-                                post_relu=post_relu, residual=residual)
+        conv = conv3d_train if torch.is_grad_enabled() else conv3d_ndhwc_f32
+        return conv(x, self.weight, self.bias, pre_relu=pre_relu,
+                    post_relu=post_relu, residual=residual)
 
 
 class ConvStack3D(nn.Module):
@@ -68,10 +73,15 @@ class ConvStack3D(nn.Module):
         net = self.conv0_a(x, post_relu=True)
         net = self.conv0_b(net)
         for i in range(1, self.depth):
+            conv_a, conv_b = (getattr(self, f"conv{i}_a"),
+                              getattr(self, f"conv{i}_b"))
+            if torch.is_grad_enabled():
+                net = residual_block_train(net, conv_a.weight, conv_a.bias,
+                                           conv_b.weight, conv_b.bias)
+                continue
             block_in = net
-            net = getattr(self, f"conv{i}_a")(net, pre_relu=True,
-                                              post_relu=True)
-            net = getattr(self, f"conv{i}_b")(net, residual=block_in)
+            net = conv_a(net, pre_relu=True, post_relu=True)
+            net = conv_b(net, residual=block_in)
         return self.conv_lom(net, pre_relu=True, residual=residual)
 
 
@@ -112,3 +122,17 @@ class ConvStack3DFFNModel(nn.Module):
         """
         net = torch.cat([image, seed.to(image.dtype)], dim=-1)
         return self.module(net, residual=seed)
+
+    def train_apply(self, net: torch.Tensor,
+                    seed: torch.Tensor) -> torch.Tensor:
+        """The differentiable step of training: `net` (B, z, y, x, 2) is the
+        image and seed channels, already joined (K11's train_gather fuses
+        the concatenation), `seed` (B, z, y, x, 1) the seed patch added to
+        the update. Gradients reach the parameters only: the seed is
+        stop-gradient-ed, as in the JAX scan body."""
+        with torch.enable_grad():
+            return self.module(net, residual=seed)
+
+    def save_params(self, path: str):
+        """Writes the weights as the JAX package's flat npz (params_io)."""
+        params_io.save_params_npz(self.module, path)

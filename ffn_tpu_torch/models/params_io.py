@@ -1,8 +1,15 @@
-"""Model weights from the JAX package's flat npz checkpoints.
+"""Model weights in the JAX package's flat npz checkpoints, both ways.
 
 The JAX package saves flax variable trees as flat npz archives with keys
 like `params/conv0_a/kernel` (ffn_tpu/models/params_io.py). This module
-reads them with numpy alone and maps them onto the port's modules.
+reads them with numpy alone and maps them onto the port's modules, and
+writes the port's modules back under the same names (`save_params_npz`),
+so either package loads the other's weights.
+
+`jax_leaf_order` is the one place that knows the order in which JAX lists
+the leaves of a parameter tree (`jax.tree.leaves` sorts dict keys:
+`conv10_a` before `conv1_a`, `bias` before `kernel`); the optimizer-state
+and EMA files of training checkpoints store leaves in that order.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import numpy as np
 import torch
 
 _LEAVES = {"kernel": "weight", "bias": "bias"}
+_JAX_LEAF = {v: k for k, v in _LEAVES.items()}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:
@@ -50,3 +58,26 @@ def convert_params(flat_or_tree: Mapping) -> dict:
         state[f"{parts[0]}.{_LEAVES[parts[1]]}"] = torch.tensor(
             np.asarray(value, dtype=np.float32))
     return state
+
+
+def jax_name(name: str) -> str:
+    """`conv0_a.weight` -> `params/conv0_a/kernel` (the inverse of
+    convert_params' naming)."""
+    layer, leaf = name.split(".")
+    return f"params/{layer}/{_JAX_LEAF[leaf]}"
+
+
+def jax_leaf_order(names) -> list:
+    """The port's parameter names in JAX's leaf order of the same tree."""
+    return sorted(names, key=lambda n: jax_name(n).split("/"))
+
+
+def save_params_npz(module: torch.nn.Module, path: str):
+    """Writes `module`'s parameters as the JAX package's flat npz: keys
+    `params/<layer>/kernel|bias`, DHWIO kernels, float32. Loads with
+    `load_params_npz` here and `ffn_tpu.models.params_io.load_params_npz`."""
+    from ffn_tpu_torch.inference import storage
+    flat = {jax_name(name): p.detach().cpu().numpy()
+            for name, p in module.state_dict().items()}
+    with storage.atomic_file(path) as fd:
+        np.savez_compressed(fd, **flat)

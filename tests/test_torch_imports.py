@@ -1,5 +1,7 @@
 """The port stands alone: no module of ffn_tpu_torch, and nothing in
-chip_smoke.py, imports jax, flax or any module of the JAX package ffn_tpu.
+chip_smoke.py, imports jax, flax or any module of the JAX package ffn_tpu;
+nor does importing a port module bring in optax or h5py (the card's
+machine has neither; h5 volumes open through a deferred import).
 
 Each port module is imported in a fresh interpreter (this test process has
 JAX loaded by conftest.py), and the sources are searched for import
@@ -25,11 +27,12 @@ IMPORT_OF_FFN_TPU = re.compile(
 
 
 def assert_imports_alone(modules):
-    """Imports `modules` in a fresh interpreter; fails if jax, flax, or
-    ffn_tpu or any ffn_tpu.* module, came with them."""
+    """Imports `modules` in a fresh interpreter; fails if jax, flax, optax,
+    h5py, or ffn_tpu or any ffn_tpu.* module, came with them."""
     code = ("import sys, importlib\n"
             f"for m in {list(modules)!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'flax',\n"
+            "             'optax', 'h5py') or\n"
             "             m == 'ffn_tpu' or m.startswith('ffn_tpu.'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -44,7 +47,15 @@ def test_the_package_lists_the_slice_modules():
                  "ffn_tpu_torch.cli.run_sharded_inference",
                  "ffn_tpu_torch.ops.finalize",
                  "ffn_tpu_torch.proto.inference_pb2",
-                 "ffn_tpu_torch.utils.bounding_box"):
+                 "ffn_tpu_torch.utils.bounding_box",
+                 "ffn_tpu_torch.proto.example_pb2",
+                 "ffn_tpu_torch.utils.tfrecord",
+                 "ffn_tpu_torch.ops.train",
+                 "ffn_tpu_torch.ops.optim",
+                 "ffn_tpu_torch.training.inputs",
+                 "ffn_tpu_torch.training.train_lib",
+                 "ffn_tpu_torch.training.train_loop",
+                 "ffn_tpu_torch.cli.train"):
         assert name in PORT_MODULES
 
 

@@ -646,3 +646,191 @@ def test_finalize_plain_drives_every_branch():
     blank = np.isnan(ls["seeds"][11].numpy()) & ~np.isnan(seeds0[11])
     idx = np.argwhere(blank)
     assert len(idx) and (idx.min(0) >= np.array(SHAPE) - 13).all()
+
+
+# -- K9-K12: the training path's kernels ---------------------------------------
+
+from ffn_tpu_torch.ops import optim as optim_ops  # noqa: E402
+from ffn_tpu_torch.ops import train as train_ops  # noqa: E402
+
+
+def test_training_kernels_reject_bad_inputs():
+    dy = torch.zeros(1, 4, 4, 4, 8)
+    with pytest.raises(ValueError):
+        conv3d.conv3d_dgrad_f32(dy, torch.zeros(3, 3, 3, 2, 4))
+    with pytest.raises(ValueError):
+        conv3d.conv3d_wgrad_f32(torch.zeros(1, 4, 4, 5, 2), dy, 3)
+    with pytest.raises(ValueError):
+        conv3d.Conv3dFunction.apply(torch.zeros(1, 4, 4, 4, 8),
+                                    torch.zeros(3, 3, 3, 8, 8),
+                                    torch.zeros(8), dy, False, True)
+    with pytest.raises(ValueError):
+        train_ops.train_gather(torch.zeros(2, 5, 5), torch.zeros(2, 5, 5, 5),
+                               torch.zeros(2, 5, 5, 5), (0, 0, 0), (3,) * 3,
+                               0.0, 0.5)
+    p = [torch.zeros(3)]
+    with pytest.raises(ValueError):
+        optim_ops.optim_update(p, [torch.zeros(4)], [None], [None], None,
+                               optim_ops.Hyper("sgd", 0.1), None, None,
+                               torch.tensor(1.0), torch.tensor(True))
+    with pytest.raises(ValueError):
+        optim_ops.optim_update(p, [torch.zeros(3)], [None], [None], None,
+                               optim_ops.Hyper("lion", 0.1), None, None,
+                               torch.tensor(1.0), torch.tensor(True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_k9_k10_match_plain(card, case):
+    # Within 1e-4 of max|plain|: float32 sums in another order than
+    # cuDNN's, TF32 off.
+    k, cin, cout, pre, post, res = K1_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(9)
+    shape = (2, 9, 10, 11)
+    x = torch.randn(*shape, cin, generator=gen, device=card)
+    w = torch.randn(k, k, k, cin, cout, generator=gen, device=card) * 0.2
+    dy = torch.randn(*shape, cout, generator=gen, device=card)
+    y = torch.randn(*shape, cout, generator=gen, device=card) \
+        if post else None
+    xm = x if pre else None
+    acc = torch.randn(*shape, cin, generator=gen, device=card) \
+        if pre and post else None
+    got = conv3d.conv3d_dgrad_f32(dy, w, x=xm, y=y, accum=acc)
+    want = conv3d.conv3d_dgrad_plain(dy, w, x=xm, y=y, accum=acc)
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), ("K9", case, err)
+    gw, gb = conv3d.conv3d_wgrad_f32(x, dy, k, pre_relu=pre, y=y)
+    ww, wb = conv3d.conv3d_wgrad_plain(x, dy, k, pre_relu=pre, y=y)
+    for g, want in ((gw, ww), (gb, wb)):
+        err = float((g - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), ("K10", case, err)
+    again = conv3d.conv3d_wgrad_f32(x, dy, k, pre_relu=pre, y=y)
+    assert torch.equal(again[0], gw) and torch.equal(again[1], gb)
+
+
+@pytest.mark.cuda
+def test_conv3d_function_backward_matches_autograd_of_plain(card):
+    from ffn_tpu_torch.models import convstack_3d
+    torch.manual_seed(0)
+    model = convstack_3d.ConvStack3DFFNModel(
+        fov_size=[9, 9, 9], deltas=[2, 2, 2], depth=3, features=8)
+    model.module.to(card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    net = torch.randn(2, 9, 9, 9, 2, generator=gen, device=card)
+    seed = net[..., 1:].contiguous()
+    dl = torch.randn(2, 9, 9, 9, 1, generator=gen, device=card)
+    params = list(model.module.parameters())
+    got = torch.autograd.grad(model.train_apply(net, seed), params, dl)
+    from unittest import mock
+    with mock.patch.object(convstack_3d, "conv3d_train",
+                           conv3d.conv3d_ndhwc_plain), \
+            mock.patch.object(convstack_3d, "residual_block_train",
+                              conv3d.residual_block_plain):
+        want = torch.autograd.grad(model.train_apply(net, seed), params, dl)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def _k11_canvases(card, b=3, c=17, seed=11):
+    rng = np.random.RandomState(seed)
+    image_u8 = torch.from_numpy(
+        rng.randint(0, 256, (b, c, c, c, 1)).astype(np.uint8)).to(card)
+    lom_u8 = torch.from_numpy(
+        (rng.rand(b, c, c, c, 1) > 0.5).astype(np.uint8)).to(card)
+    return image_u8, lom_u8, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, (3, (4, 4, 4))])
+def test_k11_matches_plain(card, window):
+    image_u8, lom_u8, rng = _k11_canvases(card)
+    args = ((17, 17, 17), 128.0, 33.0, 0.05, float(np.log(0.05 / 0.95)),
+            float(np.log(0.95 / 0.05)))
+    got = train_ops.train_prep(image_u8, lom_u8, *args)
+    want = train_ops.train_prep_plain(image_u8[..., 0], lom_u8[..., 0],
+                                      *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    images, labels, seeds = want
+    # Seeds and labels on both sides of the gates.
+    seeds = torch.from_numpy((rng.randn(3, 17, 17, 17) * 3).astype(
+        np.float32)).to(card)
+    labels = torch.from_numpy(rng.choice([0.05, 0.95], (3, 17, 17, 17))
+                              .astype(np.float32)).to(card)
+    weights = torch.from_numpy(rng.rand(3, 17, 17, 17).astype(
+        np.float32)).to(card)
+    ticket = train_ops.new_ticket(card)
+    fov = (9, 9, 9)
+    for off in [(0, 0, 0), (4, -4, 0), (-4, 4, 4), (0, 0, -4)]:
+        kg = train_ops.train_gather(seeds, images, labels, off, fov,
+                                    MOVE_T, 0.9, window)
+        pg = train_ops.train_gather_plain(seeds, images, labels, off, fov,
+                                          MOVE_T, 0.9, window)
+        for g, w in zip(kg, pg):
+            assert torch.equal(g, w), off
+        logits = torch.from_numpy((rng.randn(3, 9, 9, 9, 1) * 4).astype(
+            np.float32)).to(card)
+        for wts in (None, weights):
+            ks, ps = seeds.clone(), seeds.clone()
+            km = torch.zeros(5, device=card)
+            pm = torch.zeros(5, device=card)
+            kd = train_ops.train_loss(logits, ks, labels, wts, kg[2], kg[3],
+                                      off, km, ticket)
+            pd = train_ops.train_loss_plain(logits, ps, labels, wts, kg[2],
+                                            kg[3], off, pm)
+            assert torch.equal(ks, ps)
+            assert torch.equal(km[1:], pm[1:])
+            torch.testing.assert_close(km[0], pm[0], rtol=1e-5, atol=0)
+            torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-9)
+    kl, kc = train_ops.train_eval(seeds, labels, (13, 13, 13), ticket)
+    pl, pc = train_ops.train_eval_plain(seeds, labels, (13, 13, 13))
+    assert torch.equal(kc, pc)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", optim_ops.OPTIMIZERS)
+@pytest.mark.parametrize("schedule", [False, True])
+def test_k12_matches_plain(card, opt, schedule):
+    rng = np.random.RandomState(12)
+    shapes = [(3, 3, 3, 4, 8), (8,), (1, 1, 1, 8, 1), (1,)]
+    h = optim_ops.Hyper(opt, 0.05, decay_steps=2 if schedule else None,
+                        decay_rate=0.5 if schedule else None,
+                        ema_decay=0.9)
+    slots = {"sgd": 0, "momentum": 1, "adagrad": 1}.get(opt, 2)
+
+    def state():
+        p = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(card)
+             for s in shapes]
+        s1 = [torch.full_like(t, 0.1) for t in p] if slots >= 1 else \
+            [None] * len(p)
+        s2 = [torch.zeros_like(t) for t in p] if slots == 2 else \
+            [None] * len(p)
+        return p, s1, s2, [t.clone() for t in p]
+
+    kp, ks1, ks2, ke = state()
+    pp, ps1, ps2, pe = (
+        [t.clone() if t is not None else None for t in ts]
+        for ts in (kp, ks1, ks2, ke))
+    counts = [torch.zeros((), dtype=torch.int32, device=card)
+              for _ in range(4)]
+    ctrl = optim_ops.ctrl_buffer(card)
+    for step in range(6):
+        grads = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(card)
+                 for s in shapes]
+        if step == 3:
+            grads[1][2] = float("nan")
+        active = torch.tensor(0.0 if step == 4 else 2.0, device=card)
+        kf = torch.zeros((), dtype=torch.bool, device=card)
+        pf = torch.zeros((), dtype=torch.bool, device=card)
+        optim_ops.optim_update(kp, grads, ks1, ks2, ke, h, counts[0],
+                               counts[1] if schedule else None, active, kf,
+                               ctrl)
+        optim_ops.optim_update_plain(pp, grads, ps1, ps2, pe, h, counts[2],
+                                     counts[3] if schedule else None, active,
+                                     pf)
+        assert bool(kf) == bool(pf) == (step != 3)
+        assert torch.equal(counts[0], counts[2])
+        for a, b in zip(kp + ke + [t for t in ks1 + ks2 if t is not None],
+                        pp + pe + [t for t in ps1 + ps2 if t is not None]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
