@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Drives ffn_tpu_torch's serial, batched and fused multi-subvolume
-inference paths and its training path on one NVIDIA card.
+"""Drives ffn_tpu_torch's serial, batched (hop and round-based) and fused
+multi-subvolume inference paths and its training path on one NVIDIA card.
 
   python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit, torch/CUDA versions, and
      which of protobuf/absl/h5py/jax this machine has;
-  2. build: the CUDA kernels K1-K12 from ffn_tpu_torch/csrc with nvcc, one
+  2. build: the CUDA kernels K1-K14 from ffn_tpu_torch/csrc with nvcc, one
      process per source;
   3. each kernel against its plain PyTorch version at the main paths'
      shapes (K1 within 1e-4 of max|plain| per layer at N=1, 8, 16, 32, 64
@@ -71,16 +71,30 @@ Phases (any failure ends the run with a non-zero exit):
      (no cuDNN or other convolution runs, and autograd runs only the
      port's Functions), the CI model's two steps against the JAX
      package's (tests/golden/train_ci_golden.npz), and the trained
-     checkpoint in the serial Runner.
+     checkpoint in the serial Runner;
+ 12. the round-based slice at full width (model-r2, depth 12, 32 features,
+     33^3): phase 5's phantom with concurrent_requests 8 and hops 0
+     through Runner -> BatchCanvas.segment_all -> engine.select_step (K13
+     -> K1 -> K14), counting launches and the device time of each call;
+     the same with K13/K14 on their plain versions (K1 kept) must give the
+     same voxels, origins, counters and moves; held to ground-truth
+     agreement >= 0.95, its cell-restricted agreement with phase 5's
+     serial run printed; then once at 64 lanes on kernels, its agreement
+     held to a floor just under its measured value;
+ 13. the CI checkpoint at 64 lanes with hops 0 on the gate's phantom, held
+     voxel for voxel, origin for origin, move for move and round for round
+     to the JAX package's run (tests/golden/gate_ci_lanes_golden.npz, its
+     *_round entries).
 Phase 3 also holds K8 (a crafted 64-lane state over 4 slots of 82^3), K4
 with the device segmentation and K7's batched masks to their plain
 versions, bit for bit, and the training kernels at batch 4: K9 and K10
 within 1e-4 of max|plain| for every layer kind (K10 twice bit for bit),
 K11's passes and K12 (sgd and adam over the depth-12 model's 638,433
-parameters). Every kernel's entry in the line before the last,
-{"kernels": [...]}, carries its launches on each main path's run
-(`launches_by_path`: serial, hop, fused, fused_host, train) and their
-sum, its
+parameters), and K13/K14 on a crafted 64-lane round on 132^3 in select
+mode (K = 4) and in step_batch's fixed mode, bit for bit. Every kernel's
+entry in the line before the last, {"kernels": [...]}, carries its
+launches on each main path's run (`launches_by_path`: serial, hop, fused,
+fused_host, train, round) and their sum, its
 error against its plain version, its median time, its plain version's, a
 library call's where one PyTorch call computes the same function, and its
 bound (bytes or float32 operations at the H100's published peaks). The
@@ -123,6 +137,10 @@ R2_SUB, R2_OVERLAP = 64, 32   # the model-r2 fused reference (96^3)
 # values measured on the H100 (0.625 and 0.875: whole cells of 8), so a
 # regression fails; 64 lanes split cells as the JAX package's do.
 FUSED_AGREE_FLOOR, FUSED_HOST_AGREE_FLOOR = 0.6, 0.85
+ROUND_LANES = 8      # concurrent_requests of the round slice (hops 0)
+# Ground-truth agreement floor of the round slice at 64 lanes, just under
+# the 1.0 measured on the H100 (whole cells of 8).
+ROUND64_AGREE_FLOOR = 0.99
 INIT_ACT = float(np.float32(np.log(0.95 / 0.05)))   # init_activation 0.95
 
 
@@ -1454,6 +1472,258 @@ def phase_gate_reference(dev, r2, tmp):
                      segs[LANES])
 
 
+# -- the round-based batched path (phases 3, 12 and 13) -----------------------
+
+
+def phase_select_kernels(dev):
+    """K13 select_gather and K14 select_update against their plain versions,
+    bit for bit, on a crafted 64-lane round on 132^3 with a 33^3 FOV
+    (tests/test_torch_kernels.py crafted_select: NaN seeds and candidates,
+    candidates below the threshold ahead of a valid one, ignore, weak and
+    NaN starts, inactive lanes, candidates on every face and out of the
+    volume; tied and NaN model outputs) in select mode (K = 4) and in
+    step_batch's fixed mode (K = 1, ignore everywhere); times and bounds of
+    the select-mode round."""
+    from ffn_tpu_torch.ops import select as select_ops
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_torch_kernels as tk
+
+    rng = np.random.RandomState(5)
+    vol = (PHANTOM_SIZE + 2 * PHANTOM_PAD,) * 3
+    fov, deltas = 33, (8, 8, 8)
+    patch = 4 * fov ** 3   # bytes of one 33^3 float32 patch
+    image = torch.from_numpy(rng.randn(*vol).astype(np.float32)).to(dev)
+    logits = tk.tied_logits(rng, LANES, fov)
+    logits[3, 4, 4, 1] = np.nan
+    logits = torch.from_numpy(logits).to(dev)
+    kw = dict(fov=fov, pred=fov, deltas=deltas, disco=0.0)
+    results = {}
+    for mode, K in (("fixed", 1), ("select", 4)):
+        seeds, packed = tk.crafted_select(rng, LANES, K, vol, mode == "fixed")
+        pk = torch.from_numpy(packed).to(dev)
+        ks = torch.from_numpy(seeds).to(dev)
+        ps = ks.clone()
+        del seeds
+        got = tk.select_round(select_ops, image, ks, pk, logits, **kw)
+        want = tk.select_round(tk._PlainSelect, image, ps, pk, logits, **kw)
+        torch.cuda.synchronize()
+        same = all(g.shape == w.shape and tk.nan_equal(g, w)
+                   for g, w in zip(got, want)) and tk.nan_equal(ks, ps)
+        rec = want[2].cpu().numpy()
+        n_exec = int(rec[:, 0].sum())
+        print(f"K13 select_gather + K14 select_update, {mode} mode (K={K}), "
+              f"{LANES} lanes on {vol}: bit-exact {same}; {n_exec} lanes "
+              f"executed, chosen {sorted(set(rec[:, 1].tolist()))}")
+        require(same, f"K13/K14 differ from their plain versions in "
+                      f"{mode} mode")
+        require(0 < n_exec < LANES or mode == "fixed",
+                "the crafted round executed no lane or every lane")
+        del ps, want
+    gkw = dict(image_size=(fov,) * 3, seed_size=(fov,) * 3,
+               move_threshold=tk.MOVE_T, pad=tk.PAD)
+    # K13 reads each lane's K + 1 seed values, its image and seed patches
+    # and its packed row, and writes both model inputs and its record.
+    results["select_gather"] = entry(0.0, *time_pair(
+        lambda: select_ops.select_gather(image, ks, pk, **gkw),
+        lambda: select_ops.select_gather_plain(image, ks, pk, **gkw)),
+        LANES * (4 * patch + 4 * (K + 1) + pk.shape[1] * 4 + 24))
+    rec = got[2]
+    ukw = dict(pred_size=(fov,) * 3, deltas=deltas, move_threshold=tk.MOVE_T,
+               disco_threshold=0.0)
+    # K14 reads each lane's logits crop, its old box and its record, writes
+    # the box where the lane executed and the packed row.
+    results["select_update"] = entry(0.0, *time_pair(
+        lambda: select_ops.select_update(logits, ks, rec, **ukw),
+        lambda: select_ops.select_update_plain(logits, ks, rec, **ukw)),
+        LANES * (2 * patch + 24 + 120) + n_exec * patch)
+    for name in ("select_gather", "select_update"):
+        r = results[name]
+        print(f"{name} at {LANES} lanes on {vol} (select mode, {n_exec} "
+              f"executing): kernel {r['ms']:.4f} ms plain "
+              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})")
+    return results
+
+
+def _run_round_slice(label, settings, dev, box, gt, inner, probe=None):
+    """One Runner.run of the batched request with hops 0 (BatchCanvas); prints
+    and returns its numbers."""
+    from ffn_tpu_torch.inference import runner as runner_lib
+    from ffn_tpu_torch.inference import storage
+    from ffn_tpu_torch.ops import select as select_ops
+    from tools import synthetic_em
+
+    runner = runner_lib.Runner(device=dev)
+    runner.canvas_defaults.update(hops=0, max_iters_per_segment=MAX_ITERS)
+    runner.start(settings)
+    patches = []
+    if probe is not None:
+        for name in ("select_gather", "select_update"):
+            patches.append(mock.patch.object(
+                select_ops, name, probe.wrap(name, getattr(select_ops,
+                                                           name))))
+        patches.append(mock.patch.object(
+            runner.model, "apply", probe.wrap("model.apply",
+                                              runner.model.apply)))
+    for p in patches:
+        p.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        canvas = runner.run((0, 0, 0), box, keep_probability_maps=False)
+        torch.cuda.synchronize()
+    finally:
+        for p in patches:
+            p.stop()
+    wall = time.perf_counter() - t0
+    require(type(canvas).__name__ == "BatchCanvas" and
+            canvas.lanes == settings.concurrent_requests,
+            f"the round slice ran {type(canvas)}")
+    seg_path = storage.segmentation_path(settings.segmentation_output_dir,
+                                         (0, 0, 0))
+    with np.load(seg_path, allow_pickle=True) as data:
+        seg = data["segmentation"].astype(np.uint64)
+    c = runner.counters
+    moves = c["fov-moves"].value
+    rounds = c["predict-calls"].value
+    predict_s = c["predict-time-ms"].value / 1e3
+    agree = synthetic_em.object_level_agreement(gt.astype(np.uint64),
+                                                seg[inner], min_size=1000)
+    print(f"round slice {label}: {moves} fov-moves in {rounds} rounds "
+          f"({moves / max(rounds, 1):.2f} executing lanes per round), "
+          f"{wall:.3f} s wall, {moves / wall:.2f} FOV moves/s; predict "
+          f"(select_step) {predict_s:.3f} s, the rest "
+          f"{wall - predict_s:.3f} s; {len(np.unique(seg[seg > 0]))} "
+          f"objects, ground-truth agreement {agree:.4f}; counters "
+          f"seed_got_too_weak {c['seed_got_too_weak'].value}, "
+          f"skip_threshold {c['skip_threshold'].value}, iter-cap-hit "
+          f"{c['iter-cap-hit'].value}, relaxed-deferral-seeds "
+          f"{c['relaxed-deferral-seeds'].value}")
+    return dict(
+        seg=seg, moves=moves, wall=wall, agree=agree,
+        origins=sorted((k, tuple(int(v) for v in o.start_zyx), o.iters)
+                       for k, o in canvas.origins.items()),
+        counts={n: v.value for n, v in c if not n.endswith("-ms")})
+
+
+def phase_round_slice(dev, phantom, r2, seg_serial, tmp):
+    """The round-based slice at full width (model-r2, depth 12, 32 features,
+    33^3, float32) on phase 5's padded 132^3 phantom: concurrent_requests 8
+    and hops 0 through Runner -> BatchCanvas.segment_all -> select_step
+    (K13 -> K1 -> K14) on kernels, again with K13/K14 plain (K1 kept), and
+    once at 64 lanes on kernels; returns the 8-lane kernel run's launches."""
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.ops import select as select_ops
+
+    settings = dataclasses.replace(
+        r2, concurrent_requests=ROUND_LANES,
+        segmentation_output_dir=os.path.join(tmp, "round"))
+    probe = _HopProbe()
+    _build.launches.clear()
+    run = _run_round_slice(f"{ROUND_LANES} lanes, model-r2, on kernels",
+                           settings, dev, **phantom, probe=probe)
+    launches = dict(_build.launches)
+    print(f"kernel launches on the round path: {launches}")
+    for name in ("conv3d_ndhwc_f32", "select_gather", "select_update",
+                 "lane_threshold"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the round path")
+    require(launches["select_gather"] == launches["select_update"],
+            "K13 and K14 launched unequal times")
+    ms = probe.device_ms()
+    wall_ms = 1e3 * run["wall"]
+    device = sum(ms.values())
+    rounds = launches["select_gather"]
+    print("round slice device ms by call (CUDA events): " + ", ".join(
+        f"{name} {t:.1f} ({t / rounds:.4f}/round)" for name, t in ms.items())
+        + f"; sum {device:.1f} ms of {wall_ms:.1f} ms wall: host and idle "
+          f"{wall_ms - device:.1f} ms; K1 (model.apply) share of wall "
+          f"{ms['model.apply'] / wall_ms:.4f}, K13+K14 "
+          f"{(ms['select_gather'] + ms['select_update']) / wall_ms:.4f}; "
+          f"K1 {ms['model.apply'] / rounds / ROUND_LANES:.4f} ms per lane "
+          f"evaluation")
+
+    with mock.patch.object(select_ops, "select_gather",
+                           select_ops.select_gather_plain), \
+            mock.patch.object(select_ops, "select_update",
+                              select_ops.select_update_plain):
+        plain = _run_round_slice(
+            f"{ROUND_LANES} lanes, model-r2, K13/K14 on plain versions",
+            dataclasses.replace(settings, segmentation_output_dir=os.path.join(
+                tmp, "round_plain")), dev, **phantom)
+    same = {key: (np.array_equal(run[key], plain[key]) if key == "seg"
+                  else run[key] == plain[key])
+            for key in ("seg", "origins", "counts", "moves")}
+    print(f"round slice, kernels vs K13/K14 plain: identical {same}")
+    require(all(same.values()),
+            "the round slice on K13/K14 differs from their plain versions")
+    require(run["agree"] >= 0.95, f"round slice agreement {run['agree']} "
+                                  f"below the quality gate's 0.95")
+    _lanes_vs_serial(ROUND_LANES, "model-r2, round-based, the slice's "
+                     "phantom (seed 0)", phantom, seg_serial,
+                     run["seg"][phantom["inner"]])
+
+    wide = _run_round_slice(
+        f"{LANES} lanes, model-r2, on kernels", dataclasses.replace(
+            settings, concurrent_requests=LANES,
+            segmentation_output_dir=os.path.join(tmp, "round64")),
+        dev, **phantom)
+    _lanes_vs_serial(LANES, "model-r2, round-based, the slice's phantom "
+                     "(seed 0)", phantom, seg_serial,
+                     wide["seg"][phantom["inner"]])
+    require(wide["agree"] >= ROUND64_AGREE_FLOOR,
+            f"round slice at {LANES} lanes: agreement {wide['agree']} below "
+            f"{ROUND64_AGREE_FLOOR}")
+    return launches
+
+
+def phase_round_golden(dev, r2, tmp):
+    """The CI checkpoint (depth 2, 16 features, 17^3) at 64 lanes with hops
+    0 on the gate's seed-11 phantom against the JAX package's own run of it
+    in float32 on a CPU (tests/golden/gate_ci_lanes_golden.npz's *_round
+    entries, written by tests/make_torch_gate_golden.py): voxel for voxel,
+    origin for origin, move for move, round for round. The phantom comes
+    from the golden."""
+    from ffn_tpu_torch.inference import runner as runner_lib
+    ref = np.load(os.path.join(REPO, "tests", "golden",
+                               "gate_ci_lanes_golden.npz"))
+    path = os.path.join(tmp, "round_ci.npy")
+    np.save(path, ref["image"])
+    ci = dataclasses.replace(
+        r2, image=path, concurrent_requests=LANES,
+        segmentation_output_dir=os.path.join(tmp, "round_ci"),
+        model_checkpoint_path=os.path.join(REPO, "models", "phantom",
+                                           "model-ci-tiny.npz"),
+        model_args='{"depth": 2, "fov_size": [17, 17, 17], '
+                   '"deltas": [6, 6, 6], "features": 16}')
+    runner = runner_lib.Runner(device=dev)
+    runner.canvas_defaults.update(hops=0, max_iters_per_segment=MAX_ITERS)
+    runner.start(ci)
+    t0 = time.perf_counter()
+    canvas = runner.run((0, 0, 0), ref["image"].shape,
+                        keep_probability_maps=False)
+    wall = time.perf_counter() - t0
+    require(type(canvas).__name__ == "BatchCanvas",
+            f"the round golden ran {type(canvas)}")
+    seg = np.maximum(canvas.segmentation, 0)
+    origins = np.array([(k, *o.start_zyx, o.iters)
+                        for k, o in sorted(canvas.origins.items())], np.int64)
+    moves = runner.counters["fov-moves"].value
+    rounds = runner.counters["predict-calls"].value
+    same = (np.array_equal(seg, ref["seg64_round"]),
+            np.array_equal(origins, ref["origins64_round"]),
+            moves == int(ref["moves64_round"]),
+            rounds == int(ref["rounds64_round"]))
+    print(f"CI checkpoint, round-based, {LANES} lanes on the gate's phantom: "
+          f"{moves} moves in {rounds} rounds, {wall:.3f} s; against the JAX "
+          f"package's run ({int(ref['moves64_round'])} moves, "
+          f"{int(ref['rounds64_round'])} rounds): identical voxels "
+          f"{same[0]}, origins {same[1]}, moves {same[2]}, rounds "
+          f"{same[3]}")
+    require(all(same), "the CI checkpoint's round-based run differs from "
+                       "the JAX package's")
+
+
 # -- the training path (phases 3 and 11) --------------------------------------
 
 TRAIN_B = 4            # the train CLI's default batch
@@ -2120,6 +2390,7 @@ def main():
     results.update(phase_hop_kernels(dev))
     results.update(phase_fused_kernels(dev))
     results.update(phase_train_kernels(dev))
+    results.update(phase_select_kernels(dev))
     phase_golden(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = {}
@@ -2130,6 +2401,8 @@ def main():
         phase_fused_golden(dev, tmp)
         phase_fused_r2_reference(dev, tmp)
         launches["train"] = phase_train(have, dev, tmp)
+        launches["round"] = phase_round_slice(dev, phantom, r2, seg_r2, tmp)
+        phase_round_golden(dev, r2, tmp)
     # K1 runs on every path: its error is the largest of all phases', its
     # time the 32->32 layer's at N=1 (the serial path's shape).
     results["conv3d_ndhwc_f32"]["max_abs_err"] = max(
@@ -2172,10 +2445,15 @@ def main():
                        "ffn_tpu/training/train_lib.py:255"),
         "optim_update": ("ffn_tpu_torch/csrc/optim.cu",
                          "ffn_tpu/training/train_lib.py:370"),
+        "select_gather": ("ffn_tpu_torch/csrc/select.cu",
+                          "ffn_tpu/inference/engine.py:211"),
+        "select_update": ("ffn_tpu_torch/csrc/select.cu",
+                          "ffn_tpu/inference/engine.py:266"),
     }
     # `launches` sums the main paths' runs; `launches_by_path` splits them
     # (fused and fused_host: the full-width fused slice with device and
-    # with host finalization; train: the full-width training run).
+    # with host finalization; train: the full-width training run; round:
+    # the round-based slice at 8 lanes).
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(p.get(name, 0) for p in launches.values()),
                     launches_by_path={path: p.get(name, 0)

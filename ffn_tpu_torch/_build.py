@@ -1,11 +1,13 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
 Each `ffn_tpu_torch/csrc/*.cu` compiles in its own `nvcc` process, all
-started together, and one more `nvcc` links the objects into a shared
-library with a plain C interface, loaded through ctypes. The library sits under
-`build/ffn_tpu_torch_kernels/<hash of the sources>/`, so an edit to any
-source builds anew and an unchanged tree reuses the last build. Nothing is
-compiled when this module is imported: the first kernel launch builds.
+started together (the device helpers they share are in
+`csrc/common.cuh`), and one more `nvcc` links the objects into a shared
+library with a plain C interface, loaded through ctypes. The library sits
+under `build/ffn_tpu_torch_kernels/<hash of the sources and headers>/`, so
+an edit to any of them builds anew and an unchanged tree reuses the last
+build. Nothing is compiled when this module is imported: the first kernel
+launch builds.
 
 A missing `nvcc` or a failed build raises. There is no fallback.
 
@@ -28,6 +30,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
+_HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build",
                           "ffn_tpu_torch_kernels")
 LIB_NAME = "libffn_tpu_torch_kernels.so"
@@ -62,6 +65,8 @@ _SIGNATURES = {
     "ffn_train_loss": [_P] * 10 + [_I, _P, _I, _P],
     "ffn_train_eval": [_P] * 7 + [_I, _P, _I, _P],
     "ffn_optim_update": [_P] * 6 + [_I] + [_P] * 7 + [_I, _P],
+    "ffn_select_gather": [_P] * 6 + [_I] * 11 + [_F, _F, _P],
+    "ffn_select_update": [_P] * 5 + [_I] * 13 + [_F, _F, _P],
 }
 
 _lib = None
@@ -82,7 +87,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _SOURCES:
+    for path in _SOURCES + _HEADERS:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())

@@ -34,9 +34,7 @@
 // dedup-grid clear. Reads of data other blocks wrote in the same launch
 // (segmentation, broadcast values) bypass L1 (__ldcg).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -102,17 +100,6 @@ struct FinParams {
   int max_iters, min_size;
   float move_t, seg_t, init_act;
 };
-
-__device__ inline int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// lax.dynamic_update_slice's start: a negative start wraps once, then
-// clamps into [0, shape - size].
-__device__ inline int clamp_start(int start, int shape, int size) {
-  if (start < 0) start += shape;
-  return start < 0 ? 0 : (start > shape - size ? shape - size : start);
-}
 
 __device__ inline int ld(const int* p) { return __ldcg(p); }
 

@@ -35,27 +35,13 @@
 // indices follow lax.dynamic_slice: a negative start wraps once, then
 // clamps into [0, shape - size].
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-__device__ inline float f32_nan() { return __int_as_float(0x7fc00000); }
-__device__ inline float f32_neg_inf() { return __int_as_float(0xff800000); }
 
 constexpr int kRunning = 1, kDoneEmpty = 2, kDoneWeak = 3, kDoneCap = 4,
               kStalledFull = 5;
 constexpr uint8_t kClaimed = 1, kRestricted = 2;
-
-__host__ __device__ inline int clamp_start(int start, int shape, int size) {
-  if (start < 0) start += shape;
-  return start < 0 ? 0 : (start > shape - size ? shape - size : start);
-}
-
-__device__ inline int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
 
 // Python's floor division (the dedup-grid cells of a position below the
 // segment origin are negative before the offset).
@@ -281,14 +267,6 @@ struct UpdateParams {
   float move_t, disco_t;
 };
 
-// jnp.argmax's order: NaN above everything (the first NaN wins), then the
-// larger value, then the smaller index.
-__device__ inline bool better(float v, int i, float w, int j) {
-  const bool nv = isnan(v), nw = isnan(w);
-  if (nv || nw) return nv && (!nw || i < j);
-  return v > w || (v == w && i < j);
-}
-
 // Strict order of jnp.lexsort((-off2, -off1, -off0, -scores)): score
 // descending with NaN last, then the offsets descending.
 __device__ inline bool sorts_before(float sa, const int* oa, float sb,
@@ -304,35 +282,6 @@ __device__ inline bool sorts_before(float sa, const int* oa, float sb,
     if (oa[a] != ob[a]) return oa[a] > ob[a];
   }
   return false;
-}
-
-// Counts the pred crop's voxels >= move_t (block-wide) and returns whether
-// the disco-seed mask applies (engine.py:115-117).
-__device__ bool disco_applies(const float* lg, const UpdateParams& p,
-                              int* warp_counts) {
-  __shared__ int apply_s;
-  const int dz = (p.fz - p.qz) / 2, dy = (p.fy - p.qy) / 2,
-            dx = (p.fx - p.qx) / 2;
-  const int n = p.qz * p.qy * p.qx;
-  int count = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int c = i % p.qx, b = (i / p.qx) % p.qy, a = i / (p.qx * p.qy);
-    count += lg[((size_t)(a + dz) * p.fy + b + dy) * p.fx + c + dx] >= p.move_t;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = count;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += warp_counts[w];
-    // jnp.mean of a 0/1 f32 vector: an exact count, one IEEE division.
-    const float frac = __fdiv_rn((float)total, (float)n);
-    apply_s = (p.disco_t >= 0.f) && (frac > p.disco_t);
-  }
-  __syncthreads();
-  return apply_s != 0;
 }
 
 __global__ void __launch_bounds__(kUpdateThreads)
@@ -370,7 +319,8 @@ hop_update_kernel(const float* __restrict__ logits, float* seeds,
             wx = clamp_start(sx0 + dx, g.X, p.qx);
   const int n = p.qz * p.qy * p.qx;
 
-  const bool apply = disco_applies(lg, p, warp_counts);
+  const bool apply = disco_applies(lg, p.fz, p.fy, p.fx, p.qz, p.qy, p.qx,
+                                   p.move_t, p.disco_t, warp_counts);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int c = i % p.qx, b = (i / p.qx) % p.qy, a = i / (p.qx * p.qy);
     const float v = lg[((size_t)(a + dz) * p.fy + b + dy) * p.fx + c + dx];
@@ -385,50 +335,10 @@ hop_update_kernel(const float* __restrict__ logits, float* seeds,
   }
 
   // Face maxima: warp f takes face f = 2 * axis + (sign > 0).
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  if (warp < 6) {
-    const int axis = warp >> 1, sign = (warp & 1) ? 1 : -1;
-    const int raw[3] = {p.r0, p.r1, p.r2};
-    const int cen[3] = {p.qz / 2, p.qy / 2, p.qx / 2};
-    const int d = raw[axis];
-    const int a0 = axis == 0 ? 1 : 0, a1 = axis == 2 ? 1 : 2;  // other axes
-    float best = f32_neg_inf();
-    int best_i = 0x7fffffff;
-    const int n0 = 2 * raw[a0] + 1, n1 = 2 * raw[a1] + 1;
-    if (d > 0) {
-      for (int j = wl; j < n0 * n1; j += 32) {
-        int q[3];
-        q[axis] = cen[axis] + sign * d;
-        q[a0] = cen[a0] - raw[a0] + j / n1;
-        q[a1] = cen[a1] - raw[a1] + j % n1;
-        const float v = patch[((size_t)q[0] * p.qy + q[1]) * p.qx + q[2]];
-        if (better(v, j, best, best_i)) {
-          best = v;
-          best_i = j;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float v = __shfl_down_sync(0xffffffffu, best, off);
-      const int j = __shfl_down_sync(0xffffffffu, best_i, off);
-      if (better(v, j, best, best_i)) {
-        best = v;
-        best_i = j;
-      }
-    }
-    if (wl == 0) {
-      if (d > 0) {
-        face_score[warp] = best;
-        face_off[warp][axis] = sign * d;
-        face_off[warp][a0] = best_i / n1 - raw[a0];
-        face_off[warp][a1] = best_i % n1 - raw[a1];
-      } else {
-        face_score[warp] = f32_neg_inf();
-        face_off[warp][0] = face_off[warp][1] = face_off[warp][2] = 0;
-      }
-    }
-  }
+  const int warp = threadIdx.x >> 5;
+  if (warp < 6)
+    face_max_warp(patch, (size_t)p.qy * p.qx, p.qx, p.qz, p.qy, p.qx, p.r0,
+                  p.r1, p.r2, warp, &face_score[warp], face_off[warp]);
   __syncthreads();
 
   if (threadIdx.x == 0) {
@@ -493,7 +403,8 @@ hop_screen_kernel(const float* __restrict__ logits, uint8_t* strong,
   __shared__ int warp_counts[kUpdateThreads / 32];
   const int s = blockIdx.x;
   const float* lg = logits + (size_t)s * p.fz * p.fy * p.fx;
-  const bool apply = disco_applies(lg, p, warp_counts);
+  const bool apply = disco_applies(lg, p.fz, p.fy, p.fx, p.qz, p.qy, p.qx,
+                                   p.move_t, p.disco_t, warp_counts);
   if (threadIdx.x == 0) {
     const int dz = (p.fz - p.qz) / 2, dy = (p.fy - p.qy) / 2,
               dx = (p.fx - p.qx) / 2;

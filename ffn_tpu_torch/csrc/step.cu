@@ -23,14 +23,9 @@
 // lax.dynamic_update_slice: a negative start wraps once (start + shape),
 // then clamps into [0, shape - size].
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
-
-__host__ __device__ inline int clamp_start(int start, int shape, int size) {
-  if (start < 0) start += shape;
-  return start < 0 ? 0 : (start > shape - size ? shape - size : start);
-}
 
 struct Box {
   int z, y, x;     // start in the volume

@@ -1,19 +1,24 @@
-"""Batched multi-seed flood-fill canvas: the host side shared by the hop path.
+"""Batched multi-seed flood-fill canvas, round by round.
 
 Counterpart of ffn_tpu/inference/batch_canvas.py. B objects ("lanes")
-advance concurrently on one subvolume; this module holds what every batched
-canvas does on the host: the seed pool with its deferral of seeds near
+advance concurrently on one subvolume. This module holds what every batched
+canvas does on the host (the seed pool with its deferral of seeds near
 running lanes, the validity checks of a seed, lane bookkeeping and the
 finalization of a finished lane into the shared segmentation, with its
-exact verdict order (weak -> seed-claimed drop -> too small -> segment).
+exact verdict order: weak -> seed-claimed drop -> too small -> segment) and
+the round-based main loop (hops=0): per round each running lane submits the
+K front entries of its host FIFO, the engine's select_step (K13 -> K1 ->
+K14) drops the ones below the move threshold against the same seed state,
+runs the FFN update at the first valid one and returns face-max scores, so
+a round moves one packed array each way. HopBatchCanvas (hop_canvas.py)
+keeps the FIFOs on the device instead.
 
-Deviation by design, as in the JAX package: objects whose flood fills
-overlap in time do not see each other's voxels until one is finalized;
-contested voxels go to whichever object finalizes first. lanes=1 matches
-the serial Canvas exactly.
-
-The round-based `segment_all` (hops=0, the engine's select_step programs)
-is not ported; HopBatchCanvas (hop_canvas.py) drives the lanes.
+Semantics per object are Canvas.segment_all's (movement FIFO order,
+delta-lattice dedup, logit thresholds, weak-seed and min-size rejection,
+origins and overlaps). Deviation by design, as in the JAX package: objects
+whose flood fills overlap in time do not see each other's voxels until one
+is finalized; contested voxels go to whichever object finalizes first.
+lanes=1 matches the serial Canvas exactly.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from scipy.special import expit, logit
 from ffn_tpu_torch.inference import movement
 from ffn_tpu_torch.inference import seed as seed_lib
 from ffn_tpu_torch.inference import storage
-from ffn_tpu_torch.inference.counters import Counters, timer_counter
+from ffn_tpu_torch.inference.counters import (Counters, TimedIter,
+                                               timer_counter)
 
 MSEC_IN_SEC = 1000
 
@@ -141,31 +147,39 @@ class _SpacedAccept:
 
 
 class _Lane:
-    __slots__ = ("state", "start_pos", "min_pos", "max_pos", "num_iters",
-                 "t_start", "spill")
+    __slots__ = ("state", "start_pos", "queue", "done_cells", "min_pos",
+                 "max_pos", "num_iters", "t_start", "pending", "spill")
 
     def __init__(self):
         self.state = _IDLE
         self.start_pos = None
+        self.queue = []        # FIFO of (score, (z, y, x))
+        self.done_cells = set()
         self.min_pos = None
         self.max_pos = None
         self.num_iters = 0
         self.t_start = 0.0
+        self.pending = []      # candidates currently submitted to the device
         self.spill = []        # hop path: host-side queue-overflow spill
 
 
 class BatchCanvas:
     """Segments a subvolume with B concurrent flood-fill lanes."""
 
+    # HopBatchCanvas keeps its seeds in its lane state: a second (B, Z, Y, X)
+    # batch would double the dominant device allocation.
+    _allocate_seed_batch = True
+
     def __init__(self, model_info, engine, image, options, lanes: int = 8,
-                 max_iters_per_segment: int = 0, voxel_size_zyx=(1, 1, 1),
-                 counters=None, restrictor=None, corner_zyx=None,
-                 keep_probability_maps=False, checkpoint_path=None,
-                 checkpoint_interval_sec=0):
+                 candidates_per_step: int = 4, max_iters_per_segment: int = 0,
+                 voxel_size_zyx=(1, 1, 1), counters=None, restrictor=None,
+                 corner_zyx=None, keep_probability_maps=False,
+                 checkpoint_path=None, checkpoint_interval_sec=0):
         self.engine = engine
         self.image = np.ascontiguousarray(image, dtype=np.float32)
         self.voxel_size_zyx = voxel_size_zyx
         self.lanes = lanes
+        self.K = candidates_per_step
         # Safety valve for runaway objects (0 = unlimited, the reference
         # semantics): a lane exceeding this many FFN iterations is
         # finalized with whatever it has filled.
@@ -196,6 +210,8 @@ class BatchCanvas:
             if keep_probability_maps else None
 
         self._image_dev = self._put_image_dev()
+        self._seeds_dev = engine.new_seed_batch(lanes, self.shape) \
+            if self._allocate_seed_batch else None
         self._lanes = [_Lane() for _ in range(lanes)]
 
         self.origins = {}
@@ -232,6 +248,25 @@ class BatchCanvas:
         p = np.asarray(pos)
         return bool(np.all(p - self.margin >= 0)
                     and np.all(p + self.margin < self.shape))
+
+    def _host_valid(self, lane: _Lane, pos) -> bool:
+        if self._quantize(lane, pos) in lane.done_cells:
+            return False
+        if not self._pos_in_bounds(pos):
+            self.counters["skip_invalid_pos"].Increment()
+            return False
+        if self.segmentation[tuple(pos)] > 0:
+            self.counters["skip_invalid_pos"].Increment()
+            return False
+        if not self.restrictor.is_valid_pos(tuple(pos)):
+            self.counters["skip_restriced_pos"].Increment()
+            return False
+        return True
+
+    def _quantize(self, lane: _Lane, pos):
+        rel = np.asarray(pos) - lane.start_pos
+        d = self._deltas_zyx
+        return tuple((rel + d // 2) // np.maximum(d, 1))
 
     def _active_lane_boxes(self):
         """(N, 2, 3) array of [lo, hi] claim bboxes of running lanes."""
@@ -328,6 +363,102 @@ class BatchCanvas:
             self.segmentation[pos] = -1
             return False
         return True
+
+    # -- checkpointing ---------------------------------------------------------
+    # A killed worker resumes the subvolume with every lane's in-flight flood
+    # fill intact, in the JAX package's round-based format
+    # (batch_canvas.py:413-501), so either package restores the other's.
+
+    def save_checkpoint(self, path: str):
+        self.log_info("Saving batch-canvas checkpoint to %s.", path)
+        with timer_counter(self.counters, "save_checkpoint"):
+            lanes_state = []
+            deferred = list(self._deferred)
+            for li, lane in enumerate(self._lanes):
+                if lane.state != _RUNNING or lane.num_iters <= 0:
+                    # A lane without an executed step has no device state
+                    # worth saving: its seed goes back to the deferred pool.
+                    if lane.state == _RUNNING:
+                        deferred.append(tuple(int(v)
+                                              for v in lane.start_pos))
+                    lanes_state.append(None)
+                    continue
+                sel_start = np.maximum(
+                    lane.min_pos - self._pred_size // 2, 0)
+                sel_end = np.minimum(
+                    lane.max_pos + self._pred_size // 2 + 1, self.shape)
+                region, region_start = self._lane_region(
+                    li, sel_start, sel_end - sel_start)
+                lanes_state.append({
+                    "start_pos": np.asarray(lane.start_pos),
+                    "queue": lane.queue,
+                    "pending": lane.pending,
+                    "done_cells": np.array(sorted(lane.done_cells),
+                                           np.int64).reshape(-1, 3),
+                    "min_pos": np.asarray(lane.min_pos),
+                    "max_pos": np.asarray(lane.max_pos),
+                    "num_iters": lane.num_iters,
+                    "region": region,
+                    "region_start": np.asarray(region_start),
+                })
+            seed_policy_state = None
+            if self.seed_policy is not None:
+                seed_policy_state = self.seed_policy.get_state()
+            aux = {}
+            if self.keep_probability_maps:
+                aux["seg_qprob"] = self.seg_prob
+            with storage.atomic_file(path) as fd:
+                np.savez_compressed(
+                    fd,
+                    segmentation=self.segmentation,
+                    origins=self.origins,
+                    overlaps=self.overlaps,
+                    deferred=np.array(deferred, np.int64).reshape(-1, 3),
+                    lanes=np.asarray(lanes_state, dtype=object),
+                    seed_policy_state=np.asarray(seed_policy_state,
+                                                 dtype=object),
+                    counters=self.counters.dumps_np(),
+                    **aux)
+        self.log_info("Batch-canvas checkpoint saved.")
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Restores a round-based checkpoint; lanes at or above this
+        canvas's lane count are skipped, as in the JAX canvas."""
+        self.log_info("Restoring batch-canvas checkpoint: %s", path)
+        with open(path, "rb") as f:
+            data = np.load(f, allow_pickle=True)
+            self.segmentation[...] = data["segmentation"]
+            if self.keep_probability_maps and "seg_qprob" in data:
+                self.seg_prob[...] = data["seg_qprob"]
+            self.origins = data["origins"].item()
+            self.overlaps = data["overlaps"].item()
+            self._deferred = _SeedPool(data["deferred"])
+            self._max_id = int(np.max(self.segmentation, initial=0))
+            self._seed_policy_state = data["seed_policy_state"]
+            self.counters.loads_np(data["counters"])
+            for li, saved in enumerate(data["lanes"]):
+                if saved is None or li >= self.lanes:
+                    continue
+                lane = self._lanes[li]
+                lane.state = _RUNNING
+                lane.start_pos = np.asarray(saved["start_pos"])
+                lane.queue = [(float(s), tuple(int(v) for v in p))
+                              for s, p in saved["queue"]]
+                lane.pending = [(float(s), tuple(int(v) for v in p))
+                                for s, p in saved["pending"]]
+                lane.done_cells = {tuple(int(v) for v in row)
+                                   for row in saved["done_cells"]}
+                lane.min_pos = np.asarray(saved["min_pos"])
+                lane.max_pos = np.asarray(saved["max_pos"])
+                lane.num_iters = int(saved["num_iters"])
+                lane.t_start = time.time()
+                self._seeds_dev = self.engine.set_lane_seed_region(
+                    self._seeds_dev, li, saved["region_start"],
+                    saved["region"])
+        self.log_info("Batch-canvas checkpoint restored (%d lanes "
+                      "in flight).", sum(1 for lane in self._lanes
+                                         if lane.state == _RUNNING))
+        return 0
 
     def _maybe_save_checkpoint(self):
         if self.checkpoint_path is None or \
@@ -453,10 +584,13 @@ class BatchCanvas:
         lane = self._lanes[li]
         lane.state = _RUNNING
         lane.start_pos = np.array(pos)
+        lane.queue = []
+        lane.done_cells = set()
         lane.min_pos = np.array(pos)
         lane.max_pos = np.array(pos)
         lane.num_iters = 0
         lane.t_start = time.time()
+        lane.pending = []
         lane.spill = []
         self.log_info("lane %d: starting segmentation at %r (zyx)", li,
                       tuple(pos))
@@ -466,18 +600,152 @@ class BatchCanvas:
 
     def segment_all(self, seed_policy=seed_lib.PolicyPeaks,
                     partial_segment_iters: int = 0):
-        raise NotImplementedError(
-            "the round-based BatchCanvas (hops=0) is not ported to "
-            "ffn_tpu_torch; use HopBatchCanvas (ROADMAP.md, Queue 1 item 3)")
+        """The round-based main loop (batch_canvas.py:657-793)."""
+        del partial_segment_iters  # lane progress is restored per lane
+        self.seed_policy = seed_policy(self)
+        if self._seed_policy_state is not None:
+            self.seed_policy.set_state(self._seed_policy_state)
+            self._seed_policy_state = None
+        seed_iter = TimedIter(self.seed_policy, self.counters,
+                              "seed-policy")
+        seeds_exhausted = False
+
+        B, K = self.lanes, self.K
+        start_pos = np.zeros((B, 3), np.int32)
+        active = np.zeros(B, bool)
+        ignore = np.zeros(B, bool)
+        candidates = np.zeros((B, K, 3), np.int32)
+        safe_pos = np.array(self.margin, np.int32)  # in-bounds dummy
+
+        with timer_counter(self.counters, "segment_all"):
+            while True:
+                self._maybe_save_checkpoint()
+                # 1. Assign fresh seeds to idle lanes.
+                reset_mask = np.zeros(B, bool)
+                reset_pos = np.zeros((B, 3), np.int32)
+                assignments, seeds_exhausted = self._assign_fresh_seeds(
+                    seed_iter, seeds_exhausted)
+                for li, pos in assignments:
+                    lane = self._start_lane(li, pos)
+                    lane.pending = [
+                        (self.options.move_threshold * 2, tuple(pos))]
+                    reset_mask[li] = True
+                    reset_pos[li] = pos
+                if reset_mask.any():
+                    self._seeds_dev = self.engine.reset_lanes(
+                        self._seeds_dev, reset_mask, reset_pos,
+                        self.options.init_activation)
+
+                # 2. Build the candidate batch.
+                for li, lane in enumerate(self._lanes):
+                    active[li] = False
+                    ignore[li] = False
+                    candidates[li] = safe_pos
+                    if lane.state != _RUNNING:
+                        continue
+                    if (self.max_iters_per_segment > 0 and
+                            lane.num_iters >= self.max_iters_per_segment):
+                        self.counters["iter-cap-hit"].Increment()
+                        self._finalize(li, lane)
+                        continue
+                    # Held-over candidates are re-screened every round, as
+                    # the reference checks dedup and claims at pop time
+                    # (all but a fresh lane's first entry, its seed).
+                    if lane.num_iters > 0:
+                        lane.pending = [
+                            (s, p) for (s, p) in lane.pending
+                            if self._host_valid(lane, p)]
+                    while len(lane.pending) < K and lane.queue:
+                        score, pos = lane.queue.pop(0)
+                        if self._host_valid(lane, pos):
+                            lane.pending.append((score, pos))
+                    if not lane.pending:
+                        # Queue exhausted: the object is complete.
+                        self._finalize(li, lane)
+                        continue
+                    active[li] = True
+                    ignore[li] = lane.num_iters == 0
+                    start_pos[li] = lane.start_pos
+                    for k, (_, pos) in enumerate(lane.pending[:K]):
+                        candidates[li, k] = pos
+                    for k in range(len(lane.pending), K):
+                        candidates[li, k] = lane.pending[-1][1]
+
+                if not active.any():
+                    if seeds_exhausted:
+                        break
+                    continue
+
+                # 3. One device round for all lanes.
+                with timer_counter(self.counters, "predict"):
+                    self._seeds_dev, aux = self.engine.select_step(
+                        self._image_dev, self._seeds_dev, candidates,
+                        start_pos, active, ignore)
+
+                # 4. Integrate the results.
+                for li, lane in enumerate(self._lanes):
+                    if active[li]:
+                        self._integrate(li, lane, aux)
+
+        self.log_info("Segmentation done.")
+
+    def _integrate(self, li: int, lane: _Lane, aux):
+        """One active lane's round result -> its host FIFO and bookkeeping
+        (batch_canvas.py:745-791)."""
+        K = self.K
+        if not aux["start_ok"][li]:
+            self.counters["seed_got_too_weak"].Increment()
+            self._finalize(li, lane, weak=True)
+            return
+        chosen = int(aux["chosen"][li])
+        n_pending = min(len(lane.pending), K)
+        if chosen < 0 or chosen >= n_pending:
+            # All submitted candidates were below the threshold.
+            self.counters["skip_threshold"].IncrementBy(n_pending)
+            del lane.pending[:n_pending]
+            if not lane.pending and not lane.queue:
+                self._finalize(li, lane)
+            return
+        # Candidates before the chosen one failed the threshold.
+        self.counters["skip_threshold"].IncrementBy(chosen)
+        pos = tuple(int(v) for v in aux["pos"][li])
+        del lane.pending[:chosen + 1]
+        lane.done_cells.add(self._quantize(lane, pos))
+        lane.min_pos = np.minimum(lane.min_pos, pos)
+        lane.max_pos = np.maximum(lane.max_pos, pos)
+        lane.num_iters += 1
+        self.counters["fov-moves"].Increment()
+
+        # Queue the face-max moves by descending score, as the reference
+        # sorts them; identical (score, offset) pairs dedup.
+        scored = []
+        seen = set()
+        for f in range(6):
+            score = float(aux["scores"][li, f])
+            if score < self.options.move_threshold:
+                continue
+            rel = tuple(int(v) for v in aux["offsets"][li, f])
+            item = (score, rel)
+            if item in seen:
+                continue
+            seen.add(item)
+            scored.append(item)
+        scored.sort(reverse=True)
+        for score, rel in scored:
+            lane.queue.append(
+                (score, tuple(int(rel[i] + pos[i]) for i in range(3))))
 
     def _lane_region(self, li: int, sel_start, size_zyx):
-        """Downloads a sub-box of one lane's POM buffer (subclass hook)."""
-        raise NotImplementedError
+        """Downloads a sub-box of one lane's POM buffer."""
+        return self.engine.lane_seed_region(self._seeds_dev, li, sel_start,
+                                            size_zyx)
 
     def _lane_mask_region(self, li: int, sel_start, size_zyx, start_pos):
-        """Thresholded finalization download, uint8 mask and weak-seed
-        verdict (subclass hook; see engine.lane_mask_region)."""
-        raise NotImplementedError
+        """Thresholded finalization download through K7 (uint8 mask and
+        weak-seed verdict; see engine.lane_mask_region)."""
+        return self.engine.lane_mask_region(
+            self._seeds_dev, li, sel_start, size_zyx,
+            self.options.segment_threshold, start_pos)
 
     def _post_segment(self, sid: int, sel, mask) -> None:
         """Hook called after a new segment id is written (HopBatchCanvas

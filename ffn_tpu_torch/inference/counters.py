@@ -1,8 +1,10 @@
 """Thread-safe counters and timers for inference instrumentation.
 
 Counterpart of ffn_tpu/inference/counters.py (StatCounter, Counters,
-timer_counter, TimedIter) without protobuf: `dumps` writes the counters as
-JSON bytes where the JAX package writes a TaskCounters proto.
+timer_counter, TimedIter). `dumps`, for a saved segmentation, writes the
+counters as JSON bytes where the JAX package writes a TaskCounters proto;
+checkpoints (`dumps_np`, `loads_np`) carry the TaskCounters proto, as the
+JAX package's do, which imports protobuf only there.
 """
 
 from __future__ import annotations
@@ -92,16 +94,22 @@ class Counters:
         return json.dumps({name: c.value for name, c in self},
                           sort_keys=True).encode()
 
-    def loads(self, encoded: bytes):
-        for name, value in json.loads(bytes(encoded)).items():
-            self[name].Set(value)
-
     def dumps_np(self) -> np.ndarray:
-        """dumps() as a uint8 array, which round-trips through npz."""
-        return np.frombuffer(self.dumps(), dtype=np.uint8)
+        """The counters as a serialized TaskCounters proto, the JAX package's
+        checkpoint entry, in a uint8 array (which round-trips through npz),
+        so either package restores the other's checkpoints."""
+        from ffn_tpu_torch.proto import inference_pb2   # needs protobuf
+        proto = inference_pb2.TaskCounters()
+        for name, counter in self:
+            proto.counters.add(name=name, value=counter.value)
+        return np.frombuffer(proto.SerializeToString(), dtype=np.uint8)
 
     def loads_np(self, obj):
-        self.loads(np.asarray(obj, dtype=np.uint8).tobytes())
+        from ffn_tpu_torch.proto import inference_pb2
+        proto = inference_pb2.TaskCounters.FromString(
+            np.asarray(obj, dtype=np.uint8).tobytes())
+        for entry in proto.counters:
+            self[entry.name].Set(entry.value)
 
 
 @contextlib.contextmanager

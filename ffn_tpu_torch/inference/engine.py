@@ -1,18 +1,29 @@
-"""Device-resident flood-fill engine: the serial step and the lane reads.
+"""Device-resident flood-fill engine: the serial step, the round-based
+batched step and the lane reads.
 
 Counterpart of ffn_tpu/inference/engine.py's FloodFillEngine: put_image,
-new_seed_buffer, reset_seed and step for the serial canvas; _face_scores,
-lane_seed_region, lane_mask_region and lane_mask_regions (K7) and
-set_lane_seed_region for the batched hop path. The seed (POM logits, NaN =
-unvisited) lives on the device. One serial step is
+new_seed_buffer, reset_seed and step for the serial canvas; new_seed_batch,
+reset_seed_lane, reset_lanes, select_step and step_batch for the round-based
+BatchCanvas; _face_scores, lane_seed_region, lane_mask_region and
+lane_mask_regions (K7) and set_lane_seed_region for the batched canvases.
+The seed (POM logits, NaN = unvisited) lives on the device. One serial step
+is
 
   K2 step_gather (image and seed patches, NaN -> pad)
   -> model.apply (the conv stack: K1 for every layer)
   -> K3 step_update (crop, disco-seed mask, write-back)
 
 and only the pred-size patch comes back to the host, for the canvas's
-mirror and the movement policy. On a CPU device the same calls run the
-kernels' plain PyTorch versions.
+mirror and the movement policy. One round of B lanes is
+
+  one (B, 3K+5) int32 upload (candidates, start, active, ignore)
+  -> K13 select_gather (the first valid candidate, image and seed patches)
+  -> model.apply on all B lanes (K1)
+  -> K14 select_update (disco mask, masked write-back, face maxima)
+
+and one (B, 30) f32 download. The lane resets are fills and index sets,
+as the JAX package's are memsets and scatters. On a CPU device the same
+calls run the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch
 
 from ffn_tpu_torch.ops import hop as hop_ops
 from ffn_tpu_torch.ops import lane as lane_ops
+from ffn_tpu_torch.ops import select as select_ops
 from ffn_tpu_torch.ops import step as step_ops
 
 
@@ -35,7 +47,7 @@ def resolve_device(device) -> torch.device:
 
 
 class FloodFillEngine:
-    """Serial flood-fill step on one device.
+    """Serial and round-based batched flood-fill steps on one device.
 
     Args:
       model: object with `.apply(image, seed) -> updated_seed` on
@@ -104,6 +116,102 @@ class FloodFillEngine:
                                      self._pred_size, self._move_threshold,
                                      self._disco_threshold)
         return seed, patch.cpu().numpy()
+
+    # -- the round-based batched step ----------------------------------------
+
+    def new_seed_batch(self, batch: int, shape) -> torch.Tensor:
+        return torch.full((int(batch),) + tuple(shape), float("nan"),
+                          dtype=torch.float32, device=self.device)
+
+    def reset_seed_lane(self, seeds: torch.Tensor, lane: int, pos,
+                        init_activation: float) -> torch.Tensor:
+        """Clears one lane of (B, Z, Y, X) seeds to NaN and plants
+        init_activation at pos, in place (engine.py:314-319)."""
+        seeds[int(lane)].fill_(float("nan"))
+        seeds[(int(lane),) + tuple(int(p) for p in pos)] = float(
+            np.float32(init_activation))
+        return seeds
+
+    def reset_lanes(self, seeds: torch.Tensor, reset_mask: np.ndarray,
+                    pos: np.ndarray, init_activation: float) -> torch.Tensor:
+        """Resets the lanes selected by reset_mask (B,) to a fresh seed at
+        pos (B, 3), in place (engine.py:295-306)."""
+        lanes = np.flatnonzero(np.asarray(reset_mask, bool))
+        if not len(lanes):
+            return seeds
+        p = torch.as_tensor(np.asarray(pos, np.int64).reshape(-1, 3)[lanes],
+                            device=self.device)
+        idx = torch.as_tensor(lanes, device=self.device)
+        seeds.index_fill_(0, idx, float("nan"))
+        seeds[idx, p[:, 0], p[:, 1], p[:, 2]] = float(
+            np.float32(init_activation))
+        return seeds
+
+    @torch.no_grad()
+    def _select_round(self, image: torch.Tensor, seeds: torch.Tensor,
+                      packed_in: np.ndarray):
+        """K13 -> the model on all B lanes -> K14 from the one packed
+        (B, 3K+5) int32 upload; returns K14's (packed (B, 30), masked crops
+        (B, *pred)) on the device."""
+        packed_dev = torch.from_numpy(
+            np.ascontiguousarray(packed_in, np.int32)).to(self.device)
+        img, seed_in, rec = select_ops.select_gather(
+            image, seeds, packed_dev, image_size=self._image_size,
+            seed_size=self._seed_size, move_threshold=self._move_threshold,
+            pad=self._pad_value)
+        logits = self.model.apply(img[..., None], seed_in[..., None])[..., 0]
+        return select_ops.select_update(
+            logits.contiguous(), seeds, rec, pred_size=self._pred_size,
+            deltas=[int(d) for d in self.info.deltas[::-1]],
+            move_threshold=self._move_threshold,
+            disco_threshold=self._disco_threshold)
+
+    def select_step(self, image: torch.Tensor, seeds: torch.Tensor,
+                    candidates: np.ndarray, start_pos: np.ndarray,
+                    active: np.ndarray, ignore_threshold: np.ndarray):
+        """Batched candidate-selecting step (engine.py:211-293, :359-385).
+
+        Per lane: the first of its K candidates (B, K, 3) whose seed value
+        is at or above the move threshold (candidate 0 unconditionally
+        where ignore_threshold), the FFN update there if the lane is active
+        and its start (B, 3) still holds, and the face maxima of the
+        written patch. `seeds` is updated in place and returned with the
+        aux dict of host arrays: executed, chosen (-1 if none valid),
+        start_ok, scores (B, 6), offsets (B, 6, 3), pos (B, 3). Host
+        traffic is one packed upload and one packed download.
+        """
+        B = candidates.shape[0]
+        packed_in = np.concatenate([
+            np.asarray(candidates, np.int32).reshape(B, -1),
+            np.asarray(start_pos, np.int32).reshape(B, 3),
+            np.asarray(active, np.int32).reshape(B, 1),
+            np.asarray(ignore_threshold, np.int32).reshape(B, 1),
+        ], axis=1)
+        packed, _ = self._select_round(image, seeds, packed_in)
+        packed = packed.cpu().numpy()
+        aux = {
+            "executed": packed[:, 0] > 0,
+            "chosen": packed[:, 1].astype(np.int32),
+            "start_ok": packed[:, 2] > 0,
+            "scores": packed[:, 3:9],
+            "offsets": packed[:, 9:27].reshape(B, 6, 3).astype(np.int32),
+            "pos": packed[:, 27:30].astype(np.int32),
+        }
+        return seeds, aux
+
+    def step_batch(self, image: torch.Tensor, seeds: torch.Tensor,
+                   pos: np.ndarray, active: np.ndarray):
+        """Batched step at fixed positions (engine.py:138-175): select_step
+        with one candidate, pos (B, 3), taken unconditionally, so a lane
+        executes exactly when it is active. `seeds` is updated in place and
+        returned with the masked logits (B, *pred) of every lane."""
+        pos = np.asarray(pos, np.int32).reshape(-1, 3)
+        B = len(pos)
+        packed_in = np.concatenate([
+            pos, pos, np.asarray(active, np.int32).reshape(B, 1),
+            np.ones((B, 1), np.int32)], axis=1)
+        _, masked = self._select_round(image, seeds, packed_in)
+        return seeds, masked.cpu().numpy()
 
     def _face_scores(self, patch: torch.Tensor):
         """Face maxima of a pred-size patch (engine.py:177-209).

@@ -23,8 +23,8 @@ queue (dropping stale entries, spilling the newest overflow to a host-side
 list) and resumes the lane; spilled entries return when the device FIFO
 empties, preserving FIFO order.
 
-Not ported (ROADMAP.md, Queue 1): restoring a round-based BatchCanvas
-checkpoint.
+A checkpoint of the round-based BatchCanvas restores here too: each lane's
+host FIFO and done cells become its device queue and dedup grid.
 """
 
 from __future__ import annotations
@@ -94,6 +94,8 @@ class HopBatchCanvas(batch_canvas_lib.BatchCanvas):
     FFN_TPU_DEVFIN environment variable, off by default; never with
     probability maps or a single lane).
     """
+
+    _allocate_seed_batch = False   # the seeds live in the lane state
 
     def __init__(self, model_info, engine, image, options, hops: int = 16,
                  seed_screening: bool = True, device_finalize=None,
@@ -646,16 +648,16 @@ class HopBatchCanvas(batch_canvas_lib.BatchCanvas):
         self.log_info("Hop-canvas checkpoint saved.")
 
     def restore_checkpoint(self, path: str) -> int:
-        """Restores a hop-format checkpoint (hop_canvas.py:742-823). Lanes
-        beyond this canvas's lane count go back to the deferred pool and
-        re-flood from their seeds."""
+        """Restores a hop-format or a round-based checkpoint
+        (hop_canvas.py:742-842). Lanes beyond this canvas's lane count go
+        back to the deferred pool and re-flood from their seeds."""
         self.log_info("Restoring hop-canvas checkpoint: %s", path)
         with open(path, "rb") as f:
             data = np.load(f, allow_pickle=True)
-            if "hop_format" not in data:
-                raise NotImplementedError(
-                    f"{path}: round-based BatchCanvas checkpoints are not "
-                    f"ported to ffn_tpu_torch (ROADMAP.md, Queue 2)")
+            legacy = "hop_format" not in data
+            if legacy:
+                self.log_info("Round-based BatchCanvas checkpoint; "
+                              "converting its lanes to the hop format.")
             self.segmentation[...] = data["segmentation"]
             if self.keep_probability_maps and "seg_qprob" in data:
                 self.seg_prob[...] = data["seg_qprob"]
@@ -680,6 +682,8 @@ class HopBatchCanvas(batch_canvas_lib.BatchCanvas):
                     self._deferred.append(tuple(
                         int(v) for v in saved["start_pos"]))
                     continue
+                if legacy:
+                    saved = self._convert_legacy_lane(saved)
                 lane = self._lanes[li]
                 lane.state = _RUNNING
                 lane.start_pos = np.asarray(saved["start_pos"])
@@ -715,3 +719,21 @@ class HopBatchCanvas(batch_canvas_lib.BatchCanvas):
                       "flight).", sum(1 for lane in self._lanes
                                       if lane.state == _RUNNING))
         return 0
+
+    def _convert_legacy_lane(self, saved: dict) -> dict:
+        """A round-based lane (host FIFO of (score, pos) after its pending
+        candidates, done-cell list) in the hop format (hop_canvas.py
+        :825-842)."""
+        entries = list(saved["pending"]) + list(saved["queue"])
+        qpos = np.array([p for _, p in entries], np.int32).reshape(-1, 3)
+        qscore = np.array([s for s, _ in entries], np.float32)
+        grid, offset = self.engine.grid_geometry(self.shape)
+        done_grid = np.zeros(grid, np.uint8)
+        cells = np.asarray(saved["done_cells"], np.int64).reshape(-1, 3)
+        if len(cells):
+            idx = cells + np.array(offset)
+            done_grid[idx[:, 0], idx[:, 1], idx[:, 2]] = 1
+        out = dict(saved)
+        out.update(qpos=qpos, qscore=qscore, done_grid=done_grid,
+                   fresh=int(out["num_iters"]) == 0)
+        return out

@@ -2,7 +2,8 @@
 
 Counterpart of ffn_tpu/inference/runner.py (Runner.start, .run). A request
 with concurrent_requests <= 1 builds the serial Canvas; a larger one builds
-HopBatchCanvas, whose lanes run on the device through HopEngine.run_hops.
+HopBatchCanvas, whose lanes run on the device through HopEngine.run_hops,
+or with hops 0 the round-based BatchCanvas (engine.select_step).
 The request may be an InferenceSettings or a parsed InferenceRequest
 proto. Model weights load from the JAX package's flat npz checkpoints.
 """
@@ -20,6 +21,7 @@ import torch
 from scipy.special import logit
 
 from ffn_tpu_torch.inference import align as align_lib
+from ffn_tpu_torch.inference import batch_canvas as batch_canvas_lib
 from ffn_tpu_torch.inference import canvas as canvas_lib
 from ffn_tpu_torch.inference import engine as engine_lib
 from ffn_tpu_torch.inference import hop_canvas as hop_canvas_lib
@@ -139,8 +141,8 @@ class Runner:
         """Builds the Canvas for a subvolume; returns (canvas, alignment).
 
         concurrent_requests > 1 builds HopBatchCanvas with that many lanes
-        and `hops` from canvas_defaults, else FFN_TPU_HOPS, else 16
-        (runner.py:278-305).
+        and `hops` from canvas_defaults, else FFN_TPU_HOPS, else 16; hops <=
+        0 builds the round-based BatchCanvas (runner.py:278-311).
         """
         inputs = self.load_subvolume_inputs(corner, subvol_size)
         lanes = max(1, self.request.concurrent_requests)
@@ -148,19 +150,21 @@ class Runner:
             merged = {**self.canvas_defaults, **canvas_kwargs}
             hops = int(merged.pop("hops",
                                   os.environ.get("FFN_TPU_HOPS", "16")))
-            if hops <= 0:
-                raise NotImplementedError(
-                    f"hops={hops}: the round-based BatchCanvas is not "
-                    f"ported to ffn_tpu_torch (ROADMAP.md, Queue 1 item 3)")
-            canvas = hop_canvas_lib.HopBatchCanvas(
-                self._model_info, self.engine, inputs["image"],
-                self.request.inference_options, hops=hops, lanes=lanes,
-                counters=inputs["counters"],
+            common = dict(
+                lanes=lanes, counters=inputs["counters"],
                 corner_zyx=inputs["dst_corner"],
                 checkpoint_path=storage.checkpoint_path(
                     self.request.segmentation_output_dir, corner),
-                checkpoint_interval_sec=self.request.checkpoint_interval,
-                **merged)
+                checkpoint_interval_sec=self.request.checkpoint_interval)
+            if hops > 0:
+                canvas = hop_canvas_lib.HopBatchCanvas(
+                    self._model_info, self.engine, inputs["image"],
+                    self.request.inference_options, hops=hops, **common,
+                    **merged)
+            else:
+                canvas = batch_canvas_lib.BatchCanvas(
+                    self._model_info, self.engine, inputs["image"],
+                    self.request.inference_options, **common, **merged)
             return canvas, inputs["alignment"]
         canvas = canvas_lib.Canvas(
             self._model_info, self.engine, inputs["image"],

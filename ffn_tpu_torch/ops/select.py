@@ -1,0 +1,209 @@
+"""K13 `select_gather` and K14 `select_update`: one round of the round-based
+batched flood fill.
+
+They are the non-model parts of the JAX package's candidate-selecting
+batched step (`FloodFillEngine._select_step_impl` with its packed jit
+wrapper, ffn_tpu/inference/engine.py:211-293 and :387-403):
+
+  K13 select_gather  per lane, the start's and the K candidates' seed values
+                     against the move threshold, the first valid pick, and
+                     the image and seed patches (NaN -> pad) at it;
+  K14 select_update  the crop and disco mask of `_apply_model` (:100-119),
+                     the masked write-back at the clamped write start, the
+                     six face maxima of the written patch (`_face_scores`,
+                     :177-209) and the packed (B, 30) row.
+
+`_step_batch_impl` (:138-175) is the same round with K = 1, the start at the
+position and `ignore` set on every lane; K14 always leaves every lane's
+masked crop in its second output, which is what that program returns.
+
+On CUDA tensors they launch the kernels in `csrc/select.cu`; on CPU tensors
+they run the plain PyTorch versions beside them, which are also the kernels'
+oracles on the card. The seed buffers are updated in place where the JAX
+program donates and returns new ones.
+
+A read of one seed voxel follows jnp's indexing of a traced index (a
+negative index wraps once, then it clamps into the volume); patch starts
+follow `lax.dynamic_slice` (wrap once, then clamp into [0, shape - size]).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ffn_tpu_torch import _build
+from ffn_tpu_torch.ops.hop import (_check_cuda, _check_dtypes, _device_of,
+                                   _disco, _f32, _i32, _stream, box_index,
+                                   dynamic_starts, face_scores_plain,
+                                   hop_gather_plain)
+
+GATHER = "select_gather"
+UPDATE = "select_update"
+
+# Columns of K14's packed row: executed, chosen, start_ok, 6 scores, 18
+# offsets, pos (engine.py:285-292).
+PACKED_COLUMNS = 30
+
+
+def unpack_select_input(packed_in: torch.Tensor):
+    """(candidates (B,K,3), start (B,3), active (B,) bool, ignore (B,) bool)
+    of the (B, 3K+5) int32 upload (engine.py:390-396)."""
+    B = packed_in.shape[0]
+    K = (packed_in.shape[1] - 5) // 3
+    return (packed_in[:, :3 * K].reshape(B, K, 3),
+            packed_in[:, 3 * K:3 * K + 3], packed_in[:, 3 * K + 3] > 0,
+            packed_in[:, 3 * K + 4] > 0)
+
+
+def select_gather_plain(image, seeds, packed_in, *, image_size, seed_size,
+                        move_threshold, pad):
+    dev = seeds.device
+    B = seeds.shape[0]
+    cands, start, active, ignore = unpack_select_input(packed_in)
+    rows = torch.arange(B, device=dev)
+    vol = _i32(seeds.shape[1:], dev)
+    move_t = _f32(move_threshold, dev)
+
+    def values(pos):   # (B, n, 3) -> (B, n) seed values
+        idx = dynamic_starts(pos, vol, 1).long()
+        return seeds[rows[:, None], idx[..., 0], idx[..., 1], idx[..., 2]]
+
+    start_ok = (values(start[:, None])[:, 0] >= move_t) | ignore
+    ok = values(cands) >= move_t
+    ok[:, 0] |= ignore
+    any_ok = ok.any(1)
+    chosen = torch.where(any_ok, ok.to(torch.int32).argmax(1), -1)
+    executed = active & start_ok & any_ok
+    pos = cands[rows, torch.clamp(chosen, min=0).long()].contiguous()
+    img, seed_in = hop_gather_plain(
+        image[None], pos, torch.zeros(B, dtype=torch.int32, device=dev), None,
+        seeds, image_size=image_size, seed_size=seed_size, pad=pad)
+    rec = torch.cat([torch.stack([executed.to(torch.int32),
+                                  chosen.to(torch.int32),
+                                  start_ok.to(torch.int32)], 1), pos], 1)
+    return img, seed_in, rec.to(torch.int32).contiguous()
+
+
+def select_gather(image: torch.Tensor, seeds: torch.Tensor,
+                  packed_in: torch.Tensor, *, image_size: Sequence[int],
+                  seed_size: Sequence[int], move_threshold: float,
+                  pad: float):
+    """K13: each lane's pick among its K candidates and the model inputs at
+    it.
+
+    image (Z,Y,X) f32; seeds (B,Z,Y,X) f32; packed_in (B, 3K+5) int32 holds
+    per lane K candidate positions, the segment start, active and ignore.
+    Returns (image patches (B,*image_size), seed patches (B,*seed_size) with
+    NaN -> pad, record (B, 6) int32 [executed, chosen (-1 if none),
+    start_ok, pos z, y, x]).
+    """
+    _check_dtypes(GATHER, torch.float32, image, seeds)
+    _check_dtypes(GATHER, torch.int32, packed_in)
+    B = seeds.shape[0]
+    if (packed_in.dim() != 2 or packed_in.shape[0] != B
+            or packed_in.shape[1] < 8 or (packed_in.shape[1] - 5) % 3):
+        raise ValueError(f"{GATHER}: packed input {tuple(packed_in.shape)} "
+                         f"for {B} lanes; want (B, 3K+5), K >= 1")
+    if image.shape != seeds.shape[1:]:
+        raise ValueError(f"{GATHER}: image {tuple(image.shape)} for seeds "
+                         f"{tuple(seeds.shape)}")
+    if _device_of(GATHER, seeds) == "cpu":
+        return select_gather_plain(image, seeds, packed_in,
+                                   image_size=image_size,
+                                   seed_size=seed_size,
+                                   move_threshold=move_threshold, pad=pad)
+    _check_cuda(GATHER, seeds, image, packed_in)
+    dev = seeds.device
+    img = torch.empty((B,) + tuple(image_size), dtype=torch.float32,
+                      device=dev)
+    seed_in = torch.empty((B,) + tuple(seed_size), dtype=torch.float32,
+                          device=dev)
+    rec = torch.empty((B, 6), dtype=torch.int32, device=dev)
+    if B == 0:
+        return img, seed_in, rec
+    err = _build.lib().ffn_select_gather(
+        image.data_ptr(), seeds.data_ptr(), packed_in.data_ptr(),
+        img.data_ptr(), seed_in.data_ptr(), rec.data_ptr(), B,
+        (packed_in.shape[1] - 5) // 3, *seeds.shape[1:],
+        *(int(v) for v in image_size), *(int(v) for v in seed_size),
+        float(move_threshold), float(pad), _stream(seeds))
+    _build.check(err, GATHER)
+    _build.launches[GATHER] += 1
+    return img, seed_in, rec
+
+
+def select_update_plain(logits, seeds, rec, *, pred_size, deltas,
+                        move_threshold, disco_threshold):
+    dev = seeds.device
+    B = seeds.shape[0]
+    rows = torch.arange(B, device=dev)
+    executed = rec[:, 0] > 0
+    pos = rec[:, 3:6]
+    vol = _i32(seeds.shape[1:], dev)
+    seed_size = logits.shape[1:]
+    ssz, psz = _i32(seed_size, dev), _i32(pred_size, dev)
+    delta = (ssz - psz) // 2
+    seed_start = pos - ssz // 2
+    # `old` for the disco mask is the crop of the clamped seed patch
+    # (engine.py:105); the write start is clamped on its own (:268-273).
+    old_start = dynamic_starts(seed_start, vol, ssz) + delta
+    write_start = dynamic_starts(seed_start + delta, vol, psz)
+    d = [int(v) for v in delta.tolist()]
+    crop = logits[:, d[0]:d[0] + pred_size[0], d[1]:d[1] + pred_size[1],
+                  d[2]:d[2] + pred_size[2]]
+    masked = _disco(crop, seeds[box_index(rows, old_start, pred_size)],
+                    move_threshold, disco_threshold)
+    box = box_index(rows, write_start, pred_size)
+    patch = torch.where(executed[:, None, None, None], masked, seeds[box])
+    seeds[box] = patch
+    scores, offsets = face_scores_plain(patch, deltas)
+    scores = torch.where(executed[:, None], scores,
+                         torch.tensor(float("-inf"), device=dev))
+    packed = torch.cat([rec[:, :3].to(torch.float32), scores,
+                        offsets.reshape(B, 18).to(torch.float32),
+                        pos.to(torch.float32)], 1)
+    return packed.contiguous(), masked.contiguous()
+
+
+def select_update(logits: torch.Tensor, seeds: torch.Tensor,
+                  rec: torch.Tensor, *, pred_size: Sequence[int],
+                  deltas: Sequence[int], move_threshold: float,
+                  disco_threshold: float):
+    """K14: lane b's model output -> its seed buffer and its packed row.
+
+    logits (B, *seed_size) is the model output at the patches K13 gathered;
+    rec (B, 6) int32 is K13's record. Per lane: the disco-masked crop, its
+    write-back where the lane executed, the face maxima of the written patch
+    (scores -inf where it did not). Returns (packed (B, 30) f32, the masked
+    crops (B, *pred_size)); `seeds` is updated in place.
+    """
+    _check_dtypes(UPDATE, torch.float32, logits, seeds)
+    _check_dtypes(UPDATE, torch.int32, rec)
+    B = seeds.shape[0]
+    if logits.shape[0] != B or rec.shape != (B, 6):
+        raise ValueError(f"{UPDATE}: logits {tuple(logits.shape)}, record "
+                         f"{tuple(rec.shape)} for {B} lanes")
+    if _device_of(UPDATE, seeds) == "cpu":
+        return select_update_plain(logits, seeds, rec, pred_size=pred_size,
+                                   deltas=deltas,
+                                   move_threshold=move_threshold,
+                                   disco_threshold=disco_threshold)
+    _check_cuda(UPDATE, seeds, logits, rec)
+    dev = seeds.device
+    packed = torch.empty((B, PACKED_COLUMNS), dtype=torch.float32,
+                         device=dev)
+    masked = torch.empty((B,) + tuple(pred_size), dtype=torch.float32,
+                         device=dev)
+    if B == 0:
+        return packed, masked
+    err = _build.lib().ffn_select_update(
+        logits.data_ptr(), seeds.data_ptr(), rec.data_ptr(),
+        masked.data_ptr(), packed.data_ptr(), B, *seeds.shape[1:],
+        *logits.shape[1:], *(int(v) for v in pred_size),
+        *(int(v) for v in deltas), float(move_threshold),
+        float(disco_threshold), _stream(seeds))
+    _build.check(err, UPDATE)
+    _build.launches[UPDATE] += 1
+    return packed, masked

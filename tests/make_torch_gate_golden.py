@@ -3,16 +3,18 @@
 quality-gate pair (tools/quality_eval.py's check 2) with the shipped CI
 checkpoint (depth 2, 16 features, 17^3 FOV), float32, on the CPU: the
 held-out seed-11 100^3 phantom with 8 cells, reflect-padded by 16,
-segmented serially and at 64 lanes. chip_smoke.py holds ffn_tpu_torch on
-the card to it voxel for voxel.
+segmented serially, at 64 lanes on the hop path (16 hops) and at 64 lanes
+on the round-based path (hops 0: BatchCanvas and select_step).
+chip_smoke.py holds ffn_tpu_torch on the card to it voxel for voxel.
 
-  python tests/make_torch_gate_golden.py     # ~12 min on 8 CPU cores
+  python tests/make_torch_gate_golden.py     # ~24 min on 8 CPU cores
 
 The golden holds the padded image and the ground truth (another numpy or
-scipy may draw the phantom a voxel differently), and per lane count L in
-(1, 64): seg{L}, the padded box's segmentation; origins{L}, rows (id, z,
-y, x, iterations); moves{L}, the FOV moves (update_at-calls serially,
-fov-moves batched).
+scipy may draw the phantom a voxel differently), and per run R in (1, 64,
+64_round): seg{R}, the padded box's segmentation; origins{R}, rows (id,
+z, y, x, iterations); moves{R}, the FOV moves (update_at-calls serially,
+fov-moves batched); and rounds64_round, the round-based run's
+select_step calls.
 """
 
 import os
@@ -46,22 +48,27 @@ def main():
         vol = os.path.join(tmp, "gate.h5")
         with h5py.File(vol, "w") as f:
             f.create_dataset("raw", data=raw)
-        for lanes in (1, 64):
+        for lanes, hops, run in ((1, 16, "1"), (64, 16, "64"),
+                                 (64, 0, "64_round")):
             request = quality_eval.build_request(
-                vol, os.path.join(tmp, f"l{lanes}"), CKPT, lanes, "f32")
+                vol, os.path.join(tmp, f"l{run}"), CKPT, lanes, "f32")
             runner = runner_lib.Runner()
-            runner.canvas_defaults["max_iters_per_segment"] = MAX_ITERS
+            runner.canvas_defaults.update(max_iters_per_segment=MAX_ITERS,
+                                          hops=hops)
             runner.start(request)
             canvas = runner.run((0, 0, 0), raw.shape,
                                 keep_probability_maps=False)
             seg = np.maximum(canvas.segmentation, 0)
-            golden[f"seg{lanes}"] = seg.astype(np.min_scalar_type(seg.max()))
-            golden[f"origins{lanes}"] = np.array(
+            golden[f"seg{run}"] = seg.astype(np.min_scalar_type(seg.max()))
+            golden[f"origins{run}"] = np.array(
                 [(k, *o.start_zyx, o.iters)
                  for k, o in sorted(canvas.origins.items())], np.int64)
-            golden[f"moves{lanes}"] = runner.counters[
+            golden[f"moves{run}"] = runner.counters[
                 "fov-moves" if lanes > 1 else "update_at-calls"].value
-            print(f"{lanes} lanes: {golden[f'moves{lanes}']} moves, "
+            if hops == 0:
+                golden[f"rounds{run}"] = runner.counters[
+                    "predict-calls"].value
+            print(f"{run}: {golden[f'moves{run}']} moves, "
                   f"{len(canvas.origins)} origins", flush=True)
     np.savez_compressed(OUT, **golden)
     print(f"wrote {OUT}")

@@ -5,10 +5,11 @@ rule-based oracle model and the same grid seeds; the oracle makes every
 step exact, so the segmentations, the origins (position and iterations)
 and every count counter must be identical (timers are not compared), up to
 64 lanes, where lanes outnumber the seeds and speculative floods are
-dropped as already claimed; the same with device finalization (K8's plain
-version and the round's finalization log). Also: lanes=1 equals the port's
-serial Canvas, and a run killed after a checkpoint resumes to the
-uninterrupted result.
+dropped as already claimed. The same with device finalization is in
+test_torch_hop_canvas_devfin.py; lanes=1 against the serial Canvas and
+kill-and-resume in test_torch_hop_canvas_resume.py (the files are split so
+that parallel test workers, which take a file each, share the load). The
+helpers here build both packages' canvases for those files too.
 """
 
 import numpy as np
@@ -18,7 +19,7 @@ from scipy.special import logit
 from ffn_tpu.inference import hop_canvas as jax_hop_canvas
 from ffn_tpu.inference import hop_engine as jax_hop_engine
 from ffn_tpu.models import oracle as jax_oracle
-from ffn_tpu_torch.inference import batch_canvas, hop_canvas, hop_engine
+from ffn_tpu_torch.inference import hop_canvas, hop_engine
 from ffn_tpu_torch.models import oracle
 from test_canvas_e2e import DELTAS, FOV, make_image, make_options
 from test_canvas_e2e import GridSeeds as JaxGridSeeds
@@ -121,80 +122,7 @@ def test_hop_canvas_matches_jax(lanes, hops, Q, kwargs):
         assert got.counters["seed-claimed-drops"].value > 0
 
 
-@pytest.mark.parametrize("lanes,hops,Q,via_env", [
-    (4, 3, 4096, False), (12, 8, 4096, True), (64, 8, 4096, False),
-    (4, 8, 16, False)])   # stalls under device finalization: hold, spill
-def test_hop_canvas_device_finalize_matches_jax(monkeypatch, lanes, hops, Q,
-                                               via_env):
-    kwargs = {}
-    if via_env:
-        monkeypatch.setenv("FFN_TPU_DEVFIN", "1")
-    else:
-        kwargs["device_finalize"] = True
-    want = run_jax(lanes, hops, Q, **kwargs)
-    got = run_port(lanes, hops, Q, **kwargs)
-    assert got.device_finalize and want.device_finalize
-    np.testing.assert_array_equal(got.segmentation, want.segmentation)
-    assert _origins(got) == _origins(want) and len(got.origins) >= 2
-    assert _counts(got) == _counts(want)
-    if Q == 16:
-        assert got.counters["queue-stall-drains"].value > 0
-
-
-def test_single_lane_hops_match_serial_canvas():
-    hc = run_port(lanes=1, hops=8)
-    cv = _port_canvas(make_image())
-    cv.segment_all(seed_policy=GridSeeds)
-    np.testing.assert_array_equal(hc.segmentation, cv.segmentation)
-    assert _origins(hc) == _origins(cv)
-
-
-class _Die(Exception):
-    pass
-
-
-def _interrupted(cpoint, lanes, hops, die_after):
-    hc = make_port(lanes, hops, checkpoint_path=cpoint,
-                   checkpoint_interval_sec=1e-9)
-    saves = {"n": 0}
-    save = hc.save_checkpoint
-
-    def save_and_maybe_die(path):
-        save(path)
-        saves["n"] += 1
-        if saves["n"] >= die_after:
-            raise _Die()
-
-    hc.save_checkpoint = save_and_maybe_die
-    with pytest.raises(_Die):
-        hc.segment_all(seed_policy=GridSeeds)
-    return hc
-
-
-@pytest.mark.parametrize("lanes,restore_lanes", [(4, 4), (4, 2)])
-def test_kill_and_resume_reproduces_segmentation(tmp_path, lanes,
-                                                 restore_lanes):
-    cpoint = str(tmp_path / "cpoint.npz")
-    uninterrupted = run_port(lanes=lanes, hops=3)
-    hc = _interrupted(cpoint, lanes, 3, die_after=4)
-    in_flight = [tuple(int(v) for v in lane.start_pos)
-                 for lane in hc._lanes
-                 if lane.state == batch_canvas._RUNNING and lane.num_iters]
-    assert in_flight
-
-    hc2 = make_port(restore_lanes, 3)
-    assert hc2.restore_checkpoint(cpoint) == 0
-    for pos in in_flight[restore_lanes:]:
-        assert pos in hc2._deferred   # re-floods from its seed
-    hc2.segment_all(seed_policy=GridSeeds)
-    np.testing.assert_array_equal(np.maximum(hc2.segmentation, 0),
-                                  np.maximum(uninterrupted.segmentation, 0))
-    if restore_lanes == lanes:
-        assert sorted(o.iters for o in hc2.origins.values()) == \
-            sorted(o.iters for o in uninterrupted.origins.values())
-
-
-def test_port_refuses_what_it_does_not_run(tmp_path, monkeypatch):
+def test_port_refuses_what_it_does_not_run(monkeypatch):
     # Device finalization is ported (test_hop_canvas_device_finalize_
     # matches_jax); as in the JAX canvas it stays off for one lane and for
     # probability maps.
@@ -202,12 +130,3 @@ def test_port_refuses_what_it_does_not_run(tmp_path, monkeypatch):
     assert make_port(4, 3).device_finalize
     assert not make_port(1, 3).device_finalize
     assert not make_port(4, 3, keep_probability_maps=True).device_finalize
-    monkeypatch.delenv("FFN_TPU_DEVFIN")
-    legacy = str(tmp_path / "legacy.npz")
-    np.savez(legacy, segmentation=np.zeros((36, 36, 36), np.int32))
-    with pytest.raises(NotImplementedError, match="round-based"):
-        make_port(2, 3).restore_checkpoint(legacy)
-    model, eng = _port_engine(64)
-    with pytest.raises(NotImplementedError, match="hops=0"):
-        batch_canvas.BatchCanvas(model.info, eng, make_image(),
-                                 _port_options(), lanes=2).segment_all()

@@ -55,7 +55,8 @@ def test_the_package_lists_the_slice_modules():
                  "ffn_tpu_torch.training.inputs",
                  "ffn_tpu_torch.training.train_lib",
                  "ffn_tpu_torch.training.train_loop",
-                 "ffn_tpu_torch.cli.train"):
+                 "ffn_tpu_torch.cli.train",
+                 "ffn_tpu_torch.ops.select"):
         assert name in PORT_MODULES
 
 

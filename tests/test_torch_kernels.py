@@ -834,3 +834,120 @@ def test_k12_matches_plain(card, opt, schedule):
         for a, b in zip(kp + ke + [t for t in ks1 + ks2 if t is not None],
                         pp + pe + [t for t in ps1 + ps2 if t is not None]):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+# -- K13-K14: the round-based batched step ------------------------------------
+
+from ffn_tpu_torch.ops import select as select_ops  # noqa: E402
+
+
+def crafted_select(rng, B, K, shape, fixed=False):
+    """Seeds (B, *shape) and the (B, 3K+5) int32 upload of one round that
+    drives every branch of K13 and K14: NaN seeds, candidates on NaN and
+    below the move threshold ahead of a valid one, a lane with none valid,
+    ignore, weak and NaN starts, inactive lanes, candidates on every face
+    and out of the volume. fixed: step_batch's round (K = 1, the start at
+    the candidate, ignore everywhere)."""
+    dims = np.array(shape)
+    seeds = (rng.randn(B, *shape) * 3).astype(np.float32)
+    seeds[rng.rand(B, *shape) < 0.3] = np.nan
+    cands = rng.randint(0, dims, size=(B, K, 3)).astype(np.int32)
+    start = rng.randint(0, dims, size=(B, 3)).astype(np.int32)
+    strong, weak = np.float32(MOVE_T + 1), np.float32(MOVE_T - 1)
+    for b in range(B):
+        seeds[(b,) + tuple(start[b])] = strong
+        seeds[(b,) + tuple(cands[b, -1])] = strong
+    seeds[(1,) + tuple(start[1])] = weak
+    seeds[(2,) + tuple(start[2])] = np.nan
+    seeds[(3,) + tuple(cands[3, 0])] = np.nan
+    if K > 1:
+        seeds[(3,) + tuple(cands[3, 1])] = weak
+    for k in range(K):
+        seeds[(4,) + tuple(cands[4, k])] = np.nan if k % 2 else weak
+    faces = [(0, 0, 0), dims - 1, (1, dims[1] - 2, 3),
+             (-2, dims[1] + 3, dims[2] - 1), (dims[0] - 1, 2, 0)]
+    for b, p in zip(range(5, 10), faces):
+        cands[b, 0] = p
+        idx = np.clip(np.where(cands[b, 0] < 0, cands[b, 0] + dims,
+                               cands[b, 0]), 0, dims - 1)
+        seeds[(b,) + tuple(idx)] = strong
+    active = rng.rand(B) < 0.9
+    active[[0, 3, 4, 5, 7, 8, 9]] = True
+    active[6] = False
+    ignore = rng.rand(B) < 0.2
+    ignore[[1, 2, 3]] = False
+    ignore[[0, 4]] = True
+    if fixed:
+        cands = cands[:, :1]
+        start = cands[:, 0]
+        ignore[:] = True
+    packed = np.concatenate([cands.reshape(B, -1), start,
+                             active[:, None], ignore[:, None]],
+                            axis=1).astype(np.int32)
+    return seeds, packed
+
+
+def select_round(ops, image, seeds, packed, logits, *, fov, pred, deltas,
+                 disco):
+    """K13 -> (fixed logits) -> K14 through `ops`; returns (img, seed_in,
+    rec, packed row, masked)."""
+    img, seed_in, rec = ops.select_gather(
+        image, seeds, packed, image_size=(fov,) * 3, seed_size=(fov,) * 3,
+        move_threshold=MOVE_T, pad=PAD)
+    row, masked = ops.select_update(
+        logits, seeds, rec, pred_size=(pred,) * 3, deltas=deltas,
+        move_threshold=MOVE_T, disco_threshold=disco)
+    return img, seed_in, rec, row, masked
+
+
+class _PlainSelect:
+    from ffn_tpu_torch.ops.select import (
+        select_gather_plain as select_gather,
+        select_update_plain as select_update)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,fixed,pred,deltas,disco", [
+    (4, False, FOV, (2, 2, 2), 0.0), (1, True, FOV, (2, 2, 2), 0.5),
+    (3, False, 7, (3, 0, 2), -1.0)])
+def test_select_kernels_match_plain(card, K, fixed, pred, deltas, disco):
+    rng = np.random.RandomState(13)
+    B = 37
+    seeds, packed = crafted_select(rng, B, K, SHAPE, fixed)
+    image = torch.from_numpy(rng.randn(*SHAPE).astype(np.float32)).to(card)
+    logits = tied_logits(rng, B, FOV)
+    logits[3, 4, 4, 1] = np.nan
+    lg = torch.from_numpy(logits).to(card)
+    pk = torch.from_numpy(packed).to(card)
+    ks = torch.from_numpy(seeds).to(card)
+    ps = ks.clone()
+    kw = dict(fov=FOV, pred=pred, deltas=deltas, disco=disco)
+    got = select_round(select_ops, image, ks, pk, lg, **kw)
+    want = select_round(_PlainSelect, image, ps, pk, lg, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("img", "seed_in", "rec", "row", "masked"), got,
+                          want):
+        assert g.shape == w.shape and nan_equal(g, w), name
+    assert nan_equal(ks, ps)
+    rec = want[2].cpu().numpy()
+    assert rec[:, 0].any() and not rec[:, 0].all()
+    assert not rec[[1, 2, 6], 0].any() or fixed
+
+
+def test_select_plain_runs_on_crafted_rounds():
+    """The crafted round's branches, on the CPU: executed, chosen and
+    start_ok as the JAX program computes them (tests/test_torch_select.py
+    holds them to it)."""
+    rng = np.random.RandomState(13)
+    seeds, packed = crafted_select(rng, 12, 3, SHAPE)
+    image = torch.from_numpy(rng.randn(*SHAPE).astype(np.float32))
+    lg = torch.from_numpy(tied_logits(rng, 12, FOV))
+    _, _, rec, row, _ = select_round(
+        _PlainSelect, image, torch.from_numpy(seeds),
+        torch.from_numpy(packed), lg, fov=FOV, pred=FOV, deltas=(2, 2, 2),
+        disco=0.0)
+    rec = rec.numpy()
+    assert rec[[1, 2, 6], 0].tolist() == [0, 0, 0]   # weak, NaN, inactive
+    assert rec[3, 1] == 2 and rec[4, 1] == 0 and rec[0, 1] == 0
+    assert rec[[5, 7, 8, 9], 0].all()
+    assert np.isinf(row.numpy()[rec[:, 0] == 0, 3:9]).all()
