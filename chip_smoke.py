@@ -7,7 +7,7 @@ multi-subvolume inference paths and its training path on one NVIDIA card.
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit, torch/CUDA versions, and
      which of protobuf/absl/h5py/jax this machine has;
-  2. build: the CUDA kernels K1-K14 from ffn_tpu_torch/csrc with nvcc, one
+  2. build: the CUDA kernels K1-K15 from ffn_tpu_torch/csrc with nvcc, one
      process per source;
   3. each kernel against its plain PyTorch version at the main paths'
      shapes (K1 within 1e-4 of max|plain| per layer at N=1, 8, 16, 32, 64
@@ -84,21 +84,34 @@ Phases (any failure ends the run with a non-zero exit):
  13. the CI checkpoint at 64 lanes with hops 0 on the gate's phantom, held
      voxel for voxel, origin for origin, move for move and round for round
      to the JAX package's run (tests/golden/gate_ci_lanes_golden.npz, its
-     *_round entries).
+     *_round entries);
+ 14. bfloat16 inference (model_args dtype "bfloat16", the default of
+     bench.py and tools/e2e_fused_bench.py): model-r2 at full width on
+     phase 5's phantom through the serial, 64-lane hop, 8-lane round and
+     fused (8 x 82^3, 64 lanes, device finalization) slices, each on K15
+     and on K15's plain version; the serial slice held to ground-truth
+     agreement >= 0.95, hop, round and fused to floors just under their
+     measured values; each pair's object agreement printed (not
+     required: float32 sums in another order flip rare roundings).
 Phase 3 also holds K8 (a crafted 64-lane state over 4 slots of 82^3), K4
 with the device segmentation and K7's batched masks to their plain
 versions, bit for bit, and the training kernels at batch 4: K9 and K10
 within 1e-4 of max|plain| for every layer kind (K10 twice bit for bit),
 K11's passes and K12 (sgd and adam over the depth-12 model's 638,433
 parameters), and K13/K14 on a crafted 64-lane round on 132^3 in select
-mode (K = 4) and in step_batch's fixed mode, bit for bit. Every kernel's
-entry in the line before the last, {"kernels": [...]}, carries its
-launches on each main path's run (`launches_by_path`: serial, hop, fused,
-fused_host, train, round) and their sum, its
-error against its plain version, its median time, its plain version's, a
-library call's where one PyTorch call computes the same function, and its
-bound (bytes or float32 operations at the H100's published peaks). The
-last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+mode (K = 4) and in step_batch's fixed mode, bit for bit; and K15 (the
+bfloat16 conv) for every layer kind at N = 1, 8, 64 and 256 within one
+bfloat16 ulp per rounding of its plain version, the depth-12 bfloat16
+stack at N=64 within 2^-6 of max|logit| of the plain stack, N=1 against
+N=64 bit for bit, with times beside cuDNN's bfloat16 conv and K1. Every
+kernel's entry in the line before the last, {"kernels": [...]}, carries
+its launches on each main path's run (`launches_by_path`: serial, hop,
+fused, fused_host, train, round, serial_bf16, hop_bf16, round_bf16,
+fused_bf16) and their sum, its error against its plain version, its
+median time, its plain version's, a library call's where one PyTorch call
+computes the same function, and its bound (bytes, or float32 or bfloat16
+operations, at the H100's published peaks). The last line is {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -142,14 +155,29 @@ ROUND_LANES = 8      # concurrent_requests of the round slice (hops 0)
 # the 1.0 measured on the H100 (whole cells of 8).
 ROUND64_AGREE_FLOOR = 0.99
 INIT_ACT = float(np.float32(np.log(0.95 / 0.05)))   # init_activation 0.95
+# Ground-truth agreement floors of the bfloat16 hop and fused slices, just
+# under the values measured on the H100: hop 1.0; fused 0.625 (its 64
+# lanes split cells, as in float32). The serial and round slices are held
+# to the quality gate's 0.95.
+BF16_HOP_AGREE_FLOOR = 0.95
+BF16_FUSED_AGREE_FLOOR = 0.6
+# K15 against its plain version: per layer one bfloat16 ulp per rounding
+# the layer makes and at most DIFFER_SHARE of its outputs differing
+# (ffn_tpu_torch/ops/conv3d_bf16_check.py); the depth-12 stack within 2^-6
+# of max|plain logit|. Against the exact sums (conv3d_ndhwc_bf16_exact),
+# layers and stack bit for bit.
+K15_NS = (1, 8, 64, 256)
+K15_STACK_TOL = 2.0 ** -6
 
 
 # Published H100 SXM peaks (NVIDIA's H100 datasheet): HBM
-# bandwidth and float32 outside the tensor cores. A kernel's bound is the
-# larger of its bytes (each input read once, each output written once) over
-# the first and its operations over the second.
+# bandwidth, float32 outside the tensor cores and dense bfloat16 on them. A
+# kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over the first and its operations over the peak of
+# their type.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 
 def require(cond, msg):
@@ -157,17 +185,19 @@ def require(cond, msg):
         raise RuntimeError(msg)
 
 
-def bound_of(nbytes=0.0, flops=0.0):
-    """(bound_ms, bound_by) of a call that moves `nbytes` and does `flops`."""
+def bound_of(nbytes=0.0, flops=0.0, peak=F32_FLOPS):
+    """(bound_ms, bound_by) of a call that moves `nbytes` and does `flops`
+    at `peak` operations per second."""
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops / F32_FLOPS
+    by_ops = 1e3 * flops / peak
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
 
 
-def entry(err, ms, plain_ms, nbytes=0.0, flops=0.0, library_ms=None):
+def entry(err, ms, plain_ms, nbytes=0.0, flops=0.0, library_ms=None,
+          peak=F32_FLOPS):
     """One kernel's numbers for the {"kernels": [...]} line."""
-    bound_ms, bound_by = bound_of(nbytes, flops)
+    bound_ms, bound_by = bound_of(nbytes, flops, peak)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -268,6 +298,14 @@ def check_k1(randn, n, reps):
         require(err <= bound, f"K1 N={n} {name}: error {err} above {bound}")
         out.append((name, err, ms, plain_ms, lib_ms))
     return out
+
+
+def k15_work(n, k, cin, cout, x_bytes, res_bytes, out_bytes):
+    """(bytes, flops) of one bfloat16 SAME conv layer on N 33^3 samples."""
+    vox = n * 33 ** 3
+    return (vox * (cin * x_bytes + cout * (res_bytes + out_bytes))
+            + 2 * (k ** 3 * cin * cout + cout),
+            2 * vox * k ** 3 * cin * cout)
 
 
 def phase_device():
@@ -788,6 +826,7 @@ def _subvolumes(out_dir, edge, sub, overlap):
     """Per subvolume, in index order: (segmentation, origin rows (id, z, y,
     x, iterations), count counters) as the worker saved them."""
     from ffn_tpu_torch.inference import storage
+    from ffn_tpu_torch.inference.counters import Counters
     from ffn_tpu_torch.utils import bounding_box
     calc = bounding_box.OrderlyOverlappingCalculator(
         bounding_box.BoundingBox(start=(0, 0, 0), size=(edge,) * 3),
@@ -798,10 +837,11 @@ def _subvolumes(out_dir, edge, sub, overlap):
                        calc.index_to_sub_box(index).start[::-1])
         seg, origins = storage.load_segmentation(out_dir, corner,
                                                  split_cc=False)
-        with np.load(storage.segmentation_path(out_dir, corner),
-                     allow_pickle=True) as data:
-            counts = {k: v for k, v in json.loads(bytes(
-                data["counters"])).items() if not k.endswith("-ms")}
+        with np.load(storage.segmentation_path(out_dir, corner)) as data:
+            counters = Counters()
+            counters.loads(data["counters"])
+            counts = {k: c.value for k, c in counters
+                      if not k.endswith("-ms")}
         rows = np.array([(k, *o.start_zyx, o.iters)
                          for k, o in sorted(origins.items())], np.int64)
         out.append((seg.astype(np.int64), rows, counts))
@@ -1102,8 +1142,8 @@ def _settings(have, image_path, out_dir):
     from ffn_tpu_torch.inference import settings as settings_lib
     if have["google.protobuf"]:
         from ffn_tpu_torch.cli.run_inference import parse_request
-        settings = parse_request(
-            "@" + os.path.join(REPO, "configs", "inference_phantom.pbtxt"))
+        settings = settings_lib.InferenceSettings.from_proto(parse_request(
+            "@" + os.path.join(REPO, "configs", "inference_phantom.pbtxt")))
         print("settings: parsed configs/inference_phantom.pbtxt")
     else:
         settings = settings_lib.InferenceSettings(
@@ -1545,6 +1585,160 @@ def phase_select_kernels(dev):
     return results
 
 
+def phase_bf16_kernels(dev):
+    """K15 conv3d_ndhwc_bf16 against its plain version: every layer kind of
+    the bfloat16 stack at N = 1, 8, 64 and 256 on random
+    inputs, every output within one bfloat16 ulp per rounding its layer
+    makes and at most DIFFER_SHARE of them differing at all
+    (ffn_tpu_torch/ops/conv3d_bf16_check.py), and equal to the layer with
+    float64 sums (conv3d_ndhwc_bf16_exact) bit for bit, a repeated
+    call bit for bit, and at N=64 sample 17 alone bit-identical to the
+    same sample inside the batch; the depth-12 model-r2 stack in bfloat16
+    at N=64 within 2^-6 of max|plain logit| and equal to the stack with
+    float64 sums bit for bit, and samples 0, 17 and 63 at
+    N=1 bit-identical to the batch's. Times each layer kind at N=1 and 64:
+    K15, its plain version, one library call (cuDNN's bfloat16 conv3d on
+    channels-last tensors, without the stack's roundings, relus and
+    residual) and K1 in float32 on the same values."""
+    import torch.nn.functional as F
+    from ffn_tpu_torch.models import convstack_3d, params_io
+    from ffn_tpu_torch.ops import conv3d
+    from ffn_tpu_torch.ops import conv3d_bf16_check as check
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    results, err = {}, 0.0
+    for n in K15_NS:
+        # The stack's layer kinds at 32 features (K15_CASES): block_a is
+        # 22 of its 24 3^3 layers.
+        for name in ("conv0_a", "block_a", "block_b", "conv_lom"):
+            k, cin, cout, pre, post, rdt, _ = check.K15_CASES[name]
+            x, w, b, r = check.k15_inputs(gen, n, (33, 33, 33), name)
+            kw = dict(pre_relu=pre, post_relu=post, residual=r)
+            got = conv3d.conv3d_ndhwc_bf16(x, w, b, **kw)
+            want = conv3d.conv3d_ndhwc_bf16_plain(x, w, b, **kw)
+            require(got.dtype == want.dtype and got.shape == want.shape
+                    and bool(torch.isfinite(got).all()),
+                    f"K15 N={n} {name}: {got.dtype} {tuple(got.shape)}, "
+                    f"want {want.dtype} {tuple(want.shape)}")
+            delta = (got.float() - want.float()).abs()
+            differ = float((delta > 0).float().mean())
+            # Beyond one ulp of the rounded sum: a second rounding's step.
+            second = float((delta > check.bf16_ulp(
+                conv3d.conv3d_ndhwc_bf16_plain(
+                    x, w, torch.zeros_like(b), pre_relu=pre))).float().mean())
+            worst = float((delta / check.k15_tolerance(x, w, b, **kw)).max())
+            err = max(err, float(delta.max()))
+            require(torch.equal(got, conv3d.conv3d_ndhwc_bf16(x, w, b, **kw)),
+                    f"K15 N={n} {name}: a repeated call differs")
+            alone = ""
+            if n == 64:
+                one = conv3d.conv3d_ndhwc_bf16(
+                    x[17:18].clone(), w, b, pre_relu=pre, post_relu=post,
+                    residual=None if r is None else r[17:18].clone())
+                require(torch.equal(one[0], got[17]),
+                        f"K15 {name}: sample 17 alone differs from N=64")
+                alone = "; sample 17 alone bit-identical"
+            print(f"K15 conv3d_ndhwc_bf16 N={n} {name}: {differ:.3e} of "
+                  f"outputs differ from plain (limit {check.DIFFER_SHARE}),"
+                  f" {second:.3e} by more than one ulp of the rounded sum; "
+                  f"max {worst:.3f} of the tolerance (one ulp per "
+                  f"rounding); equal to the float64 sums' rounding{alone}")
+            require(worst <= 1.0, f"K15 N={n} {name}: {worst} of the "
+                                  f"tolerance from the plain version")
+            require(differ <= check.DIFFER_SHARE,
+                    f"K15 N={n} {name}: {differ} of outputs differ from the "
+                    f"plain version, above {check.DIFFER_SHARE}")
+            off = check.differ_share(
+                got, check.conv3d_ndhwc_bf16_exact(x, w, b, **kw))
+            require(off == 0.0, f"K15 N={n} {name}: {off} of outputs differ "
+                                f"from the float64 sums' rounding")
+            del got, want, delta
+            if n not in (1, LANES):
+                continue
+            xc = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+            wc = w.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            xf, wf, bf = x.float(), w.float(), b.float()
+            rf = None if r is None else r.float()
+            ms, plain_ms, lib_ms, k1_ms = time_many(
+                lambda: conv3d.conv3d_ndhwc_bf16(x, w, b, **kw),
+                lambda: conv3d.conv3d_ndhwc_bf16_plain(x, w, b, **kw),
+                lambda: F.conv3d(xc, wc, b, padding=k // 2),
+                lambda: conv3d.conv3d_ndhwc_f32(
+                    xf, wf, bf, pre_relu=pre, post_relu=post, residual=rf),
+                reps=REPS if name == "block_a" else 10)
+            work = k15_work(n, k, cin, cout, x.element_size(),
+                            0 if r is None else r.element_size(),
+                            4 if rdt == torch.float32 else 2)
+            bound_ms, bound_by = bound_of(*work, peak=BF16_FLOPS)
+            print(f"K15 N={n} {name}: kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms library (cuDNN bf16 conv3d) "
+                  f"{lib_ms:.4f} ms K1 float32 {k1_ms:.4f} ms bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; {work[1] / 1e9:.2f} "
+                  f"GFLOP, {work[0] / 1e6:.1f} MB): "
+                  f"{work[1] / ms / 1e9:.1f} TFLOP/s")
+            if n == LANES and name == "block_a":
+                results["conv3d_ndhwc_bf16"] = entry(
+                    0.0, ms, plain_ms, *work, library_ms=lib_ms,
+                    peak=BF16_FLOPS)
+            del xc, wc, xf, wf, bf, rf
+        torch.cuda.empty_cache()
+    results["conv3d_ndhwc_bf16"]["max_abs_err"] = err
+
+    fov, deltas = 33, [8, 8, 8]
+    model = convstack_3d.ConvStack3DFFNModel(
+        fov_size=[fov] * 3, deltas=deltas, depth=12, dtype="bfloat16")
+    model.load_params(params_io.load_params_npz(
+        os.path.join(REPO, "models", "phantom", "model-r2.npz")))
+    model.to(dev)
+    img = randn(LANES, fov, fov, fov, 1)
+    sd = randn(LANES, fov, fov, fov, 1, scale=3.0)
+    batch = model.apply(img, sd)
+    # The plain stack on the CPU, the version the CPU tests hold to flax's
+    # (ISSUE bound 2^-6 max|logit|); F.conv3d's float32 sums on the card
+    # (cuDNN) are one more order, printed beside it. The exact stack (float64
+    # sums) is K15's function, held bit for bit.
+    model.to("cpu")
+    plain = model.apply(img.cpu(), sd.cpu()).to(dev)
+    model.to(dev)
+    with mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
+                           conv3d.conv3d_ndhwc_bf16_plain):
+        card = model.apply(img, sd)
+    with mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
+                           check.conv3d_ndhwc_bf16_exact):
+        exact = model.apply(img, sd)
+    stack_err = float((batch - plain).abs().max())
+    bound = K15_STACK_TOL * float(plain.abs().max())
+    print(f"K15 conv stack in bfloat16 (model-r2, depth 12, 33^3) at "
+          f"N={LANES}: max_abs_err {stack_err:.4e} against the plain stack "
+          f"on the CPU (bound {bound:.4e} = 2^-6 max|logit|), "
+          f"{float((batch != plain).float().mean()):.4e} of logits differ; "
+          f"the plain stack on the card (cuDNN) against it: max_abs_err "
+          f"{float((card - plain).abs().max()):.4e}, "
+          f"{float((card != plain).float().mean()):.4e} differ; K15 against "
+          f"the plain stack on the card: "
+          f"{float((batch - card).abs().max()):.4e}; equal to the stack "
+          f"with float64 sums: {torch.equal(batch, exact)} (the plain "
+          f"stack on the card {float((card != exact).float().mean()):.4e} "
+          f"of logits from it)")
+    require(batch.dtype == torch.float32 and
+            bool(torch.isfinite(batch).all()) and stack_err <= bound,
+            f"K15 stack at N={LANES}: error {stack_err} above {bound}")
+    require(torch.equal(batch, exact), f"K15 stack at N={LANES} differs "
+                                       f"from the stack with float64 sums")
+    for i in (0, 17, LANES - 1):
+        one = model.apply(img[i:i + 1].clone(), sd[i:i + 1].clone())
+        require(torch.equal(one[0], batch[i]),
+                f"K15: sample {i} at N=1 differs from N={LANES}")
+    print(f"K15 conv stack (depth 12, 33^3): samples 0, 17, {LANES - 1} at "
+          f"N=1 bit-identical to the same samples at N={LANES}")
+    return results
+
+
 def _run_round_slice(label, settings, dev, box, gt, inner, probe=None):
     """One Runner.run of the batched request with hops 0 (BatchCanvas); prints
     and returns its numbers."""
@@ -1674,6 +1868,107 @@ def phase_round_slice(dev, phantom, r2, seg_serial, tmp):
     require(wide["agree"] >= ROUND64_AGREE_FLOOR,
             f"round slice at {LANES} lanes: agreement {wide['agree']} below "
             f"{ROUND64_AGREE_FLOOR}")
+    return launches
+
+
+def _bf16_pair(path, seg_k, seg_p):
+    """Prints how far a bfloat16 slice on K15 and on K15's plain version
+    agree: objects and voxels. They need not be identical: float32 sums in
+    another order flip rare bfloat16 roundings, which can flip moves."""
+    from tools import synthetic_em
+    same = synthetic_em.object_level_agreement(seg_k.astype(np.uint64),
+                                               seg_p.astype(np.uint64),
+                                               min_size=1000)
+    print(f"{path}, K15 vs its plain version: object-level agreement "
+          f"{same:.4f}, voxels equal {float((seg_k == seg_p).mean()):.6f}, "
+          f"identical {bool(np.array_equal(seg_k, seg_p))}")
+
+
+def phase_bf16_slices(dev, phantom, r2, tmp):
+    """bfloat16 inference at full width: model-r2 (depth 12, 32 features,
+    33^3) with model_args dtype "bfloat16", the default of bench.py and
+    tools/e2e_fused_bench.py, on phase 5's padded 132^3 phantom: the serial
+    slice, the 64-lane hop slice, the 8-lane round slice (hops 0) and the
+    fused slice (the sharded CLI's worker, 8 subvolumes of 82^3, 64 lanes,
+    device finalization, then stitched), each on K15 and again with K15's
+    plain version (K2-K14 kept). Serial and round are held to ground-truth
+    agreement >= 0.95, hop and fused to floors just under their measured
+    values; each pair's object-level agreement is printed. Returns the K15
+    runs' launches by path (serial_bf16, hop_bf16, round_bf16,
+    fused_bf16)."""
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.ops import conv3d
+
+    model_args = json.loads(r2.model_args)
+    model_args["dtype"] = "bfloat16"
+    bf16 = dataclasses.replace(r2, model_args=json.dumps(model_args))
+    launches = {}
+
+    def runs(path, run):
+        """run(label, out_dir) on K15, then on its plain version."""
+        _build.launches.clear()
+        got = run("bf16 on K15", os.path.join(tmp, path))
+        launches[path] = dict(_build.launches)
+        print(f"kernel launches on the {path} path: {launches[path]}")
+        require(launches[path].get("conv3d_ndhwc_bf16", 0) > 0 and
+                "conv3d_ndhwc_f32" not in launches[path],
+                f"the {path} path did not run its convolutions on K15")
+        with mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
+                               conv3d.conv3d_ndhwc_bf16_plain):
+            want = run("bf16 on K15's plain version",
+                       os.path.join(tmp, path + "_plain"))
+        return got, want
+
+    seg, seg_p = runs("serial_bf16", lambda label, out: _run_slice(
+        f"{label}, model-r2", dataclasses.replace(
+            bf16, segmentation_output_dir=out), dev, **phantom)[::2])
+    _bf16_pair("serial_bf16", seg[0], seg_p[0])
+    require(seg[1] >= 0.95, f"bf16 serial slice agreement {seg[1]} below "
+                            f"the quality gate's 0.95")
+
+    hop, hop_p = runs("hop_bf16", lambda label, out: _run_hop_slice(
+        f"{LANES} lanes, {label}, model-r2", dataclasses.replace(
+            bf16, concurrent_requests=LANES, segmentation_output_dir=out),
+        dev, **phantom))
+    _bf16_pair("hop_bf16", hop[0], hop_p[0])
+    require(hop[3] >= BF16_HOP_AGREE_FLOOR,
+            f"bf16 hop slice agreement {hop[3]} below "
+            f"{BF16_HOP_AGREE_FLOOR}")
+
+    rnd, rnd_p = runs("round_bf16", lambda label, out: _run_round_slice(
+        f"{ROUND_LANES} lanes, {label}, model-r2", dataclasses.replace(
+            bf16, concurrent_requests=ROUND_LANES,
+            segmentation_output_dir=out), dev, **phantom))
+    _bf16_pair("round_bf16", rnd["seg"], rnd_p["seg"])
+    require(rnd["agree"] >= 0.95, f"bf16 round slice agreement "
+                                  f"{rnd['agree']} below the quality gate's "
+                                  f"0.95")
+
+    image = os.path.join(tmp, "phantom_s0.npy")   # phase 5's phantom
+    edge = np.load(image, mmap_mode="r").shape[0]
+    ckpt = os.path.join(REPO, "models", "phantom", "model-r2.npz")
+
+    def fused(label, out):
+        argv = _sharded_args(
+            _request_text(image, out, ckpt, model_args, 1000), edge,
+            FUSED_SUB, FUSED_OVERLAP, LANES, FUSED_SLOTS, HOPS)
+        wall, stats = _run_worker(argv)
+        moves = stats["executed"]
+        print(f"fused slice {label}: {moves} FOV moves in {wall:.3f} s "
+              f"wall, {moves / wall:.2f} moves/s; {stats['rounds']} rounds;"
+              f" t_hops {stats['t_hops']:.3f} t_seed {stats['t_seed']:.3f} "
+              f"s")
+        stitch_s, stitched = _stitch(argv, out + ".npz", as_process=False)
+        return stitched, _stitched_agreement(f"fused slice {label}",
+                                             stitch_s, stitched,
+                                             phantom["gt"])
+
+    fus, fus_p = runs("fused_bf16", fused)
+    _bf16_pair("fused_bf16", fus[0], fus_p[0])
+    require(fus[1] >= BF16_FUSED_AGREE_FLOOR,
+            f"bf16 fused slice agreement {fus[1]} below "
+            f"{BF16_FUSED_AGREE_FLOOR}")
     return launches
 
 
@@ -2391,6 +2686,7 @@ def main():
     results.update(phase_fused_kernels(dev))
     results.update(phase_train_kernels(dev))
     results.update(phase_select_kernels(dev))
+    results.update(phase_bf16_kernels(dev))
     phase_golden(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = {}
@@ -2403,6 +2699,7 @@ def main():
         launches["train"] = phase_train(have, dev, tmp)
         launches["round"] = phase_round_slice(dev, phantom, r2, seg_r2, tmp)
         phase_round_golden(dev, r2, tmp)
+        launches.update(phase_bf16_slices(dev, phantom, r2, tmp))
     # K1 runs on every path: its error is the largest of all phases', its
     # time the 32->32 layer's at N=1 (the serial path's shape).
     results["conv3d_ndhwc_f32"]["max_abs_err"] = max(
@@ -2413,6 +2710,8 @@ def main():
     sources = {
         "conv3d_ndhwc_f32": ("ffn_tpu_torch/csrc/conv3d.cu",
                              "ffn_tpu/models/convstack_3d.py:48"),
+        "conv3d_ndhwc_bf16": ("ffn_tpu_torch/csrc/conv3d_bf16.cu",
+                              "ffn_tpu/models/convstack_3d.py:49"),
         "step_gather": ("ffn_tpu_torch/csrc/step.cu",
                         "ffn_tpu/inference/engine.py:121"),
         "step_update": ("ffn_tpu_torch/csrc/step.cu",
@@ -2453,7 +2752,8 @@ def main():
     # `launches` sums the main paths' runs; `launches_by_path` splits them
     # (fused and fused_host: the full-width fused slice with device and
     # with host finalization; train: the full-width training run; round:
-    # the round-based slice at 8 lanes).
+    # the round-based slice at 8 lanes; *_bf16: the serial, hop, round and
+    # fused slices in bfloat16).
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(p.get(name, 0) for p in launches.values()),
                     launches_by_path={path: p.get(name, 0)

@@ -47,6 +47,7 @@ _L = ctypes.c_longlong
 # C entry points: each returns the cudaError_t of its launch.
 _SIGNATURES = {
     "ffn_conv3d_ndhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "ffn_conv3d_ndhwc_bf16": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "ffn_step_gather": [_P, _P, _P, _P] + [_I] * 12 + [_F, _P],
     "ffn_step_update": [_P, _P, _P] + [_I] * 12 + [_F, _F, _P],
     "ffn_hop_pop": [_P] * 22 + [_I] * 18 + [_F, _P],

@@ -21,7 +21,6 @@ import os
 import time
 
 from ffn_tpu_torch.inference import runner as runner_lib
-from ffn_tpu_torch.inference.settings import InferenceSettings
 
 
 def _load(value: str) -> str:
@@ -31,14 +30,15 @@ def _load(value: str) -> str:
     return value
 
 
-def parse_request(text: str) -> InferenceSettings:
-    """InferenceRequest text proto (or @<path>) -> InferenceSettings."""
+def parse_request(text: str):
+    """InferenceRequest text proto (or @<path>) -> the parsed proto, which
+    the Runner keeps to save with the segmentation."""
     from google.protobuf import text_format
     from ffn_tpu_torch.proto import inference_pb2
 
     request = inference_pb2.InferenceRequest()
     text_format.Parse(_load(text), request)
-    return InferenceSettings.from_proto(request)
+    return request
 
 
 def parse_bounding_box(text: str):

@@ -1,16 +1,14 @@
 """Thread-safe counters and timers for inference instrumentation.
 
 Counterpart of ffn_tpu/inference/counters.py (StatCounter, Counters,
-timer_counter, TimedIter). `dumps`, for a saved segmentation, writes the
-counters as JSON bytes where the JAX package writes a TaskCounters proto;
-checkpoints (`dumps_np`, `loads_np`) carry the TaskCounters proto, as the
-JAX package's do, which imports protobuf only there.
+timer_counter, TimedIter). A saved segmentation (`dumps`) and a checkpoint
+(`dumps_np`) carry the counters as a serialized TaskCounters proto, as the
+JAX package's do; protobuf is imported only there.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import threading
 import time
 from typing import Iterable, Iterator, Optional
@@ -90,26 +88,43 @@ class Counters:
                 f.write(f"{name}: {counter.value}\n")
 
     def dumps(self) -> bytes:
-        """All counters as JSON bytes ({name: value})."""
-        return json.dumps({name: c.value for name, c in self},
-                          sort_keys=True).encode()
-
-    def dumps_np(self) -> np.ndarray:
-        """The counters as a serialized TaskCounters proto, the JAX package's
-        checkpoint entry, in a uint8 array (which round-trips through npz),
-        so either package restores the other's checkpoints."""
+        """All counters as a serialized TaskCounters proto: a saved
+        segmentation's `counters` entry, the JAX package's bytes."""
         from ffn_tpu_torch.proto import inference_pb2   # needs protobuf
         proto = inference_pb2.TaskCounters()
         for name, counter in self:
             proto.counters.add(name=name, value=counter.value)
-        return np.frombuffer(proto.SerializeToString(), dtype=np.uint8)
+        return proto.SerializeToString()
 
-    def loads_np(self, obj):
+    def loads(self, encoded):
+        """Sets the counters of a serialized TaskCounters proto.
+
+        np.savez stores `dumps()`'s bytes as an S-dtype scalar, which drops
+        trailing NUL bytes, i.e. a final varint 0: up to two are put back,
+        as the JAX package's reader does.
+        """
         from ffn_tpu_torch.proto import inference_pb2
-        proto = inference_pb2.TaskCounters.FromString(
-            np.asarray(obj, dtype=np.uint8).tobytes())
+        from google.protobuf.message import DecodeError
+        encoded = bytes(encoded)
+        proto = inference_pb2.TaskCounters()
+        for pad in (b"", b"\x00", b"\x00\x00"):
+            try:
+                proto.ParseFromString(encoded + pad)
+                break
+            except DecodeError:
+                if pad == b"\x00\x00":
+                    raise
         for entry in proto.counters:
             self[entry.name].Set(entry.value)
+
+    def dumps_np(self) -> np.ndarray:
+        """`dumps()` in a uint8 array (which round-trips through npz with
+        every byte): the checkpoint entry, so either package restores the
+        other's checkpoints."""
+        return np.frombuffer(self.dumps(), dtype=np.uint8)
+
+    def loads_np(self, obj):
+        self.loads(np.asarray(obj, dtype=np.uint8).tobytes())
 
 
 @contextlib.contextmanager

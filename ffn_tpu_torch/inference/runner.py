@@ -65,7 +65,11 @@ class Runner:
         request: InferenceSettings or a parsed InferenceRequest proto.
         precision: None, or FFN_TPU_PRECISION; "int8" is not ported.
         """
+        # A saved segmentation carries the request as the proto it came in
+        # as, with the settings changed since written over it.
+        self._request_proto = None
         if not isinstance(request, InferenceSettings):
+            self._request_proto = request
             request = InferenceSettings.from_proto(request)
         if precision is None:
             precision = os.environ.get("FFN_TPU_PRECISION") or None
@@ -208,7 +212,8 @@ class Runner:
             unalign_image(canvas.segmentation),
             unalign_origins(canvas.origins, np.array(canvas.corner_zyx)),
             target_path,
-            request=self.request.to_json(),
+            request=self.request.to_proto(
+                self._request_proto).SerializeToString(),
             counters=canvas.counters.dumps(),
             overlaps=canvas.overlaps)
 

@@ -3,15 +3,15 @@
 `InferenceSettings` and `InferenceOptions` hold the fields of the JAX
 package's InferenceRequest and InferenceOptions protos that the serial
 path reads. `InferenceSettings.from_proto` converts a parsed
-InferenceRequest; nothing here imports protobuf. Float fields are rounded
-to float32 as the protos store them, so settings built by hand decide
-thresholds exactly as settings parsed from a pbtxt.
+InferenceRequest and `to_proto` converts back; only `to_proto` imports
+protobuf. Float fields are rounded to float32 as the protos store them, so
+settings built by hand decide thresholds exactly as settings parsed from a
+pbtxt.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 from typing import Tuple
 
 import numpy as np
@@ -76,8 +76,37 @@ class InferenceSettings:
         self.image_mean = _f32(self.image_mean)
         self.image_stddev = _f32(self.image_stddev)
 
-    def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), sort_keys=True)
+    def to_proto(self, base=None):
+        """This request as an InferenceRequest proto: a copy of `base` (the
+        proto these settings came from, or an empty request) with each field
+        these settings hold written where its value differs, so that a
+        request passed through unchanged serializes to its own bytes."""
+        from ffn_tpu_torch.proto import inference_pb2   # needs protobuf
+        request = inference_pb2.InferenceRequest()
+        if base is not None:
+            request.CopyFrom(base)
+
+        def put(msg, name, value):
+            if getattr(msg, name) != value:
+                setattr(msg, name, value)
+
+        if request.image.hdf5 != self.image:
+            request.image.hdf5 = self.image
+        for name in ("model_name", "segmentation_output_dir", "image_mean",
+                     "image_stddev", "model_args", "model_checkpoint_path",
+                     "seed_policy", "seed_policy_args",
+                     "movement_policy_name", "movement_policy_args",
+                     "checkpoint_interval", "concurrent_requests"):
+            put(request, name, getattr(self, name))
+        opts = self.inference_options
+        for name in ("init_activation", "pad_value", "move_threshold",
+                     "segment_threshold", "min_segment_size",
+                     "disco_seed_threshold"):
+            put(request.inference_options, name, getattr(opts, name))
+        mbd = request.inference_options.min_boundary_dist
+        for name, value in zip("zyx", opts.min_boundary_dist):
+            put(mbd, name, value)
+        return request
 
     @classmethod
     def from_proto(cls, request) -> "InferenceSettings":

@@ -4,23 +4,70 @@ Counterpart of the parts of ffn_tpu/inference/storage.py that the
 inference paths and the stitcher use. The layout is the same:
 `<dir>/<x>/<y>/seg-X_Y_Z.npz` with keys `segmentation` and `origins`, so
 the port's output and the JAX package's load with either package's
-load_segmentation.
+load_segmentation. The `origins` entry is a pickle; it is read only through
+`_CompatUnpickler`, which maps any class named OriginInfo (the JAX
+package's, google/ffn's `ffn.inference.storage`, the port's) to the
+port's, so reading a foreign file imports nothing of its writer.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import pickle
 import tempfile
+import zipfile
 from collections import namedtuple
 from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
+from numpy.lib import format as npformat
 
 from ffn_tpu_torch.inference import segmentation
 
 OriginInfo = namedtuple("OriginInfo", ["start_zyx", "iters", "walltime_sec"])
+
+
+class _CompatUnpickler(pickle.Unpickler):
+    """Unpickler that maps foreign OriginInfo classes onto ours.
+
+    Segmentations written by the JAX package or by google/ffn pickle
+    OriginInfo under their own module paths. The field layout is identical,
+    so any class named OriginInfo resolves to this module's namedtuple.
+    """
+
+    def find_class(self, module, name):
+        if name == "OriginInfo":
+            return OriginInfo
+        return super().find_class(module, name)
+
+
+# numpy's public readers of the .npy header versions that np.savez writes
+# for an object array.
+_HEADER_READERS = {(1, 0): npformat.read_array_header_1_0,
+                   (2, 0): npformat.read_array_header_2_0}
+
+
+def _read_origins_entry(npz_path):
+    """The {id: OriginInfo} dict of a segmentation npz's 'origins' entry,
+    or {} if the file has none.
+
+    np.load's own pickle.load cannot be given a custom unpickler, so this
+    opens the zip member directly.
+    """
+    with zipfile.ZipFile(npz_path) as z:
+        if "origins.npy" not in z.namelist():
+            return {}
+        with z.open("origins.npy") as f:
+            version = npformat.read_magic(f)
+            if version not in _HEADER_READERS:
+                raise ValueError(f"{npz_path}: origins.npy has .npy format "
+                                 f"version {version}")
+            _HEADER_READERS[version](f)
+            # latin1: google/ffn's files were pickled by Python 2.
+            arr = _CompatUnpickler(f, encoding="latin1").load()
+    return arr.item() if isinstance(arr, np.ndarray) else arr
 
 
 def decorated_volume(spec: str):
@@ -127,8 +174,7 @@ def load_origins(segmentation_dir, corner):
     if target is None:
         raise ValueError(
             f"Segmentation not found: {segmentation_dir}, {corner}")
-    with np.load(target, allow_pickle=True) as data:
-        return data["origins"].item()
+    return _read_origins_entry(target)
 
 
 def load_segmentation(segmentation_dir, corner, allow_cpoint=False,
@@ -142,12 +188,12 @@ def load_segmentation(segmentation_dir, corner, allow_cpoint=False,
     if target is None:
         raise ValueError(
             f"Segmentation not found, {segmentation_dir}, {corner!r}.")
-    with np.load(target, allow_pickle=True) as data:
+    with np.load(target) as data:
         if "segmentation" not in data:
             raise ValueError(
                 f"FFN NPZ file {target} does not contain a segmentation.")
         output = data["segmentation"].astype(np.uint64)
-        origins = data["origins"].item()
+    origins = _read_origins_entry(target)
     logging.info("loading segmentation from: %s", target)
     if split_cc or min_size:
         new_to_old = segmentation.clean_up(output, split_cc, min_size,

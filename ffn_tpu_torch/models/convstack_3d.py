@@ -3,20 +3,24 @@
 Counterpart of ffn_tpu/models/convstack_3d.py (ConvStack3D and
 ConvStack3DFFNModel): conv0_a (+relu) -> conv0_b -> depth-1 pre-activation
 residual blocks -> relu -> 1x1x1 conv_lom, whose output is added to the
-input seed. Every layer is one call of the K1 conv kernel
-(ffn_tpu_torch.ops.conv3d) with its relus and residual add fused. With
-grad enabled (training, `train_apply`) a layer goes through
-`Conv3dFunction` and a residual block through `ResidualBlockFunction`:
-K1 forward, K9 and K10 backward.
+input seed. Every layer is one call of a conv kernel
+(ffn_tpu_torch.ops.conv3d) with its relus and residual add fused: K1 in
+float32, K15 in bfloat16. With grad enabled (training, `train_apply`) a
+float32 layer goes through `Conv3dFunction` and a residual block through
+`ResidualBlockFunction`: K1 forward, K9 and K10 backward.
 
 Layout is the JAX package's: activations channels-last (N, z, y, x, C) and
 weights DHWIO, so JAX checkpoints load without a transpose (params_io).
-Arithmetic is float32 throughout, the precision of the JAX model's default
-Precision.HIGHEST; the kernel uses no TF32.
+`dtype` float32 computes in float32 throughout, the precision of the JAX
+model's default Precision.HIGHEST (the kernel uses no TF32); bfloat16 is
+flax's `dtype=bfloat16`: bfloat16 activations, weights and biases (rounded
+from the float32 parameters), float32 sums, float32 logits added to the
+float32 seed.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Union
 
 import torch
@@ -24,22 +28,49 @@ from torch import nn
 
 from ffn_tpu_torch.models import model_info as model_info_lib
 from ffn_tpu_torch.models import params_io
-from ffn_tpu_torch.ops.conv3d import (conv3d_ndhwc_f32, conv3d_train,
-                                      residual_block_train)
+from ffn_tpu_torch.ops.conv3d import (conv3d_ndhwc_bf16, conv3d_ndhwc_f32,
+                                      conv3d_train, residual_block_train)
+
+_DTYPES = {"float32": torch.float32, torch.float32: torch.float32,
+           "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
 
 
 class Conv3d(nn.Module):
-    """SAME 3D convolution; weight (k, k, k, Cin, Cout), NDHWC activations."""
+    """SAME 3D convolution; weight (k, k, k, Cin, Cout), NDHWC activations.
 
-    def __init__(self, in_features: int, out_features: int, kernel: int = 3):
+    The parameters are float32. In bfloat16 (`compute_dtype`) the layer
+    computes with bfloat16 copies of them, which are not in the state_dict
+    and are rounded anew by `round_params` after a load.
+    """
+
+    def __init__(self, in_features: int, out_features: int, kernel: int = 3,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             kernel, kernel, kernel, in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
         # The JAX package's init: TruncatedNormal(stddev=0.01) at 2 sigma.
         nn.init.trunc_normal_(self.weight, std=0.01, a=-0.02, b=0.02)
+        self.compute_dtype = compute_dtype
+        if compute_dtype == torch.bfloat16:
+            self.register_buffer("weight_bf16", torch.empty(
+                self.weight.shape, dtype=torch.bfloat16), persistent=False)
+            self.register_buffer("bias_bf16", torch.empty(
+                self.bias.shape, dtype=torch.bfloat16), persistent=False)
+            self.round_params()
+
+    @torch.no_grad()
+    def round_params(self):
+        """The bfloat16 copies, rounded to nearest even: what flax's bf16
+        Conv computes with, rounding its float32 parameters at every call."""
+        self.weight_bf16.copy_(self.weight)
+        self.bias_bf16.copy_(self.bias)
 
     def forward(self, x, *, pre_relu=False, post_relu=False, residual=None):
+        if self.compute_dtype == torch.bfloat16:
+            return conv3d_ndhwc_bf16(x, self.weight_bf16, self.bias_bf16,
+                                     pre_relu=pre_relu, post_relu=post_relu,
+                                     residual=residual)
         conv = conv3d_train if torch.is_grad_enabled() else conv3d_ndhwc_f32
         return conv(x, self.weight, self.bias, pre_relu=pre_relu,
                     post_relu=post_relu, residual=residual)
@@ -54,19 +85,21 @@ class ConvStack3D(nn.Module):
 
     def __init__(self, depth: int = 9,
                  features: Union[int, Sequence[int]] = 32,
-                 in_features: int = 2):
+                 in_features: int = 2,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         feats = [features] * (2 * depth) if isinstance(features, int) \
             else list(features)
         self.depth = depth
-        self.conv0_a = Conv3d(in_features, feats[0])
-        self.conv0_b = Conv3d(feats[0], feats[1])
+        conv = functools.partial(Conv3d, compute_dtype=compute_dtype)
+        self.conv0_a = conv(in_features, feats[0])
+        self.conv0_b = conv(feats[0], feats[1])
         for i in range(1, depth):
-            self.add_module(f"conv{i}_a", Conv3d(feats[2 * i - 1],
-                                                 feats[2 * i]))
-            self.add_module(f"conv{i}_b", Conv3d(feats[2 * i],
-                                                 feats[2 * i + 1]))
-        self.conv_lom = Conv3d(feats[2 * depth - 1], 1, kernel=1)
+            self.add_module(f"conv{i}_a", conv(feats[2 * i - 1],
+                                               feats[2 * i]))
+            self.add_module(f"conv{i}_b", conv(feats[2 * i],
+                                               feats[2 * i + 1]))
+        self.conv_lom = conv(feats[2 * depth - 1], 1, kernel=1)
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -89,30 +122,40 @@ class ConvStack3DFFNModel(nn.Module):
     """FFN model: geometry plus `apply(image, seed) -> updated seed`.
 
     Takes the same `model_args` JSON as the JAX package's
-    ConvStack3DFFNModel. Only float32 is ported.
+    ConvStack3DFFNModel: `dtype` "float32" or "bfloat16" (or the torch
+    dtype). `precision` is accepted and ignored: float32 always runs at
+    Precision.HIGHEST, and the products of bfloat16 values are exact in
+    float32 at any precision.
     """
 
     dim = 3
 
     def __init__(self, fov_size=None, deltas=None, batch_size=None,
-                 depth: int = 9, features=32, dtype="float32", **kwargs):
+                 depth: int = 9, features=32, dtype="float32", precision=None,
+                 **kwargs):
         super().__init__()
-        del kwargs
-        if dtype not in ("float32", torch.float32):
+        del precision, kwargs
+        if dtype not in _DTYPES:
             raise NotImplementedError(
                 f"dtype {dtype!r}: ffn_tpu_torch runs the conv stack in "
-                f"float32 only (ROADMAP.md, reduced-precision inference)")
+                f"float32 or bfloat16 (ROADMAP.md)")
+        self.dtype = _DTYPES[dtype]
         self.info = model_info_lib.ModelInfo(
             deltas=deltas, pred_mask_size=fov_size, input_seed_size=fov_size,
             input_image_size=fov_size, additive=True)
         self.batch_size = batch_size
         self.depth = depth
         self.features = features
-        self.module = ConvStack3D(depth=depth, features=features)
+        self.module = ConvStack3D(depth=depth, features=features,
+                                  compute_dtype=self.dtype)
 
     def load_params(self, params):
-        """Loads JAX parameters (flat npz dict or flax tree)."""
+        """Loads JAX parameters (flat npz dict or flax tree); in bfloat16
+        also rounds the layers' copies."""
         self.module.load_state_dict(params_io.convert_params(params))
+        if self.dtype == torch.bfloat16:
+            for layer in self.module.children():
+                layer.round_params()
 
     @torch.no_grad()
     def apply(self, image: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
@@ -130,6 +173,10 @@ class ConvStack3DFFNModel(nn.Module):
         the concatenation), `seed` (B, z, y, x, 1) the seed patch added to
         the update. Gradients reach the parameters only: the seed is
         stop-gradient-ed, as in the JAX scan body."""
+        if self.dtype != torch.float32:
+            raise NotImplementedError(
+                "training in bfloat16 is not ported to ffn_tpu_torch "
+                "(ROADMAP.md, Queue 1 item 6)")
         with torch.enable_grad():
             return self.module(net, residual=seed)
 

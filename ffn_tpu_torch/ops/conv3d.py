@@ -1,9 +1,12 @@
-"""K1: SAME-padded 3D convolution, channels-last (NDHWC), float32.
+"""K1: SAME-padded 3D convolution, channels-last (NDHWC), float32; K15 the
+same in bfloat16; K9 and K10 K1's backward.
 
-`conv3d_ndhwc_f32` is the one convolution of the port's ConvStack3D. On a
-CUDA tensor it launches the hand-written kernel in `csrc/conv3d.cu`; on a
-CPU tensor it runs `conv3d_ndhwc_plain`, the same function in plain
-PyTorch, which also serves as the kernel's oracle on the card.
+`conv3d_ndhwc_f32` is the one convolution of the port's float32
+ConvStack3D, `conv3d_ndhwc_bf16` of its bfloat16 one. On a CUDA tensor each
+launches its hand-written kernel (`csrc/conv3d.cu`, `csrc/conv3d_bf16.cu`);
+on a CPU tensor it runs its plain version (`conv3d_ndhwc_plain`,
+`conv3d_ndhwc_bf16_plain`), the same function in plain PyTorch, which also
+serves as the kernel's oracle on the card.
 
 Weights keep the JAX package's DHWIO layout (k, k, k, Cin, Cout): the
 kernel reads it as [tap][ci][co], so no transpose is needed to load a JAX
@@ -89,6 +92,125 @@ def conv3d_ndhwc_f32(x: torch.Tensor, weight: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, NAME)
     _build.launches[NAME] += 1
+    return y
+
+
+# -- K15: the layer in bfloat16 ---------------------------------------------
+
+BF16 = "conv3d_ndhwc_bf16"
+# (Cin, Cout) pairs of K15's tensor-core kernel (3^3 layers): the stack's
+# input layer and its inner layers at 32 features (model-r2, the benches)
+# and at 16 (the CI checkpoint). 1^3 layers take any widths.
+BF16_SHAPES = ((2, 32), (32, 32), (2, 16), (16, 16))
+
+
+def conv3d_ndhwc_bf16_plain(x: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor, *, pre_relu: bool = False,
+                            post_relu: bool = False,
+                            residual: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """flax's `nn.Conv(dtype=bfloat16)` with the stack's relus and residual:
+    `x` (float32 or bfloat16) rounds to bfloat16 (nearest even), the
+    products of bfloat16 `x` and `weight` are summed in float32, the sum
+    rounds to bfloat16, the bfloat16 `bias` is added and the result rounds
+    again; then relu (post_relu) and the residual: a bfloat16 residual is
+    added and rounded, giving a bfloat16 output; a float32 residual (the
+    seed, under conv_lom) gives `float32(y) + residual`. Without a residual
+    the output is bfloat16.
+
+    The sums run in float32 through F.conv3d on bfloat16-valued float32
+    tensors: the products are exact (in TF32 too), the sums are added in
+    an order of the convolution library's choosing, so the kernel's
+    results may round differently (tests/test_torch_kernels.py
+    k15_tolerance).
+    """
+    xf = x.to(torch.bfloat16).float()
+    if pre_relu:
+        xf = torch.relu(xf)
+    k = weight.shape[0]
+    acc = F.conv3d(xf.permute(0, 4, 1, 2, 3),
+                   weight.float().permute(4, 3, 0, 1, 2), padding=k // 2)
+    y = acc.permute(0, 2, 3, 4, 1).to(torch.bfloat16)
+    y = (y.float() + bias.float()).to(torch.bfloat16)
+    if post_relu:
+        y = torch.relu(y)
+    if residual is not None:
+        if residual.dtype == torch.float32:
+            return (y.float() + residual).contiguous()
+        y = (y.float() + residual.float()).to(torch.bfloat16)
+    return y.contiguous()
+
+
+def _check_bf16(x, weight, bias, residual):
+    if x.dim() != 5 or weight.dim() != 5:
+        raise ValueError(f"{BF16}: want x (N,D,H,W,Cin) and weight "
+                         f"(k,k,k,Cin,Cout), got {tuple(x.shape)} and "
+                         f"{tuple(weight.shape)}")
+    k, k1, k2, cin, cout = weight.shape
+    if not (k == k1 == k2 and k in (1, 3)):
+        raise ValueError(f"{BF16}: kernel must be 1^3 or 3^3, got "
+                         f"{tuple(weight.shape[:3])}")
+    if x.shape[-1] != cin or tuple(bias.shape) != (cout,):
+        raise ValueError(f"{BF16}: channel mismatch: x {tuple(x.shape)}, "
+                         f"weight {tuple(weight.shape)}, bias "
+                         f"{tuple(bias.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{BF16}: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if weight.dtype != torch.bfloat16 or bias.dtype != torch.bfloat16:
+        raise TypeError(f"{BF16}: weight and bias must be bfloat16, got "
+                        f"{weight.dtype} and {bias.dtype}")
+    tensors = [x, weight, bias]
+    if residual is not None:
+        if tuple(residual.shape) != tuple(x.shape[:4]) + (cout,):
+            raise ValueError(f"{BF16}: residual {tuple(residual.shape)} "
+                             f"does not match the output "
+                             f"{tuple(x.shape[:4])}+{cout}")
+        if residual.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{BF16}: residual must be float32 or "
+                            f"bfloat16, got {residual.dtype}")
+        tensors.append(residual)
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{BF16}: tensors on {t.device} and {x.device}")
+    return tensors
+
+
+def conv3d_ndhwc_bf16(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, *, pre_relu: bool = False,
+                      post_relu: bool = False,
+                      residual: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """K15. CPU tensors take the plain version; CUDA tensors the kernel.
+    Arguments and result as conv3d_ndhwc_bf16_plain's."""
+    tensors = _check_bf16(x, weight, bias, residual)
+    if x.device.type == "cpu":
+        return conv3d_ndhwc_bf16_plain(x, weight, bias, pre_relu=pre_relu,
+                                       post_relu=post_relu,
+                                       residual=residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"{BF16}: unsupported device {x.device}")
+    n, d, h, w, cin = x.shape
+    k, cout = weight.shape[0], weight.shape[-1]
+    if k == 3 and (cin, cout) not in BF16_SHAPES:
+        raise ValueError(f"{BF16}: the 3^3 kernel takes (Cin, Cout) in "
+                         f"{BF16_SHAPES}, got ({cin}, {cout})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{BF16} takes contiguous tensors")
+    if k == 3 and (x.data_ptr() % 16 or weight.data_ptr() % 16):
+        raise ValueError(f"{BF16}: the 3^3 kernel stages x and weight in "
+                         f"16-byte vectors; they must be 16-byte aligned")
+    out_f32 = residual is not None and residual.dtype == torch.float32
+    y = torch.empty((n, d, h, w, cout), device=x.device,
+                    dtype=torch.float32 if out_f32 else torch.bfloat16)
+    err = _build.lib().ffn_conv3d_ndhwc_bf16(
+        x.data_ptr(), int(x.dtype == torch.float32), weight.data_ptr(),
+        bias.data_ptr(), residual.data_ptr() if residual is not None
+        else None, y.data_ptr(), n, d, h, w, cin, cout, k, int(pre_relu),
+        int(post_relu), int(out_f32),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, BF16)
+    _build.launches[BF16] += 1
     return y
 
 

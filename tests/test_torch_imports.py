@@ -56,7 +56,15 @@ def test_the_package_lists_the_slice_modules():
                  "ffn_tpu_torch.training.train_lib",
                  "ffn_tpu_torch.training.train_loop",
                  "ffn_tpu_torch.cli.train",
-                 "ffn_tpu_torch.ops.select"):
+                 "ffn_tpu_torch.ops.select",
+                 # bfloat16 inference (K15) and the saved-segmentation
+                 # format
+                 "ffn_tpu_torch.ops.conv3d",
+                 "ffn_tpu_torch.ops.conv3d_bf16_check",
+                 "ffn_tpu_torch.models.convstack_3d",
+                 "ffn_tpu_torch.inference.storage",
+                 "ffn_tpu_torch.inference.counters",
+                 "ffn_tpu_torch.inference.settings"):
         assert name in PORT_MODULES
 
 

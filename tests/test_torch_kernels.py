@@ -7,8 +7,11 @@ skip without one; on the card, run
 
 This file imports torch and the port only, so it runs where JAX's model
 libraries are not installed. K1 is held to 1e-4 of max|plain| (float32
-sums in another order than cuDNN's, TF32 off on both sides); K2 and K3
-move and compare values without arithmetic and must match bit for bit.
+sums in another order than cuDNN's, TF32 off on both sides); K15, in
+bfloat16, to one bfloat16 ulp per rounding its layer makes
+(k15_tolerance) with at most DIFFER_SHARE of its outputs differing
+(ffn_tpu_torch/ops/conv3d_bf16_check.py); K2 and K3 move and compare
+values without arithmetic and must match bit for bit.
 """
 
 import numpy as np
@@ -16,6 +19,10 @@ import pytest
 import torch
 
 from ffn_tpu_torch.ops import conv3d
+from ffn_tpu_torch.ops.conv3d_bf16_check import (DIFFER_SHARE, K15_CASES,
+                                                 conv3d_ndhwc_bf16_exact,
+                                                 differ_share, k15_inputs,
+                                                 k15_tolerance)
 from ffn_tpu_torch.ops import step as step_ops
 
 FOV = 9
@@ -107,6 +114,90 @@ def test_k1_kernel_matches_plain_at_hop_batches(card, n):
         want = conv3d.conv3d_ndhwc_plain(x, w, b, **kw)
         err = float((got - want).abs().max())
         assert err <= 1e-4 * float(want.abs().max()), (case, err)
+
+
+def test_k15_rejects_bad_inputs():
+    x = torch.zeros(1, 4, 4, 4, 2)
+    w = torch.zeros(3, 3, 3, 2, 8, dtype=torch.bfloat16)
+    b = torch.zeros(8, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):      # float32 weights
+        conv3d.conv3d_ndhwc_bf16(x, w.float(), b)
+    with pytest.raises(TypeError):      # a float64 input
+        conv3d.conv3d_ndhwc_bf16(x.double(), w, b)
+    with pytest.raises(ValueError):     # channel mismatch
+        conv3d.conv3d_ndhwc_bf16(x, torch.zeros(3, 3, 3, 3, 8,
+                                                dtype=torch.bfloat16), b)
+    with pytest.raises(ValueError):     # a residual of the wrong shape
+        conv3d.conv3d_ndhwc_bf16(x, w, b, residual=torch.zeros(1, 4, 4, 4,
+                                                                4))
+    # The plain version's output types: bfloat16, or float32 under a
+    # float32 residual.
+    assert conv3d.conv3d_ndhwc_bf16(x, w, b).dtype == torch.bfloat16
+    assert conv3d.conv3d_ndhwc_bf16(
+        x, w, b, residual=torch.zeros(1, 4, 4, 4, 8)).dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K15_CASES))
+@pytest.mark.parametrize("n", [1, 8, 64])
+def test_k15_kernel_matches_plain(card, case, n):
+    k, _, _, pre, post, _, _ = K15_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(n)
+    x, w, b, r = k15_inputs(gen, n, (33, 33, 33), case)
+    kw = dict(pre_relu=pre, post_relu=post, residual=r)
+    got = conv3d.conv3d_ndhwc_bf16(x, w, b, **kw)
+    want = conv3d.conv3d_ndhwc_bf16_plain(x, w, b, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs() / k15_tolerance(x, w, b, **kw)
+    assert float(err.max()) <= 1.0, (case, float(err.max()))
+    assert differ_share(got, want) <= DIFFER_SHARE, (
+        case, differ_share(got, want))
+    # K15 rounds as the exact sum would.
+    assert torch.equal(got, conv3d_ndhwc_bf16_exact(x, w, b, **kw)), case
+    # Deterministic, and a sample does not depend on the batch around it.
+    assert torch.equal(got, conv3d.conv3d_ndhwc_bf16(x, w, b, **kw))
+    i = n // 2
+    one = conv3d.conv3d_ndhwc_bf16(
+        x[i:i + 1].clone(), w, b, pre_relu=pre, post_relu=post,
+        residual=None if r is None else r[i:i + 1].clone())
+    assert torch.equal(one[0], got[i])
+
+
+@pytest.mark.parametrize("case", list(K15_CASES))
+def test_k15_exact_version_matches_plain(case):
+    # The float64 sums' rounding, K15's function on the card, is one more
+    # float32 order for the plain version's limits.
+    _, _, _, pre, post, _, _ = K15_CASES[case]
+    gen = torch.Generator().manual_seed(sorted(K15_CASES).index(case))
+    x, w, b, r = k15_inputs(gen, 3, (9, 10, 11), case)
+    kw = dict(pre_relu=pre, post_relu=post, residual=r)
+    got = conv3d_ndhwc_bf16_exact(x, w, b, **kw)
+    want = conv3d.conv3d_ndhwc_bf16_plain(x, w, b, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs() / k15_tolerance(x, w, b, **kw)
+    assert float(err.max()) <= 1.0, (case, float(err.max()))
+    assert differ_share(got, want) <= DIFFER_SHARE, case
+    # Sample by sample as in one batch.
+    one = conv3d_ndhwc_bf16_exact(
+        x[1:2], w, b, pre_relu=pre, post_relu=post,
+        residual=None if r is None else r[1:2])
+    assert torch.equal(one[0], got[1])
+
+
+@pytest.mark.cuda
+def test_k15_kernel_takes_odd_volumes(card):
+    # Partial tiles on every face: 9 x 10 x 11 is no multiple of 4 x 4 x 8.
+    gen = torch.Generator(device=card).manual_seed(3)
+    for case in ("conv0_a", "block_b", "conv_lom"):
+        k, _, _, pre, post, _, _ = K15_CASES[case]
+        x, w, b, r = k15_inputs(gen, 2, (9, 10, 11), case)
+        kw = dict(pre_relu=pre, post_relu=post, residual=r)
+        got = conv3d.conv3d_ndhwc_bf16(x, w, b, **kw)
+        want = conv3d.conv3d_ndhwc_bf16_plain(x, w, b, **kw)
+        err = (got.float() - want.float()).abs() / k15_tolerance(x, w, b,
+                                                                 **kw)
+        assert float(err.max()) <= 1.0, (case, float(err.max()))
+        assert torch.equal(got, conv3d_ndhwc_bf16_exact(x, w, b, **kw))
 
 
 @pytest.mark.cuda

@@ -12,7 +12,6 @@ first, so its schedule would otherwise depend on thread timing (the port
 keeps the order it has when every policy is ready).
 """
 
-import json
 from concurrent.futures import Future
 from unittest import mock
 
@@ -21,8 +20,8 @@ import pytest
 
 from ffn_tpu.inference import runner as jax_runner
 from ffn_tpu.inference import storage as jax_storage
+from ffn_tpu.inference.counters import Counters
 from ffn_tpu.parallel import multi_canvas as jax_multi_canvas
-from ffn_tpu.proto import inference_pb2
 from ffn_tpu.utils import bounding_box as jax_bounding_box
 from ffn_tpu_torch.inference import runner
 from ffn_tpu_torch.parallel import multi_canvas
@@ -64,18 +63,15 @@ def _tasks(outer, size_x):
             for i in range(calc.num_sub_boxes())]
 
 
-def _counts(encoded, side):
-    """A saved counters entry: a TaskCounters proto (JAX) or JSON (the
-    port), without the timers."""
-    if side == "jax":
-        proto = inference_pb2.TaskCounters.FromString(bytes(encoded))
-        values = {c.name: c.value for c in proto.counters}
-    else:
-        values = json.loads(bytes(encoded))
-    return {k: v for k, v in values.items() if not k.endswith("-ms")}
+def _counts(encoded):
+    """A saved counters entry, a TaskCounters proto in both packages (read
+    by the JAX package's reader), without the timers."""
+    counters = Counters()
+    counters.loads(encoded)
+    return {k: c.value for k, c in counters if not k.endswith("-ms")}
 
 
-def _outputs(out_dir, tasks, driver, saved, side):
+def _outputs(out_dir, tasks, driver, saved):
     """What a run leaves: per subvolume (segmentation, origins, counts)."""
     subvolumes = []
     for corner, _ in tasks:
@@ -83,7 +79,7 @@ def _outputs(out_dir, tasks, driver, saved, side):
                                                      split_cc=False)
         with np.load(jax_storage.segmentation_path(out_dir, corner),
                      allow_pickle=True) as data:
-            counts = _counts(data["counters"], side)
+            counts = _counts(data["counters"])
         subvolumes.append((seg, {k: (tuple(int(x) for x in o.start_zyx),
                                      int(o.iters))
                                  for k, o in origins.items()}, counts))
@@ -110,7 +106,7 @@ def _run(side, tmp, name):
         driver = multi_canvas.MultiSubvolumeHopDriver(
             r, tasks, lanes=8, slots=2, hops=4, device_finalize=devfin)
         saved = driver.run()
-    return _outputs(str(tmp / side), tasks, driver, saved, side), (r, tasks)
+    return _outputs(str(tmp / side), tasks, driver, saved), (r, tasks)
 
 
 @pytest.fixture(scope="module")

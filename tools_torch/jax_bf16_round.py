@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""The JAX package's own bfloat16 round slice on the CPU: chip_smoke.py's
+phase-14 configuration (model-r2 with model_args dtype "bfloat16", 8
+lanes, hops 0, max_iters_per_segment 4000, configs/inference_phantom.pbtxt's
+options) on the padded 100^3 phantom of seed 0, through ffn_tpu's Runner.
+~50 minutes on 8 CPU cores:
+
+  python tools_torch/jax_bf16_round.py
+
+Prints the moves, objects and ground-truth agreement, to set beside the
+port's run of the same slice on K15 and on K15's plain version.
+"""
+
+import json
+import os
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import h5py  # noqa: E402
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+from google.protobuf import text_format  # noqa: E402
+from ffn_tpu.inference import runner as jax_runner  # noqa: E402
+from ffn_tpu.inference import storage as jax_storage  # noqa: E402
+from ffn_tpu.proto import inference_pb2  # noqa: E402
+from tools import synthetic_em  # noqa: E402
+
+PAD = 16
+
+
+def main():
+    tmp = tempfile.mkdtemp()
+    image, gt = synthetic_em.make_volume(size=100, seed=0, num_cells=8)
+    raw = np.pad(image, PAD, mode="reflect")
+    with h5py.File(os.path.join(tmp, "v.h5"), "w") as f:
+        f.create_dataset("raw", data=raw)
+    request = inference_pb2.InferenceRequest()
+    with open(os.path.join(REPO, "configs", "inference_phantom.pbtxt")) as f:
+        text_format.Parse(f.read(), request)
+    request.image.hdf5 = os.path.join(tmp, "v.h5") + ":raw"
+    request.segmentation_output_dir = os.path.join(tmp, "out")
+    request.model_checkpoint_path = os.path.join(
+        REPO, "models", "phantom", "model-r2.npz")
+    args = json.loads(request.model_args)
+    args["dtype"] = "bfloat16"
+    request.model_args = json.dumps(args)
+    request.concurrent_requests = 8
+    runner = jax_runner.Runner()
+    runner.canvas_defaults.update(hops=0, max_iters_per_segment=4000)
+    runner.start(request)
+    t0 = time.time()
+    runner.run((0, 0, 0), raw.shape, keep_probability_maps=False)
+    seg = jax_storage.load_segmentation(request.segmentation_output_dir,
+                                        (0, 0, 0), split_cc=False)[0]
+    inner = seg[(slice(PAD, -PAD),) * 3]
+    print(json.dumps({
+        "wall_s": time.time() - t0,
+        "moves": runner.counters["fov-moves"].value,
+        "objects": len(np.unique(seg[seg > 0])),
+        "agreement": synthetic_em.object_level_agreement(
+            gt.astype(np.uint64), inner.astype(np.uint64), min_size=1000)}))
+
+
+if __name__ == "__main__":
+    main()
