@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drives ffn_tpu_torch's serial, batched (hop and round-based) and fused
-multi-subvolume inference paths and its training path on one NVIDIA card.
+multi-subvolume inference paths and its training paths (the scan and the
+host-loop trainers) on one NVIDIA card.
 
   python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit):
   1. device: the card's name and power limit, torch/CUDA versions, and
      which of protobuf/absl/h5py/jax this machine has;
-  2. build: the CUDA kernels K1-K15 from ffn_tpu_torch/csrc with nvcc, one
+  2. build: the CUDA kernels K1-K16 from ffn_tpu_torch/csrc with nvcc, one
      process per source;
   3. each kernel against its plain PyTorch version at the main paths'
      shapes (K1 within 1e-4 of max|plain| per layer at N=1, 8, 16, 32, 64
@@ -92,13 +93,23 @@ Phases (any failure ends the run with a non-zero exit):
      and on K15's plain version; the serial slice held to ground-truth
      agreement >= 0.95, hop, round and fused to floors just under their
      measured values; each pair's object agreement printed (not
-     required: float32 sums in another order flip rare roundings).
+     required: float32 sums in another order flip rare roundings);
+ 15. the host-loop trainer at full width (the train CLI with --trainer
+     host_loop --fov_policy max_pred_moves: depth 12, 32 features, 33^3
+     FOV, deltas 8, batch 4, sgd) on phase 11's phantom for 40 steps on
+     K1, K9, K10, K16 and K12: steps/s, device ms per kernel (CUDA events),
+     the busy share and the host's ms a step; finite losses and weights,
+     moves, the checkpoint read back; the first batch through
+     make_fov_train_step on kernels and on the plain versions (loss within
+     1e-4 relative, logits within 1e-4 of max|plain|, weights within 1e-5).
 Phase 3 also holds K8 (a crafted 64-lane state over 4 slots of 82^3), K4
 with the device segmentation and K7's batched masks to their plain
 versions, bit for bit, and the training kernels at batch 4: K9 and K10
 within 1e-4 of max|plain| for every layer kind (K10 twice bit for bit),
 K11's passes and K12 (sgd and adam over the depth-12 model's 638,433
-parameters), and K13/K14 on a crafted 64-lane round on 132^3 in select
+parameters; and its ungated mode, the host-loop legacy step's), K16
+(the host-loop step's loss) within 1e-6 of max|plain| with NaN kept,
+and K13/K14 on a crafted 64-lane round on 132^3 in select
 mode (K = 4) and in step_batch's fixed mode, bit for bit; and K15 (the
 bfloat16 conv) for every layer kind at N = 1, 8, 64 and 256 within one
 bfloat16 ulp per rounding of its plain version, the depth-12 bfloat16
@@ -106,8 +117,8 @@ stack at N=64 within 2^-6 of max|logit| of the plain stack, N=1 against
 N=64 bit for bit, with times beside cuDNN's bfloat16 conv and K1. Every
 kernel's entry in the line before the last, {"kernels": [...]}, carries
 its launches on each main path's run (`launches_by_path`: serial, hop,
-fused, fused_host, train, round, serial_bf16, hop_bf16, round_bf16,
-fused_bf16) and their sum, its error against its plain version, its
+fused, fused_host, train, train_host, round, serial_bf16, hop_bf16,
+round_bf16, fused_bf16) and their sum, its error against its plain version, its
 median time, its plain version's, a library call's where one PyTorch call
 computes the same function, and its bound (bytes, or float32 or bfloat16
 operations, at the H100's published peaks). The last line is {"ok": true,
@@ -2198,6 +2209,7 @@ def phase_train_kernels(dev):
         print(f"K11 {name} (B={n}, {c}^3 canvas, 33^3 FOV): max_rel_err "
               f"{err:.3e}, kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
               f"{results[name]['bound_ms']:.5f} ms (bytes)")
+    results["fov_loss"] = _check_k16(randn, n, fov)
 
     # K12 on the depth-12 model's parameters with its gradients' scale.
     model = convstack_3d.ConvStack3DFFNModel(
@@ -2234,6 +2246,26 @@ def phase_train_kernels(dev):
         require(bool(kf) and bool(pf) and errs[-1] <= 1e-6,
                 f"K12 {opt}: error {errs[-1]}")
         if opt == "sgd":
+            # The host-loop trainer's legacy step: no gate, so a NaN
+            # gradient reaches the parameters in both versions.
+            up = [t.clone() for t in kp]
+            upp = [t.clone() for t in kp]
+            nan_grads = [g.clone() for g in grads]
+            nan_grads[3].view(-1)[0] = float("nan")
+            none = [None] * len(kp)
+            zero = torch.zeros((), device=dev)
+            optim_ops.optim_update(up, nan_grads, none, none, None, h, None,
+                                   None, zero, kf, ctrl, gated=False)
+            optim_ops.optim_update_plain(upp, nan_grads, none, none, None, h,
+                                         None, None, zero, pf, gated=False)
+            require(not bool(kf) and not bool(pf)
+                    and bool(torch.isnan(up[3]).view(-1)[0])
+                    and all(torch.allclose(a, b, rtol=0, atol=1e-6,
+                                           equal_nan=True)
+                            for a, b in zip(up, upp)),
+                    "K12 ungated (legacy) step differs from plain")
+            print("K12 ungated (make_fov_train_step's legacy form): a NaN "
+                  "gradient entry reaches its parameter, equal to plain")
             ms, plain_ms = time_pair(
                 lambda: optim_ops.optim_update(kp, grads, ks1, ks2, None, h,
                                                counts[0], None, active, kf,
@@ -2249,6 +2281,55 @@ def phase_train_kernels(dev):
           f"ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
           f"(bytes); no single torch.optim call has the clip and gate")
     return results
+
+
+def _check_k16(randn, n, fov):
+    """K16 fov_loss at the host-loop step's shapes (batch 4 of 33^3
+    logits, soft labels and weights with zeros, x = 0 and +-30 among the
+    logits): dlogits within 1e-6 of max|plain| and the loss within 1e-5
+    relative (float32 sums in another order), twice bit for bit; then a
+    NaN logit gives NaN where the plain version has it. Times beside the
+    library's binary_cross_entropy_with_logits forward and autograd."""
+    import torch.nn.functional as F
+    from ffn_tpu_torch.ops import train as train_ops
+    x = randn(n, *fov, 1, scale=4.0)
+    x.view(-1)[:3] = torch.tensor([0.0, 30.0, -30.0], device=x.device)
+    y = torch.where(randn(n, *fov, 1) > 0, 0.95, 0.05)
+    w = randn(n, *fov, 1).abs()
+    w[w < 0.25] = 0.0
+    ticket = train_ops.new_ticket(x.device)
+    kd, kl = train_ops.fov_loss(x, y, w, ticket)
+    pd, pl = train_ops.fov_loss_plain(x, y, w)
+    again = train_ops.fov_loss(x, y, w, ticket)
+    require(torch.equal(again[0], kd) and torch.equal(again[1], kl),
+            "K16 fov_loss: two runs differ (not deterministic)")
+    d_err, l_err = _rel_err(kd, pd), _rel_err(kl.view(1), pl.view(1))
+    require(d_err <= 1e-6 and l_err <= 1e-5,
+            f"K16 fov_loss: dlogits error {d_err}, loss error {l_err}")
+    err = max(float((kd - pd).abs().max()), float((kl - pl).abs()))
+    xn = x.clone()
+    xn.view(-1)[7] = float("nan")
+    nd, nl = train_ops.fov_loss(xn, y, w, ticket)
+    npd, npl = train_ops.fov_loss_plain(xn, y, w)
+    require(bool(torch.isnan(nl)) and bool(torch.isnan(npl))
+            and torch.equal(torch.isnan(nd), torch.isnan(npd)),
+            "K16 fov_loss: NaN propagation differs from plain")
+    xl = x.clone().requires_grad_()
+
+    def library():
+        return torch.autograd.grad(
+            F.binary_cross_entropy_with_logits(xl, y, weight=w), xl)
+
+    ms, plain_ms, lib_ms = time_many(
+        lambda: train_ops.fov_loss(x, y, w, ticket),
+        lambda: train_ops.fov_loss_plain(x, y, w), library)
+    # Bytes: logits, labels and weights read, dlogits and the loss written.
+    r = entry(err, ms, plain_ms, 16 * x.numel() + 4, library_ms=lib_ms)
+    print(f"K16 fov_loss (B={n}, 33^3): dlogits max_rel_err {d_err:.3e}, "
+          f"loss {l_err:.3e}, max_abs_err {err:.3e}; kernel {ms:.4f} ms "
+          f"plain {plain_ms:.4f} ms library {lib_ms:.4f} ms bound "
+          f"{r['bound_ms']:.5f} ms (bytes)")
+    return r
 
 
 class _StepRecorder:
@@ -2282,14 +2363,14 @@ class _KernelProbe:
     launch of each wrapper (used on the resumed run only, whose numbers are
     held bit for bit against the unprobed run's)."""
 
-    def __init__(self):
+    def __init__(self, train_kernels=TRAIN_K11):
         from ffn_tpu_torch.ops import conv3d
         from ffn_tpu_torch.ops import optim as optim_ops
         from ffn_tpu_torch.ops import train as train_ops
         self.targets = [(conv3d, n) for n in ("conv3d_ndhwc_f32",
                                               "conv3d_dgrad_f32",
                                               "conv3d_wgrad_f32")]
-        self.targets += [(train_ops, n) for n in TRAIN_K11]
+        self.targets += [(train_ops, n) for n in train_kernels]
         self.targets += [(optim_ops, "optim_update")]
         self.pairs = {n: [] for _, n in self.targets}
         self.patches = []
@@ -2397,8 +2478,8 @@ def _ckpt_arrays(train_dir, step):
 
 
 def _train_plain_patches():
-    """K1, K9-K12 on their plain versions: autograd of cuDNN's convolution
-    and torch ops for the step's passes and the optimizer."""
+    """K1, K9-K12 and K16 on their plain versions: autograd of cuDNN's
+    convolution and torch ops for the step's passes and the optimizer."""
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
     from ffn_tpu_torch.ops import optim as optim_ops
@@ -2421,8 +2502,12 @@ def _train_plain_patches():
         mock.patch.object(train_ops, "train_eval",
                           lambda s, lab, ev, ws: train_ops.train_eval_plain(
                               s, lab, tuple(ev))),
+        mock.patch.object(train_ops, "fov_loss",
+                          lambda lg, lab, w, ticket: train_ops.fov_loss_plain(
+                              lg, lab, w)),
         mock.patch.object(optim_ops, "optim_update",
-                          lambda *a: optim_ops.optim_update_plain(*a[:10])),
+                          lambda *a, **k: optim_ops.optim_update_plain(
+                              *a[:10], **k)),
     ]
 
 
@@ -2515,6 +2600,199 @@ def phase_train(have, dev, tmp):
     _train_profile(dev)
     _train_golden(dev)
     _train_inference(have, dev, tmp, kdir)
+    return launches
+
+
+# -- the host-loop trainer (phase 15) ----------------------------------------
+
+HOST_STEPS = 40
+HOST_LOSS_RTOL = 1e-4       # the first batch's fov step, kernels vs plain
+HOST_LOGIT_TOL = 1e-4       # of max|plain logit|
+HOST_PARAM_ATOL = 1e-5
+HOST_KERNELS = ("conv3d_ndhwc_f32", "conv3d_dgrad_f32", "conv3d_wgrad_f32",
+                "fov_loss", "optim_update")
+# The train CLI's default model (its --model_args stated explicitly).
+HOST_MODEL = dict(fov_size=[33] * 3, deltas=[8] * 3, depth=12, features=32)
+
+
+class _HostRecorder:
+    """Wraps make_fov_train_step: keeps the first batch and the weights
+    before it (device copies), each step's loss (a device tensor), the
+    parameters, and a CUDA event at the end of each step; and adds up the
+    host's own time in BatchExampleIter (the next batch, the policy's
+    moves, the seed write-back) after the first two steps."""
+
+    def __init__(self):
+        self.losses, self.events = [], []
+        self.first = self.init = self.params = None
+        self.host_s = 0.0
+
+    def make(self, make_step):
+        def make_recorded(model, opt, mesh=None, config=None):
+            step = make_step(model, opt, mesh=mesh, config=config)
+
+            def run(params, *args):
+                if self.first is None:
+                    self.first = [t.clone() for t in args[-4:]]
+                    self.init = {n: p.detach().clone()
+                                 for n, p in params.items()}
+                out = step(params, *args)
+                self.params = params
+                self.losses.append(out[-1])
+                event = torch.cuda.Event(enable_timing=True)
+                event.record()
+                self.events.append(event)
+                return out
+            return run
+        return make_recorded
+
+    def timed(self, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if len(self.events) >= 2:
+                    self.host_s += time.perf_counter() - t0
+        return run
+
+
+def phase_train_host(dev, tmp):
+    """The host-loop trainer at full width through the train CLI's entry
+    point: --trainer host_loop --fov_policy max_pred_moves at the CLI's
+    defaults (depth 12, 32 features, 33^3 FOV, deltas 8, fov_moves 1 (a
+    65^3 canvas), batch 4, sgd at 0.001, float32) on phase 11's seed-0
+    phantom, 40 steps, one checkpoint at the end, every kernel timed by
+    CUDA events. Requires finite losses and parameters, moves, the
+    checkpoint read back by the port's _restore bit for bit; then the
+    run's first batch through make_fov_train_step on kernels and on the
+    plain versions from the same weights (loss within 1e-4 relative,
+    logits within 1e-4 of max|plain|, weights within 1e-5). Returns the
+    run's launches."""
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.cli import train as train_cli
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.training import examples
+    from ffn_tpu_torch.training import train_lib, train_loop
+
+    hdir = os.path.join(tmp, "train_host")
+    argv = _train_argv(tmp, hdir)
+    argv[argv.index("--max_steps") + 1] = str(HOST_STEPS)
+    for flag in ("--checkpoint_every_steps", "--summary_every_steps"):
+        argv[argv.index(flag) + 1] = str(HOST_STEPS)
+    argv += ["--trainer", "host_loop", "--fov_policy", "max_pred_moves",
+             "--model_args", json.dumps(HOST_MODEL)]
+    rec = _HostRecorder()
+    it = examples.BatchExampleIter
+    patches = [mock.patch.object(train_loop.train_lib, "make_fov_train_step",
+                                 rec.make(train_lib.make_fov_train_step)),
+               mock.patch.object(it, "__next__", rec.timed(it.__next__)),
+               mock.patch.object(it, "update_seeds",
+                                 rec.timed(it.update_seeds))]
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _KernelProbe(train_kernels=("fov_loss",)) as probe:
+        for p in patches:
+            p.start()
+        try:
+            train_cli.main(argv)
+        finally:
+            for p in patches:
+                p.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    print(f"kernel launches on the host-loop training path: {launches}")
+    for name in HOST_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the host-loop path")
+    steps = len(rec.events)
+    require(steps == HOST_STEPS, f"host loop: {steps} steps")
+    require(all(bool(torch.isfinite(v)) for v in rec.losses),
+            "host loop: non-finite loss")
+    steady_ms = rec.events[1].elapsed_time(rec.events[-1]) / (steps - 2)
+    device_ms = probe.ms()
+    busy = sum(device_ms.values()) / steps
+    host_ms = 1e3 * rec.host_s / (steps - 2)
+    with open(os.path.join(hdir, "summaries.jsonl")) as f:
+        summary = json.loads(f.readlines()[-1])
+    losses = [float(v) for v in rec.losses]
+    print(f"train host_loop max_pred_moves: {steps} steps in {wall:.3f} s "
+          f"wall; steady {1e3 / steady_ms:.4f} steps/s (steps 3-{steps}, "
+          f"{steady_ms:.3f} ms a step), {1e3 * TRAIN_B / steady_ms:.2f} "
+          f"FOV forward+backward/s; device ms a step by kernel (CUDA "
+          f"events, all steps): " + ", ".join(
+              f"{n} {v / steps:.3f}" for n, v in device_ms.items())
+          + f"; kernels {busy:.3f} ms a step, device busy share "
+          f"{busy / steady_ms:.4f}; host (BatchExampleIter: batch, moves, "
+          f"write-back) {host_ms:.3f} ms a step, share "
+          f"{host_ms / steady_ms:.4f}; moves/total {summary['moves/total']}"
+          f" moves/correct {summary['moves/correct']:.4f} eval/patches "
+          f"{summary['eval/patches']}; loss first/last {losses[0]:.5f}/"
+          f"{losses[-1]:.5f}")
+    require(summary["step"] == HOST_STEPS and summary["moves/total"] > 0,
+            f"host loop summaries: {summary}")
+
+    # The checkpoint, read back by the port's _restore.
+    ckpt = os.path.join(hdir, "ckpt")
+    names = sorted(os.listdir(ckpt))
+    require(names == [f"{p}.ckpt-{HOST_STEPS}.npz" for p in
+                      ("extra", "model", "opt")], f"checkpoints: {names}")
+    config = train_lib.TrainConfig(
+        fov_size=HOST_MODEL["fov_size"], deltas=HOST_MODEL["deltas"],
+        depth=HOST_MODEL["depth"], features=HOST_MODEL["features"],
+        batch_size=TRAIN_B, fov_policy="max_pred_moves")
+
+    def fresh(weights):
+        model = convstack_3d.ConvStack3DFFNModel(**HOST_MODEL)
+        model.module.to(dev)
+        if weights is not None:
+            with torch.no_grad():
+                for n, p in model.module.named_parameters():
+                    p.copy_(weights[n])
+        state, opt = train_lib.create_train_state(model, config)
+        return model, state, opt
+
+    model, state, opt = fresh(None)
+    train_loop._restore(ckpt, HOST_STEPS, model, opt, state.opt_state)
+    require(all(torch.equal(p, rec.params[n]) and bool(torch.isfinite(
+        p).all()) for n, p in state.params.items()),
+        "the restored checkpoint differs from the run's final weights")
+    print(f"model.ckpt-{HOST_STEPS}.npz restored by train_loop._restore: "
+          f"equal to the run's final weights, all finite")
+
+    # The first batch through the fov step, on kernels and plain.
+    def fov_step():
+        model, state, opt = fresh(rec.init)
+        step = train_lib.make_fov_train_step(model, opt, config=config)
+        out = step(state.params, state.opt_state, state.ema_params,
+                   state.scale_state, *rec.first)
+        return out[-2], out[-1], state.params
+
+    klogits, kloss, kparams = fov_step()
+    plain = _train_plain_patches()
+    for p in plain:
+        p.start()
+    try:
+        plogits, ploss, pparams = fov_step()
+    finally:
+        for p in plain:
+            p.stop()
+    loss_err = abs(float(kloss) - float(ploss)) / max(abs(float(ploss)),
+                                                      1e-30)
+    logit_err = _rel_err(klogits, plogits)
+    param_err = max(float((kparams[n] - pparams[n]).detach().abs().max())
+                    for n in kparams)
+    print(f"host-loop first batch, make_fov_train_step on kernels vs plain "
+          f"(cuDNN autograd): loss {float(kloss):.6f} vs {float(ploss):.6f}, "
+          f"relative error {loss_err:.3e} (bound {HOST_LOSS_RTOL}); logits "
+          f"{logit_err:.3e} of max|plain| (bound {HOST_LOGIT_TOL}); weights "
+          f"max abs error {param_err:.3e} (bound {HOST_PARAM_ATOL})")
+    require(loss_err <= HOST_LOSS_RTOL, f"host fov step loss: {loss_err}")
+    require(logit_err <= HOST_LOGIT_TOL, f"host fov step logits: {logit_err}")
+    require(param_err <= HOST_PARAM_ATOL,
+            f"host fov step weights: {param_err}")
     return launches
 
 
@@ -2697,6 +2975,7 @@ def main():
         phase_fused_golden(dev, tmp)
         phase_fused_r2_reference(dev, tmp)
         launches["train"] = phase_train(have, dev, tmp)
+        launches["train_host"] = phase_train_host(dev, tmp)
         launches["round"] = phase_round_slice(dev, phantom, r2, seg_r2, tmp)
         phase_round_golden(dev, r2, tmp)
         launches.update(phase_bf16_slices(dev, phantom, r2, tmp))
@@ -2744,6 +3023,8 @@ def main():
                        "ffn_tpu/training/train_lib.py:255"),
         "optim_update": ("ffn_tpu_torch/csrc/optim.cu",
                          "ffn_tpu/training/train_lib.py:370"),
+        "fov_loss": ("ffn_tpu_torch/csrc/train.cu",
+                     "ffn_tpu/training/train_lib.py:425"),
         "select_gather": ("ffn_tpu_torch/csrc/select.cu",
                           "ffn_tpu/inference/engine.py:211"),
         "select_update": ("ffn_tpu_torch/csrc/select.cu",
@@ -2751,7 +3032,8 @@ def main():
     }
     # `launches` sums the main paths' runs; `launches_by_path` splits them
     # (fused and fused_host: the full-width fused slice with device and
-    # with host finalization; train: the full-width training run; round:
+    # with host finalization; train: the full-width training run;
+    # train_host: the host-loop trainer's run; round:
     # the round-based slice at 8 lanes; *_bf16: the serial, hop, round and
     # fused slices in bfloat16).
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,

@@ -65,6 +65,7 @@ _SIGNATURES = {
     "ffn_train_gather": [_P] * 7 + [_I, _P, _I, _I, _F, _F, _P],
     "ffn_train_loss": [_P] * 10 + [_I, _P, _I, _P],
     "ffn_train_eval": [_P] * 7 + [_I, _P, _I, _P],
+    "ffn_fov_loss": [_P] * 7 + [_L, _I, _P],
     "ffn_optim_update": [_P] * 6 + [_I] + [_P] * 7 + [_I, _P],
     "ffn_select_gather": [_P] * 6 + [_I] * 11 + [_F, _F, _P],
     "ffn_select_update": [_P] * 5 + [_I] * 13 + [_F, _F, _P],

@@ -10,10 +10,11 @@ Counterpart of ffn_tpu/cli/train.py with the same flags plus --device:
     --max_steps 1000 --device cuda
 
 Volumes are `name:path:dataset` (h5) or `name:path.npy`. Runs the packed
-scan trainer (train_loop.run_training); `--device cpu` runs the kernels'
+scan trainer (train_loop.run_training), or with --trainer host_loop the
+host-loop trainer (train_loop.run_training_host_loop), which also takes
+--fov_policy max_pred_moves and no_step; `--device cpu` runs the kernels'
 plain PyTorch versions. Not ported yet, each raising NotImplementedError
-(ROADMAP.md): --trainer=host_loop, --fov_policy max_pred_moves/no_step,
---precision bf16/f16, --remat, and multi-process training
+(ROADMAP.md): --precision bf16/f16, --remat, and multi-process training
 (--coordinator_address, --num_processes, --process_id).
 """
 
@@ -95,8 +96,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             f"multi-process training {NOT_PORTED}: the port trains on one "
             f"card")
-    if args.trainer == "host_loop":
-        train_loop.run_training_host_loop()
     model_args = json.loads(args.model_args) if args.model_args else {}
     config = train_lib.TrainConfig(
         fov_size=tuple(model_args.get("fov_size", (33, 33, 33))),
@@ -139,8 +138,10 @@ def main(argv=None) -> dict:
         checkpoint_every_steps=args.checkpoint_every_steps,
         random_seed=args.random_seed,
         stall_timeout_secs=args.stall_timeout_secs)
-    return train_loop.run_training(args.model_name, args.model_args or "",
-                                   config, data, loop, device=args.device)
+    run = (train_loop.run_training_host_loop if args.trainer == "host_loop"
+           else train_loop.run_training)
+    return run(args.model_name, args.model_args or "", config, data, loop,
+               device=args.device)
 
 
 if __name__ == "__main__":

@@ -10,9 +10,13 @@
 //   1. finite = every gradient entry finite (each block reduces its share,
 //      a grid barrier, every block reads all blocks' flags);
 //   2. do_update = (active > 0) & finite, read from device memory (the
-//      step's `active` count, written by K11's train_loss). Each entry:
-//      g = clip(g, +-c); the optimizer's step; p += u. Without do_update the
-//      parameters, the optimizer state and the counts keep their values.
+//      step's `active` count, written by K11's train_loss); with the gate
+//      off (the host-loop trainer's legacy step, make_fov_train_step without
+//      a config, train_lib.py:445-458), do_update always, so a NaN gradient
+//      reaches the parameters as it does in JAX. Each entry:
+//      g = clip(g, +-c) (a NaN stays NaN, as jnp.clip leaves it); the
+//      optimizer's step; p += u. Without do_update the parameters, the
+//      optimizer state and the counts keep their values.
 //      Then, whenever ema_decay > 0, e = d e + (1 - d) p.
 // The counts (adam's and the schedule's) are read before the barrier and
 // written after it by one thread, so no block reads a new count.
@@ -45,7 +49,7 @@ struct Table {
 };
 
 struct Hyper {
-  int opt, use_sched, decay_steps, use_ema;
+  int opt, use_sched, decay_steps, use_ema, gate;
   float clip, lr, decay_rate;
   float b1, omb1, b2, omb2, eps, momentum, rho, omrho, ema_d, ema_omd;
 };
@@ -106,7 +110,7 @@ optim_update_kernel(Table t, Hyper h, State st) {
   }
   __syncthreads();
   const bool finite = s_ok != 0;
-  const bool do_update = finite && *st.active > 0.f;
+  const bool do_update = !h.gate || (finite && *st.active > 0.f);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *st.finite_out = finite;
     if (do_update) {
@@ -138,7 +142,7 @@ optim_update_kernel(Table t, Hyper h, State st) {
       float pv = p[i];
       if (do_update) {
         float g = gp[i];
-        if (h.clip > 0.f) g = fminf(fmaxf(g, -h.clip), h.clip);
+        if (h.clip > 0.f && !isnan(g)) g = fminf(fmaxf(g, -h.clip), h.clip);
         float u;
         switch (h.opt) {
           case kMomentum: {
@@ -192,9 +196,9 @@ optim_update_kernel(Table t, Hyper h, State st) {
 
 // p, g, s1, s2, e: host arrays of `count` device pointers (s1, s2, e may hold
 // nulls where the optimizer or the EMA has no such tensor); n: the tensors'
-// sizes. hyper_i = {opt, use_sched, decay_steps, use_ema}; hyper_f = {clip,
-// lr, decay_rate, b1, 1-b1, b2, 1-b2, eps, momentum, rho, 1-rho, ema_d,
-// 1-ema_d}. ctrl: 2 + (number of SMs) zeroed ints, kept across calls.
+// sizes. hyper_i = {opt, use_sched, decay_steps, use_ema, gate}; hyper_f =
+// {clip, lr, decay_rate, b1, 1-b1, b2, 1-b2, eps, momentum, rho, 1-rho,
+// ema_d, 1-ema_d}. ctrl: 2 + (number of SMs) zeroed ints, kept across calls.
 extern "C" int ffn_optim_update(void* const* p, void* const* g,
                                 void* const* s1, void* const* s2,
                                 void* const* e, const long long* n, int count,
@@ -213,7 +217,7 @@ extern "C" int ffn_optim_update(void* const* p, void* const* g,
     t.n[j] = n[j];
   }
   t.count = count;
-  const Hyper h{hyper_i[0], hyper_i[1], hyper_i[2], hyper_i[3],
+  const Hyper h{hyper_i[0], hyper_i[1], hyper_i[2], hyper_i[3], hyper_i[4],
                 hyper_f[0], hyper_f[1], hyper_f[2], hyper_f[3], hyper_f[4],
                 hyper_f[5], hyper_f[6], hyper_f[7], hyper_f[8], hyper_f[9],
                 hyper_f[10], hyper_f[11], hyper_f[12]};

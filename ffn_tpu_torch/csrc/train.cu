@@ -19,13 +19,23 @@
 //                 active, correct, missed, spurious;
 //   train_eval    after the offsets (:255-266): the eval region's centre
 //                 crop, its mean cross entropy and exact int32 tp/fp/fn/tn.
+// And K16, the host-loop trainer's loss:
+//   fov_loss      make_fov_train_step's loss (:425-505): mean(ce(x, z) w)
+//                 over every voxel of the batch, weights of zero included
+//                 and no per-lane gate, and its gradient w (sigmoid(x) - z)
+//                 / N (conv_lom's output gradient); at x = 0 exactly -w z /
+//                 N, JAX's derivative there (max splits the tie 0.5/0.5,
+//                 abs' derivative at 0 is 1, so the log1p term gives -0.5).
+//                 Two outputs: dlogits and the scalar loss.
 // Crop starts are lax.dynamic_slice's (wrapped once, then clamped) and come
 // from the host, which knows every offset.
 //
 // Bound on the H100: bytes (a few float32 canvases of 49^3 and patches of
-// 33^3 per lane); each pass is one launch. Reductions are deterministic:
-// each block writes its partial sums, the last block to finish (an integer
-// ticket) adds them in block order and resets the ticket.
+// 33^3 per lane; K16 reads three (B, 33^3) tensors and writes one); each
+// pass is one launch, so at these sizes launch latency dominates.
+// Reductions are deterministic: each block writes its partial sums, the
+// last block to finish (an integer ticket) adds them in block order and
+// resets the ticket.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -313,6 +323,47 @@ inline int blocks_for(size_t n) {
   return static_cast<int>(b < 4096 ? (b > 0 ? b : 1) : 4096);
 }
 
+// K16: each block its chunk of the flat (B * V) batch; the last block adds
+// the partial sums in block order and divides by N.
+__global__ void fov_loss_kernel(const float* __restrict__ logits,
+                                const float* __restrict__ labels,
+                                const float* __restrict__ weights,
+                                float* __restrict__ dlogits,
+                                float* __restrict__ partial,
+                                unsigned* __restrict__ ticket,
+                                float* __restrict__ loss, long long n,
+                                int chunk) {
+  __shared__ float s_warp[kThreads / 32];
+  __shared__ bool s_last;
+  const float nf = static_cast<float>(n);
+  const long long v0 = (long long)blockIdx.x * chunk;
+  const long long v1 = min(v0 + (long long)chunk, n);
+  float sum = 0.f;
+  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+    const float lx = logits[v], lz = labels[v], w = weights[v];
+    const float e = expf(-fabsf(lx));
+    const float ce = __fadd_rn(__fsub_rn(fmaxf(lx, 0.f), __fmul_rn(lx, lz)),
+                               log1pf(e));
+    sum += __fmul_rn(ce, w);
+    // A NaN fails both tests and stays NaN.
+    const float sig =
+        lx == 0.f ? 0.f : lx > 0.f ? 1.f / (1.f + e) : e / (1.f + e);
+    dlogits[v] = __fmul_rn(__fdiv_rn(w, nf), __fsub_rn(sig, lz));
+  }
+  const float s = block_sum(sum, s_warp);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = s;
+    s_last = last_block(ticket);
+  }
+  __syncthreads();
+  if (!s_last || threadIdx.x != 0) return;
+  __threadfence();
+  float total = 0.f;
+  for (unsigned c = 0; c < gridDim.x; ++c) total += __ldcg(partial + c);
+  *loss = __fdiv_rn(total, nf);
+  *ticket = 0u;
+}
+
 }  // namespace
 
 // image_u8 (B, i^3) and lom_u8 (B, l^3) -> images, labels (float32, same
@@ -394,5 +445,18 @@ extern "C" int ffn_train_eval(const float* seeds, const float* labels,
   train_eval_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       seeds, labels, partial, ipartial, static_cast<unsigned*>(ticket),
       patch_loss, counts, B, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n: the number of voxels (B * V); partial: ceil(n / chunk) floats; ticket:
+// one zeroed unsigned; loss: one float.
+extern "C" int ffn_fov_loss(const float* logits, const float* labels,
+                            const float* weights, float* dlogits,
+                            float* partial, void* ticket, float* loss,
+                            long long n, int chunk, void* stream) {
+  const int grid = static_cast<int>((n + chunk - 1) / chunk);
+  fov_loss_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      logits, labels, weights, dlogits, partial,
+      static_cast<unsigned*>(ticket), loss, n, chunk);
   return static_cast<int>(cudaGetLastError());
 }

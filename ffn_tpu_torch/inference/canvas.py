@@ -353,7 +353,7 @@ class Canvas:
                 self.seg_prob[...] = data["seg_qprob"]
             self.history_deleted = list(data["history_deleted"])
             self.history = [tuple(h) for h in data["history"]]
-            self.origins = data["origins"].item()
+            self.origins = storage._read_origins_entry(path)
             if "overlaps" in data:
                 self.overlaps = data["overlaps"].item()
 

@@ -661,7 +661,7 @@ class HopBatchCanvas(batch_canvas_lib.BatchCanvas):
             self.segmentation[...] = data["segmentation"]
             if self.keep_probability_maps and "seg_qprob" in data:
                 self.seg_prob[...] = data["seg_qprob"]
-            self.origins = data["origins"].item()
+            self.origins = storage._read_origins_entry(path)
             self.overlaps = data["overlaps"].item()
             self._deferred = batch_canvas_lib._SeedPool(data["deferred"])
             self._max_id = int(np.max(self.segmentation, initial=0))

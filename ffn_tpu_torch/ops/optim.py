@@ -8,8 +8,11 @@ momentum, adagrad, adam or rmsprop with the staircase exponential decay,
 and the EMA of the parameters whenever ema_decay > 0
 (ffn_tpu/training/train_lib.py:370-388, optimizer.py:45-69). Without the
 update, parameters, state and counts keep their values, as the JAX
-package's `where`/`select_tree` leave them. `active` and the finite flag
-stay on the device; nothing here reads them on the host.
+package's `where`/`select_tree` leave them. `gated=False` updates
+whatever the gradients hold (the host-loop trainer's legacy step,
+train_lib.py:445-458, applies the optax update with no finite test).
+`active` and the finite flag stay on the device; nothing here reads them
+on the host.
 
 `optim_update_plain` is the same function in torch ops; CPU tensors take
 it.
@@ -75,10 +78,11 @@ def _safe_increment(c: torch.Tensor) -> torch.Tensor:
 
 
 def optim_update_plain(params, grads, s1, s2, ema, h: Hyper, adam_count,
-                       sched_count, active, finite_out):
+                       sched_count, active, finite_out, *, gated=True):
     dev = params[0].device
     finite = precision.all_finite(grads)
-    do_update = finite & (active > 0)
+    do_update = finite & (active > 0) if gated else torch.ones(
+        (), dtype=torch.bool, device=dev)
     step = -learning_rate(h, sched_count).to(dev)
     if h.opt == "adam":
         c1 = _safe_increment(adam_count).to(torch.float32)
@@ -134,11 +138,12 @@ def optim_update(params: List[torch.Tensor], grads: List[torch.Tensor],
                  adam_count: Optional[torch.Tensor],
                  sched_count: Optional[torch.Tensor], active: torch.Tensor,
                  finite_out: torch.Tensor,
-                 ctrl: Optional[torch.Tensor] = None):
+                 ctrl: Optional[torch.Tensor] = None, *, gated: bool = True):
     """K12, in place. `s1`/`s2`: the optimizer's per-parameter state
     (momentum/adagrad: s1; adam: mu, nu; rmsprop: nu, trace); `active` a
     0-d float32 tensor (the offset's valid lanes), `finite_out` a 0-d bool
-    tensor for the grads_finite metric; `ctrl` from ctrl_buffer (CUDA)."""
+    tensor for the grads_finite metric; `ctrl` from ctrl_buffer (CUDA);
+    `gated=False` drops the `(active > 0) & finite` gate."""
     if h.opt not in OPTIMIZERS:
         raise ValueError(f"Unknown optimizer: {h.opt}")
     n = len(params)
@@ -168,7 +173,8 @@ def optim_update(params: List[torch.Tensor], grads: List[torch.Tensor],
             raise ValueError(f"{NAME}: tensors on {t.device} and {dev}")
     if dev.type == "cpu":
         return optim_update_plain(params, grads, s1, s2, ema, h, adam_count,
-                                  sched_count, active, finite_out)
+                                  sched_count, active, finite_out,
+                                  gated=gated)
     if dev.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {dev}")
     if n > MAX_TENSORS:
@@ -192,7 +198,7 @@ def optim_update(params: List[torch.Tensor], grads: List[torch.Tensor],
             _build.host_array(ctypes.c_longlong, [p.numel() for p in params]),
             _build.host_array(ctypes.c_int, [
                 OPTIMIZERS.index(h.opt), int(h.decays),
-                int(h.decay_steps or 1), int(ema is not None)]),
+                int(h.decay_steps or 1), int(ema is not None), int(gated)]),
             _build.host_array(ctypes.c_float, [
                 _f32(h.clip), _f32(h.lr), _f32(h.decay_rate or 1.0),
                 _f32(h.b1), _f32(1 - h.b1), _f32(h.b2), _f32(1 - h.b2),

@@ -1,6 +1,8 @@
-"""K11 train_step_ops: the scan train step's passes around the conv stack.
+"""K11 train_step_ops and K16 fov_loss: the train steps' passes around
+the conv stack.
 
-Four wrappers, each beside its plain PyTorch version:
+For the scan train step (K11), four wrappers, each beside its plain
+PyTorch version:
 
 - `train_prep`: the packed prelude (ffn_tpu/training/train_lib.py:239-248),
   uint8 image and mask -> normalized image, soft labels, and the seed
@@ -13,6 +15,13 @@ Four wrappers, each beside its plain PyTorch version:
   for valid lanes and the offset's counts (:357-366, :390-411);
 - `train_eval`: the eval region's mean cross entropy and tp/fp/fn/tn
   (:255-266).
+
+For the host-loop trainer's step (make_fov_train_step, :425-505), K16
+`fov_loss`: the loss mean(sigmoid_ce(x, z) w) over every voxel of the
+batch, weights of zero included and no per-lane gate, and its gradient
+w (sigmoid(x) - z) / N, in one launch with a deterministic reduction. At
+x = 0 exactly the gradient is -w z / N, as jax.grad gives it there (max
+splits the tie 0.5/0.5 and abs' derivative at 0 is 1).
 
 Canvases are (B, z, y, x) float32 here (the JAX package's (B, z, y, x, 1)
 without the channel). Offsets are host integers, so every crop start is
@@ -34,8 +43,10 @@ from ffn_tpu_torch.ops.step import clamp_start
 
 PREP, GATHER, LOSS, EVAL = ("train_prep", "train_gather", "train_loss",
                             "train_eval")
+FOV_LOSS = "fov_loss"
 LOSS_CHUNK = 2048   # voxels of one lane per train_loss block
 EVAL_CHUNK = 4096   # voxels per train_eval block
+FOV_CHUNK = 4096    # voxels per fov_loss block
 METRICS = ("loss", "active", "correct", "missed", "spurious")
 
 
@@ -44,7 +55,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def new_ticket(device) -> torch.Tensor:
-    """The last-block ticket of train_loss and train_eval's reductions: a
+    """The last-block ticket of train_loss, train_eval and fov_loss's
+    reductions: a
     zeroed int that each launch leaves at zero again."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
@@ -337,3 +349,44 @@ def train_eval(seeds: torch.Tensor, labels: torch.Tensor,
     _build.check(err, EVAL)
     _build.launches[EVAL] += 1
     return patch_loss, counts
+
+
+# -- fov_loss (K16) ----------------------------------------------------------
+
+def fov_loss_plain(logits, labels, weights):
+    # A tensor divisor: torch divides by a Python scalar as a product with
+    # its reciprocal, the kernel and the JAX package truly divide.
+    n = torch.tensor(float(logits.numel()), device=logits.device)
+    loss = (sigmoid_ce(logits, labels) * weights).sum() / n
+    sig = torch.where(logits == 0, torch.zeros((), device=logits.device),
+                      torch.sigmoid(logits))
+    return (weights / n) * (sig - labels), loss
+
+
+def fov_loss(logits: torch.Tensor, labels: torch.Tensor,
+             weights: torch.Tensor, ticket: torch.Tensor):
+    """(dloss/dlogits, loss) of loss = mean(sigmoid_ce(logits, labels) *
+    weights) over all voxels: (B, z, y, x, 1) float32 tensors of one shape
+    in; the gradient of that shape and a 0-d loss, on the device, out.
+    `ticket`: from new_ticket."""
+    for t in (logits, labels, weights):
+        if t.dim() != 5 or t.shape[-1] != 1 or t.dtype != torch.float32 \
+                or t.shape != logits.shape:
+            raise ValueError(f"{FOV_LOSS}: want (B, z, y, x, 1) float32 "
+                             f"tensors of one shape, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if _on_cpu(FOV_LOSS, logits, labels, weights, ticket):
+        return fov_loss_plain(logits, labels, weights)
+    n = logits.numel()
+    dev = logits.device
+    dlogits = torch.empty_like(logits)
+    partial = torch.empty((-(-n // FOV_CHUNK),), dtype=torch.float32,
+                          device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    err = _build.lib().ffn_fov_loss(
+        logits.data_ptr(), labels.data_ptr(), weights.data_ptr(),
+        dlogits.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
+        loss.data_ptr(), n, FOV_CHUNK, _stream(logits))
+    _build.check(err, FOV_LOSS)
+    _build.launches[FOV_LOSS] += 1
+    return dlogits, loss

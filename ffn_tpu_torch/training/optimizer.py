@@ -167,10 +167,12 @@ class Optimizer:
     def update(self, params: Dict[str, torch.Tensor],
                grads: List[torch.Tensor], state: dict,
                ema: Optional[Dict[str, torch.Tensor]],
-               active: torch.Tensor, finite_out: torch.Tensor) -> None:
-        """One gated step in place (K12): `grads` in `params`' order;
-        `active` and `finite_out` are 0-d device tensors (the offset's
-        valid lanes and its grads_finite metric)."""
+               active: torch.Tensor, finite_out: torch.Tensor,
+               gated: bool = True) -> None:
+        """One step in place (K12): `grads` in `params`' order; `active`
+        and `finite_out` are 0-d device tensors (the offset's valid lanes
+        and its grads_finite metric); gated on `(active > 0) & finite`
+        unless `gated` is False."""
         names = list(params)
         slots = [[state[g][n] for n in names] for g in _SLOTS[self.name]]
         slots += [[None] * len(names)] * (2 - len(slots))
@@ -186,7 +188,7 @@ class Optimizer:
                 slots[0], slots[1],
                 [ema[n] for n in names] if ema is not None else None,
                 self.hyper, state.get("count"), state.get("sched_count"),
-                active, finite_out, ctrl)
+                active, finite_out, ctrl, gated=gated)
 
 
 def optimizer_from_config(config: OptimizerConfig,

@@ -1,8 +1,10 @@
-"""FFN training on one card: the scan trainer of the JAX package.
+"""FFN training on one card: the scan and host-loop train steps of the JAX
+package.
 
 Counterpart of ffn_tpu/training/train_lib.py's scan trainer
 (`make_scan_train_step`, `make_scan_train_step_packed` and their shared
-body, :158-422). A step function is a plain function on tensors that loops
+body, :158-422) and of its host-loop step (`make_fov_train_step`,
+:425-505). A step function is a plain function on tensors that loops
 over the fixed offsets in Python; for each offset, in the JAX body's order:
 
   K11 train_gather   the gate (valid, wanted) and the model's input crop
@@ -21,9 +23,19 @@ k - 1 updated, and the schedule's count advances only on a real update,
 as in the JAX scan. Parameters, optimizer state and EMA are updated in
 place (the JAX step donates and returns them).
 
-The host-loop trainer (`make_fov_train_step`), the max_pred_moves and
-no_step policies, bf16/f16 training, remat and meshes are not ported
-(ROADMAP.md); each raises NotImplementedError.
+The host-loop step is one pass over one FOV batch, for the examples'
+moves that the host chooses (any of the four policies):
+
+  K1 (x 2*depth+1)   ConvStack3D forward on (image, seed), under autograd
+  K16 fov_loss       the ungated mean sigmoid CE and dloss/dlogits
+  K9, K10            the backward
+  K12 optim_update   the optimizer step: ungated in the legacy form (no
+                     config), gated on finite gradients with the EMA in
+                     the config form
+
+The scan steps refuse max_pred_moves and no_step as the JAX package does
+(they need the host loop). bf16/f16 training, remat and meshes are not
+ported (ROADMAP.md); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,8 +63,8 @@ class TrainConfig:
     features: int = 32
     batch_size: int = 8
     fov_moves: int = 1
-    fov_policy: str = "fixed"   # fixed | fixed_window (ported);
-    #                             max_pred_moves | no_step (not ported)
+    fov_policy: str = "fixed"   # fixed | fixed_window (both trainers);
+    #                             max_pred_moves | no_step (host loop)
     fixed_window_radius: int = 8
     threshold: float = 0.9      # move gate (probability space)
     seed_pad: float = 0.05
@@ -112,16 +124,35 @@ def fixed_offsets_zyx(info, shuffle: bool = False,
 sigmoid_ce = train_ops.sigmoid_ce
 
 
+def _fov_zyx(info) -> tuple:
+    """The model's FOV (zyx); its image, seed and prediction sizes must
+    agree."""
+    fov_zyx = tuple(int(v) for v in info.input_seed_size[::-1])
+    pred_zyx = tuple(int(v) for v in info.pred_mask_size[::-1])
+    img_zyx = tuple(int(v) for v in info.input_image_size[::-1])
+    if not fov_zyx == pred_zyx == img_zyx:
+        raise NotImplementedError(
+            f"models whose image, seed and prediction sizes differ "
+            f"{NOT_PORTED}")
+    return fov_zyx
+
+
 def check_config(config: TrainConfig):
     """Raises NotImplementedError for what the port does not train yet."""
-    if config.fov_policy not in ("fixed", "fixed_window"):
-        raise NotImplementedError(
-            f"the scan trainer drives static-offset policies (fixed, "
-            f"fixed_window); fov_policy {config.fov_policy!r} (the host-loop "
-            f"trainer) {NOT_PORTED}")
     precision_lib.get_policy(config.precision)
     if config.remat:
         raise NotImplementedError(f"remat {NOT_PORTED}")
+
+
+def check_scan_config(config: TrainConfig):
+    """check_config, and the scan trainer's policies, refused with the JAX
+    package's error (ffn_tpu/training/train_loop.py:248-252)."""
+    if config.fov_policy not in ("fixed", "fixed_window"):
+        raise NotImplementedError(
+            f"the scan trainer drives static-offset policies (fixed, "
+            f"fixed_window); got {config.fov_policy!r}. Use "
+            f"run_training_host_loop for max_pred_moves/no_step.")
+    check_config(config)
 
 
 @dataclasses.dataclass
@@ -158,21 +189,14 @@ class _Body:
     """The per-offset work shared by both step variants."""
 
     def __init__(self, model, opt, config: TrainConfig):
-        check_config(config)
-        info = model.info
+        check_scan_config(config)
         self.model = model
         self.opt = opt
-        self.fov_zyx = tuple(int(v) for v in info.input_seed_size[::-1])
-        pred_zyx = tuple(int(v) for v in info.pred_mask_size[::-1])
-        img_zyx = tuple(int(v) for v in info.input_image_size[::-1])
-        if not self.fov_zyx == pred_zyx == img_zyx:
-            raise NotImplementedError(
-                f"models whose image, seed and prediction sizes differ "
-                f"{NOT_PORTED}")
+        self.fov_zyx = _fov_zyx(model.info)
         self.move_t = float(np_logit(config.threshold))
         self.label_t = float(config.threshold)
         self.window = ((int(config.fixed_window_radius),
-                        tuple(int(v) for v in info.deltas[::-1]))
+                        tuple(int(v) for v in model.info.deltas[::-1]))
                        if config.fov_policy == "fixed_window" else None)
         self.ticket = None
 
@@ -268,9 +292,71 @@ def make_scan_train_step_packed(model, opt, config: TrainConfig, mesh=None):
     return train_step
 
 
-def make_fov_train_step(*args, **kwargs):
-    raise NotImplementedError(f"the host-loop trainer (make_fov_train_step) "
-                              f"{NOT_PORTED}")
+def make_fov_train_step(model, opt, mesh=None, config=None):
+    """The host-loop trainer's single-FOV step (one forward and backward
+    pass of the batch, with the seed stop-gradient-ed).
+
+    Without config (legacy), the optimizer's update applied whatever the
+    gradients hold (a NaN reaches the parameters, as in the JAX step):
+      (params, opt_state, seed, image, labels, weights) ->
+          (params, opt_state, logits, loss)
+    With config, the update skipped unless every gradient is finite, and
+    the EMA (config.ema_decay > 0) updated at every step, skipped or not:
+      (params, opt_state, ema_params, scale_state, seed, image, labels,
+       weights) -> (params, opt_state, ema_params, scale_state, logits,
+                    loss)
+
+    `params`, `opt_state`, `ema_params`, `scale_state`: create_train_state's
+    (the parameters are the model's own tensors), updated in place and
+    returned. seed/image/labels/weights: (B, z, y, x, 1) float32 on the
+    model's device; logits (the updated seed, that shape) and loss (0-d)
+    stay on the device.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"mesh= {NOT_PORTED}: the port trains on "
+                                  f"one card")
+    if config is not None:
+        check_config(config)
+    _fov_zyx(model.info)
+    own = dict(model.module.named_parameters())
+    names = list(own)
+    scratch = {}
+
+    def run(params, opt_state, ema_params, seed, image, labels, weights,
+            gated):
+        if len(params) != len(own) or any(params.get(n) is not own[n]
+                                          for n in names):
+            raise ValueError("make_fov_train_step: params must be the "
+                             "model's own tensors (create_train_state's)")
+        dev = seed.device
+        if scratch.get("device") != dev:
+            scratch.update(device=dev, ticket=train_ops.new_ticket(dev),
+                           active=torch.ones((), device=dev),
+                           finite=torch.empty((), dtype=torch.bool,
+                                              device=dev))
+        net = torch.cat([image, seed], dim=-1)
+        logits = model.train_apply(net, seed.detach())
+        dlogits, loss = train_ops.fov_loss(logits.detach(), labels, weights,
+                                           scratch["ticket"])
+        grads = torch.autograd.grad(logits, [params[n] for n in names],
+                                    dlogits)
+        opt.update(params, list(grads), opt_state, ema_params,
+                   scratch["active"], scratch["finite"], gated=gated)
+        return logits.detach(), loss
+
+    if config is None:
+        def train_step(params, opt_state, seed, image, labels, weights):
+            logits, loss = run(params, opt_state, None, seed, image, labels,
+                               weights, gated=False)
+            return params, opt_state, logits, loss
+    else:
+        def train_step(params, opt_state, ema_params, scale_state, seed,
+                       image, labels, weights):
+            logits, loss = run(params, opt_state, ema_params, seed, image,
+                               labels, weights, gated=True)
+            return (params, opt_state, ema_params, scale_state, logits,
+                    loss)
+    return train_step
 
 
 def make_seed_canvas(batch: int, canvas_zyx, pad: float, init: float

@@ -1,6 +1,7 @@
-"""The training loop: data pipeline + scan trainer + checkpoints, one card.
+"""The training loops: data pipeline + train step + checkpoints, one card.
 
-Counterpart of ffn_tpu/training/train_loop.py's `run_training`: an
+Counterpart of ffn_tpu/training/train_loop.py's `run_training` (the scan
+trainer) and `run_training_host_loop`. `run_training`: an
 ExampleBatcher (raw uint8 patches, augmentation, a prefetch thread with a
 resumable cursor) feeds the packed scan train step (train_lib), whose
 per-offset metrics reach the host one step behind through a pinned copy
@@ -14,10 +15,20 @@ other's train dir:
   extra.ckpt-N.npz  consumed (the data cursor), rng_keys/rng_meta (the
                     offset-shuffle RNG), ema0..: the EMA in JAX leaf order
 
+`run_training_host_loop`: the reference FFN's own stepping, for any of
+the four FOV policies. Each batch slot walks its own example's moves
+(examples.BatchExampleIter on a prefetching loader); each step is one
+copy of the batch to the card, one make_fov_train_step (a forward and
+backward pass of the FOV batch and the optimizer step) and one copy of
+the logits back, which the host writes into the slots' seed canvases
+before it chooses the next moves. Its checkpoints have the same layout,
+with a data cursor of 0: the examples in flight span steps, so the data
+position is not saved (as in the JAX package); the augmentation RNG is.
+
 Weights start from torch's generator seeded with `random_seed` (the JAX
 package draws them from PRNGKey(0)), or from `init_params`. Not ported
-(ROADMAP.md; each raises NotImplementedError): the host-loop trainer,
-multi-process training and meshes.
+(ROADMAP.md; each raises NotImplementedError): multi-process training and
+meshes.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from scipy.special import logit as np_logit
 
 from ffn_tpu_torch.inference import storage
 from ffn_tpu_torch.inference.engine import resolve_device
@@ -39,6 +51,7 @@ from ffn_tpu_torch.models import model_info as mi
 from ffn_tpu_torch.models import params_io
 from ffn_tpu_torch.models import registry
 from ffn_tpu_torch.training import augmentation
+from ffn_tpu_torch.training import examples as examples_lib
 from ffn_tpu_torch.training import inputs as inputs_lib
 from ffn_tpu_torch.training import tracker as tracker_lib
 from ffn_tpu_torch.training import train_lib
@@ -236,13 +249,9 @@ def run_training(model_name: str, model_args: str,
             "mesh= is not ported to ffn_tpu_torch yet (ROADMAP.md): the port "
             "trains on one card")
     device = resolve_device(device)
-    train_lib.check_config(config)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(loop.random_seed)
-        model = build_model(model_name, model_args, config)
-    if init_params is not None:
-        model.load_params(init_params)
-    model.module.to(device)
+    train_lib.check_scan_config(config)
+    model = _initial_model(model_name, model_args, config, loop, device,
+                           init_params)
     info = model.info
 
     state, opt = train_lib.create_train_state(model, config)
@@ -365,10 +374,156 @@ def run_training(model_name: str, model_args: str,
     return summaries
 
 
-def run_training_host_loop(*args, **kwargs):
-    raise NotImplementedError(
-        "the host-loop trainer (--trainer=host_loop) is not ported to "
-        "ffn_tpu_torch yet (ROADMAP.md)")
+def _initial_model(model_name, model_args, config, loop, device,
+                   init_params):
+    """build_model with torch's generator seeded with loop.random_seed (or
+    `init_params` loaded), on `device`."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(loop.random_seed)
+        model = build_model(model_name, model_args, config)
+    if init_params is not None:
+        model.load_params(init_params)
+    model.module.to(device)
+    return model
+
+
+def _policy_fn(config: train_lib.TrainConfig, info):
+    """The FOV-movement policy (ffn_tpu/training/train_loop.py:524-544,
+    the reference's map plus the JAX trainer's fixed_window)."""
+    threshold = float(np_logit(config.threshold))
+    shifts = mi.shift_collection(info.deltas)
+    if config.fov_policy == "fixed":
+        def policy_fn(i, s, l, t):
+            return examples_lib.fixed_offsets(
+                i, s, l, t, threshold=threshold, fov_shifts=shifts)
+    elif config.fov_policy == "fixed_window":
+        def policy_fn(i, s, l, t):
+            return examples_lib.fixed_offsets_window(
+                i, s, l, t, threshold=threshold, fov_shifts=shifts,
+                radius=int(config.fixed_window_radius))
+    elif config.fov_policy == "max_pred_moves":
+        max_radius = np.array(info.deltas) * config.fov_moves
+
+        def policy_fn(i, s, l, t):
+            return examples_lib.max_pred_offsets(
+                i, s, l, t, threshold=threshold, max_radius=max_radius)
+    elif config.fov_policy == "no_step":
+        policy_fn = examples_lib.no_offsets
+    else:
+        raise ValueError(f"unknown fov_policy {config.fov_policy!r}")
+    return policy_fn
+
+
+def run_training_host_loop(model_name: str, model_args: str,
+                           config: train_lib.TrainConfig, data: DataConfig,
+                           loop: LoopConfig, device="cuda",
+                           init_params=None) -> dict:
+    """Host-loop trainer on one device; returns the final summaries.
+
+    The JAX package's stepping (ffn_tpu/training/train_loop.py:452-607):
+    one make_fov_train_step per FOV batch, the logits written back into
+    the examples' seed canvases on the host between moves. `init_params`
+    as in run_training.
+    """
+    device = resolve_device(device)
+    train_lib.check_config(config)
+    model = _initial_model(model_name, model_args, config, loop, device,
+                           init_params)
+    info = model.info
+
+    state, opt = train_lib.create_train_state(model, config)
+    params, opt_state = state.params, state.opt_state
+    ema_params, scale_state = state.ema_params, state.scale_state
+    step_fn = train_lib.make_fov_train_step(model, opt, config=config)
+
+    canvas_zyx = tuple(int(v) for v in
+                       train_lib.train_canvas_size(info, config)[::-1])
+    image_zyx = tuple(int(v) for v in
+                      train_lib.train_image_size(info, config)[::-1])
+    label_zyx = tuple(int(v) for v in
+                      train_lib.train_labels_size(info, config)[::-1])
+    eval_shape = tuple(int(v) for v in
+                       train_lib.train_eval_size(info, config)[::-1])
+    tracker = tracker_lib.EvalTracker(
+        eval_shape, shifts_xyz=mi.shift_collection(info.deltas))
+
+    rng = np.random.RandomState(loop.random_seed)
+    transform = augmentation.PermuteAndReflect(
+        rank=5, permutable_axes=[a + 1 for a in data.permutable_axes],
+        reflectable_axes=[a + 1 for a in data.reflectable_axes], rng=rng)
+
+    def augment(*arrays):
+        perm, flips = transform.sample()
+        return tuple(transform.apply(a, perm, flips) for a in arrays)
+
+    raw_loader = inputs_lib.ExampleLoader(
+        data.train_coords,
+        image_volume_map=inputs_lib.parse_volume_map(data.data_volumes),
+        label_volume_map=inputs_lib.parse_volume_map(data.label_volumes),
+        image_size_xyz=image_zyx[::-1], label_size_xyz=label_zyx[::-1],
+        image_mean=data.image_mean, image_stddev=data.image_stddev,
+        augment=augment, seed=loop.random_seed)
+    policy_fn = _policy_fn(config, info)
+
+    os.makedirs(loop.train_dir, exist_ok=True)
+    ckpt_dir = os.path.join(loop.train_dir, "ckpt")
+    start_step = 0
+    latest = _latest_checkpoint(ckpt_dir)
+    if latest is not None:
+        start_step = latest
+        _restore(ckpt_dir, latest, model, opt, opt_state)
+        _restore_extra(ckpt_dir, latest, ema_params, rng)
+        logging.info("Resumed from step %d", start_step)
+
+    # The prefetch thread starts after the restore, so that every
+    # augmentation draw comes from the restored RNG.
+    loader = inputs_lib.PrefetchingLoader(raw_loader,
+                                          capacity=4 * config.batch_size)
+
+    def make_gen():
+        return examples_lib.get_example(
+            loader, tracker, info, policy_fn, seed_pad=config.seed_pad,
+            seed_shape=canvas_zyx)
+
+    batch_it = examples_lib.BatchExampleIter(make_gen, tracker,
+                                             config.batch_size, info)
+
+    stop = _PreemptionWatcher()
+    t_last = time.time()
+    summaries = {}
+    try:
+        for step in range(start_step, loop.max_steps):
+            seeds, images, labels, weights = next(batch_it)
+            batch = _to_device(np.stack([seeds, images, labels, weights]),
+                               device)
+            (params, opt_state, ema_params, scale_state, logits,
+             loss) = step_fn(params, opt_state, ema_params, scale_state,
+                             *batch.unbind(0))
+            # A synchronous copy: update_seeds writes through the examples'
+            # seed views, so the logits must have arrived.
+            batch_it.update_seeds(logits.cpu().numpy())
+
+            if (step + 1) % loop.summary_every_steps == 0:
+                summaries = tracker.get_summaries()
+                dt = time.time() - t_last
+                t_last = time.time()
+                logging.info("step %d loss %.4f moves/correct %.3f "
+                             "(%.2f steps/s)", step + 1, float(loss),
+                             summaries["moves/correct"],
+                             loop.summary_every_steps / dt)
+                _write_summaries(loop.train_dir, step + 1, summaries)
+            if (step + 1) % loop.checkpoint_every_steps == 0 or \
+                    step + 1 == loop.max_steps or stop.requested:
+                _save(ckpt_dir, step + 1, model, opt, opt_state)
+                _save_extra(ckpt_dir, step + 1, ema_params, rng, 0)
+                _apply_keep_policy(ckpt_dir, loop)
+            if stop.requested:
+                logging.info("Preemption requested; checkpointed at step %d "
+                             "and exiting.", step + 1)
+                break
+    finally:
+        stop.restore()
+    return summaries
 
 
 def _update_tracker_packed(tracker, metrics, offsets):

@@ -64,7 +64,9 @@ def test_the_package_lists_the_slice_modules():
                  "ffn_tpu_torch.models.convstack_3d",
                  "ffn_tpu_torch.inference.storage",
                  "ffn_tpu_torch.inference.counters",
-                 "ffn_tpu_torch.inference.settings"):
+                 "ffn_tpu_torch.inference.settings",
+                 # the host-loop trainer
+                 "ffn_tpu_torch.training.examples"):
         assert name in PORT_MODULES
 
 

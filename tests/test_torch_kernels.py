@@ -768,6 +768,9 @@ def test_training_kernels_reject_bad_inputs():
         optim_ops.optim_update(p, [torch.zeros(3)], [None], [None], None,
                                optim_ops.Hyper("lion", 0.1), None, None,
                                torch.tensor(1.0), torch.tensor(True))
+    with pytest.raises(ValueError):
+        train_ops.fov_loss(torch.zeros(1, 3, 3, 3, 1), torch.zeros(1, 3, 3, 3),
+                           torch.zeros(1, 3, 3, 3, 1), torch.zeros(1))
 
 
 @pytest.mark.cuda
@@ -925,6 +928,70 @@ def test_k12_matches_plain(card, opt, schedule):
         for a, b in zip(kp + ke + [t for t in ks1 + ks2 if t is not None],
                         pp + pe + [t for t in ps1 + ps2 if t is not None]):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_k12_ungated_matches_plain(card):
+    # The host-loop trainer's legacy step: no gate, so a NaN gradient
+    # reaches the parameters and the counts advance, in both versions.
+    rng = np.random.RandomState(13)
+    shapes = [(3, 3, 3, 4, 8), (8,)]
+    h = optim_ops.Hyper("adam", 0.05)
+    kp = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(card)
+          for s in shapes]
+    ks1, ks2 = ([torch.zeros_like(t) for t in kp] for _ in range(2))
+    pp, ps1, ps2 = ([t.clone() for t in ts] for ts in (kp, ks1, ks2))
+    counts = [torch.zeros((), dtype=torch.int32, device=card)
+              for _ in range(2)]
+    ctrl = optim_ops.ctrl_buffer(card)
+    active = torch.tensor(0.0, device=card)
+    for step in range(3):
+        grads = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(card)
+                 for s in shapes]
+        if step == 2:
+            grads[1][2] = float("nan")
+        kf = torch.zeros((), dtype=torch.bool, device=card)
+        pf = torch.zeros((), dtype=torch.bool, device=card)
+        optim_ops.optim_update(kp, grads, ks1, ks2, None, h, counts[0], None,
+                               active, kf, ctrl, gated=False)
+        optim_ops.optim_update_plain(pp, grads, ps1, ps2, None, h, counts[1],
+                                     None, active, pf, gated=False)
+        assert bool(kf) == bool(pf) == (step != 2)
+        assert int(counts[0]) == int(counts[1]) == step + 1
+        for a, b in zip(kp + ks1 + ks2, pp + ps1 + ps2):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7,
+                                       equal_nan=True)
+    assert bool(torch.isnan(kp[1][2])) and not bool(torch.isnan(kp[1][3]))
+
+
+@pytest.mark.cuda
+def test_k16_kernel_matches_plain(card):
+    # The loss within 1e-5 relative (float32 sums of 19,652 terms in
+    # another order), the gradient within 1e-6 of max|plain| (expf and the
+    # division against torch.sigmoid's roundings); NaN where the plain
+    # version has NaN; twice bit for bit.
+    rng = np.random.RandomState(16)
+    shape = (4, 17, 17, 17, 1)
+    x = (rng.randn(*shape) * 4).astype(np.float32)
+    x.reshape(-1)[:6] = [0.0, 30.0, -30.0, -0.0, 88.0, -88.0]
+    y = rng.choice([0.05, 0.95], shape).astype(np.float32)
+    w = (rng.rand(*shape) > 0.3).astype(np.float32) * rng.rand(*shape)
+    w = w.astype(np.float32)
+    ticket = train_ops.new_ticket(card)
+    args = [torch.from_numpy(a).to(card) for a in (x, y, w)]
+    for nan in (False, True):
+        if nan:
+            args[0][1, 3, 4, 5, 0] = float("nan")
+        kd, kl = train_ops.fov_loss(*args, ticket)
+        pd, pl = train_ops.fov_loss_plain(*args)
+        again = train_ops.fov_loss(*args, ticket)
+        for a, b in zip(again, (kd, kl)):   # deterministic: bit for bit
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0,
+                                   equal_nan=True)
+        atol = 1e-6 * float(pd.nan_to_num().abs().max())
+        torch.testing.assert_close(kd, pd, rtol=0, atol=atol, equal_nan=True)
+        assert int(ticket) == 0
 
 
 # -- K13-K14: the round-based batched step ------------------------------------

@@ -24,7 +24,8 @@ Also: each kernel's plain version against the JAX function it replaces
 (K9/K10 against jax.vjp of one flax nn.Conv layer, K11 against the scan
 body's pieces, K12 against optax for all five optimizers with and without
 a schedule), the optimizer-state leaf order both ways, and the options
-the port refuses.
+the port refuses (the scan steps refuse max_pred_moves and no_step with
+the JAX package's own error).
 """
 
 import jax
@@ -39,6 +40,7 @@ from ffn_tpu.models import convstack_3d as jax_convstack
 from ffn_tpu.training import optimizer as jax_optimizer
 from ffn_tpu.training import precision as jax_precision
 from ffn_tpu.training import train_lib as jax_train_lib
+from ffn_tpu.training import train_loop as jax_train_loop
 from ffn_tpu_torch.models import convstack_3d
 from ffn_tpu_torch.models import params_io
 from ffn_tpu_torch.ops import conv3d
@@ -499,17 +501,32 @@ def test_optimizer_leaves_round_trip_both_ways():
 
 def test_refused_options_raise_not_implemented():
     model = convstack_3d.ConvStack3DFFNModel(**MODEL)
-    for kw in (dict(fov_policy="max_pred_moves"), dict(fov_policy="no_step"),
-               dict(precision="bf16"), dict(precision="f16"),
+    for kw in (dict(precision="bf16"), dict(precision="f16"),
                dict(remat=True)):
         _, cfg = configs(**kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_lib.create_train_state(model, cfg)
+    # The data-dependent policies train on the host loop; the scan steps
+    # refuse them with the JAX package's own error, as JAX's run_training
+    # does.
+    for policy in ("max_pred_moves", "no_step"):
+        jcfg, cfg = configs(fov_policy=policy)
+        _, opt = train_lib.create_train_state(model, cfg)
+        for make in (train_lib.make_scan_train_step,
+                     train_lib.make_scan_train_step_packed):
+            with pytest.raises(NotImplementedError) as err:
+                make(model, opt, cfg)
+            with pytest.raises(NotImplementedError) as jax_err:
+                jax_train_loop.run_training("convstack_3d.ConvStack3DFFNModel",
+                                            "", jcfg, None, None)
+            assert str(err.value) == str(jax_err.value)
+        assert callable(train_lib.make_fov_train_step(model, opt,
+                                                      config=cfg))
     _, cfg = configs()
     _, opt = train_lib.create_train_state(model, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_lib.make_scan_train_step_packed(model, opt, cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_lib.make_fov_train_step(model, opt)
+        train_lib.make_fov_train_step(model, opt, mesh=object())
     with pytest.raises(ValueError):
         precision_lib.get_policy("f64")
