@@ -1,128 +1,58 @@
 #!/usr/bin/env python3
-"""Drives ffn_tpu_torch's serial, batched (hop and round-based) and fused
-multi-subvolume inference paths and its training paths (the scan and the
-host-loop trainers) on one NVIDIA card.
+"""Drives ffn_tpu_torch's inference paths (serial, hop, round-based, fused
+multi-subvolume; float32 and bfloat16; bfloat16 lane seeds) and its two
+trainers on one NVIDIA card.
 
   python3 chip_smoke.py
 
-Phases (any failure ends the run with a non-zero exit):
-  1. device: the card's name and power limit, torch/CUDA versions, and
-     which of protobuf/absl/h5py/jax this machine has;
-  2. build: the CUDA kernels K1-K16 from ffn_tpu_torch/csrc with nvcc, one
-     process per source;
-  3. each kernel against its plain PyTorch version at the main paths'
-     shapes (K1 within 1e-4 of max|plain| per layer at N=1, 8, 16, 32, 64
-     and 256, and
-     for the whole depth-12 stack at N=64; K2-K7 bit for bit), with median
-     CUDA-event times per call of kernel and plain version, timed in turns;
-     K4-K7 on a crafted 64-lane state on 132^3 that drives every skip kind,
-     NaN seeds, fresh, capped and stalling lanes and tied face maxima, and
-     K6's screen mode (hop_screen) on a 256-candidate batch; and K1 at N=1
-     against the same sample in an N=64 batch, bit for bit (conv compaction
-     relies on it);
-  4. the full-width depth-12 fib25 model on the kernel path against the
-     JAX package's stored logits (tests/golden, atol 2e-4);
-  5. the serial slice: Runner -> Canvas -> engine step -> ConvStack3D on
-     the repo's padded 100^3 quality-gate phantom with
-     configs/inference_phantom.pbtxt's settings, counting kernel launches;
-     the same slice on the plain versions; and once more with the
-     flagship phantom checkpoint, held to the quality gate's 0.95;
-  6. the hop slice: the same request with concurrent_requests 64, hops 16
-     and max_iters_per_segment 4000 on the flagship checkpoint, through
-     Runner -> HopBatchCanvas -> HopEngine.run_hops, counting launches and
-     the device time of each kernel; the same slice with K4-K7 on their
-     plain versions (K1 kept) must give the same voxels; it is held to
-     ground-truth agreement >= 0.95, and its cell-restricted agreement
-     with the serial slice of phase 5 is printed; then the quality gate's
-     batched-vs-serial pair (tools/quality_eval.py: the held-out seed-11
-     phantom, serial and 8 lanes) is held to 0.95 and 0.99;
-  7. the same gate pair at 64 lanes with the CI checkpoint, held voxel for
-     voxel, origin for origin and move for move to the JAX package's own
-     run of it (tests/golden/gate_ci_lanes_golden.npz); its
-     lanes-vs-serial agreement is printed;
-  8. the fused multi-subvolume slice: the same phantom through the sharded
-     CLI (worker mode through its entry point in this process, stitch mode
-     as `python -m`), model-r2, 8 subvolumes of 82^3 in 4 slots, 64 lanes,
-     16 hops, with device finalization (K8, K4 with the device
-     segmentation) and with host finalization (seed screening, K7's
-     verdicts and batched masks); each worker again with K4, K7 and K8
-     plain must give the same subvolumes, origins, counters and moves;
-     each stitched volume's agreement is held to a floor just under its
-     measured value (64 lanes split cells, as in the JAX package: phase
-     10), and the CLI's serial workers on the same subvolumes, stitched,
-     are held to 0.95;
-  9. the fused driver with the CI checkpoint in both finalize modes, held
-     voxel for voxel, origin for origin and counter for counter, stitched
-     volume included, to the JAX package's run
-     (tests/golden/fused_ci_golden.npz);
- 10. the fused driver with model-r2 at 64 lanes on a 96^3 phantom (8
-     subvolumes of 64^3), where the JAX package's own run splits cells
-     (tests/golden/fused_r2_golden.npz): the port on the card must reach
-     the same stitched ground-truth agreement; its run with K1 plain shows
-     how far rounding alone moves voxels; the serial workers on the same
-     subvolumes are held to 0.95;
- 11. training at full width (the train CLI's defaults: depth 12, 32
-     features, 33^3 FOV, deltas 8, batch 4, 27 offsets, sgd) through
-     `python -m ffn_tpu_torch.cli.train`'s entry point for 8 steps on the
-     seed-0 phantom, checkpointing every 4: on kernels (K1 forward, K9,
-     K10, K11, K12), then with all of them plain (step 1's counts equal,
-     per-offset losses within 1e-4 relative, weights within 1e-5), a fresh
-     run resumed at step 4 that must reach step 8's checkpoint bit for bit
-     (its kernels timed by CUDA events), one step under torch.profiler
-     (no cuDNN or other convolution runs, and autograd runs only the
-     port's Functions), the CI model's two steps against the JAX
-     package's (tests/golden/train_ci_golden.npz), and the trained
-     checkpoint in the serial Runner;
- 12. the round-based slice at full width (model-r2, depth 12, 32 features,
-     33^3): phase 5's phantom with concurrent_requests 8 and hops 0
-     through Runner -> BatchCanvas.segment_all -> engine.select_step (K13
-     -> K1 -> K14), counting launches and the device time of each call;
-     the same with K13/K14 on their plain versions (K1 kept) must give the
-     same voxels, origins, counters and moves; held to ground-truth
-     agreement >= 0.95, its cell-restricted agreement with phase 5's
-     serial run printed; then once at 64 lanes on kernels, its agreement
-     held to a floor just under its measured value;
- 13. the CI checkpoint at 64 lanes with hops 0 on the gate's phantom, held
-     voxel for voxel, origin for origin, move for move and round for round
-     to the JAX package's run (tests/golden/gate_ci_lanes_golden.npz, its
-     *_round entries);
- 14. bfloat16 inference (model_args dtype "bfloat16", the default of
-     bench.py and tools/e2e_fused_bench.py): model-r2 at full width on
-     phase 5's phantom through the serial, 64-lane hop, 8-lane round and
-     fused (8 x 82^3, 64 lanes, device finalization) slices, each on K15
-     and on K15's plain version; the serial slice held to ground-truth
-     agreement >= 0.95, hop, round and fused to floors just under their
-     measured values; each pair's object agreement printed (not
-     required: float32 sums in another order flip rare roundings);
- 15. the host-loop trainer at full width (the train CLI with --trainer
-     host_loop --fov_policy max_pred_moves: depth 12, 32 features, 33^3
-     FOV, deltas 8, batch 4, sgd) on phase 11's phantom for 40 steps on
-     K1, K9, K10, K16 and K12: steps/s, device ms per kernel (CUDA events),
-     the busy share and the host's ms a step; finite losses and weights,
-     moves, the checkpoint read back; the first batch through
-     make_fov_train_step on kernels and on the plain versions (loss within
-     1e-4 relative, logits within 1e-4 of max|plain|, weights within 1e-5).
-Phase 3 also holds K8 (a crafted 64-lane state over 4 slots of 82^3), K4
-with the device segmentation and K7's batched masks to their plain
-versions, bit for bit, and the training kernels at batch 4: K9 and K10
-within 1e-4 of max|plain| for every layer kind (K10 twice bit for bit),
-K11's passes and K12 (sgd and adam over the depth-12 model's 638,433
-parameters; and its ungated mode, the host-loop legacy step's), K16
-(the host-loop step's loss) within 1e-6 of max|plain| with NaN kept,
-and K13/K14 on a crafted 64-lane round on 132^3 in select
-mode (K = 4) and in step_batch's fixed mode, bit for bit; and K15 (the
-bfloat16 conv) for every layer kind at N = 1, 8, 64 and 256 within one
-bfloat16 ulp per rounding of its plain version, the depth-12 bfloat16
-stack at N=64 within 2^-6 of max|logit| of the plain stack, N=1 against
-N=64 bit for bit, with times beside cuDNN's bfloat16 conv and K1. Every
-kernel's entry in the line before the last, {"kernels": [...]}, carries
-its launches on each main path's run (`launches_by_path`: serial, hop,
-fused, fused_host, train, train_host, round, serial_bf16, hop_bf16,
-round_bf16, fused_bf16) and their sum, its error against its plain version, its
-median time, its plain version's, a library call's where one PyTorch call
-computes the same function, and its bound (bytes, or float32 or bfloat16
-operations, at the H100's published peaks). The last line is {"ok": true,
-"device": {...}}. Imports nothing of JAX.
+Phases (any failure ends the run with a non-zero exit; each phase's
+function says what it holds and to what):
+  1. device: the card's name and power limit, torch/CUDA versions, which
+     of protobuf/absl/h5py/jax this machine has;
+  2. build: K1-K16 from ffn_tpu_torch/csrc, one nvcc per source;
+  3. every kernel against its plain PyTorch version at the main paths'
+     shapes, with median CUDA-event times per call (kernel and plain in
+     turns), bounds and library calls: K1 per layer at N = 1-256 and as
+     the depth-12 stack; K2-K7 bit for bit, K4-K7 on crafted 64-lane
+     states on 132^3 with float32 and with bfloat16 seeds (thresholds'
+     rounding edges, NaN); K6's screen mode; K8, K4 with the device
+     segmentation, K7's batched masks; K9-K12 and K16 at batch 4; K13/K14
+     on a crafted 64-lane round; K15 per layer at N = 1-256 and as the
+     stack, against its plain version and the float64 sums;
+  4. the fib25 model against the JAX package's stored logits;
+  5. the serial slice (Runner -> Canvas) on the padded 100^3 quality-gate
+     phantom, on kernels and plain, then model-r2 held to 0.95;
+  6. the 64-lane hop slice (Runner -> HopBatchCanvas -> run_hops) on
+     kernels and with K4-K7 plain, identical; the gate's 8-lane pair;
+  7. the gate pair at 64 lanes with the CI checkpoint against the JAX
+     package's run (tests/golden/gate_ci_lanes_golden.npz);
+  8. the fused slice (the sharded CLI, 8 x 82^3, 4 slots, 64 lanes) with
+     device and host finalization, each on kernels and with K4/K7/K8
+     plain, identical; stitched agreements held to floors;
+  9. the CI checkpoint's fused runs against tests/golden/fused_ci_golden;
+ 10. model-r2's fused run on 96^3 against tests/golden/fused_r2_golden;
+ 11. the scan trainer at full width for 8 steps: kernels against plain,
+     an exact resume, a profiled step, tests/golden/train_ci_golden.npz,
+     the trained checkpoint in the serial Runner;
+ 12. the round-based slice (hops 0: K13 -> K1 -> K14) at 8 lanes on
+     kernels and plain, identical; then 64 lanes;
+ 13. the CI checkpoint at 64 lanes, hops 0, against the JAX package's run;
+ 14. bfloat16 inference (model_args dtype "bfloat16") on K15 and on its
+     plain version: the serial, 8-lane hop, 8-lane round and fused
+     slices, each pair's agreement printed;
+ 15. the host-loop trainer at full width for 40 steps (K16);
+ 16. bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) at the JAX e2e bench's
+     configuration (48 lanes, hops 16, max_iters_per_segment 2000, host
+     finalization, model-r2 in bfloat16): float32 seeds for comparison,
+     then bfloat16 seeds on K4-K7's bfloat16 instantiations and on their
+     plain versions, identical.
+The line before the last, {"kernels": [...]}, gives each kernel its
+launches on every main path's run (`launches_by_path`) and their sum, its
+error against its plain version, its median time, its plain version's, a
+library call's where one PyTorch call computes the same function, and its
+bound (bytes, or float32 or bfloat16 operations, at the H100's published
+peaks). The last line is {"ok": true, "device": {...}}. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -166,12 +96,18 @@ ROUND_LANES = 8      # concurrent_requests of the round slice (hops 0)
 # the 1.0 measured on the H100 (whole cells of 8).
 ROUND64_AGREE_FLOOR = 0.99
 INIT_ACT = float(np.float32(np.log(0.95 / 0.05)))   # init_activation 0.95
-# Ground-truth agreement floors of the bfloat16 hop and fused slices, just
-# under the values measured on the H100: hop 1.0; fused 0.625 (its 64
-# lanes split cells, as in float32). The serial and round slices are held
-# to the quality gate's 0.95.
+# Ground-truth agreement floors of the bfloat16 hop (8 lanes) and fused
+# slices: the quality gate's 0.95, and just under the 0.625 measured on the
+# H100 (the fused slice's 64 lanes split cells, as in float32). The serial
+# and round slices are held to the quality gate's 0.95.
 BF16_HOP_AGREE_FLOOR = 0.95
 BF16_FUSED_AGREE_FLOOR = 0.6
+# bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) at the JAX e2e bench's
+# configuration (tools/e2e_bench.py:45-50, 110-126): 48 lanes, hops 16,
+# max_iters_per_segment 2000, host finalization, model-r2 in bfloat16.
+# Its ground-truth agreement floor, just under the 1.0 measured on the H100.
+SEED_LANES, SEED_MAX_ITERS = 48, 2000
+BF16_SEED_AGREE_FLOOR = 0.99
 # K15 against its plain version: per layer one bfloat16 ulp per rounding
 # the layer makes and at most DIFFER_SHARE of its outputs differing
 # (ffn_tpu_torch/ops/conv3d_bf16_check.py); the depth-12 stack within 2^-6
@@ -414,26 +350,38 @@ def phase_kernels(dev):
     return results
 
 
-def phase_hop_kernels(dev):
+def _hop_lane_kernels(dev, seed_dtype):
     """K4-K7 against their plain versions on a crafted 64-lane state at the
-    hop slice's shapes (132^3 slots, queues of 32768, a 33^3 FOV) and K6's
-    screen mode at a 256-candidate screen batch; K1 against its plain
-    version at N=64 and N=256 and as the whole stack at N=64; K1 at N=1
-    against N=64."""
-    from ffn_tpu_torch.models import convstack_3d, params_io
-    from ffn_tpu_torch.ops import conv3d
+    hop slice's shapes (132^3 slots, queues of 32768, a 33^3 FOV), with
+    seeds in `seed_dtype`, bit for bit, and their times. With bfloat16
+    seeds the state also holds seeds on the move and segment thresholds'
+    bfloat16 rounding edges, and K7 compares with a move threshold that
+    rounds down (a seed of bf16(move_t) is weak to K4, strong to K7).
+    Returns (results keyed by kernel name, plus "_bf16" for bfloat16
+    seeds; the state; the tests' helpers)."""
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import test_torch_kernels as tk
 
+    bf16 = seed_dtype == torch.bfloat16
+    sfx, seed_bytes = ("_bf16", 2) if bf16 else ("", 4)
     rng = np.random.RandomState(0)
     vol = (PHANTOM_SIZE + 2 * PHANTOM_PAD,) * 3
     fov, deltas, Q = 33, (8, 8, 8), 32768
     lanes = tk.crafted_lanes(rng, LANES, vol, Q, fov, deltas, MAX_ITERS)
+    move_t = tk.MOVE_T_LO if bf16 else tk.MOVE_T   # K7's
+    if bf16:
+        tk.bf16_seed_edges(rng, lanes["seeds"], tk.MOVE_T)
+        tk.bf16_seed_edges(rng, lanes["seeds"], move_t)
     lanes["image"] = rng.randn(1, *vol).astype(np.float32)
     logits = torch.from_numpy(tk.tied_logits(rng, LANES, fov)).to(dev)
+    if bf16:   # float32 logits off the bfloat16 grid: the write-back rounds
+        logits += torch.from_numpy(rng.randn(LANES, fov, fov, fov).astype(
+            np.float32) * 1e-3).to(dev)
     ks, ps = tk.to_torch(lanes, dev), tk.to_torch(lanes, dev)
+    ks["seeds"] = ks["seeds"].to(seed_dtype)
+    ps["seeds"] = ps["seeds"].to(seed_dtype)
     require(bool(torch.isnan(ks["seeds"]).any()), "K4 input holds no NaN")
     kw = dict(fov=fov, pred=fov, deltas=deltas, max_iters=MAX_ITERS,
               disco=0.0)
@@ -446,35 +394,37 @@ def phase_hop_kernels(dev):
         require(n_exec > 0, "the crafted state executed no lane")
         same = all(torch.equal(g, w) for g, w in zip(got[:6], want[:6]))
         same &= torch.equal(got[6][:n_exec], want[6][:n_exec])
-        same &= all(torch.equal(torch.nan_to_num(ks[k], nan=7.0),
-                                torch.nan_to_num(ps[k], nan=7.0))
+        same &= all(torch.equal(torch.nan_to_num(ks[k].float(), nan=7.0),
+                                torch.nan_to_num(ps[k].float(), nan=7.0))
                     for k in ps)
-        require(same, f"K4-K6 differ from their plain versions at hop {hop}")
+        require(same, f"K4-K6 on {seed_dtype} seeds differ from their plain "
+                      f"versions at hop {hop}")
     counts = {name: int(ps[name].max()) for name in (
         "skip_threshold", "skip_invalid", "skip_restricted")}
     statuses = sorted(set(ps["status"].tolist()))
-    print(f"K4 hop_pop + K5 hop_gather + K6 hop_update, 3 hops of "
-          f"{LANES} lanes on {vol}: bit-exact; max skips per lane "
-          f"{counts}; statuses {statuses}; n_exec {n_exec}")
+    print(f"K4 hop_pop + K5 hop_gather + K6 hop_update on {seed_dtype} "
+          f"seeds, 3 hops of {LANES} lanes on {vol}: bit-exact; max skips "
+          f"per lane {counts}; statuses {statuses}; n_exec {n_exec}")
     require(min(counts.values()) > 16 and 5 in statuses and 4 in statuses,
             "the crafted state missed a skip kind, a stall or a cap")
 
     seg_t = float(np.float32(np.log(0.6 / 0.4)))
-    vkw = dict(segment_threshold=seg_t, move_threshold=tk.MOVE_T)
+    vkw = dict(segment_threshold=seg_t, move_threshold=move_t)
     got = lane_ops.lane_verdicts(ks["seeds"], ks["sv"], ks["start"],
                                  ks["blocked"], **vkw)
     want = lane_ops.lane_verdicts_plain(ks["seeds"], ks["sv"], ks["start"],
                                         ks["blocked"], **vkw)
     require(all(torch.equal(g, w) for g, w in zip(got, want)),
-            "K7 verdicts differ from plain")
+            f"K7 verdicts on {seed_dtype} seeds differ from plain")
     box = ((10, 40, 70), (64, 64, 62), tuple(lanes["start"][5]))
-    mkw = dict(threshold=seg_t, move_threshold=tk.MOVE_T)
+    mkw = dict(threshold=seg_t, move_threshold=move_t)
     got = lane_ops.lane_mask(ks["seeds"], 5, *box, **mkw)
     want = lane_ops.lane_mask_plain(ks["seeds"], 5, *box, **mkw)
     require(all(torch.equal(g, w) for g, w in zip(got, want)),
-            "K7 mask differs from plain")
-    print(f"K7 lane_threshold: verdicts of {LANES} lanes and a 64^3 mask "
-          f"bit-exact ({int(want[0].sum())} voxels set)")
+            f"K7 mask on {seed_dtype} seeds differs from plain")
+    print(f"K7 lane_threshold on {seed_dtype} seeds: verdicts of {LANES} "
+          f"lanes and a 64^3 mask bit-exact ({int(want[0].sum())} voxels "
+          f"set)")
 
     # Times at the slice's shapes. K4 and K6 update lane state in place:
     # K4 is timed from the same state each call (its (B,)-sized fields are
@@ -500,7 +450,7 @@ def phase_hop_kernels(dev):
         return call
 
     results = {}
-    patch = 4 * fov ** 3   # bytes of one 33^3 float32 patch
+    nvox = fov ** 3   # voxels of one 33^3 patch
     pop_ms = time_pair(pop(hop_ops.hop_pop), pop(hop_ops.hop_pop_plain))
     pos, execute, order, summary = pop(hop_ops.hop_pop)()
     n_exec = int(summary[0])
@@ -508,14 +458,16 @@ def phase_hop_kernels(dev):
     # blocked code, the seed value and the dedup cell; per lane ~16 int32
     # fields, read and written.
     entries = int((state["pops"] - before["pops"]).sum())
-    results["hop_pop"] = entry(0.0, *pop_ms, 18 * entries + 64 * LANES)
+    results["hop_pop" + sfx] = entry(
+        0.0, *pop_ms, (14 + seed_bytes) * entries + 64 * LANES)
     gkw = dict(image_size=(fov,) * 3, seed_size=(fov,) * 3, pad=tk.PAD)
-    results["hop_gather"] = entry(0.0, *time_pair(
+    # K5 reads an image and a seed patch and writes two float32 patches.
+    results["hop_gather" + sfx] = entry(0.0, *time_pair(
         lambda: hop_ops.hop_gather(state["image"], pos, state["sv"], order,
                                    state["seeds"], **gkw),
         lambda: hop_ops.hop_gather_plain(state["image"], pos, state["sv"],
                                          order, state["seeds"], **gkw)),
-        4 * patch * len(order))
+        (12 + seed_bytes) * nvox * len(order))
 
     def update(fn):
         return lambda: fn(
@@ -527,18 +479,17 @@ def phase_hop_kernels(dev):
             move_threshold=tk.MOVE_T, disco_threshold=0.0)
 
     # K6 reads each executing lane's logits and old patch and writes its
-    # seed patch and the returned patch.
-    results["hop_update"] = entry(0.0, *time_pair(
+    # seed patch and the returned float32 patch.
+    results["hop_update" + sfx] = entry(0.0, *time_pair(
         update(hop_ops.hop_update), update(hop_ops.hop_update_plain)),
-        4 * patch * n_exec)
-    nvox = int(np.prod(vol))
-    results["lane_threshold"] = entry(0.0, *time_pair(
+        (8 + 2 * seed_bytes) * nvox * n_exec)
+    results["lane_threshold" + sfx] = entry(0.0, *time_pair(
         lambda: lane_ops.lane_verdicts(ks["seeds"], ks["sv"], ks["start"],
                                        ks["blocked"], **vkw),
         lambda: lane_ops.lane_verdicts_plain(ks["seeds"], ks["sv"],
                                              ks["start"], ks["blocked"],
                                              **vkw)),
-        nvox * (4 * LANES + ks["blocked"].shape[0]))
+        int(np.prod(vol)) * (seed_bytes * LANES + ks["blocked"].shape[0]))
     mask_ms = time_pair(lambda: lane_ops.lane_mask(ks["seeds"], 5, *box,
                                                    **mkw),
                         lambda: lane_ops.lane_mask_plain(ks["seeds"], 5,
@@ -547,10 +498,31 @@ def phase_hop_kernels(dev):
         print(f"{name} at {LANES} lanes on {vol}: kernel {r['ms']:.4f} ms "
               f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']})" + (f" ({n_exec} executing lanes)"
-                                      if name == "hop_update" else ""))
-    mask_bound = bound_of(5 * int(np.prod(box[1])))[0]
-    print(f"lane_threshold mask (64^3 box): kernel {mask_ms[0]:.4f} ms "
+                                      if name.startswith("hop_update")
+                                      else ""))
+    mask_bound = bound_of((1 + seed_bytes) * int(np.prod(box[1])))[0]
+    print(f"lane_threshold{sfx} mask (64^3 box): kernel {mask_ms[0]:.4f} ms "
           f"plain {mask_ms[1]:.4f} ms bound {mask_bound:.5f} ms (bytes)")
+    return results, ks, tk, rng
+
+
+def phase_hop_kernels(dev):
+    """K4-K7 against their plain versions on crafted 64-lane states with
+    float32 and with bfloat16 seeds (_hop_lane_kernels) and K6's screen
+    mode at a 256-candidate screen batch; K1 against its plain version at
+    N=64 and N=256 and as the whole stack at N=64; K1 at N=1 against
+    N=64."""
+    from ffn_tpu_torch.models import convstack_3d, params_io
+    from ffn_tpu_torch.ops import conv3d
+    from ffn_tpu_torch.ops import hop as hop_ops
+
+    bf16_results, _, _, _ = _hop_lane_kernels(dev, torch.bfloat16)
+    torch.cuda.empty_cache()
+    results, ks, tk, rng = _hop_lane_kernels(dev, torch.float32)
+    results.update(bf16_results)
+    vol = tuple(ks["seeds"].shape[1:])
+    fov, deltas = 33, (8, 8, 8)
+    patch = 4 * fov ** 3   # bytes of one 33^3 float32 patch
 
     # K6's screen mode at a screen batch: K5 gathers fresh patches, and
     # hop_screen reads each origin's verdict off tied model outputs.
@@ -1322,9 +1294,10 @@ class _HopProbe:
                 for name, pairs in self.events.items()}
 
 
-def _run_hop_slice(label, settings, dev, box, gt, inner, probe=None):
+def _run_hop_slice(label, settings, dev, box, gt, inner, probe=None,
+                   max_iters=MAX_ITERS, keep=None):
     """One Runner.run of the batched request; prints and returns its
-    numbers."""
+    numbers (and puts the runner and canvas into `keep`, a dict)."""
     from ffn_tpu_torch.inference import runner as runner_lib
     from ffn_tpu_torch.inference import storage
     from ffn_tpu_torch.ops import hop as hop_ops
@@ -1332,7 +1305,7 @@ def _run_hop_slice(label, settings, dev, box, gt, inner, probe=None):
     from tools import synthetic_em
 
     runner = runner_lib.Runner(device=dev)
-    runner.canvas_defaults.update(hops=HOPS, max_iters_per_segment=MAX_ITERS)
+    runner.canvas_defaults.update(hops=HOPS, max_iters_per_segment=max_iters)
     runner.start(settings)
     patches = []
     if probe is not None:
@@ -1360,7 +1333,10 @@ def _run_hop_slice(label, settings, dev, box, gt, inner, probe=None):
             p.stop()
     wall = time.perf_counter() - t0
     require(type(canvas).__name__ == "HopBatchCanvas" and
-            canvas.lanes <= LANES, f"the hop slice ran {type(canvas)}")
+            canvas.lanes <= settings.concurrent_requests,
+            f"the hop slice ran {type(canvas)}")
+    if keep is not None:
+        keep.update(runner=runner, canvas=canvas)
     seg_path = storage.segmentation_path(settings.segmentation_output_dir,
                                          (0, 0, 0))
     with np.load(seg_path, allow_pickle=True) as data:
@@ -1882,15 +1858,16 @@ def phase_round_slice(dev, phantom, r2, seg_serial, tmp):
     return launches
 
 
-def _bf16_pair(path, seg_k, seg_p):
-    """Prints how far a bfloat16 slice on K15 and on K15's plain version
-    agree: objects and voxels. They need not be identical: float32 sums in
-    another order flip rare bfloat16 roundings, which can flip moves."""
+def _bf16_pair(path, seg_k, seg_p, what="K15 vs its plain version"):
+    """Prints how far two bfloat16 slices (by default on K15 and on K15's
+    plain version) agree: objects and voxels. They need not be identical:
+    float32 sums in another order flip rare bfloat16 roundings, which can
+    flip moves."""
     from tools import synthetic_em
     same = synthetic_em.object_level_agreement(seg_k.astype(np.uint64),
                                                seg_p.astype(np.uint64),
                                                min_size=1000)
-    print(f"{path}, K15 vs its plain version: object-level agreement "
+    print(f"{path}, {what}: object-level agreement "
           f"{same:.4f}, voxels equal {float((seg_k == seg_p).mean()):.6f}, "
           f"identical {bool(np.array_equal(seg_k, seg_p))}")
 
@@ -1899,7 +1876,7 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
     """bfloat16 inference at full width: model-r2 (depth 12, 32 features,
     33^3) with model_args dtype "bfloat16", the default of bench.py and
     tools/e2e_fused_bench.py, on phase 5's padded 132^3 phantom: the serial
-    slice, the 64-lane hop slice, the 8-lane round slice (hops 0) and the
+    slice, the 8-lane hop slice, the 8-lane round slice (hops 0) and the
     fused slice (the sharded CLI's worker, 8 subvolumes of 82^3, 64 lanes,
     device finalization, then stitched), each on K15 and again with K15's
     plain version (K2-K14 kept). Serial and round are held to ground-truth
@@ -1939,9 +1916,9 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
                             f"the quality gate's 0.95")
 
     hop, hop_p = runs("hop_bf16", lambda label, out: _run_hop_slice(
-        f"{LANES} lanes, {label}, model-r2", dataclasses.replace(
-            bf16, concurrent_requests=LANES, segmentation_output_dir=out),
-        dev, **phantom))
+        f"{GATE_LANES} lanes, {label}, model-r2", dataclasses.replace(
+            bf16, concurrent_requests=GATE_LANES,
+            segmentation_output_dir=out), dev, **phantom))
     _bf16_pair("hop_bf16", hop[0], hop_p[0])
     require(hop[3] >= BF16_HOP_AGREE_FLOOR,
             f"bf16 hop slice agreement {hop[3]} below "
@@ -1980,6 +1957,111 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
     require(fus[1] >= BF16_FUSED_AGREE_FLOOR,
             f"bf16 fused slice agreement {fus[1]} below "
             f"{BF16_FUSED_AGREE_FLOOR}")
+    return launches
+
+
+def phase_bf16_seed_slice(dev, phantom, r2, tmp):
+    """bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) at the JAX e2e bench's
+    configuration: model-r2 in bfloat16 (K15) on phase 5's padded 132^3
+    phantom with concurrent_requests 48, hops 16, max_iters_per_segment
+    2000 and host finalization, through Runner -> HopBatchCanvas ->
+    HopEngine.run_hops. Runs it with float32 seeds (the comparison), with
+    bfloat16 seeds on K4-K7's bfloat16 instantiations, and with K4-K7 on
+    their plain versions (K15 kept): the two bfloat16-seed runs must give
+    the same voxels, origins, counters and moves; the kernel run launches
+    the *_bf16 kernels and no float32 instantiation of K4, K6 or K7 (K5's
+    float32 launches are the screening gathers, which hold no seeds); its
+    ground-truth agreement is held to BF16_SEED_AGREE_FLOOR. Returns the
+    kernel run's launches."""
+    from contextlib import ExitStack
+
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.ops import hop as hop_ops
+    from ffn_tpu_torch.ops import lane as lane_ops
+
+    model_args = json.loads(r2.model_args)
+    model_args["dtype"] = "bfloat16"
+    settings = dataclasses.replace(r2, model_args=json.dumps(model_args),
+                                   concurrent_requests=SEED_LANES)
+    plain = [(hop_ops, name, getattr(hop_ops, name + "_plain"))
+             for name in ("hop_pop", "hop_gather", "hop_update",
+                          "hop_screen")] + \
+        [(lane_ops, name, getattr(lane_ops, name + "_plain"))
+         for name in ("lane_verdicts", "lane_mask")]
+
+    def run(label, seeds, k4_k7_plain=False):
+        keep = {}
+        _build.launches.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with ExitStack() as stack:
+            stack.enter_context(mock.patch.dict(os.environ))
+            os.environ.pop("FFN_TPU_SEED_DTYPE", None)
+            if seeds == "bf16":
+                os.environ["FFN_TPU_SEED_DTYPE"] = "bf16"
+            for mod, name, fn in plain if k4_k7_plain else ():
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            seg, moves, wall, agree = _run_hop_slice(
+                f"{SEED_LANES} lanes, model-r2 in bf16, {label}",
+                dataclasses.replace(settings, segmentation_output_dir=(
+                    os.path.join(tmp, "seed_" + label.replace(" ", "_")))),
+                dev, **phantom, max_iters=SEED_MAX_ITERS, keep=keep)
+        canvas = keep["canvas"]
+        state = canvas._state.seeds
+        out = dict(seg=seg, moves=moves, agree=agree,
+                   launches=dict(_build.launches), dtype=state.dtype,
+                   seed_bytes=SEED_LANES * int(np.prod(phantom["box"]))
+                   * state.element_size(),
+                   peak=torch.cuda.max_memory_allocated(),
+                   origins={k: (tuple(v.start_zyx), v.iters)
+                            for k, v in canvas.origins.items()},
+                   counters={n: c.value for n, c in keep["runner"].counters
+                             if not n.endswith("-ms")})
+        print(f"  seeds {state.dtype}: {SEED_LANES} lanes x "
+              f"{phantom['box']} = {out['seed_bytes'] / 1e6:.1f} MB; peak "
+              f"device memory {out['peak'] / 1e6:.1f} MB; "
+              f"{moves / wall:.2f} moves/s")
+        print(f"  kernel launches: {out['launches']}")
+        del keep, canvas, state
+        torch.cuda.empty_cache()
+        return out
+
+    f32 = run("float32 seeds", "f32")
+    got = run("bf16 seeds on kernels", "bf16")
+    want = run("bf16 seeds, K4-K7 plain", "bf16", k4_k7_plain=True)
+    require(f32["dtype"] == torch.float32 and
+            got["dtype"] == want["dtype"] == torch.bfloat16,
+            f"seed tensors {f32['dtype']}, {got['dtype']}, "
+            f"{want['dtype']}")
+    launches = got["launches"]
+    for name in ("hop_pop", "hop_gather", "hop_update", "lane_threshold"):
+        require(launches.get(name + "_bf16", 0) > 0,
+                f"{name}_bf16 was not launched on the bf16-seed path")
+        require(f32["launches"].get(name + "_bf16", 0) == 0 and
+                not any(k.endswith("_bf16") and not k.startswith("conv3d")
+                        for k in want["launches"]),
+                "a float32-seed or plain run launched a *_bf16 kernel")
+    for name in ("hop_pop", "hop_update", "lane_threshold",
+                 "conv3d_ndhwc_f32"):
+        require(launches.get(name, 0) == 0,
+                f"the bf16-seed path launched {name} (float32)")
+    require(launches.get("hop_gather", 0) == launches.get("hop_screen", 0)
+            and launches.get("conv3d_ndhwc_bf16", 0) > 0,
+            "the bf16-seed path's float32 K5 launches are not the screens'")
+    same = (np.array_equal(got["seg"], want["seg"])
+            and got["moves"] == want["moves"]
+            and got["origins"] == want["origins"]
+            and got["counters"] == want["counters"])
+    require(same, "bf16 seeds: K4-K7 differ from their plain versions "
+                  "(segmentation, origins, counters or moves)")
+    print(f"bf16 seeds, kernels vs K4-K7 plain: identical voxels, origins, "
+          f"counters and moves ({got['moves']}); seed bytes "
+          f"{got['seed_bytes'] / 1e6:.1f} MB against "
+          f"{f32['seed_bytes'] / 1e6:.1f} MB in float32")
+    _bf16_pair("hop_bf16_seeds", got["seg"], f32["seg"],
+               what="bf16 seeds vs float32 seeds")
+    require(got["agree"] >= BF16_SEED_AGREE_FLOOR,
+            f"bf16-seed slice agreement {got['agree']} below "
+            f"{BF16_SEED_AGREE_FLOOR}")
     return launches
 
 
@@ -2979,6 +3061,8 @@ def main():
         launches["round"] = phase_round_slice(dev, phantom, r2, seg_r2, tmp)
         phase_round_golden(dev, r2, tmp)
         launches.update(phase_bf16_slices(dev, phantom, r2, tmp))
+        launches["hop_bf16_seeds"] = phase_bf16_seed_slice(dev, phantom, r2,
+                                                           tmp)
     # K1 runs on every path: its error is the largest of all phases', its
     # time the 32->32 layer's at N=1 (the serial path's shape).
     results["conv3d_ndhwc_f32"]["max_abs_err"] = max(
@@ -2986,56 +3070,41 @@ def main():
         results.pop("conv3d_ndhwc_f32@hop"))
     results.pop("hop_pop@seg")   # printed; K4's entry is the hop slice's
 
-    sources = {
-        "conv3d_ndhwc_f32": ("ffn_tpu_torch/csrc/conv3d.cu",
-                             "ffn_tpu/models/convstack_3d.py:48"),
-        "conv3d_ndhwc_bf16": ("ffn_tpu_torch/csrc/conv3d_bf16.cu",
-                              "ffn_tpu/models/convstack_3d.py:49"),
-        "step_gather": ("ffn_tpu_torch/csrc/step.cu",
-                        "ffn_tpu/inference/engine.py:121"),
-        "step_update": ("ffn_tpu_torch/csrc/step.cu",
-                        "ffn_tpu/inference/engine.py:88"),
-        "hop_pop": ("ffn_tpu_torch/csrc/hop.cu",
-                    "ffn_tpu/inference/hop_engine.py:553"),
-        "hop_gather": ("ffn_tpu_torch/csrc/hop.cu",
-                       "ffn_tpu/inference/hop_engine.py:923"),
-        "hop_update": ("ffn_tpu_torch/csrc/hop.cu",
-                       "ffn_tpu/inference/hop_engine.py:976"),
-        "hop_screen": ("ffn_tpu_torch/csrc/hop.cu",
-                       "ffn_tpu/inference/hop_engine.py:1156"),
-        "lane_threshold": ("ffn_tpu_torch/csrc/lane.cu",
-                           "ffn_tpu/inference/hop_engine.py:1209"),
-        "lane_masks": ("ffn_tpu_torch/csrc/lane.cu",
-                       "ffn_tpu/inference/engine.py:489"),
-        "finalize_pass": ("ffn_tpu_torch/csrc/finalize.cu",
-                          "ffn_tpu/inference/hop_engine.py:624"),
-        "conv3d_dgrad_f32": ("ffn_tpu_torch/csrc/conv3d_bwd.cu",
-                             "ffn_tpu/training/train_lib.py:368"),
-        "conv3d_wgrad_f32": ("ffn_tpu_torch/csrc/conv3d_bwd.cu",
-                             "ffn_tpu/training/train_lib.py:368"),
-        "train_prep": ("ffn_tpu_torch/csrc/train.cu",
-                       "ffn_tpu/training/train_lib.py:239"),
-        "train_gather": ("ffn_tpu_torch/csrc/train.cu",
-                         "ffn_tpu/training/train_lib.py:341"),
-        "train_loss": ("ffn_tpu_torch/csrc/train.cu",
-                       "ffn_tpu/training/train_lib.py:357"),
-        "train_eval": ("ffn_tpu_torch/csrc/train.cu",
-                       "ffn_tpu/training/train_lib.py:255"),
-        "optim_update": ("ffn_tpu_torch/csrc/optim.cu",
-                         "ffn_tpu/training/train_lib.py:370"),
-        "fov_loss": ("ffn_tpu_torch/csrc/train.cu",
-                     "ffn_tpu/training/train_lib.py:425"),
-        "select_gather": ("ffn_tpu_torch/csrc/select.cu",
-                          "ffn_tpu/inference/engine.py:211"),
-        "select_update": ("ffn_tpu_torch/csrc/select.cu",
-                          "ffn_tpu/inference/engine.py:266"),
-    }
+    # Each kernel's source in ffn_tpu_torch/csrc and the TPU program it
+    # replaces in ffn_tpu.
+    sources = {name: (f"ffn_tpu_torch/csrc/{src}", f"ffn_tpu/{rep}")
+               for name, src, rep in [
+        ("conv3d_ndhwc_f32", "conv3d.cu", "models/convstack_3d.py:48"),
+        ("conv3d_ndhwc_bf16", "conv3d_bf16.cu", "models/convstack_3d.py:49"),
+        ("step_gather", "step.cu", "inference/engine.py:121"),
+        ("step_update", "step.cu", "inference/engine.py:88"),
+        ("hop_pop", "hop.cu", "inference/hop_engine.py:553"),
+        ("hop_gather", "hop.cu", "inference/hop_engine.py:923"),
+        ("hop_update", "hop.cu", "inference/hop_engine.py:976"),
+        ("hop_screen", "hop.cu", "inference/hop_engine.py:1156"),
+        ("lane_threshold", "lane.cu", "inference/hop_engine.py:1209"),
+        ("lane_masks", "lane.cu", "inference/engine.py:489"),
+        ("hop_pop_bf16", "hop.cu", "inference/hop_engine.py:553"),
+        ("hop_gather_bf16", "hop.cu", "inference/hop_engine.py:923"),
+        ("hop_update_bf16", "hop.cu", "inference/hop_engine.py:976"),
+        ("lane_threshold_bf16", "lane.cu", "inference/hop_engine.py:1209"),
+        ("finalize_pass", "finalize.cu", "inference/hop_engine.py:624"),
+        ("conv3d_dgrad_f32", "conv3d_bwd.cu", "training/train_lib.py:368"),
+        ("conv3d_wgrad_f32", "conv3d_bwd.cu", "training/train_lib.py:368"),
+        ("train_prep", "train.cu", "training/train_lib.py:239"),
+        ("train_gather", "train.cu", "training/train_lib.py:341"),
+        ("train_loss", "train.cu", "training/train_lib.py:357"),
+        ("train_eval", "train.cu", "training/train_lib.py:255"),
+        ("optim_update", "optim.cu", "training/train_lib.py:370"),
+        ("fov_loss", "train.cu", "training/train_lib.py:425"),
+        ("select_gather", "select.cu", "inference/engine.py:211"),
+        ("select_update", "select.cu", "inference/engine.py:266")]}
     # `launches` sums the main paths' runs; `launches_by_path` splits them
     # (fused and fused_host: the full-width fused slice with device and
     # with host finalization; train: the full-width training run;
     # train_host: the host-loop trainer's run; round:
     # the round-based slice at 8 lanes; *_bf16: the serial, hop, round and
-    # fused slices in bfloat16).
+    # fused slices in bfloat16; hop_bf16_seeds: the bf16-seed slice).
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(p.get(name, 0) for p in launches.values()),
                     launches_by_path={path: p.get(name, 0)

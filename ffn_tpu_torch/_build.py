@@ -50,13 +50,13 @@ _SIGNATURES = {
     "ffn_conv3d_ndhwc_bf16": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "ffn_step_gather": [_P, _P, _P, _P] + [_I] * 12 + [_F, _P],
     "ffn_step_update": [_P, _P, _P] + [_I] * 12 + [_F, _F, _P],
-    "ffn_hop_pop": [_P] * 22 + [_I] * 18 + [_F, _P],
-    "ffn_hop_gather": [_P] * 7 + [_I] * 11 + [_F, _F, _P],
-    "ffn_hop_update": [_P] * 17 + [_I] * 20 + [_F, _F, _P],
+    "ffn_hop_pop": [_P] * 22 + [_I] * 18 + [_F, _I, _P],
+    "ffn_hop_gather": [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P],
+    "ffn_hop_update": [_P] * 17 + [_I] * 20 + [_F, _F, _I, _P],
     "ffn_hop_screen": [_P] * 2 + [_I] * 7 + [_F] * 3 + [_P],
-    "ffn_lane_verdicts": [_P] * 6 + [_I] * 4 + [_F, _F, _P],
-    "ffn_lane_mask": [_P] * 3 + [_I] * 13 + [_F, _F, _P],
-    "ffn_lane_masks": [_P] * 4 + [_I] * 4 + [_L, _L, _F, _F, _P],
+    "ffn_lane_verdicts": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
+    "ffn_lane_mask": [_P] * 3 + [_I] * 13 + [_F, _F, _I, _P],
+    "ffn_lane_masks": [_P] * 4 + [_I] * 4 + [_L, _L, _F, _F, _I, _P],
     "ffn_finalize_pass": [_P] * 26 + [_I] * 6 + [_L] + [_I] * 12
                          + [_F] * 3 + [_P],
     "ffn_conv3d_dgrad_f32": [_P] * 6 + [_I] * 7 + [_P],

@@ -1,5 +1,11 @@
 // Device helpers shared by the flood-fill kernels: step.cu (K2, K3), hop.cu
-// (K4-K6), finalize.cu (K8) and select.cu (K13, K14).
+// (K4-K6), lane.cu (K7), finalize.cu (K8) and select.cu (K13, K14).
+//
+// Lane seeds (POM logits, NaN = unvisited) are float32, or bfloat16 under
+// FFN_TPU_SEED_DTYPE=bf16 (engine.py:63-67) in K4-K7: those kernels read a
+// seed through seed_load (exact for both) and write one through seed_store
+// (round to nearest even for bfloat16, as `astype(bfloat16)`; NaN stays
+// NaN). seed_round is the value a store keeps.
 //
 // Start indices follow lax.dynamic_slice and lax.dynamic_update_slice (a
 // negative start wraps once, then clamps into [0, shape - size]); face
@@ -9,11 +15,27 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+__device__ inline float seed_load(const float* p) { return *p; }
+__device__ inline float seed_load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ inline void seed_store(float* p, float v) { *p = v; }
+__device__ inline void seed_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ inline float seed_round(float v) { return v; }
+template <>
+__device__ inline float seed_round<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 __device__ inline float f32_nan() { return __int_as_float(0x7fc00000); }
 __device__ inline float f32_neg_inf() { return __int_as_float(0xff800000); }

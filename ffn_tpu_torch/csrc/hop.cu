@@ -34,6 +34,18 @@
 // jnp.argmax), and one thread sorts the six moves and pushes them. Start
 // indices follow lax.dynamic_slice: a negative start wraps once, then
 // clamps into [0, shape - size].
+//
+// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16: one body
+// per kernel, templated on the seed type T (common.cuh's seed_load,
+// seed_store, seed_round). With bfloat16 seeds the JAX program rounds in
+// some places and not in others, and these kernels copy it: K4 compares the
+// stored seed with the unrounded float32 move threshold (:572, :890); K5
+// substitutes the pad value rounded to bfloat16 for NaN (engine.py:93;
+// the screening gather keeps a float32 fresh patch, :1148); K6's disco mask
+// compares the stored old seed with the float32 logits (engine.py:118),
+// the write-back rounds to nearest even (:983), and the face maxima and the
+// queued scores come from the rounded patch (:998-999). The float32
+// instantiations are the kernels as they were before bfloat16 seeds.
 
 #include "common.cuh"
 
@@ -75,10 +87,11 @@ struct PopParams {
   float move_t;
 };
 
+template <typename T>
 __global__ void hop_pop_kernel(
     const uint8_t* __restrict__ blocked, const int* __restrict__ seg,
     const int* __restrict__ shapes,
-    const float* __restrict__ seeds, const int* __restrict__ sv,
+    const T* __restrict__ seeds, const int* __restrict__ sv,
     const int* __restrict__ qpos, int* head, const int* __restrict__ tail,
     const uint8_t* __restrict__ done, const int* __restrict__ start,
     const int* __restrict__ iters, int* status,
@@ -92,7 +105,7 @@ __global__ void hop_pop_kernel(
   bool ex = false, still_running = false;
   if (b < p.B) {
     const size_t vol = (size_t)g.Z * g.Y * g.X;
-    const float* seed = seeds + (size_t)b * vol;
+    const T* seed = seeds + (size_t)b * vol;
     int st = status[b];
     bool running = st == kRunning;
     if (running && p.max_iters > 0 && iters[b] >= p.max_iters) {
@@ -101,7 +114,7 @@ __global__ void hop_pop_kernel(
     }
     const int sz = start[3 * b], sy = start[3 * b + 1], sx = start[3 * b + 2];
     const bool fr = fresh[b] != 0;
-    const float origin = seed[((size_t)sz * g.Y + sy) * g.X + sx];
+    const float origin = seed_load(seed + ((size_t)sz * g.Y + sy) * g.X + sx);
     if (running && !fr && !(origin >= p.move_t)) {  // NaN counts as weak
       st = kDoneWeak;
       running = false;
@@ -140,7 +153,7 @@ __global__ void hop_pop_kernel(
               (code & kClaimed) != 0 || (sg && sg[safe] > 0);
           const bool is_restricted = (code & kRestricted) != 0;
           const bool is_done = dn[grid_index(g, cz, cy, cx, sz, sy, sx)] != 0;
-          const bool weak = !(seed[safe] >= p.move_t);
+          const bool weak = !(seed_load(seed + safe) >= p.move_t);
           found = in_bounds && !is_blocked && !is_restricted && !is_done &&
                   !weak;
           if (!found && !is_done) {  // dedup discards are uncounted
@@ -215,8 +228,9 @@ struct GatherParams {
   float pad, init;
 };
 
+template <typename T>
 __global__ void hop_gather_kernel(const float* __restrict__ image,
-                                  const float* __restrict__ seeds,
+                                  const T* __restrict__ seeds,
                                   const int* __restrict__ sv,
                                   const int* __restrict__ pos,
                                   const int* __restrict__ lanes,
@@ -245,8 +259,8 @@ __global__ void hop_gather_kernel(const float* __restrict__ image,
       const int z0 = clamp_start(pz - p.sz / 2, p.Z, p.sz);
       const int y0 = clamp_start(py - p.sy / 2, p.Y, p.sy);
       const int x0 = clamp_start(px - p.sx / 2, p.X, p.sx);
-      v = seeds[lane * vol + ((size_t)(z0 + a) * p.Y + y0 + b) * p.X + x0 +
-                c];
+      v = seed_load(seeds + lane * vol +
+                    ((size_t)(z0 + a) * p.Y + y0 + b) * p.X + x0 + c);
     } else {  // screening: NaN but for init at the center
       v = (a == p.sz / 2 && b == p.sy / 2 && c == p.sx / 2) ? p.init : f32_nan();
     }
@@ -284,8 +298,9 @@ __device__ inline bool sorts_before(float sa, const int* oa, float sb,
   return false;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kUpdateThreads)
-hop_update_kernel(const float* __restrict__ logits, float* seeds,
+hop_update_kernel(const float* __restrict__ logits, T* seeds,
                   const int* __restrict__ pos,
                   const uint8_t* __restrict__ execute,
                   const int* __restrict__ lanes, const int* __restrict__ start,
@@ -302,7 +317,7 @@ hop_update_kernel(const float* __restrict__ logits, float* seeds,
   if (!execute[lane]) return;  // uniform over the block: an idle lane
   const int pz = pos[3 * lane], py = pos[3 * lane + 1], pxx = pos[3 * lane + 2];
   const size_t vol = (size_t)g.Z * g.Y * g.X;
-  float* seed = seeds + (size_t)lane * vol;
+  T* seed = seeds + (size_t)lane * vol;
   const float* lg = logits + (size_t)s * p.fz * p.fy * p.fx;
   float* patch = patch_out + (size_t)s * p.qz * p.qy * p.qx;
   const int dz = (p.fz - p.qz) / 2, dy = (p.fy - p.qy) / 2,
@@ -324,14 +339,16 @@ hop_update_kernel(const float* __restrict__ logits, float* seeds,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int c = i % p.qx, b = (i / p.qx) % p.qy, a = i / (p.qx * p.qy);
     const float v = lg[((size_t)(a + dz) * p.fy + b + dy) * p.fx + c + dx];
-    const float old = seed[((size_t)(oz + a) * g.Y + oy + b) * g.X + ox + c];
+    const float old =
+        seed_load(seed + ((size_t)(oz + a) * g.Y + oy + b) * g.X + ox + c);
     // (old < 0) is false for NaN: unvisited voxels always take the update.
-    patch[i] = (apply && old < 0.f && v > old) ? old : v;
+    patch[i] = seed_round<T>((apply && old < 0.f && v > old) ? old : v);
   }
   __syncthreads();  // every `old` is read before any seed voxel is written
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int c = i % p.qx, b = (i / p.qx) % p.qy, a = i / (p.qx * p.qy);
-    seed[((size_t)(wz + a) * g.Y + wy + b) * g.X + wx + c] = patch[i];
+    seed_store(seed + ((size_t)(wz + a) * g.Y + wy + b) * g.X + wx + c,
+               patch[i]);
   }
 
   // Face maxima: warp f takes face f = 2 * axis + (sign > 0).
@@ -426,29 +443,19 @@ Geom make_geom(int Z, int Y, int X, int G0, int G1, int G2, int d0, int d1,
               d2 > 1 ? d2 : 1, o0, o1, o2};
 }
 
-}  // namespace
-
-// seg (K,Z,Y,X) int32 is null in host-finalize mode.
-extern "C" int ffn_hop_pop(const void* blocked, const void* seg,
-                           const void* shapes,
-                           const void* seeds, const void* sv,
-                           const void* qpos, void* head, const void* tail,
-                           const void* done, const void* start,
-                           const void* iters, void* status, const void* fresh,
-                           void* skip_t, void* skip_i, void* skip_r,
-                           void* executed, void* pops, void* pos,
-                           void* execute, void* order, void* summary, int B,
-                           int Q, int Z, int Y, int X, int G0, int G1, int G2,
-                           int m0, int m1, int m2, int d0, int d1, int d2,
-                           int o0, int o1, int o2, int max_iters,
-                           float move_t, void* stream) {
-  if (B < 1 || B > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  PopParams p{make_geom(Z, Y, X, G0, G1, G2, d0, d1, d2, o0, o1, o2),
-              B, Q, m0, m1, m2, max_iters, move_t};
-  const int threads = (B + 31) / 32 * 32;
-  hop_pop_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+template <typename T>
+int launch_pop(const void* blocked, const void* seg, const void* shapes,
+               const void* seeds, const void* sv, const void* qpos,
+               void* head, const void* tail, const void* done,
+               const void* start, const void* iters, void* status,
+               const void* fresh, void* skip_t, void* skip_i, void* skip_r,
+               void* executed, void* pops, void* pos, void* execute,
+               void* order, void* summary, const PopParams& p,
+               void* stream) {
+  const int threads = (p.B + 31) / 32 * 32;
+  hop_pop_kernel<T><<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(blocked), static_cast<const int*>(seg),
-      static_cast<const int*>(shapes), static_cast<const float*>(seeds),
+      static_cast<const int*>(shapes), static_cast<const T*>(seeds),
       static_cast<const int*>(sv), static_cast<const int*>(qpos),
       static_cast<int*>(head),
       static_cast<const int*>(tail), static_cast<const uint8_t*>(done),
@@ -462,41 +469,33 @@ extern "C" int ffn_hop_pop(const void* blocked, const void* seg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// image (K,Z,Y,X); seeds (B,Z,Y,X) or null (screening); lanes (S,) or null
-// (slot s takes row s of pos and sv).
-extern "C" int ffn_hop_gather(const void* image, const void* seeds,
-                              const void* sv, const void* pos,
-                              const void* lanes, void* img_out,
-                              void* seed_out, int S, int K, int Z, int Y,
-                              int X, int iz, int iy, int ix, int sz, int sy,
-                              int sx, float pad, float init, void* stream) {
-  GatherParams p{S, K, Z, Y, X, iz, iy, ix, sz, sy, sx, pad, init};
-  const int n_img = iz * iy * ix, n_seed = sz * sy * sx;
+template <typename T>
+int launch_gather(const void* image, const void* seeds, const void* sv,
+                  const void* pos, const void* lanes, void* img_out,
+                  void* seed_out, const GatherParams& p, void* stream) {
+  const int n_img = p.iz * p.iy * p.ix, n_seed = p.sz * p.sy * p.sx;
   const int n = n_img > n_seed ? n_img : n_seed;
   const int threads = 256;
-  const dim3 grid((n + threads - 1) / threads, S);
-  hop_gather_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(image), static_cast<const float*>(seeds),
-      static_cast<const int*>(sv), static_cast<const int*>(pos),
-      static_cast<const int*>(lanes), static_cast<float*>(img_out),
-      static_cast<float*>(seed_out), p);
+  const dim3 grid((n + threads - 1) / threads, p.S);
+  hop_gather_kernel<T>
+      <<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(image), static_cast<const T*>(seeds),
+          static_cast<const int*>(sv), static_cast<const int*>(pos),
+          static_cast<const int*>(lanes), static_cast<float*>(img_out),
+          static_cast<float*>(seed_out), p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// logits (n, fz,fy,fx): slot s's model output, for lane lanes[s].
-extern "C" int ffn_hop_update(
-    const void* logits, void* seeds, const void* pos, const void* execute,
-    const void* lanes, const void* start, void* done, void* minp, void* maxp,
-    void* iters, void* fresh, void* qpos, void* qscore, const void* head,
-    void* tail, void* overflow, void* patch, int n, int Q, int Z, int Y,
-    int X, int fz, int fy, int fx, int qz, int qy, int qx, int G0, int G1,
-    int G2, int r0, int r1, int r2, int o0, int o1, int o2, float move_t,
-    float disco_t, void* stream) {
-  UpdateParams p{make_geom(Z, Y, X, G0, G1, G2, r0, r1, r2, o0, o1, o2),
-                 Q, fz, fy, fx, qz, qy, qx, r0, r1, r2, move_t, disco_t};
-  hop_update_kernel<<<n, kUpdateThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<float*>(seeds),
+template <typename T>
+int launch_update(const void* logits, void* seeds, const void* pos,
+                  const void* execute, const void* lanes, const void* start,
+                  void* done, void* minp, void* maxp, void* iters,
+                  void* fresh, void* qpos, void* qscore, const void* head,
+                  void* tail, void* overflow, void* patch, int n,
+                  const UpdateParams& p, void* stream) {
+  hop_update_kernel<T><<<n, kUpdateThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(logits), static_cast<T*>(seeds),
       static_cast<const int*>(pos), static_cast<const uint8_t*>(execute),
       static_cast<const int*>(lanes), static_cast<const int*>(start),
       static_cast<uint8_t*>(done), static_cast<int*>(minp),
@@ -506,6 +505,64 @@ extern "C" int ffn_hop_update(
       static_cast<int*>(tail), static_cast<int*>(overflow),
       static_cast<float*>(patch), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// seg (K,Z,Y,X) int32 is null in host-finalize mode; seeds (B,Z,Y,X) are
+// bfloat16 where bf16 != 0, else float32.
+extern "C" int ffn_hop_pop(const void* blocked, const void* seg,
+                           const void* shapes,
+                           const void* seeds, const void* sv,
+                           const void* qpos, void* head, const void* tail,
+                           const void* done, const void* start,
+                           const void* iters, void* status, const void* fresh,
+                           void* skip_t, void* skip_i, void* skip_r,
+                           void* executed, void* pops, void* pos,
+                           void* execute, void* order, void* summary, int B,
+                           int Q, int Z, int Y, int X, int G0, int G1, int G2,
+                           int m0, int m1, int m2, int d0, int d1, int d2,
+                           int o0, int o1, int o2, int max_iters,
+                           float move_t, int bf16, void* stream) {
+  if (B < 1 || B > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const PopParams p{make_geom(Z, Y, X, G0, G1, G2, d0, d1, d2, o0, o1, o2),
+                    B, Q, m0, m1, m2, max_iters, move_t};
+  return (bf16 ? launch_pop<__nv_bfloat16> : launch_pop<float>)(
+      blocked, seg, shapes, seeds, sv, qpos, head, tail, done, start, iters,
+      status, fresh, skip_t, skip_i, skip_r, executed, pops, pos, execute,
+      order, summary, p, stream);
+}
+
+// image (K,Z,Y,X); seeds (B,Z,Y,X), bfloat16 where bf16 != 0, or null
+// (screening); lanes (S,) or null (slot s takes row s of pos and sv).
+extern "C" int ffn_hop_gather(const void* image, const void* seeds,
+                              const void* sv, const void* pos,
+                              const void* lanes, void* img_out,
+                              void* seed_out, int S, int K, int Z, int Y,
+                              int X, int iz, int iy, int ix, int sz, int sy,
+                              int sx, float pad, float init, int bf16,
+                              void* stream) {
+  const GatherParams p{S, K, Z, Y, X, iz, iy, ix, sz, sy, sx, pad, init};
+  return (bf16 ? launch_gather<__nv_bfloat16> : launch_gather<float>)(
+      image, seeds, sv, pos, lanes, img_out, seed_out, p, stream);
+}
+
+// logits (n, fz,fy,fx): slot s's model output, for lane lanes[s]; seeds
+// bfloat16 where bf16 != 0.
+extern "C" int ffn_hop_update(
+    const void* logits, void* seeds, const void* pos, const void* execute,
+    const void* lanes, const void* start, void* done, void* minp, void* maxp,
+    void* iters, void* fresh, void* qpos, void* qscore, const void* head,
+    void* tail, void* overflow, void* patch, int n, int Q, int Z, int Y,
+    int X, int fz, int fy, int fx, int qz, int qy, int qx, int G0, int G1,
+    int G2, int r0, int r1, int r2, int o0, int o1, int o2, float move_t,
+    float disco_t, int bf16, void* stream) {
+  const UpdateParams p{
+      make_geom(Z, Y, X, G0, G1, G2, r0, r1, r2, o0, o1, o2),
+      Q, fz, fy, fx, qz, qy, qx, r0, r1, r2, move_t, disco_t};
+  return (bf16 ? launch_update<__nv_bfloat16> : launch_update<float>)(
+      logits, seeds, pos, execute, lanes, start, done, minp, maxp, iters,
+      fresh, qpos, qscore, head, tail, overflow, patch, n, p, stream);
 }
 
 extern "C" int ffn_hop_screen(const void* logits, void* strong, int n, int fz,

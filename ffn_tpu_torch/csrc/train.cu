@@ -226,7 +226,10 @@ __global__ void train_loss_kernel(const float* __restrict__ logits,
                                log1pf(expf(-fabsf(lx))));
     sum += __fmul_rn(ce, w);
     const float e = expf(-fabsf(lx));
-    const float sig = lx >= 0.f ? 1.f / (1.f + e) : e / (1.f + e);
+    // jax.grad of sigmoid_ce at lx = 0 exactly is -lz (as fov_loss); a NaN
+    // fails both tests and stays NaN.
+    const float sig =
+        lx == 0.f ? 0.f : lx > 0.f ? 1.f / (1.f + e) : e / (1.f + e);
     dlogits[(size_t)b * V + v] = __fmul_rn(__fmul_rn(coef, w), __fsub_rn(sig, lz));
     if (valid[b])
       seeds[b * svol + at3(a.s, a.w0.z + z, a.w0.y + y, a.w0.x + x)] = lx;

@@ -24,6 +24,14 @@ mirror and the movement policy. One round of B lanes is
 and one (B, 30) f32 download. The lane resets are fills and index sets,
 as the JAX package's are memsets and scatters. On a CPU device the same
 calls run the kernels' plain PyTorch versions.
+
+Seeds are stored in `seed_dtype`: float32, or bfloat16 (the Runner's
+FFN_TPU_SEED_DTYPE=bf16, engine.py:63-67), which halves the seed memory
+per lane. Only the hop path with host finalization (K4-K7) takes bfloat16
+seeds so far; the serial step (K2, K3), the round-based step (K13, K14) and
+device finalization (K8) raise NotImplementedError on them
+(`require_float32_seeds`, ROADMAP.md Queue 2). Region downloads are
+float32, as the JAX engine's; uploads round into the seed dtype.
 """
 
 from __future__ import annotations
@@ -58,10 +66,17 @@ class FloodFillEngine:
       disco_seed_threshold: probability-space threshold from the inference
         options; < 0 disables the disco-seed mask.
       device: where the image, the seed and the model live.
+      seed_dtype: torch.float32 or torch.bfloat16, the seed storage.
     """
 
     def __init__(self, model, *, pad_value: float, move_threshold: float,
-                 disco_seed_threshold: float, device="cuda"):
+                 disco_seed_threshold: float, device="cuda",
+                 seed_dtype=torch.float32):
+        if seed_dtype not in hop_ops.SEED_DTYPES:
+            raise NotImplementedError(
+                f"seed dtype {seed_dtype}: ffn_tpu_torch stores seeds in "
+                f"float32 or bfloat16 (ROADMAP.md, Queue 2)")
+        self.seed_dtype = seed_dtype
         self.device = resolve_device(device)
         self.model = model
         self.info = model.info
@@ -80,8 +95,18 @@ class FloodFillEngine:
         self._pred_delta = tuple(
             (s - p) // 2 for s, p in zip(self._seed_size, self._pred_size))
 
+    def require_float32_seeds(self, what: str):
+        """Raises NotImplementedError where bfloat16 seeds would reach a
+        kernel that takes float32 seeds only."""
+        if self.seed_dtype != torch.float32:
+            raise NotImplementedError(
+                f"{what} with bfloat16 seeds (FFN_TPU_SEED_DTYPE=bf16) is "
+                f"not ported: ffn_tpu_torch runs bfloat16 seeds on the hop "
+                f"path with host finalization only (ROADMAP.md, Queue 2 "
+                f"item 2)")
+
     def new_seed_buffer(self, shape) -> torch.Tensor:
-        return torch.full(tuple(shape), float("nan"), dtype=torch.float32,
+        return torch.full(tuple(shape), float("nan"), dtype=self.seed_dtype,
                           device=self.device)
 
     def put_image(self, image: np.ndarray) -> torch.Tensor:
@@ -121,7 +146,7 @@ class FloodFillEngine:
 
     def new_seed_batch(self, batch: int, shape) -> torch.Tensor:
         return torch.full((int(batch),) + tuple(shape), float("nan"),
-                          dtype=torch.float32, device=self.device)
+                          dtype=self.seed_dtype, device=self.device)
 
     def reset_seed_lane(self, seeds: torch.Tensor, lane: int, pos,
                         init_activation: float) -> torch.Tensor:
@@ -240,12 +265,13 @@ class FloodFillEngine:
         """Downloads a sub-box of one lane's seed buffer.
 
         Returns (region ndarray f32, actual_start); the box is bucketed as
-        the JAX engine buckets it (engine.py:415-444).
+        the JAX engine buckets it (engine.py:415-444). bfloat16 seeds
+        download as float32 (exact), as there.
         """
         bucket, start = self._bucket_start(seeds.shape[1:], size_zyx,
                                            start_zyx)
         box = tuple(slice(int(s), int(s) + b) for s, b in zip(start, bucket))
-        return seeds[int(lane)][box].cpu().numpy().copy(), start
+        return seeds[int(lane)][box].float().cpu().numpy().copy(), start
 
     def lane_mask_region(self, seeds: torch.Tensor, lane: int, start_zyx,
                          size_zyx, seg_threshold: float, start_pos):
@@ -291,11 +317,13 @@ class FloodFillEngine:
         """Uploads a sub-box into one lane's seed buffer (checkpoint
         restore), in place. Bucketed like lane_seed_region; the bucket
         padding is NaN, so this must target a freshly-NaN lane
-        (engine.py:554-582)."""
+        (engine.py:554-582). The float32 region rounds to nearest even into
+        bfloat16 seeds, as `padded.astype(seeds.dtype)` there."""
         bucket, start = self._bucket_start(seeds.shape[1:], region.shape,
                                            start_zyx)
         padded = np.full(bucket, np.nan, np.float32)
         padded[tuple(slice(0, s) for s in region.shape)] = region
         box = tuple(slice(int(s), int(s) + b) for s, b in zip(start, bucket))
-        seeds[int(lane)][box] = torch.from_numpy(padded).to(seeds.device)
+        seeds[int(lane)][box] = torch.from_numpy(padded).to(seeds.device,
+                                                             seeds.dtype)
         return seeds

@@ -46,7 +46,12 @@ Deviations from the JAX program:
   against t_hops shows what that costs (PERF.md).
 Lane state is updated in place where the JAX program donates its buffers.
 
-Not ported (ROADMAP.md, Queue 2): seed buffers in a dtype other than float32.
+Seeds are float32 or bfloat16 (`seed_dtype`, FFN_TPU_SEED_DTYPE=bf16 in the
+Runner): K4-K7 read and write either (ops/hop.py says where bfloat16 rounds,
+as the JAX program does), the reseed plants init_activation rounded to
+bfloat16, and screening keeps its float32 fresh patch. Device finalization
+(K8) takes float32 seeds only: `init_finalize_state` raises
+NotImplementedError on bfloat16 seeds (ROADMAP.md, Queue 2 item 2).
 """
 
 from __future__ import annotations
@@ -92,7 +97,8 @@ class LaneState:
     Positions are in the frame of the lane's subvolume slot `sv` of the
     (K, Z, Y, X) image and blocked stacks given to run_hops (K = 1 for a
     single subvolume)."""
-    seeds: torch.Tensor        # (B, Z, Y, X) f32 POM logits, NaN = unvisited
+    seeds: torch.Tensor        # (B, Z, Y, X) f32 or bf16 POM logits, NaN =
+    #                            unvisited
     sv: torch.Tensor           # (B,) int32 subvolume slot of each lane
     qpos: torch.Tensor         # (B, Q, 3) int32 candidate positions (zyx)
     qscore: torch.Tensor       # (B, Q) f32 candidate scores
@@ -173,15 +179,10 @@ class HopEngine(FloodFillEngine):
     def __init__(self, model, *, pad_value: float, move_threshold: float,
                  disco_seed_threshold: float, queue_capacity: int = 32768,
                  device="cuda", seed_dtype=torch.float32):
-        if seed_dtype != torch.float32:
-            raise NotImplementedError(
-                f"seed dtype {seed_dtype} (FFN_TPU_SEED_DTYPE=bf16): "
-                f"ffn_tpu_torch keeps lane seeds in float32 only (ROADMAP.md, "
-                f"Queue 2)")
         super().__init__(model, pad_value=pad_value,
                          move_threshold=move_threshold,
                          disco_seed_threshold=disco_seed_threshold,
-                         device=device)
+                         device=device, seed_dtype=seed_dtype)
         self.queue_capacity = int(queue_capacity)
         # Conv compaction: run the model over the executing lanes' bucket
         # only. K1 computes each sample on its own, so the result is
@@ -212,7 +213,7 @@ class HopEngine(FloodFillEngine):
 
         return LaneState(
             seeds=torch.full((B,) + tuple(shape_zyx), float("nan"),
-                             dtype=torch.float32, device=dev),
+                             dtype=self.seed_dtype, device=dev),
             sv=z(B), qpos=z(B, Q, 3), qscore=z(B, Q, dtype=torch.float32),
             head=z(B), tail=z(B), done=z(B, *grid, dtype=torch.uint8),
             start=z(B, 3), minp=z(B, 3), maxp=z(B, 3), iters=z(B),
@@ -225,7 +226,8 @@ class HopEngine(FloodFillEngine):
         :190-214). The log cannot overflow within a round: every kernel
         finalization consumes a lane that was RUNNING, and lanes enter
         RUNNING by a host reseed (<= B a round) or a kernel reseed (each
-        consumes a FIFO entry, <= S a round)."""
+        consumes a FIFO entry, <= S a round). K8 takes float32 seeds only."""
+        self.require_float32_seeds("device finalization (K8)")
         S = int(fifo_capacity) or max(2 * lanes, 256)
         L = S + lanes + 4
         if K > 17:
@@ -381,7 +383,8 @@ class HopEngine(FloodFillEngine):
         clears the seed buffer and dedup grid, plants the initial
         activation, and queues the origin as the (unconditionally accepted)
         first move (hop_engine.py:373-428). sv rebinds reset lanes to a
-        subvolume slot; None keeps each lane's binding."""
+        subvolume slot; None keeps each lane's binding. The activation is
+        stored in the seed dtype (rounded to nearest even for bfloat16)."""
         dev = self.device
         reset = torch.as_tensor(np.asarray(reset_mask, bool), device=dev)
         lanes = torch.nonzero(reset).squeeze(1)

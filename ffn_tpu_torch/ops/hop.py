@@ -19,6 +19,18 @@ they run the plain PyTorch versions beside them, which are also the
 kernels' oracles on the card. Lane state is updated in place where the
 JAX program donates and returns new buffers.
 
+Lane seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16 (the JAX
+engine's seed dtype, engine.py:63-67). With bfloat16 seeds the JAX program
+rounds in some places and not in others, and the kernels and their plain
+versions copy it: K4 compares a stored seed with the unrounded float32 move
+threshold (hop_engine.py:572, :890); K5 puts the pad value rounded to
+bfloat16 where a seed is NaN (engine.py:93; screening keeps its float32
+fresh patch, :1148); K6's disco mask compares the stored old seed with the
+float32 logits (engine.py:118), the write-back rounds to nearest even
+(:983), and the face maxima and queued scores come from the rounded patch
+(:998-999). The kernels count their bfloat16 launches under their name
+plus "_bf16".
+
 Start indices follow `lax.dynamic_slice`: a negative start wraps once, then
 clamps into [0, shape - size]. Dedup-grid cells are clamped into the grid,
 which is what JAX's gather does with an out-of-range index (a hop never
@@ -54,6 +66,9 @@ SCREEN = "hop_screen"
 # K4 runs one lane per thread of a single CTA.
 MAX_LANES = 1024
 
+# The lane seed dtypes K4-K7 take.
+SEED_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def _i32(values, device) -> torch.Tensor:
     return torch.tensor([int(v) for v in values], dtype=torch.int32,
@@ -63,6 +78,29 @@ def _i32(values, device) -> torch.Tensor:
 def _f32(value, device) -> torch.Tensor:
     return torch.tensor(float(np.float32(value)), dtype=torch.float32,
                         device=device)
+
+
+def bf16_round(value) -> float:
+    """A float32 value rounded to bfloat16 (to nearest even), as a float:
+    `jnp.float32(value).astype(jnp.bfloat16)`."""
+    return float(torch.tensor(float(np.float32(value))).to(
+        torch.bfloat16).float())
+
+
+def is_bf16(seeds: Optional[torch.Tensor]) -> bool:
+    return seeds is not None and seeds.dtype == torch.bfloat16
+
+
+def launch_name(name: str, seeds: Optional[torch.Tensor]) -> str:
+    """The launch counter of kernel `name` on these seeds: bfloat16
+    launches count apart, under name + "_bf16"."""
+    return name + "_bf16" if is_bf16(seeds) else name
+
+
+def check_seeds(name, seeds: Optional[torch.Tensor]):
+    if seeds is not None and seeds.dtype not in SEED_DTYPES:
+        raise TypeError(f"{name}: seeds must be float32 or bfloat16, got "
+                        f"{seeds.dtype}")
 
 
 def dynamic_starts(corner: torch.Tensor, dims: torch.Tensor,
@@ -148,7 +186,7 @@ def hop_pop_plain(blocked, shapes, seeds, sv, qpos, head, tail, done, start,
         st = torch.where(capped, DONE_CAP, st)
         running = running & ~capped
     s = start.long()
-    origin = seeds[lanes, s[:, 0], s[:, 1], s[:, 2]]
+    origin = seeds[lanes, s[:, 0], s[:, 1], s[:, 2]].float()
     weak = running & ~fresh & ~(origin >= move_t)   # NaN counts as weak
     st = torch.where(weak, DONE_WEAK, st)
     running = running & ~weak
@@ -178,7 +216,7 @@ def hop_pop_plain(blocked, shapes, seeds, sv, qpos, head, tail, done, start,
     is_done = done[lanes[:, None], cell[..., 0], cell[..., 1],
                    cell[..., 2]] > 0
     weak_c = ~(seeds[lanes[:, None], safe[..., 0], safe[..., 1],
-                     safe[..., 2]] >= move_t)
+                     safe[..., 2]].float() >= move_t)
     ok = ((fresh[:, None] | (in_bounds & ~is_blocked & ~is_restricted
                              & ~is_done & ~weak_c))
           & in_q & running[:, None])
@@ -230,20 +268,20 @@ def hop_pop(blocked: torch.Tensor, shapes: torch.Tensor, seeds: torch.Tensor,
     blocked (K,Z,Y,X) uint8 and shapes (K,3) int32 are per subvolume slot;
     seg (K,Z,Y,X) int32, in device-finalize mode, is a second claim source:
     a candidate on a voxel with seg > 0 counts as claimed;
-    seeds (B,Z,Y,X) f32, qpos (B,Q,3) i32, done (B,G0,G1,G2) u8, fresh (B,)
-    bool and the (B,) / (B,3) int32 lane fields are the LaneState. Updates
-    head, status and the three skip counters in place and adds this hop's
-    execute and pop counts to `executed` and `pops`. Returns (pos (B,3)
-    int32 clipped FOV centers, execute (B,) bool, order (B,) int32 lane
-    indices executing-first = argsort(~execute, stable), summary (2,) int32
-    [n_exec, lanes still RUNNING]).
+    seeds (B,Z,Y,X) f32 or bf16, qpos (B,Q,3) i32, done (B,G0,G1,G2) u8,
+    fresh (B,) bool and the (B,) / (B,3) int32 lane fields are the
+    LaneState. Updates head, status and the three skip counters in place
+    and adds this hop's execute and pop counts to `executed` and `pops`.
+    Returns (pos (B,3) int32 clipped FOV centers, execute (B,) bool, order
+    (B,) int32 lane indices executing-first = argsort(~execute, stable),
+    summary (2,) int32 [n_exec, lanes still RUNNING]).
     """
     B = seeds.shape[0]
     ints = (sv, qpos, head, tail, start, iters, status, skip_threshold,
             skip_invalid, skip_restricted, executed, pops, shapes)
     _check_dtypes(POP, torch.int32, *ints)
     _check_dtypes(POP, torch.uint8, blocked, done)
-    _check_dtypes(POP, torch.float32, seeds)
+    check_seeds(POP, seeds)
     _check_dtypes(POP, torch.bool, fresh)
     _check_dtypes(POP, torch.int32, seg)
     if seg is not None and seg.shape != blocked.shape:
@@ -276,9 +314,9 @@ def hop_pop(blocked: torch.Tensor, shapes: torch.Tensor, seeds: torch.Tensor,
         B, qpos.shape[1], *seeds.shape[1:], *done.shape[1:],
         *(int(v) for v in margin), *(int(v) for v in deltas),
         *(int(v) for v in grid_offset), int(max_iters),
-        float(move_threshold), _stream(seeds))
+        float(move_threshold), int(is_bf16(seeds)), _stream(seeds))
     _build.check(err, POP)
-    _build.launches[POP] += 1
+    _build.launches[launch_name(POP, seeds)] += 1
     return pos, execute, order, summary
 
 
@@ -307,7 +345,9 @@ def hop_gather_plain(image, pos, sv, lanes, seeds, *, image_size, seed_size,
             float(np.float32(init_activation))
     else:
         sp = seeds[box_index(rows, dynamic_starts(p - ssz // 2, vol, ssz),
-                             seed_size)]
+                             seed_size)].float()
+        if is_bf16(seeds):
+            pad_t = _f32(bf16_round(pad), dev)
         seed_in = torch.where(torch.isnan(sp), pad_t, sp)
     return img.contiguous(), seed_in.contiguous()
 
@@ -320,11 +360,13 @@ def hop_gather(image: torch.Tensor, pos: torch.Tensor, sv: torch.Tensor,
 
     Slot s takes lane lanes[s] (s itself when `lanes` is None): the image
     patch around pos[lane] from image[sv[lane]] ((K,Z,Y,X)) and the seed
-    patch from seeds[lane] ((B,Z,Y,X)) with NaN -> pad. With seeds None
-    (screening) every slot's seed patch is the fresh one: pad, and
-    init_activation at the center.
+    patch from seeds[lane] ((B,Z,Y,X), f32 or bf16) with NaN -> pad (pad
+    rounded to bf16 for bf16 seeds). With seeds None (screening) every
+    slot's seed patch is the fresh one: pad, and init_activation at the
+    center. The outputs are float32.
     """
-    _check_dtypes(GATHER, torch.float32, image, seeds)
+    _check_dtypes(GATHER, torch.float32, image)
+    check_seeds(GATHER, seeds)
     _check_dtypes(GATHER, torch.int32, pos, sv, lanes)
     if _device_of(GATHER, image) == "cpu":
         return hop_gather_plain(image, pos, sv, lanes, seeds,
@@ -342,9 +384,10 @@ def hop_gather(image: torch.Tensor, pos: torch.Tensor, sv: torch.Tensor,
         image.data_ptr(), _ptr(seeds), sv.data_ptr(), pos.data_ptr(),
         _ptr(lanes), img.data_ptr(), seed_in.data_ptr(), S, *image.shape,
         *(int(v) for v in image_size), *(int(v) for v in seed_size),
-        float(pad), float(init_activation), _stream(image))
+        bf16_round(pad) if is_bf16(seeds) else float(pad),
+        float(init_activation), int(is_bf16(seeds)), _stream(image))
     _build.check(err, GATHER)
-    _build.launches[GATHER] += 1
+    _build.launches[launch_name(GATHER, seeds)] += 1
     return img, seed_in
 
 
@@ -458,10 +501,12 @@ def hop_update_plain(logits, seeds, pos, execute, lanes, start, done, minp,
     d = [int(v) for v in delta.tolist()]
     crop = logits[:, d[0]:d[0] + pred_size[0], d[1]:d[1] + pred_size[1],
                   d[2]:d[2] + pred_size[2]]
-    old = seeds[box_index(rows, old_start, pred_size)]
+    old = seeds[box_index(rows, old_start, pred_size)].float()
     new = _disco(crop, old, move_threshold, disco_threshold)
+    if is_bf16(seeds):   # the write-back's rounding, before the face maxima
+        new = new.to(torch.bfloat16).float()
     patch[sel] = new
-    seeds[box_index(rows, write_start, pred_size)] = new
+    seeds[box_index(rows, write_start, pred_size)] = new.to(seeds.dtype)
 
     cell = grid_cells(p, start[rows], deltas, grid_offset, done.shape[1:])
     done[rows, cell[:, 0], cell[:, 1], cell[:, 2]] = 1
@@ -503,12 +548,15 @@ def hop_update(logits: torch.Tensor, seeds: torch.Tensor, pos: torch.Tensor,
     gathered. Per executing lane: the disco mask over the pred crop, the
     write-back into seeds[lane], its dedup cell, minp/maxp/iters, fresh
     cleared, and the face maxima pushed onto its ring buffer in
-    (-score, -off0, -off1, -off2) order without adjacent duplicates. Returns
-    the written patches (S, *pred_size); rows of idle slots are undefined.
+    (-score, -off0, -off1, -off2) order without adjacent duplicates. With
+    bf16 seeds the written patch is rounded to bf16 (nearest even) and the
+    face maxima are taken on it. Returns the written patches (S, *pred_size)
+    as float32; rows of idle slots are undefined.
     """
     ints = (pos, lanes, start, minp, maxp, iters, qpos, head, tail, overflow)
     _check_dtypes(UPDATE, torch.int32, *ints)
-    _check_dtypes(UPDATE, torch.float32, logits, seeds, qscore)
+    _check_dtypes(UPDATE, torch.float32, logits, qscore)
+    check_seeds(UPDATE, seeds)
     _check_dtypes(UPDATE, torch.uint8, done)
     _check_dtypes(UPDATE, torch.bool, execute, fresh)
     if logits.shape[0] != lanes.shape[0]:
@@ -535,9 +583,10 @@ def hop_update(logits: torch.Tensor, seeds: torch.Tensor, pos: torch.Tensor,
         patch.data_ptr(), n, qpos.shape[1], *seeds.shape[1:],
         *logits.shape[1:], *(int(v) for v in pred_size), *done.shape[1:],
         *(int(v) for v in deltas), *(int(v) for v in grid_offset),
-        float(move_threshold), float(disco_threshold), _stream(seeds))
+        float(move_threshold), float(disco_threshold), int(is_bf16(seeds)),
+        _stream(seeds))
     _build.check(err, UPDATE)
-    _build.launches[UPDATE] += 1
+    _build.launches[launch_name(UPDATE, seeds)] += 1
     return patch
 
 

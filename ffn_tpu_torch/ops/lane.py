@@ -15,8 +15,13 @@ Two entry points of one kernel source, `csrc/lane.cu`:
                  launch, packed into one buffer that crosses in one copy.
                  It counts its launches as "lane_masks".
 
-NaN (unvisited) thresholds to False. On CUDA tensors they launch the
-kernels; on CPU tensors the plain PyTorch versions beside them run.
+NaN (unvisited) thresholds to False. Seeds are float32 or bfloat16
+(FFN_TPU_SEED_DTYPE=bf16); with bfloat16 seeds both thresholds are rounded
+to bfloat16 before the comparison, as the JAX programs' `thr.astype(
+seed.dtype)` does (hop_engine.py:1232-1235, engine.py:475-478, :533-536),
+and the launches count under the kernel's name plus "_bf16". On CUDA
+tensors they launch the kernels; on CPU tensors the plain PyTorch versions
+beside them run.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import numpy as np
 import torch
 
 from ffn_tpu_torch import _build
-from ffn_tpu_torch.ops.hop import BLOCKED_CLAIMED
+from ffn_tpu_torch.ops.hop import (BLOCKED_CLAIMED, SEED_DTYPES, bf16_round,
+                                   is_bf16, launch_name)
 
 NAME = "lane_threshold"
 MASKS = "lane_masks"
@@ -39,9 +45,9 @@ def _f32(value, device) -> torch.Tensor:
 
 
 def _check(seeds, *ints):
-    if seeds.dtype != torch.float32 or seeds.dim() != 4:
-        raise ValueError(f"{NAME} takes (B,Z,Y,X) float32 seeds, got "
-                         f"{seeds.dtype} {tuple(seeds.shape)}")
+    if seeds.dtype not in SEED_DTYPES or seeds.dim() != 4:
+        raise ValueError(f"{NAME} takes (B,Z,Y,X) float32 or bfloat16 "
+                         f"seeds, got {seeds.dtype} {tuple(seeds.shape)}")
     if seeds.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{NAME}: unsupported device {seeds.device}")
     for t in ints:
@@ -52,25 +58,34 @@ def _check(seeds, *ints):
             raise ValueError(f"{NAME} takes contiguous tensors")
 
 
+def _thresholds(seeds, *values):
+    """The thresholds as the comparisons take them: float32, rounded to
+    bfloat16 for bfloat16 seeds."""
+    return [bf16_round(v) if is_bf16(seeds) else float(np.float32(v))
+            for v in values]
+
+
 def lane_verdicts_plain(seeds, sv, start, blocked, *, segment_threshold,
                         move_threshold):
     dev = seeds.device
     lanes = torch.arange(seeds.shape[0], device=dev)
-    seg_t = _f32(segment_threshold, dev)
+    seg_t, move_t = (_f32(v, dev) for v in _thresholds(
+        seeds, segment_threshold, move_threshold))
     counts = torch.stack([
-        ((seeds[b] >= seg_t) & ((blocked[int(k)] & BLOCKED_CLAIMED) == 0)
+        ((seeds[b].float() >= seg_t)
+         & ((blocked[int(k)] & BLOCKED_CLAIMED) == 0)
          ).sum(dtype=torch.int32)
         for b, k in enumerate(sv.tolist())]) if len(lanes) else \
         torch.zeros((0,), dtype=torch.int32, device=dev)
     s = start.long()
-    ok = seeds[lanes, s[:, 0], s[:, 1], s[:, 2]] >= _f32(move_threshold, dev)
+    ok = seeds[lanes, s[:, 0], s[:, 1], s[:, 2]].float() >= move_t
     return counts, ok
 
 
 def lane_verdicts(seeds: torch.Tensor, sv: torch.Tensor, start: torch.Tensor,
                   blocked: torch.Tensor, *, segment_threshold: float,
                   move_threshold: float):
-    """K7 verdicts. seeds (B,Z,Y,X) f32, sv (B,) and start (B,3) int32,
+    """K7 verdicts. seeds (B,Z,Y,X) f32 or bf16, sv (B,) and start (B,3) int32,
     blocked (K,Z,Y,X) uint8. Returns (counts (B,) int32, ok (B,) bool)."""
     _check(seeds, sv, start, blocked)
     if blocked.dtype != torch.uint8 or tuple(blocked.shape[1:]) != tuple(
@@ -92,20 +107,22 @@ def lane_verdicts(seeds: torch.Tensor, sv: torch.Tensor, start: torch.Tensor,
     err = _build.lib().ffn_lane_verdicts(
         seeds.data_ptr(), sv.data_ptr(), start.data_ptr(), blocked.data_ptr(),
         counts.data_ptr(), ok.data_ptr(), B, *seeds.shape[1:],
-        float(segment_threshold), float(move_threshold),
+        *_thresholds(seeds, segment_threshold, move_threshold),
+        int(is_bf16(seeds)),
         torch.cuda.current_stream(seeds.device).cuda_stream)
     _build.check(err, NAME)
-    _build.launches[NAME] += 1
+    _build.launches[launch_name(NAME, seeds)] += 1
     return counts, ok
 
 
 def lane_mask_plain(seeds, lane, start, size, origin, *, threshold,
                     move_threshold):
     box = tuple(slice(int(s), int(s) + int(n)) for s, n in zip(start, size))
-    region = seeds[int(lane)][box]
-    mask = (region >= _f32(threshold, seeds.device)).to(torch.uint8)
-    ok = seeds[(int(lane),) + tuple(int(v) for v in origin)] >= _f32(
-        move_threshold, seeds.device)
+    thr, move_t = (_f32(v, seeds.device) for v in _thresholds(
+        seeds, threshold, move_threshold))
+    region = seeds[int(lane)][box].float()
+    mask = (region >= thr).to(torch.uint8)
+    ok = seeds[(int(lane),) + tuple(int(v) for v in origin)].float() >= move_t
     return mask, ok.reshape(1)
 
 
@@ -132,10 +149,11 @@ def lane_mask(seeds: torch.Tensor, lane: int, start: Sequence[int],
     err = _build.lib().ffn_lane_mask(
         seeds.data_ptr(), mask.data_ptr(), ok.data_ptr(), int(lane),
         *seeds.shape[1:], *(int(v) for v in start), *(int(v) for v in size),
-        *(int(v) for v in origin), float(threshold), float(move_threshold),
+        *(int(v) for v in origin),
+        *_thresholds(seeds, threshold, move_threshold), int(is_bf16(seeds)),
         torch.cuda.current_stream(seeds.device).cuda_stream)
     _build.check(err, NAME)
-    _build.launches[NAME] += 1
+    _build.launches[launch_name(NAME, seeds)] += 1
     return mask, ok
 
 
@@ -193,8 +211,9 @@ def lane_masks(seeds: torch.Tensor, lanes, starts, sizes, origins, *,
     err = _build.lib().ffn_lane_masks(
         seeds.data_ptr(), table_d.data_ptr(), offsets_d.data_ptr(),
         out.data_ptr(), len(table), *seeds.shape[1:],
-        int(np.prod(table[:, 4:7], axis=1).max()), total, float(threshold),
-        float(move_threshold), torch.cuda.current_stream(dev).cuda_stream)
+        int(np.prod(table[:, 4:7], axis=1).max()), total,
+        *_thresholds(seeds, threshold, move_threshold), int(is_bf16(seeds)),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, MASKS)
-    _build.launches[MASKS] += 1
+    _build.launches[launch_name(MASKS, seeds)] += 1
     return out

@@ -250,7 +250,10 @@ def train_loss_plain(logits, seeds, labels, weights, valid, wanted, off,
     loss = torch.where(valid, per_lane, torch.zeros((), device=x.device)
                        ).sum() / denom
     coef = (valid_f / denom) / float(np.prod(fov))
-    dlogits = (coef.view(b, 1, 1, 1) * w) * (torch.sigmoid(x) - z)
+    # jax.grad of sigmoid_ce at x = 0 exactly is -z (as fov_loss_plain).
+    sig = torch.where(x == 0, torch.zeros((), device=x.device),
+                      torch.sigmoid(x))
+    dlogits = (coef.view(b, 1, 1, 1) * w) * (sig - z)
     wbox = _box(_start(seeds.shape[1:], off, fov), fov)
     keep = valid.view(b, 1, 1, 1)
     seeds[wbox] = torch.where(keep, x, seeds[wbox])

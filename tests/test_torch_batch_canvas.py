@@ -35,6 +35,10 @@ from test_torch_hop_canvas import (_counts, _jax_engine, _origins,
                                    _port_engine, _port_options, make_port)
 from test_torch_runner import PAD, SIZE, _request
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 
 def make_jax_round(lanes, **kwargs):
     model, eng = _jax_engine(4096)

@@ -46,6 +46,10 @@ from ffn_tpu_torch.ops.conv3d_bf16_check import K15_CASES, k15_tolerance
 from test_torch_runner import PAD, SIZE, _request
 from tools import synthetic_em  # noqa: E402 (test_torch_runner's path)
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHANTOM = os.path.join(REPO, "models", "phantom")
 # Share of a layer's outputs that may differ from flax's (at most 3 of

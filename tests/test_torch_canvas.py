@@ -7,6 +7,7 @@ step exact, so the segmentations must be identical, ids included.
 
 import numpy as np
 from scipy.special import logit
+import torch
 
 from ffn_tpu.inference import canvas as jax_canvas
 from ffn_tpu.inference import engine as jax_engine
@@ -17,6 +18,10 @@ from ffn_tpu_torch.inference import seed as seed_lib
 from ffn_tpu_torch.inference.settings import InferenceOptions
 from ffn_tpu_torch.models import oracle
 from test_canvas_e2e import DELTAS, FOV, make_image, make_options
+
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
 
 
 def _grid(shape):

@@ -19,6 +19,7 @@ import textwrap
 
 import numpy as np
 from scipy.special import logit
+import torch
 
 from ffn_tpu.inference import batch_canvas as jax_batch_canvas
 from ffn_tpu.inference import canvas as jax_canvas
@@ -28,6 +29,10 @@ from ffn_tpu.inference import hop_engine as jax_hop_engine
 from ffn_tpu.inference import storage as jax_storage
 from ffn_tpu.models import oracle as jax_oracle
 from test_canvas_e2e import DELTAS, FOV, make_image, make_options
+
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

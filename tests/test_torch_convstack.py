@@ -20,6 +20,10 @@ from ffn_tpu.models import convstack_3d as jax_convstack
 from ffn_tpu_torch.models import convstack_3d, params_io
 from ffn_tpu_torch.ops import conv3d
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHANTOM = os.path.join(REPO, "models", "phantom")
 

@@ -23,6 +23,10 @@ from ffn_tpu_torch.inference import engine
 from ffn_tpu_torch.models import convstack_3d, oracle, params_io
 from ffn_tpu_torch.ops import step as step_ops
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 TINY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "models", "phantom", "model-ci-tiny.npz")
 FOV = 9

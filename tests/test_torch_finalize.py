@@ -24,6 +24,10 @@ from ffn_tpu_torch.inference import hop_engine
 from test_torch_hop_engine import _engines
 from test_torch_kernels import crafted_finalize
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 LANE_FIELDS = list(jax_hop.LaneState.__dataclass_fields__)
 FIN_FIELDS = list(jax_hop.FinalizeState.__dataclass_fields__)
 CASES = {   # kind -> (shape, fov, deltas, max_iters, min_size)

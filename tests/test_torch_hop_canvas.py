@@ -14,6 +14,7 @@ helpers here build both packages' canvases for those files too.
 
 import numpy as np
 import pytest
+import torch
 from scipy.special import logit
 
 from ffn_tpu.inference import hop_canvas as jax_hop_canvas
@@ -25,23 +26,29 @@ from test_canvas_e2e import DELTAS, FOV, make_image, make_options
 from test_canvas_e2e import GridSeeds as JaxGridSeeds
 from test_torch_canvas import GridSeeds, _port_canvas
 
-_JAX_ENGINES = {}   # one per queue capacity: its compiled programs are reused
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
+# One per queue capacity and seed dtype: its compiled programs are reused.
+_JAX_ENGINES = {}
 
 
-def _jax_engine(Q):
-    if Q not in _JAX_ENGINES:
+def _jax_engine(Q, seed_dtype=np.float32):
+    key = (Q, np.dtype(seed_dtype).name)
+    if key not in _JAX_ENGINES:
         opts = make_options()
         model = jax_oracle.ThresholdOracleModel(fov_size=[FOV] * 3,
                                                 deltas=list(DELTAS))
-        _JAX_ENGINES[Q] = (model, jax_hop_engine.HopEngine(
+        _JAX_ENGINES[key] = (model, jax_hop_engine.HopEngine(
             model, {}, pad_value=float(logit(opts.pad_value)),
             move_threshold=float(logit(opts.move_threshold)),
             disco_seed_threshold=opts.disco_seed_threshold,
-            queue_capacity=Q))
-    return _JAX_ENGINES[Q]
+            queue_capacity=Q, seed_dtype=seed_dtype))
+    return _JAX_ENGINES[key]
 
 
-def _port_engine(Q):
+def _port_engine(Q, seed_dtype=torch.float32):
     options = _port_canvas(make_image()).options   # logit space
     model = oracle.ThresholdOracleModel(fov_size=[FOV] * 3,
                                         deltas=list(DELTAS))
@@ -49,7 +56,7 @@ def _port_engine(Q):
         model, pad_value=options.pad_value,
         move_threshold=options.move_threshold,
         disco_seed_threshold=options.disco_seed_threshold,
-        queue_capacity=Q, device="cpu")
+        queue_capacity=Q, device="cpu", seed_dtype=seed_dtype)
 
 
 def _port_options():

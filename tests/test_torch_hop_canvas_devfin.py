@@ -9,8 +9,13 @@ origins and every count counter must be identical, stalls included.
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_hop_canvas import _counts, _origins, run_jax, run_port
+
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("lanes,hops,Q,via_env", [

@@ -7,6 +7,7 @@ package's checkpoint and into the JAX package's canvas.
 
 import numpy as np
 import pytest
+import torch
 
 from ffn_tpu.inference import hop_canvas as jax_hop_canvas
 from ffn_tpu_torch.inference import batch_canvas
@@ -15,6 +16,10 @@ from test_canvas_e2e import make_image, make_options
 from test_torch_canvas import GridSeeds, _port_canvas
 from test_torch_hop_canvas import (_counts, _jax_engine, _origins, make_port,
                                    run_jax, run_port)
+
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
 
 
 def test_single_lane_hops_match_serial_canvas():

@@ -26,6 +26,10 @@ from ffn_tpu_torch.models import convstack_3d, oracle, params_io
 from ffn_tpu_torch.ops import hop as hop_ops
 from test_torch_kernels import crafted_lanes, tied_logits
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 TINY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "models", "phantom", "model-ci-tiny.npz")
 PAD = float(np.log(0.05 / 0.95))
@@ -237,7 +241,8 @@ def test_port_refuses_what_it_does_not_run():
     img = peng.put_image(np.zeros((20, 20, 20), np.float32))
     blk = peng.put_blocked(np.zeros((20, 20, 20), np.uint8))
     # Device finalization and sync=False are ported; what stays refused is
-    # what the JAX engine refuses too, and bfloat16 seeds.
+    # what the JAX engine refuses too, and device finalization (K8) on
+    # bfloat16 seeds.
     with pytest.raises(ValueError, match="needs fin_opts"):
         peng.run_hops(img, blk, state, 2,
                       fstate=peng.init_finalize_state(1, 2, (20, 20, 20)))
@@ -245,7 +250,14 @@ def test_port_refuses_what_it_does_not_run():
         peng.init_finalize_state(18, 2, (20, 20, 20))
     _, packed = peng.run_hops(img, blk, state, 2, sync=False)
     assert isinstance(packed, torch.Tensor) and packed.shape == (2, 19)
-    with pytest.raises(NotImplementedError, match="float32 only"):
+    beng = hop_engine.HopEngine(peng.model, pad_value=PAD,
+                                move_threshold=MOVE_T,
+                                disco_seed_threshold=0.0, device="cpu",
+                                seed_dtype=torch.bfloat16)
+    assert beng.init_lane_state(2, (20, 20, 20)).seeds.dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        beng.init_finalize_state(1, 2, (20, 20, 20))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         hop_engine.HopEngine(peng.model, pad_value=PAD, move_threshold=MOVE_T,
                              disco_seed_threshold=0.0, device="cpu",
-                             seed_dtype=torch.bfloat16)
+                             seed_dtype=torch.float16)

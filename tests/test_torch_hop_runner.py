@@ -22,6 +22,10 @@ from ffn_tpu_torch.inference import runner
 from test_torch_imports import assert_imports_alone
 from test_torch_runner import PAD, SIZE, _request
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 HOP_MODULES = [
     "ffn_tpu_torch.ops.hop",
     "ffn_tpu_torch.ops.lane",
@@ -93,19 +97,33 @@ inference_options {{
     assert os.path.exists(storage.object_prob_path(str(out), (0, 0, 0)))
 
 
-@pytest.mark.parametrize("env,canvas_defaults,match", [
-    ({"FFN_TPU_SEED_DTYPE": "bf16"}, {}, "float32 only")])
-def test_runner_refuses_what_it_does_not_run(tmp_path, monkeypatch, env,
-                                             canvas_defaults, match):
+@pytest.mark.parametrize("path,lanes,env,canvas_defaults", [
+    ("serial", 1, {}, {}),
+    ("hops 0", 4, {}, {"hops": 0}),
+    ("device finalization", 4, {"FFN_TPU_DEVFIN": "1"}, {}),
+    ("fused driver", 4, {}, {})])
+def test_runner_refuses_what_it_does_not_run(tmp_path, monkeypatch, path,
+                                             lanes, env, canvas_defaults):
+    # bfloat16 seeds run on the hop path with host finalization only; the
+    # paths through K2/K3, K13/K14 and K8 refuse them rather than run
+    # float32 seeds.
+    monkeypatch.setenv("FFN_TPU_SEED_DTYPE", "bf16")
     for key, value in env.items():
         monkeypatch.setenv(key, value)
     request, _ = _request(tmp_path, tmp_path / "out")
-    request.concurrent_requests = 4
+    request.concurrent_requests = lanes
     r = runner.Runner(device="cpu")
     r.canvas_defaults.update(canvas_defaults)
-    with pytest.raises(NotImplementedError, match=match):
-        r.start(request)
-        r.make_canvas((0, 0, 0), (SIZE + 2 * PAD,) * 3)
+    r.start(request)
+    assert r.engine.seed_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        if path == "fused driver":
+            from ffn_tpu_torch.parallel import multi_canvas
+            multi_canvas.MultiSubvolumeHopDriver(
+                r, [((0, 0, 0), (SIZE + 2 * PAD,) * 3)], lanes=lanes,
+                device_finalize=False)
+        else:
+            r.make_canvas((0, 0, 0), (SIZE + 2 * PAD,) * 3)
 
 
 def test_hop_runner_refuses_cuda_without_a_card(tmp_path):

@@ -9,11 +9,16 @@ included, as are the origins and the count counters.
 
 import numpy as np
 import pytest
+import torch
 
 from ffn_tpu.inference import runner as jax_runner
 from ffn_tpu.inference import storage as jax_storage
 from ffn_tpu_torch.inference import hop_canvas, hop_engine, runner
 from test_torch_runner import PAD, SIZE, _request
+
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
 
 
 def _counts(counters):

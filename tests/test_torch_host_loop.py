@@ -59,6 +59,10 @@ from ffn_tpu_torch.training import train_lib
 from ffn_tpu_torch.training import train_loop
 from test_torch_train_loop import dataset  # noqa: F401 (a fixture)
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 MODEL = dict(fov_size=[9, 9, 9], deltas=[2, 2, 2], depth=2, features=4)
 ARGS = json.dumps(MODEL)
 NAME = "convstack_3d.ConvStack3DFFNModel"

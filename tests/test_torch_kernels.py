@@ -700,6 +700,114 @@ def test_lane_masks_match_plain(card):
     assert torch.equal(got, want)
 
 
+# -- K4-K7 on bfloat16 seeds (FFN_TPU_SEED_DTYPE=bf16) ------------------------
+
+# logit(0.8) rounds down to bfloat16: a seed of bf16(MOVE_T_LO) is weak to K4
+# and strong to K7.
+MOVE_T_LO = float(np.float32(np.log(0.8 / 0.2)))
+
+
+def bf16_seed_edges(rng, seeds, move_t):
+    """Puts seeds on the move and segment thresholds' bfloat16 rounding
+    edges (and 0.4, the segment threshold of these tests), sparing the
+    crafted state's strong seeds (4.0: origins and queued entries)."""
+    from ffn_tpu_torch.ops.hop import bf16_round
+    edges = np.float32([bf16_round(move_t), move_t, bf16_round(0.4), 0.4,
+                        np.nextafter(np.float32(bf16_round(move_t)), 10)])
+    pick = (rng.rand(*seeds.shape) < 0.2) & (seeds != 4.0)
+    seeds[pick] = rng.choice(edges, size=int(pick.sum()))
+
+
+def assert_same_bf16(got, want):
+    """assert_same with the bfloat16 seeds compared as float32 values."""
+    assert got["seeds"].dtype == want["seeds"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["seeds"].float().cpu().numpy(),
+                                  want["seeds"].float().cpu().numpy())
+    assert_same({k: v for k, v in got.items() if k != "seeds"},
+                {k: v for k, v in want.items() if k != "seeds"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deltas,pred,disco", [
+    ((2, 2, 2), 9, 0.0), ((3, 0, 2), 7, -1.0), ((2, 3, 1), 9, 0.99)])
+def test_hop_kernels_match_plain_bf16_seeds(card, deltas, pred, disco):
+    # K4-K6's bfloat16 instantiations bit for bit against the plain
+    # versions: a stored seed against the float32 move threshold (K4), the
+    # pad rounded to bf16 (K5), the rounded write-back and the face maxima
+    # of the rounded patch (K6). The launches count under *_bf16 only.
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.ops import hop as hop_ops
+    rng = np.random.RandomState(19)
+    B, Q, fov, max_iters = 37, 64, 9, 5
+    lanes = crafted_lanes(rng, B, SHAPE, Q, fov, deltas, max_iters)
+    bf16_seed_edges(rng, lanes["seeds"], MOVE_T)
+    lanes["image"] = rng.randn(1, *SHAPE).astype(np.float32)
+    logits = tied_logits(rng, B, fov) + rng.randn(B, fov, fov, fov).astype(
+        np.float32) * 1e-3
+    ks, ps = to_torch(lanes, card), to_torch(lanes, card)
+    ks["seeds"] = ks["seeds"].to(torch.bfloat16)
+    ps["seeds"] = ps["seeds"].to(torch.bfloat16)
+    lg = torch.from_numpy(logits).to(card)
+    before = dict(_build.launches)
+    for hop in range(3):
+        got = hop_step(hop_ops, ks, lg, fov=fov, pred=pred, deltas=deltas,
+                       max_iters=max_iters, disco=disco)
+        want = hop_step(_PlainHop, ps, lg, fov=fov, pred=pred, deltas=deltas,
+                        max_iters=max_iters, disco=disco)
+        torch.cuda.synchronize()
+        n_exec = int(want[3][0])
+        assert n_exec > 0
+        for g, w in zip(got[:6], want[:6]):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+        np.testing.assert_array_equal(got[6][:n_exec].cpu().numpy(),
+                                      want[6][:n_exec].cpu().numpy())
+        assert_same_bf16(ks, ps)
+    for name in (hop_ops.POP, hop_ops.GATHER, hop_ops.UPDATE):
+        assert _build.launches[name + "_bf16"] == before.get(
+            name + "_bf16", 0) + 3
+        assert _build.launches[name] == before.get(name, 0)
+
+
+@pytest.mark.cuda
+def test_lane_threshold_matches_plain_bf16_seeds(card):
+    # K7's bfloat16 instantiations: counts, masks and verdicts against the
+    # thresholds rounded to bf16, at the rounding edges.
+    from ffn_tpu_torch.ops import lane as lane_ops
+    rng = np.random.RandomState(15)
+    B = 70
+    seeds = (rng.randn(B, *SHAPE) * 3).astype(np.float32)
+    seeds[rng.rand(*seeds.shape) < 0.3] = np.nan
+    bf16_seed_edges(rng, seeds, MOVE_T_LO)
+    start = rng.randint(0, 20, size=(B, 3)).astype(np.int32)
+    blocked = (rng.rand(2, *SHAPE) < 0.2).astype(np.uint8) * 3
+    sv = rng.randint(0, 2, size=B).astype(np.int32)
+    t = to_torch(dict(seeds=seeds, start=start, blocked=blocked, sv=sv), card)
+    t["seeds"] = t["seeds"].to(torch.bfloat16)
+    kw = dict(segment_threshold=0.4, move_threshold=MOVE_T_LO)
+    got = lane_ops.lane_verdicts(t["seeds"], t["sv"], t["start"],
+                                 t["blocked"], **kw)
+    want = lane_ops.lane_verdicts_plain(t["seeds"], t["sv"], t["start"],
+                                        t["blocked"], **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    kw = dict(threshold=0.4, move_threshold=MOVE_T_LO)
+    for lane, box, size, origin in ((0, (0, 0, 0), SHAPE, (3, 4, 5)),
+                                    (69, (3, 5, 7), (9, 17, 4), (19, 21, 23))):
+        got = lane_ops.lane_mask(t["seeds"], lane, box, size, origin, **kw)
+        want = lane_ops.lane_mask_plain(t["seeds"], lane, box, size, origin,
+                                        **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    lanes = [0, 8, 3, 69]
+    starts = [(0, 0, 0), (3, 5, 7), (10, 1, 2), (0, 0, 0)]
+    sizes = [SHAPE, (9, 17, 4), (10, 21, 22), (1, 1, 1)]
+    origins = [(3, 4, 5), (19, 21, 23), (10, 1, 2), (0, 0, 0)]
+    assert torch.equal(
+        lane_ops.lane_masks(t["seeds"], lanes, starts, sizes, origins, **kw),
+        lane_ops.lane_masks_plain(t["seeds"], lanes, starts, sizes, origins,
+                                  **kw))
+
+
 def test_finalize_plain_drives_every_branch():
     # The CPU side of the K8 card test: one plain pass over the crafted
     # state reaches every outcome, the overlap arbitration, the claimed
@@ -880,6 +988,32 @@ def test_k11_matches_plain(card, window):
     pl, pc = train_ops.train_eval_plain(seeds, labels, (13, 13, 13))
     assert torch.equal(kc, pc)
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_k11_gradient_at_zero_matches_plain(card):
+    # At a logit of exactly 0 both give jax.grad's -w z coef; +-30 and a
+    # NaN beside it.
+    rng = np.random.RandomState(111)
+    labels = torch.from_numpy(rng.choice([0.05, 0.95], (2, 13, 13, 13))
+                              .astype(np.float32)).to(card)
+    weights = torch.from_numpy(rng.rand(2, 13, 13, 13).astype(
+        np.float32)).to(card)
+    x = (rng.randn(2, 9, 9, 9, 1) * 3).astype(np.float32)
+    x.reshape(-1)[:8] = [0.0, -0.0, 30.0, -30.0, 0.0, np.nan, 0.0, 0.0]
+    logits = torch.from_numpy(x).to(card)
+    valid = torch.tensor([True, True], device=card)
+    seeds = torch.zeros((2, 13, 13, 13), device=card)
+    km, pm = torch.zeros(5, device=card), torch.zeros(5, device=card)
+    kd = train_ops.train_loss(logits, seeds.clone(), labels, weights, valid,
+                              valid, (0, 0, 0), km,
+                              train_ops.new_ticket(card))
+    pd = train_ops.train_loss_plain(logits, seeds.clone(), labels, weights,
+                                    valid, valid, (0, 0, 0), pm)
+    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-9, equal_nan=True)
+    at0 = logits == 0
+    want = -(weights * labels)[:, 2:11, 2:11, 2:11, None] / (729 * 2.0)
+    torch.testing.assert_close(kd[at0], want[at0], rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from unittest import mock
 
 import numpy as np
 import pytest
+import torch
 
 from ffn_tpu.inference import runner as jax_runner
 from ffn_tpu.inference import storage as jax_storage
@@ -26,6 +27,10 @@ from ffn_tpu.utils import bounding_box as jax_bounding_box
 from ffn_tpu_torch.inference import runner
 from ffn_tpu_torch.parallel import multi_canvas
 from test_sharded_inference import make_setup
+
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
 
 CONFIGS = {   # name -> (device_finalize, subvolume x size)
     "devfin": (True, 40), "host": (False, 40),

@@ -24,6 +24,10 @@ from ffn_tpu_torch.inference import runner
 from ffn_tpu_torch.inference.settings import InferenceSettings
 from test_torch_imports import assert_imports_alone
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 from tools import synthetic_em  # noqa: E402
@@ -54,8 +58,8 @@ SLICE_MODULES = [
 ]
 
 
-def _request(tmp_path, out):
-    image, gt = synthetic_em.make_volume(size=SIZE, seed=3, num_cells=6)
+def _request(tmp_path, out, size=SIZE):
+    image, gt = synthetic_em.make_volume(size=size, seed=3, num_cells=6)
     vol = str(tmp_path / "v.h5")
     with h5py.File(vol, "w") as f:
         f.create_dataset("raw", data=np.pad(image, PAD, mode="reflect"))

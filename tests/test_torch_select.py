@@ -32,6 +32,10 @@ from ffn_tpu_torch.models import convstack_3d, model_info, oracle, params_io
 from ffn_tpu_torch.ops import select as select_ops
 from test_torch_engine import MOVE_T, PAD, SHAPE, TINY
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 B, K = 9, 3
 
 

@@ -16,6 +16,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from ffn_tpu.inference import storage as jax_storage
 from ffn_tpu.parallel import sharded_inference as jax_sharded
@@ -26,6 +27,10 @@ from ffn_tpu_torch.parallel import stitching
 from ffn_tpu_torch.utils import bounding_box
 from test_sharded_inference import make_setup
 from test_torch_multi_canvas import synchronous_jax_pools
+
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
 
 
 MODES = {   # name -> (fused, slots, subvolume x size, x overlap)

@@ -50,6 +50,10 @@ from ffn_tpu_torch.training import optimizer as optimizer_lib
 from ffn_tpu_torch.training import precision as precision_lib
 from ffn_tpu_torch.training import train_lib
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 MODEL = dict(fov_size=[9, 9, 9], deltas=[2, 2, 2], depth=2, features=4)
 CANVAS = (13, 13, 13)
 B = 2
@@ -385,6 +389,38 @@ def test_k11_plain_matches_scan_body_pieces():
     np.testing.assert_array_equal(counts.numpy(), [
         int(jnp.sum(pred & truth)), int(jnp.sum(pred & ~truth)),
         int(jnp.sum(~pred & truth)), int(jnp.sum(~pred & ~truth))])
+
+
+def test_k11_gradient_at_zero_matches_jax_grad():
+    # jax.grad of the step's loss (train_lib.py:360-366) at logits of
+    # exactly 0 and +-30: at 0 it is -w z / (V denom) (jnp.maximum splits
+    # its tie 0.5/0.5 and abs' derivative at 0 is 1), not (0.5 - z) w.
+    rng = np.random.RandomState(110)
+    logits = (rng.randn(B, 9, 9, 9, 1) * 3).astype(np.float32)
+    flat = logits.reshape(-1)
+    flat[:9] = [0.0, 30.0, -30.0, 0.0, -0.0, 30.0, -30.0, 0.0, 0.0]
+    flat[729:735] = [0.0, 30.0, -30.0, 0.0, 0.0, -0.0]
+    labels = torch.from_numpy(rng.choice([0.05, 0.95], (B, *CANVAS))
+                              .astype(np.float32))
+    w = rng.rand(B, *CANVAS).astype(np.float32)
+    seeds = torch.zeros((B, *CANVAS))
+    valid = torch.tensor([True, True])
+    dl = train_ops.train_loss(torch.from_numpy(logits), seeds, labels,
+                              torch.from_numpy(w), valid, valid, (0, 0, 0),
+                              torch.zeros(5), None)
+    lab = jnp.asarray(labels.numpy()[:, 2:11, 2:11, 2:11, None])
+    wp = jnp.asarray(w[:, 2:11, 2:11, 2:11, None])
+
+    def loss_fn(x):
+        ce = jax_train_lib.sigmoid_ce(x, lab) * wp
+        return (ce.mean(axis=(1, 2, 3, 4)) * jnp.ones(B)).sum() / 2.0
+
+    grad = np.asarray(jax.grad(loss_fn)(jnp.asarray(logits)))
+    np.testing.assert_allclose(dl.numpy(), grad, rtol=1e-5, atol=1e-9)
+    at0 = logits == 0
+    np.testing.assert_allclose(
+        dl.numpy()[at0], np.asarray(-wp * lab / (729 * 2.0))[at0],
+        rtol=1e-6)
 
 
 @pytest.mark.parametrize("optimizer", optim_ops.OPTIMIZERS)

@@ -40,6 +40,10 @@ from ffn_tpu_torch.training import optimizer as optimizer_lib
 from ffn_tpu_torch.training import train_lib
 from ffn_tpu_torch.training import train_loop
 
+# Six test workers share the CPU: one torch thread each, or every small
+# CPU op waits on threads the other workers' ops have descheduled.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = "convstack_3d.ConvStack3DFFNModel"
 ARGS = json.dumps({"depth": 2, "features": 4, "fov_size": [9, 9, 9],
