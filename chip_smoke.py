@@ -13,22 +13,25 @@ function says what it holds and to what):
   3. every kernel against its plain PyTorch version at the main paths'
      shapes, with median CUDA-event times per call (kernel and plain in
      turns), bounds and library calls: K1 per layer at N = 1-256 and as
-     the depth-12 stack; K2-K7 bit for bit, K4-K7 on crafted 64-lane
-     states on 132^3 with float32 and with bfloat16 seeds (thresholds'
-     rounding edges, NaN); K6's screen mode; K8, K4 with the device
-     segmentation, K7's batched masks; K9-K12 and K16 at batch 4; K13/K14
-     on a crafted 64-lane round; K15 per layer at N = 1-256 and as the
-     stack, against its plain version and the float64 sums;
+     the depth-12 stack; K2-K8, K13 and K14 bit for bit with float32 and
+     with bfloat16 seeds (thresholds' rounding edges, NaN): K2/K3 at the
+     serial shapes, K4-K7 on crafted 64-lane states on 132^3, K8 on a
+     crafted pass of 64 lanes and 4 slots of 82^3, K13/K14 on a crafted
+     64-lane round; K6's screen mode; K4 with the device segmentation,
+     K7's batched masks; K9-K12 and K16 at batch 4; K15 per layer at N =
+     1-256 and as the stack, against its plain version and the float64
+     sums;
   4. the fib25 model against the JAX package's stored logits;
   5. the serial slice (Runner -> Canvas) on the padded 100^3 quality-gate
      phantom, on kernels and plain, then model-r2 held to 0.95;
   6. the 64-lane hop slice (Runner -> HopBatchCanvas -> run_hops) on
-     kernels and with K4-K7 plain, identical; the gate's 8-lane pair;
+     kernels; the gate's 8-lane pair, its hop run also with K4-K7 plain,
+     identical;
   7. the gate pair at 64 lanes with the CI checkpoint against the JAX
      package's run (tests/golden/gate_ci_lanes_golden.npz);
   8. the fused slice (the sharded CLI, 8 x 82^3, 4 slots, 64 lanes) with
-     device and host finalization, each on kernels and with K4/K7/K8
-     plain, identical; stitched agreements held to floors;
+     device and host finalization; each on one subvolume on kernels and
+     with K4/K7/K8 plain, identical; stitched agreements held to floors;
   9. the CI checkpoint's fused runs against tests/golden/fused_ci_golden;
  10. model-r2's fused run on 96^3 against tests/golden/fused_r2_golden;
  11. the scan trainer at full width for 8 steps: kernels against plain,
@@ -41,11 +44,11 @@ function says what it holds and to what):
      plain version: the serial, 8-lane hop, 8-lane round and fused
      slices, each pair's agreement printed;
  15. the host-loop trainer at full width for 40 steps (K16);
- 16. bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) at the JAX e2e bench's
-     configuration (48 lanes, hops 16, max_iters_per_segment 2000, host
-     finalization, model-r2 in bfloat16): float32 seeds for comparison,
-     then bfloat16 seeds on K4-K7's bfloat16 instantiations and on their
-     plain versions, identical.
+ 16. bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) with model-r2 in
+     bfloat16 on every inference path (hop at the JAX e2e bench's 48
+     lanes, FFN_TPU_DEVFIN=1, round, serial, fused in both finalize modes),
+     each on the *_bf16 seed kernels and on their plain versions,
+     identical; against float32 seeds on the hop and fused slices.
 The line before the last, {"kernels": [...]}, gives each kernel its
 launches on every main path's run (`launches_by_path`) and their sum, its
 error against its plain version, its median time, its plain version's, a
@@ -108,6 +111,12 @@ BF16_FUSED_AGREE_FLOOR = 0.6
 # Its ground-truth agreement floor, just under the 1.0 measured on the H100.
 SEED_LANES, SEED_MAX_ITERS = 48, 2000
 BF16_SEED_AGREE_FLOOR = 0.99
+# Floors just under the bf16-seed fused slice's (0.75, as phase 8's) and
+# round slice's (0.875: a split cell, on K13/K14 and their plain versions
+# alike; the JAX package's own CPU run of it scores 1.0 with other moves,
+# ROADMAP Queue 3) agreements measured on the H100.
+BF16_SEED_FUSED_AGREE_FLOOR = 0.7
+BF16_SEED_ROUND_AGREE_FLOOR = 0.85
 # K15 against its plain version: per layer one bfloat16 ulp per rounding
 # the layer makes and at most DIFFER_SHARE of its outputs differing
 # (ffn_tpu_torch/ops/conv3d_bf16_check.py); the depth-12 stack within 2^-6
@@ -286,8 +295,6 @@ def phase_build():
 
 def phase_kernels(dev):
     """Each kernel against its plain version at the main path's shapes."""
-    from ffn_tpu_torch.ops import step as step_ops
-
     gen = torch.Generator().manual_seed(0)
     fov = (33, 33, 33)
     results = {}
@@ -300,32 +307,48 @@ def phase_kernels(dev):
     results["conv3d_ndhwc_f32"] = entry(
         max(e for _, e, *_ in k1), k1[1][2], k1[1][3],
         *k1_work(1, 3, 32, 32), library_ms=k1[1][4])
-    patch = 4 * 33 ** 3   # bytes of one 33^3 float32 patch
-
     vol = (PHANTOM_SIZE + 2 * PHANTOM_PAD,) * 3
     image = randn(*vol)
     seed = randn(*vol, scale=3.0)
     seed[randn(*vol) > 0] = float("nan")
-    pos = (40, 57, 83)
+    require(bool(torch.isnan(seed).any()), "K2 input holds no NaN")
+    logits = randn(*fov, scale=3.0)
+    for seed_dtype in (torch.float32, torch.bfloat16):
+        results.update(_step_kernels(seed.to(seed_dtype), image, logits))
+    return results
+
+
+def _step_kernels(seed, image, logits):
+    """K2 and K3 against their plain versions, bit for bit, at the serial
+    path's shapes on `seed` (float32, or bfloat16 with seeds on the
+    rounding edges of a move threshold that rounds down); their times."""
+    from ffn_tpu_torch.ops import step as step_ops
+    tk = _tests()
+    bf16 = seed.dtype == torch.bfloat16
+    sfx, nbytes = ("_bf16", 2) if bf16 else ("", 4)
+    gen = torch.Generator().manual_seed(2)
+    move_t = tk.MOVE_T_LO if bf16 else float(np.float32(np.log(0.9 / 0.1)))
+    if bf16:
+        edges = torch.from_numpy(tk.bf16_edges(move_t))
+        pick = torch.rand(seed.shape, generator=gen) < 0.2
+        seed[pick.to(seed.device)] = edges[torch.randint(
+            len(edges), (int(pick.sum()),), generator=gen)].to(seed)
+    fov, pos, nvox = (33, 33, 33), (40, 57, 83), 33 ** 3
     pad = float(np.float32(np.log(0.05 / 0.95)))
     got = step_ops.step_gather(image, seed, pos, fov, fov, pad)
     want = step_ops.step_gather_plain(image, seed, pos, fov, fov, pad)
-    require(bool(torch.isnan(seed).any()), "K2 input holds no NaN")
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     require(all(torch.equal(g, w) for g, w in zip(got, want)),
-            f"K2 step_gather differs from plain: {err}")
+            f"K2 step_gather{sfx} differs from plain: {err}")
     ms, plain_ms = time_pair(
         lambda: step_ops.step_gather(image, seed, pos, fov, fov, pad),
         lambda: step_ops.step_gather_plain(image, seed, pos, fov, fov, pad))
-    print(f"K2 step_gather (33^3 of {vol}, NaN seed): bit-exact "
-          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    # Reads the image and seed patches, writes both model inputs.
-    results["step_gather"] = entry(err, ms, plain_ms, 4 * patch)
-
-    move_t = float(np.float32(np.log(0.9 / 0.1)))
-    logits = randn(*fov, scale=3.0)
+    print(f"K2 step_gather{sfx} (33^3 of {tuple(seed.shape)}, NaN seed): "
+          f"bit-exact kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    # Reads the image and seed patches, writes both float32 model inputs.
+    results = {"step_gather" + sfx: entry(err, ms, plain_ms,
+                                          (12 + nbytes) * nvox)}
     frac = float((logits >= move_t).float().mean())
-    k3_err = 0.0
     for disco in (-1.0, 0.0, frac + 0.05):
         kseed, pseed = seed.clone(), seed.clone()
         kpatch = step_ops.step_update(logits, kseed, pos, fov, move_t, disco)
@@ -333,21 +356,30 @@ def phase_kernels(dev):
                                             disco)
         require(torch.equal(kpatch, ppatch) and torch.equal(
             torch.nan_to_num(kseed, nan=7.0), torch.nan_to_num(pseed,
-                                                               nan=7.0)),
-                f"K3 step_update differs from plain at disco={disco}")
-        k3_err = max(k3_err, float((kpatch - ppatch).abs().max()))
+                                                               nan=7.0))
+                and kseed.dtype == seed.dtype,
+                f"K3 step_update{sfx} differs from plain at disco={disco}")
         kept = int((ppatch != logits).sum())
-        print(f"K3 step_update disco={disco:.4f} (frac {frac:.4f}): "
+        print(f"K3 step_update{sfx} disco={disco:.4f} (frac {frac:.4f}): "
               f"bit-exact, {kept} voxels kept their old value")
     ms, plain_ms = time_pair(
         lambda: step_ops.step_update(logits, kseed, pos, fov, move_t, 0.0),
         lambda: step_ops.step_update_plain(logits, pseed, pos, fov, move_t,
                                            0.0))
-    print(f"K3 step_update (33^3): kernel {ms:.4f} ms plain {plain_ms:.4f} "
-          f"ms")
-    # Reads the logits and the old seed patch, writes the seed and the patch.
-    results["step_update"] = entry(k3_err, ms, plain_ms, 4 * patch)
+    print(f"K3 step_update{sfx} (33^3): kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms")
+    # Reads the logits and the old seed patch, writes the seed patch and
+    # the float32 patch.
+    results["step_update" + sfx] = entry(0.0, ms, plain_ms,
+                                         (8 + 2 * nbytes) * nvox)
     return results
+
+
+def _tests():
+    """tests/test_torch_kernels.py: the crafted states and their helpers."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_torch_kernels
+    return test_torch_kernels
 
 
 def _hop_lane_kernels(dev, seed_dtype):
@@ -361,8 +393,7 @@ def _hop_lane_kernels(dev, seed_dtype):
     seeds; the state; the tests' helpers)."""
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    import test_torch_kernels as tk
+    tk = _tests()
 
     bf16 = seed_dtype == torch.bfloat16
     sfx, seed_bytes = ("_bf16", 2) if bf16 else ("", 4)
@@ -595,20 +626,18 @@ def phase_hop_kernels(dev):
     return results
 
 
-def phase_fused_kernels(dev):
+def _k8_kernels(dev, seed_dtype):
     """K8 finalize_pass against its plain version, bit for bit on every
-    field of both states, over two passes of a crafted state of 64 lanes
-    and 4 slots of 82^3 (tests/test_torch_kernels.py crafted_finalize:
-    overlapping same-pass finishers, claimed and dry FIFOs, both blanks, a
-    wrapped blank corner, hold, NaN, capped and too-small lanes); K4 with
-    the device segmentation and K7's batched masks at the same shapes.
-    Median CUDA-event times of kernel and plain version, in turns."""
+    field, over two passes of a crafted state of 64 lanes and 4 slots of
+    82^3 (tests/test_torch_kernels.py crafted_finalize: every branch), with
+    seeds in `seed_dtype`; for bfloat16 (bf16_finalize_edges) thresholds
+    that round down, seeds on their edges, and a RUNNING and a DONE_EMPTY
+    lane on the same origin bf16(move_t) < move_t: weak to the dud kill,
+    strong to the verdict."""
     from ffn_tpu_torch.ops import finalize as fin_ops
-    from ffn_tpu_torch.ops import hop as hop_ops
-    from ffn_tpu_torch.ops import lane as lane_ops
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    import test_torch_kernels as tk
-
+    tk = _tests()
+    bf16 = seed_dtype == torch.bfloat16
+    sfx, nbytes = ("_bf16", 2) if bf16 else ("", 4)
     rng = np.random.RandomState(1)
     shape = (FUSED_SUB,) * 3
     fov, deltas, Q = 33, (8, 8, 8), 32768
@@ -616,10 +645,20 @@ def phase_fused_kernels(dev):
     lanes, fin, blocked, opts = tk.crafted_finalize(
         rng, LANES, FUSED_SLOTS, shape, Q, fifo, fov, deltas, MAX_ITERS,
         1000)
+    move_t = tk.MOVE_T
+    if bf16:
+        move_t = tk.MOVE_T_LO
+        tk.bf16_finalize_edges(rng, lanes, fin, opts, move_t)
     blk = torch.from_numpy(blocked).to(dev)
-    ks = (tk.to_torch(lanes, dev), tk.to_torch(fin, dev))
-    ps = (tk.to_torch(lanes, dev), tk.to_torch(fin, dev))
-    kw = dict(fov=fov, deltas=deltas, max_iters=MAX_ITERS)
+
+    def state():
+        lane_state = tk.to_torch(lanes, dev)
+        lane_state["seeds"] = lane_state["seeds"].to(seed_dtype)
+        return lane_state, tk.to_torch(fin, dev)
+
+    ks, ps, snap = state(), state(), state()
+    kw = dict(fov=fov, deltas=deltas, max_iters=MAX_ITERS,
+              move_threshold=move_t)
     for turn in range(2):
         got = tk.finalize_step(fin_ops.finalize_pass, *ks, blk, opts, **kw)
         want = tk.finalize_step(fin_ops.finalize_pass_plain, *ps, blk, opts,
@@ -628,18 +667,28 @@ def phase_fused_kernels(dev):
         same = torch.equal(got, want) and all(
             tk.nan_equal(k[name], p[name])
             for k, p in zip(ks, ps) for name in p)
-        require(same, f"K8 finalize_pass differs from plain in pass {turn}")
+        require(same and ks[0]["seeds"].dtype == seed_dtype,
+                f"K8 finalize_pass{sfx} differs from plain in pass {turn}")
         if turn == 0:
             first = {name: t.clone() for name, t in {**ps[0],
                                                      **ps[1]}.items()}
     log = first["log"][:int(first["log_n"])].cpu().numpy()
     outcomes = sorted(set(log[:, 8].tolist()))
-    print(f"K8 finalize_pass, {LANES} lanes, {FUSED_SLOTS} slots of {shape}: "
-          f"bit-exact over 2 passes; pass 1 finalized {len(log)} lanes "
-          f"(outcomes {outcomes}), FIFO {int(first['fifo_head'])}/"
+    lane_outcome = {}
+    for row in log:
+        lane_outcome.setdefault(int(row[9]), int(row[8]))
+    print(f"K8 finalize_pass{sfx}, {LANES} lanes, {FUSED_SLOTS} slots of "
+          f"{shape}: bit-exact over 2 passes; pass 1 finalized {len(log)} "
+          f"lanes (outcomes {outcomes}), FIFO {int(first['fifo_head'])}/"
           f"{int(first['fifo_n'])}, skipped as claimed "
-          f"{first['claimed'].tolist()}")
+          f"{first['claimed'].tolist()}"
+          + (f"; lanes 16/17 on bf16(move_t): outcomes "
+             f"{lane_outcome.get(16)}/{lane_outcome.get(17)}" if bf16
+             else ""))
     require(outcomes == [1, 2, 3, 4, 5], "the crafted state missed an outcome")
+    require(not bf16 or (lane_outcome.get(16) == fin_ops.FIN_WEAK
+                         and lane_outcome.get(17) != fin_ops.FIN_WEAK),
+            "K8: the dud kill and the verdict did not split on bf16(move_t)")
 
     # K8's work in pass 1: each counting finalization reads the lane's seeds,
     # the slot's segmentation and blocked volume once and writes its
@@ -649,16 +698,14 @@ def phase_fused_kernels(dev):
                                              shape)
     counted = np.isin(log[:, 8], (fin_ops.FIN_SEGMENTED,
                                   fin_ops.FIN_TOO_SMALL))
-    nbytes = 9 * vol * int(counted.sum()) + 4 * int(
+    nbytes_moved = (5 + nbytes) * vol * int(counted.sum()) + 4 * int(
         log[log[:, 8] == fin_ops.FIN_SEGMENTED, 6].sum())
     got_lanes = ((first["iters"] == 0) & (first["status"] == 1)).cpu()
     span = lanes["maxp"] - lanes["minp"]
     for b in np.flatnonzero(got_lanes.numpy()):
         small = all(span[b] <= np.array(reach))
-        nbytes += 4 * (int(np.prod(block)) if small else vol) + \
+        nbytes_moved += nbytes * (int(np.prod(block)) if small else vol) + \
             int(np.prod(lanes["done"].shape[1:]))
-
-    snap = (tk.to_torch(lanes, dev), tk.to_torch(fin, dev))
 
     def restore():
         for work, saved in zip(ks, snap):
@@ -670,7 +717,28 @@ def phase_fused_kernels(dev):
                                   **kw),
          lambda: tk.finalize_step(fin_ops.finalize_pass_plain, *ks, blk,
                                   opts, **kw)], restore)
-    results = {"finalize_pass": entry(0.0, *fin_ms, nbytes)}
+    r = entry(0.0, *fin_ms, nbytes_moved)
+    print(f"finalize_pass{sfx}: bit-exact; kernel {r['ms']:.4f} ms plain "
+          f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']})")
+    del ks, ps, snap, blk
+    torch.cuda.empty_cache()
+    return {"finalize_pass" + sfx: r}
+
+
+def phase_fused_kernels(dev):
+    """K8 finalize_pass against its plain version (_k8_kernels) with float32
+    and with bfloat16 seeds; K4 with the device segmentation and K7's
+    batched masks at the same shapes. Median CUDA-event times of kernel and
+    plain version, in turns."""
+    from ffn_tpu_torch.ops import hop as hop_ops
+    from ffn_tpu_torch.ops import lane as lane_ops
+    tk = _tests()
+    shape = (FUSED_SUB,) * 3
+    fov, deltas, Q = 33, (8, 8, 8), 32768
+    results = {}
+    for seed_dtype in (torch.bfloat16, torch.float32):
+        results.update(_k8_kernels(dev, seed_dtype))
 
     # K4 with the device segmentation as a second claim source: the hop
     # slice's lanes on one slot of 82^3 with 20% of its voxels claimed.
@@ -714,7 +782,7 @@ def phase_fused_kernels(dev):
     results["hop_pop@seg"] = pop_ms
 
     # K7's batched masks: 24 finalization boxes of the 64 lanes' seeds.
-    seeds = ks[0]["seeds"]
+    seeds = state["seeds"]
     brng = np.random.RandomState(3)
     sizes = brng.choice([64, 41, 17, 82], size=(24, 3))
     starts = [brng.randint(0, FUSED_SUB - sz + 1) for sz in sizes]
@@ -729,11 +797,10 @@ def phase_fused_kernels(dev):
                          lambda: lane_ops.lane_masks_plain(*args, **mkw))
     results["lane_masks"] = entry(0.0, *masks_ms,
                                   5 * int(np.prod(sizes, axis=1).sum()))
-    for name in ("finalize_pass", "lane_masks"):
-        r = results[name]
-        print(f"{name}: bit-exact; kernel {r['ms']:.4f} ms plain "
-              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']})")
+    r = results["lane_masks"]
+    print(f"lane_masks: bit-exact; kernel {r['ms']:.4f} ms plain "
+          f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']})")
     return results
 
 
@@ -754,9 +821,10 @@ def _request_text(image, out_dir, ckpt, model_args, min_size):
 
 
 def _sharded_args(request, edge, sub, overlap, lanes, slots, hops):
+    x, y, z = (edge,) * 3 if np.isscalar(edge) else edge
     return [f"--inference_request={request}",
-            f"--bounding_box=start {{ x:0 y:0 z:0 }} size {{ x:{edge} "
-            f"y:{edge} z:{edge} }}",
+            f"--bounding_box=start {{ x:0 y:0 z:0 }} size {{ x:{x} "
+            f"y:{y} z:{z} }}",
             f"--subvolume_size={sub},{sub},{sub}",
             f"--overlap={overlap},{overlap},{overlap}", f"--lanes={lanes}",
             f"--slots={slots}", f"--hops={hops}",
@@ -812,7 +880,8 @@ def _subvolumes(out_dir, edge, sub, overlap):
     from ffn_tpu_torch.inference.counters import Counters
     from ffn_tpu_torch.utils import bounding_box
     calc = bounding_box.OrderlyOverlappingCalculator(
-        bounding_box.BoundingBox(start=(0, 0, 0), size=(edge,) * 3),
+        bounding_box.BoundingBox(start=(0, 0, 0), size=(
+            (edge,) * 3 if np.isscalar(edge) else edge)),
         [sub] * 3, [overlap] * 3)
     out = []
     for index in range(calc.num_sub_boxes()):
@@ -831,6 +900,54 @@ def _subvolumes(out_dir, edge, sub, overlap):
     return out
 
 
+def _fused(label, name, tmp, model_args, flags=(), size=None, patches=()):
+    """One worker run of the sharded CLI (phase 5's phantom, model-r2 with
+    `model_args`, subvolumes of 82^3 with overlap 32, 64 lanes, 4 slots,
+    16 hops) over the box `size` (x, y, z; the whole phantom by default),
+    in this process so launches and CUDA events are visible. Prints its
+    numbers; returns dict(subs, moves, wall, argv, launches, peak device
+    bytes)."""
+    from ffn_tpu_torch import _build
+    image = os.path.join(tmp, "phantom_s0.npy")   # phase 5's phantom
+    size = size or np.load(image, mmap_mode="r").shape
+    out_dir = os.path.join(tmp, name)
+    argv = _sharded_args(
+        _request_text(image, out_dir, os.path.join(
+            REPO, "models", "phantom", "model-r2.npz"), model_args, 1000),
+        size, FUSED_SUB, FUSED_OVERLAP, LANES, FUSED_SLOTS, HOPS) + list(flags)
+    _build.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    wall, stats = _run_worker(argv, patches)
+    launches = dict(_build.launches)
+    moves = stats.get("executed", 0)   # no stats from serial workers
+    print(f"{label} ({size}): {moves} FOV moves in {wall:.3f} s wall, "
+          f"{moves / wall:.2f} moves/s; " + (
+              f"{stats['rounds']} rounds; occupancy "
+              f"{stats['running_lane_rounds']}/{stats['lane_rounds']} "
+              f"lane-rounds; fifo loaded/consumed {stats.get('fifo_loaded')}"
+              f"/{stats.get('fifo_consumed')}; t_hops {stats['t_hops']:.3f} "
+              f"t_seed {stats['t_seed']:.3f} t_ingest "
+              f"{stats['t_ingest']:.3f} t_load {stats['t_load']:.3f} s; "
+              if stats else "") + f"launches {launches}")
+    return dict(subs=_subvolumes(out_dir, size, FUSED_SUB, FUSED_OVERLAP),
+                moves=moves, wall=wall, argv=argv, launches=launches,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _fused_plain():
+    """K4, K7 and K8 on their plain versions (the fused path's kernels but
+    the conv and K5/K6, which the hop pairs hold)."""
+    from ffn_tpu_torch.ops import finalize as fin_ops
+    from ffn_tpu_torch.ops import hop as hop_ops
+    from ffn_tpu_torch.ops import lane as lane_ops
+    return (_plain(hop_ops, "hop_pop") + _plain(fin_ops, "finalize_pass")
+            + _plain(lane_ops, "lane_verdicts", "lane_mask", "lane_masks"))
+
+
+# The fused pairs' box: one subvolume of 82^3.
+FUSED_PAIR_BOX = (82, 82, 82)
+
+
 def phase_fused_slice(dev, tmp):
     """The fused multi-subvolume path at full width, in both finalize
     modes: the padded 100^3 phantom (seed 0, 132^3) through `python -m
@@ -839,35 +956,21 @@ def phase_fused_slice(dev, tmp):
     4 slots and 16 hops, with device finalization (K8, K4 with the device
     segmentation) and with host finalization (--no-device_finalize: seed
     screening, K7's verdicts and batched masks), then stitch mode. Each
-    worker again with K4, K7 and K8 on their plain versions (K1 kept) must
-    give the same subvolumes, origins, counters and moves. 64 lanes over 8
-    cells split cells into pure pieces, as the JAX package's lanes do
-    (phases 7 and 10; ROADMAP Queue 3), so each mode's stitched agreement
-    is held to a floor just under its measured value, and the quality
-    gate's 0.95 holds the decomposition and the stitcher: the CLI's serial
-    workers (--no-fused) on the same subvolumes, stitched. Returns the
-    kernel runs' launches by path (fused, fused_host)."""
-    from ffn_tpu_torch import _build
+    mode again on one subvolume (FUSED_PAIR_BOX), on kernels and with K4, K7
+    and K8 on their plain versions (K1 kept): the same subvolumes, origins,
+    counters and moves. 64 lanes over 8 cells split cells into pure pieces,
+    as the JAX package's lanes do (phases 7 and 10; ROADMAP Queue 3), so
+    each mode's stitched agreement is held to a floor just under its
+    measured value, and the quality gate's 0.95 holds the decomposition and
+    the stitcher: the CLI's serial workers (--no-fused) on the same
+    subvolumes, stitched. Returns the full runs' launches by path (fused,
+    fused_host)."""
     from ffn_tpu_torch.ops import finalize as fin_ops
-    from ffn_tpu_torch.ops import hop as hop_ops
-    from ffn_tpu_torch.ops import lane as lane_ops
     from tools import synthetic_em
 
-    image = os.path.join(tmp, "phantom_s0.npy")   # phase 5's phantom
-    raw = np.load(image, mmap_mode="r")
     _, gt = synthetic_em.make_volume(size=PHANTOM_SIZE, seed=0,
                                      num_cells=PHANTOM_CELLS)
-    edge = raw.shape[0]
-    ckpt = os.path.join(REPO, "models", "phantom", "model-r2.npz")
     model_args = {"depth": 12, "fov_size": [33] * 3, "deltas": [8] * 3}
-    plain = [
-        mock.patch.object(hop_ops, "hop_pop", hop_ops.hop_pop_plain),
-        mock.patch.object(lane_ops, "lane_verdicts",
-                          lane_ops.lane_verdicts_plain),
-        mock.patch.object(lane_ops, "lane_mask", lane_ops.lane_mask_plain),
-        mock.patch.object(lane_ops, "lane_masks", lane_ops.lane_masks_plain),
-        mock.patch.object(fin_ops, "finalize_pass",
-                          fin_ops.finalize_pass_plain)]
     kernel_launches = {}
     for path, flags, floor, needed in (
             ("fused", [], FUSED_AGREE_FLOOR,
@@ -876,67 +979,35 @@ def phase_fused_slice(dev, tmp):
             ("fused_host", ["--no-device_finalize"], FUSED_HOST_AGREE_FLOOR,
              ("conv3d_ndhwc_f32", "hop_pop", "hop_gather", "hop_update",
               "hop_screen", "lane_threshold", "lane_masks"))):
-        runs = {}
-        for label in ("kernels", "plain"):
-            out_dir = os.path.join(tmp, f"{path}_{label}")
-            argv = _sharded_args(
-                _request_text(image, out_dir, ckpt, model_args, 1000), edge,
-                FUSED_SUB, FUSED_OVERLAP, LANES, FUSED_SLOTS, HOPS) + flags
-            probe = _HopProbe()
-            patches = (plain if label == "plain" else [mock.patch.object(
-                fin_ops, "finalize_pass",
-                probe.wrap("finalize_pass", fin_ops.finalize_pass))])
-            _build.launches.clear()
-            wall, stats = _run_worker(argv, patches)
-            launches = dict(_build.launches)
-            moves = stats["executed"]
-            print(f"{path} slice on {label}: {moves} FOV moves in {wall:.3f} "
-                  f"s wall, {moves / wall:.2f} moves/s; {stats['rounds']} "
-                  f"rounds; occupancy {stats['running_lane_rounds']}/"
-                  f"{stats['lane_rounds']} lane-rounds; fifo loaded/consumed "
-                  f"{stats.get('fifo_loaded')}/{stats.get('fifo_consumed')}; "
-                  f"t_hops {stats['t_hops']:.3f} t_seed {stats['t_seed']:.3f}"
-                  f" t_ingest {stats['t_ingest']:.3f} t_load "
-                  f"{stats['t_load']:.3f} s; launches {launches}")
-            if label == "kernels":
-                calls = len(probe.events.get("finalize_pass", []))
-                if calls:
-                    ms = probe.device_ms()["finalize_pass"]
-                    print(f"K8 finalize_pass in the {path} slice: {calls} "
-                          f"launches, {ms:.1f} device ms, {ms / calls:.4f} "
-                          f"ms per call")
-                for name in needed:
-                    require(launches.get(name, 0) > 0,
-                            f"kernel {name} was not launched on the {path} "
-                            f"path")
-                stitch_s, stitched = _stitch(
-                    argv, os.path.join(tmp, f"{path}.npz"),
-                    as_process=path == "fused")
-                agree = _stitched_agreement(f"{path} slice", stitch_s,
-                                            stitched, gt)
-                kernel_launches[path] = launches
-            runs[label] = (_subvolumes(out_dir, edge, FUSED_SUB,
-                                       FUSED_OVERLAP), moves)
-        same = runs["kernels"][1] == runs["plain"][1] and all(
-            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
-            and a[2] == b[2] for a, b in zip(runs["kernels"][0],
-                                             runs["plain"][0]))
-        print(f"{path} slice, kernels vs K4/K7/K8 plain: identical "
-              f"subvolumes, origins, counters and moves: {same}")
-        require(same, f"the {path} slice on K4/K7/K8 differs from their "
-                      f"plain versions")
+        probe = _HopProbe()
+        run = _fused(f"{path} slice on kernels", path, tmp, model_args,
+                     flags, patches=[mock.patch.object(
+                         fin_ops, "finalize_pass", probe.wrap(
+                             "finalize_pass", fin_ops.finalize_pass))])
+        calls = len(probe.events.get("finalize_pass", []))
+        if calls:
+            ms = probe.device_ms()["finalize_pass"]
+            print(f"K8 finalize_pass in the {path} slice: {calls} launches, "
+                  f"{ms:.1f} device ms, {ms / calls:.4f} ms per call")
+        _require_launched(run["launches"], f"the {path} path", needed)
+        kernel_launches[path] = run["launches"]
+        stitch_s, stitched = _stitch(run["argv"], os.path.join(
+            tmp, f"{path}.npz"), as_process=path == "fused")
+        agree = _stitched_agreement(f"{path} slice", stitch_s, stitched, gt)
         require(agree >= floor, f"{path} slice agreement {agree} below its "
                                 f"floor {floor}")
+        _pair(f"the {path} slice on one subvolume", lambda label, sfx: _fused(
+            f"{path} slice on one subvolume {label}", f"{path}_pair{sfx}", tmp,
+            model_args, flags, FUSED_PAIR_BOX), _fused_plain(),
+            keys=("subs", "moves"))
 
-    argv = _sharded_args(
-        _request_text(image, os.path.join(tmp, "sharded_serial"), ckpt,
-                      model_args, 1000), edge, FUSED_SUB, FUSED_OVERLAP,
-        LANES, FUSED_SLOTS, HOPS) + ["--no-fused"]
-    wall, _ = _run_worker(argv)
-    stitch_s, stitched = _stitch(argv, os.path.join(tmp, "serial.npz"),
+    run = _fused("sharded serial workers", "sharded_serial", tmp, model_args,
+                 ["--no-fused"])
+    stitch_s, stitched = _stitch(run["argv"], os.path.join(tmp, "serial.npz"),
                                  as_process=False)
-    serial = _stitched_agreement(f"sharded serial workers ({wall:.3f} s)",
-                                 stitch_s, stitched, gt)
+    serial = _stitched_agreement(f"sharded serial workers "
+                                 f"({run['wall']:.3f} s)", stitch_s, stitched,
+                                 gt)
     require(serial >= 0.95, f"sharded serial agreement {serial} below the "
                             f"quality gate's 0.95")
     return kernel_launches
@@ -1120,73 +1191,113 @@ def phase_golden(dev):
     require(err <= 2e-4, f"fib25 golden: error {err} above 2e-4")
 
 
-def _settings(have, image_path, out_dir):
+def _settings(image_path, out_dir):
     """configs/inference_phantom.pbtxt's settings, on the phantom."""
+    from ffn_tpu_torch.cli.run_inference import parse_request
     from ffn_tpu_torch.inference import settings as settings_lib
-    if have["google.protobuf"]:
-        from ffn_tpu_torch.cli.run_inference import parse_request
-        settings = settings_lib.InferenceSettings.from_proto(parse_request(
-            "@" + os.path.join(REPO, "configs", "inference_phantom.pbtxt")))
-        print("settings: parsed configs/inference_phantom.pbtxt")
-    else:
-        settings = settings_lib.InferenceSettings(
-            image="", model_name="convstack_3d.ConvStack3DFFNModel",
-            segmentation_output_dir="", image_mean=128, image_stddev=33,
-            seed_policy="PolicyPeaks", checkpoint_interval=1800,
-            model_checkpoint_path="models/phantom/model.ckpt-4000.npz",
-            model_args='{"depth": 12, "fov_size": [33, 33, 33], '
-                       '"deltas": [8, 8, 8]}',
-            inference_options=settings_lib.InferenceOptions(
-                init_activation=0.95, pad_value=0.05, move_threshold=0.9,
-                segment_threshold=0.6, min_segment_size=1000,
-                min_boundary_dist=(1, 1, 1)))
-        print("settings: no protobuf here; built the values of "
-              "configs/inference_phantom.pbtxt in InferenceSettings")
+    settings = settings_lib.InferenceSettings.from_proto(parse_request(
+        "@" + os.path.join(REPO, "configs", "inference_phantom.pbtxt")))
     return dataclasses.replace(
         settings, image=image_path, segmentation_output_dir=out_dir,
         model_checkpoint_path=os.path.join(REPO,
                                            settings.model_checkpoint_path))
 
 
-def _run_slice(label, settings, dev, box, gt, inner):
-    """One Runner.run over the phantom; prints and returns its numbers."""
-    from ffn_tpu_torch.inference import engine as engine_lib
+def _run_slice(label, settings, dev, box, gt, inner, hops=None,
+               probe=None, max_iters=MAX_ITERS):
+    """One Runner.run over the phantom: the serial Canvas (hops None; the
+    settings leave concurrent_requests unset), the hop path (HopBatchCanvas)
+    or, with hops 0, the round-based path (BatchCanvas). `probe`, a
+    _HopProbe, times the batched path's calls. Prints and returns
+    dict(seg (the inner box), moves, wall, agree, rounds, origins, counts,
+    seed_dtype)."""
     from ffn_tpu_torch.inference import runner as runner_lib
     from ffn_tpu_torch.inference import storage
     from tools import synthetic_em
 
-    step_s = [0.0]
-    step = engine_lib.FloodFillEngine.step
-
-    def timed_step(self, *args):
-        # step() returns the patch on the host, so it ends synchronized.
-        t = time.perf_counter()
-        out = step(self, *args)
-        step_s[0] += time.perf_counter() - t
-        return out
-
     runner = runner_lib.Runner(device=dev)
+    if hops is not None:
+        runner.canvas_defaults.update(hops=hops,
+                                      max_iters_per_segment=max_iters)
     runner.start(settings)
+    patches = probe.patches(runner, hops) if probe is not None else []
+    for p in patches:
+        p.start()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with mock.patch.object(engine_lib.FloodFillEngine, "step", timed_step):
-        runner.run((0, 0, 0), box, keep_probability_maps=False)
+    try:
+        canvas = runner.run((0, 0, 0), box, keep_probability_maps=False)
+        torch.cuda.synchronize()
+    finally:
+        for p in patches:
+            p.stop()
     wall = time.perf_counter() - t0
+    kind = {None: "Canvas", 0: "BatchCanvas"}.get(hops, "HopBatchCanvas")
+    require(type(canvas).__name__ == kind, f"the {label} run ran "
+                                           f"{type(canvas).__name__}")
+    seeds = {"Canvas": "_seed_dev", "BatchCanvas": "_seeds_dev"}.get(kind)
+    seeds = getattr(canvas, seeds) if seeds else canvas._state.seeds
     seg_path = storage.segmentation_path(settings.segmentation_output_dir,
                                          (0, 0, 0))
-    require(os.path.exists(seg_path), f"no segmentation at {seg_path}")
     with np.load(seg_path, allow_pickle=True) as data:
         seg = data["segmentation"].astype(np.uint64)[inner]
-    steps = runner.counters["update_at-calls"].value
-    objects = len(np.unique(seg[seg > 0]))
+    c = runner.counters
+    counts = {n: v.value for n, v in c if not n.endswith("-ms")}
+    moves = counts["fov-moves" if hops is not None else "update_at-calls"]
+    rounds = counts["predict-calls"]
+    predict_s = c["predict-time-ms"].value / 1e3
     agree = synthetic_em.object_level_agreement(gt.astype(np.uint64), seg,
                                                 min_size=1000)
-    print(f"slice {label}: {steps} FOV steps, {wall:.3f} s wall, "
-          f"{steps / wall:.2f} steps/s; engine.step {step_s[0]:.3f} s "
-          f"({1e3 * step_s[0] / max(steps, 1):.4f} ms/step), the rest "
-          f"{wall - step_s[0]:.3f} s; {objects} objects, ground-truth "
-          f"agreement {agree:.4f}")
-    return seg, steps, agree
+    print(f"{kind} {label}: {moves} FOV moves in {rounds} predict calls "
+          f"({moves / max(rounds, 1):.2f} per call), {wall:.3f} s wall, "
+          f"{moves / wall:.2f} moves/s; predict {predict_s:.3f} s, the "
+          f"rest {wall - predict_s:.3f} s; {len(np.unique(seg[seg > 0]))} "
+          f"objects, ground-truth agreement {agree:.4f}; counters "
+          + ", ".join(f"{k} {counts[k]}" for k in (
+                  "seed_got_too_weak", "screened-weak-seeds",
+                  "skip_threshold", "iter-cap-hit", "queue-stall-drains",
+                  "relaxed-deferral-seeds") if k in counts))
+    return dict(seg=seg, moves=moves, wall=wall, agree=agree, rounds=rounds,
+                origins={k: (tuple(int(v) for v in o.start_zyx), o.iters)
+                         for k, o in canvas.origins.items()},
+                counts=counts, seed_dtype=seeds.dtype)
+
+
+def _same(a, b):
+    """Equality of run results: arrays voxel for voxel, containers item for
+    item."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return bool(np.array_equal(a, b))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _plain(mod, *names):
+    """Patches of `mod`'s kernel wrappers by their plain versions."""
+    return [mock.patch.object(mod, n, getattr(mod, n + "_plain"))
+            for n in names]
+
+
+def _pair(path, run, plain, keys=("seg", "moves", "origins", "counts")):
+    """run(label, suffix) on the kernels, then with the `plain` patches
+    (kernels on their plain versions): the two must agree on `keys`.
+    Returns the kernel run's result and its launches."""
+    from contextlib import ExitStack
+    from ffn_tpu_torch import _build
+    _build.launches.clear()
+    got = run("on kernels", "")
+    launches = dict(_build.launches)
+    with ExitStack() as stack:
+        for p in plain:
+            stack.enter_context(p)
+        want = run("on plain versions", "_plain")
+    same = {k: _same(got[k], want[k]) for k in keys}
+    print(f"{path}, kernels vs plain versions: identical {same}; kernel "
+          f"launches {launches}")
+    require(all(same.values()), f"the {path} run on kernels differs from "
+                                f"the plain versions: {same}")
+    return got, launches
 
 
 def _phantom(tmp, seed):
@@ -1206,43 +1317,27 @@ def _phantom(tmp, seed):
                       inner=(slice(PHANTOM_PAD, -PHANTOM_PAD),) * 3)
 
 
-def phase_slice(have, dev, tmp):
-    """The serial slice; returns (its launches, the phantom, the settings
-    with model-r2, and model-r2's serial segmentation)."""
-    from ffn_tpu_torch import _build
+def phase_slice(dev, tmp):
+    """The serial slice (Runner -> Canvas -> K2 -> K1 -> K3) with
+    configs/inference_phantom.pbtxt's checkpoint on kernels and on the plain
+    versions, identical voxels; then with model-r2, held to the quality
+    gate's 0.95. Returns (the kernel run's launches, the phantom, the
+    settings with model-r2, and model-r2's serial segmentation)."""
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
     from ffn_tpu_torch.ops import step as step_ops
-    from tools import synthetic_em
 
     image_path, phantom = _phantom(tmp, seed=0)
-    settings = _settings(have, image_path, os.path.join(tmp, "kernels"))
-
-    _build.launches.clear()
-    seg, _, _ = _run_slice("on kernels", settings, dev, **phantom)
-    launches = dict(_build.launches)
-    print(f"kernel launches on the serial path: {launches}")
-    require(seg.any(), "the slice segmented no object")
-    for name in ("conv3d_ndhwc_f32", "step_gather", "step_update"):
-        require(launches.get(name, 0) > 0,
-                f"kernel {name} was not launched on the serial path")
-
-    with mock.patch.object(convstack_3d, "conv3d_ndhwc_f32",
-                           conv3d.conv3d_ndhwc_plain), \
-            mock.patch.object(step_ops, "step_gather",
-                              step_ops.step_gather_plain), \
-            mock.patch.object(step_ops, "step_update",
-                              step_ops.step_update_plain):
-        seg_p, _, _ = _run_slice(
-            "on plain versions", dataclasses.replace(
-                settings,
-                segmentation_output_dir=os.path.join(tmp, "plain")),
-            dev, **phantom)
-    same = synthetic_em.object_level_agreement(seg, seg_p, min_size=1000)
-    print(f"kernels vs plain versions: object agreement {same:.4f}, "
-          f"identical voxels {bool(np.array_equal(seg, seg_p))}")
-    require(np.array_equal(seg, seg_p),
-            "the serial slice on kernels differs from the plain versions")
+    settings = _settings(image_path, os.path.join(tmp, "kernels"))
+    got, launches = _pair("the serial slice", lambda label, sfx: _run_slice(
+        label, dataclasses.replace(settings, segmentation_output_dir=(
+            os.path.join(tmp, "serial" + sfx))), dev, **phantom),
+        [mock.patch.object(convstack_3d, "conv3d_ndhwc_f32",
+                           conv3d.conv3d_ndhwc_plain)]
+        + _plain(step_ops, "step_gather", "step_update"), keys=("seg",))
+    require(got["seg"].any(), "the slice segmented no object")
+    _require_launched(launches, "the serial path",
+                      ("conv3d_ndhwc_f32", "step_gather", "step_update"))
 
     # The same slice with the flagship phantom checkpoint, held to the
     # repo's quality-gate floor (tests/test_shipped_checkpoint.py).
@@ -1250,16 +1345,25 @@ def phase_slice(have, dev, tmp):
         settings, segmentation_output_dir=os.path.join(tmp, "r2"),
         model_checkpoint_path=os.path.join(REPO, "models", "phantom",
                                            "model-r2.npz"))
-    seg_r2, _, agree = _run_slice("with models/phantom/model-r2.npz on "
-                                  "kernels", r2, dev, **phantom)
-    require(agree >= 0.95, f"model-r2 agreement {agree} below the "
-                           f"quality gate's 0.95")
-    return launches, phantom, r2, seg_r2
+    run = _run_slice("with models/phantom/model-r2.npz on kernels", r2, dev,
+                     **phantom)
+    require(run["agree"] >= 0.95, f"model-r2 agreement {run['agree']} below "
+                                  f"the quality gate's 0.95")
+    return launches, phantom, r2, run["seg"]
+
+
+def _require_launched(launches, path, names, absent=()):
+    for name in names:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on {path}")
+    for name in absent:
+        require(launches.get(name, 0) == 0, f"{path} launched {name}")
 
 
 class _HopProbe:
-    """Device time of each hop-path call by CUDA events (recorded around
-    the call, no synchronization), and the conv batch of each model call."""
+    """Device time of each batched-path call by CUDA events (recorded
+    around the call, no synchronization), and the conv batch of each model
+    call."""
 
     def __init__(self):
         self.events = {}
@@ -1267,11 +1371,29 @@ class _HopProbe:
         self.candidates = 0   # seeds given to screen_seeds
         self._screening = False
 
-    def count(self, screen_seeds):
+    def patches(self, runner, hops):
+        """Patches of the hop (or, hops 0, round) path's kernels and the
+        model."""
+        from ffn_tpu_torch.ops import hop as hop_ops
+        from ffn_tpu_torch.ops import lane as lane_ops
+        from ffn_tpu_torch.ops import select as select_ops
+        names = [(select_ops, "select_gather"), (select_ops, "select_update")]
+        if hops:
+            names = [(hop_ops, n) for n in ("hop_pop", "hop_gather",
+                                            "hop_update", "hop_screen")] + [
+                (lane_ops, "lane_verdicts"), (lane_ops, "lane_mask")]
+        out = [mock.patch.object(mod, name, self.wrap(name, getattr(mod,
+                                                                    name)))
+               for mod, name in names]
+        out.append(mock.patch.object(runner.model, "apply", self.wrap(
+            "model.apply", runner.model.apply)))
+        screen = runner.engine.screen_seeds
+
         def counted(image, positions, *args, **kwargs):
             self.candidates += len(np.asarray(positions).reshape(-1, 3))
-            return screen_seeds(image, positions, *args, **kwargs)
-        return counted
+            return screen(image, positions, *args, **kwargs)
+        return out + [mock.patch.object(runner.engine, "screen_seeds",
+                                        counted)]
 
     def wrap(self, name, fn):
         def timed(*args, **kwargs):
@@ -1293,157 +1415,85 @@ class _HopProbe:
         return {name: sum(s.elapsed_time(e) for s, e in pairs)
                 for name, pairs in self.events.items()}
 
-
-def _run_hop_slice(label, settings, dev, box, gt, inner, probe=None,
-                   max_iters=MAX_ITERS, keep=None):
-    """One Runner.run of the batched request; prints and returns its
-    numbers (and puts the runner and canvas into `keep`, a dict)."""
-    from ffn_tpu_torch.inference import runner as runner_lib
-    from ffn_tpu_torch.inference import storage
-    from ffn_tpu_torch.ops import hop as hop_ops
-    from ffn_tpu_torch.ops import lane as lane_ops
-    from tools import synthetic_em
-
-    runner = runner_lib.Runner(device=dev)
-    runner.canvas_defaults.update(hops=HOPS, max_iters_per_segment=max_iters)
-    runner.start(settings)
-    patches = []
-    if probe is not None:
-        for mod, name in ((hop_ops, "hop_pop"), (hop_ops, "hop_gather"),
-                          (hop_ops, "hop_update"), (hop_ops, "hop_screen"),
-                          (lane_ops, "lane_verdicts"),
-                          (lane_ops, "lane_mask")):
-            patches.append(mock.patch.object(
-                mod, name, probe.wrap(name, getattr(mod, name))))
-        patches.append(mock.patch.object(
-            runner.model, "apply", probe.wrap("model.apply",
-                                              runner.model.apply)))
-        patches.append(mock.patch.object(
-            runner.engine, "screen_seeds",
-            probe.count(runner.engine.screen_seeds)))
-    for p in patches:
-        p.start()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        canvas = runner.run((0, 0, 0), box, keep_probability_maps=False)
-        torch.cuda.synchronize()
-    finally:
-        for p in patches:
-            p.stop()
-    wall = time.perf_counter() - t0
-    require(type(canvas).__name__ == "HopBatchCanvas" and
-            canvas.lanes <= settings.concurrent_requests,
-            f"the hop slice ran {type(canvas)}")
-    if keep is not None:
-        keep.update(runner=runner, canvas=canvas)
-    seg_path = storage.segmentation_path(settings.segmentation_output_dir,
-                                         (0, 0, 0))
-    with np.load(seg_path, allow_pickle=True) as data:
-        seg = data["segmentation"].astype(np.uint64)[inner]
-    c = runner.counters
-    moves = c["fov-moves"].value
-    predict_s = c["predict-time-ms"].value / 1e3
-    agree = synthetic_em.object_level_agreement(gt.astype(np.uint64), seg,
-                                                min_size=1000)
-    print(f"hop slice {label}: {moves} fov-moves in {wall:.3f} s wall, "
-          f"{moves / wall:.2f} FOV moves/s; {c['predict-calls'].value} "
-          f"rounds; predict (run_hops) {predict_s:.3f} s, the rest "
-          f"{wall - predict_s:.3f} s; {len(np.unique(seg[seg > 0]))} "
-          f"objects, ground-truth agreement {agree:.4f}; counters "
-          f"seed_got_too_weak {c['seed_got_too_weak'].value}, "
-          f"screened-weak-seeds {c['screened-weak-seeds'].value}, "
-          f"iter-cap-hit {c['iter-cap-hit'].value}, queue-stall-drains "
-          f"{c['queue-stall-drains'].value}")
-    return seg, moves, wall, agree
+    def report(self, path, wall, calls):
+        """Prints each probed call's device ms against the wall; returns
+        them by name."""
+        ms = self.device_ms()
+        n = len(self.events[calls])
+        device = sum(ms.values())
+        print(f"{path} device ms by call (CUDA events): " + ", ".join(
+            f"{name} {t:.1f} ({t / n:.4f}/{calls})"
+            for name, t in ms.items())
+            + f"; sum {device:.1f} ms of {1e3 * wall:.1f} ms wall: host "
+              f"and idle {1e3 * wall - device:.1f} ms")
+        return ms
 
 
 def phase_hop_slice(dev, phantom, r2, seg_serial, tmp):
-    """The batched request (concurrent_requests 64) on kernels and with
-    K4-K7 on their plain versions; returns the kernel run's launches."""
+    """The batched request (concurrent_requests 64, hops 16) with model-r2
+    on kernels, probed; the quality gate's batched-vs-serial pair on its
+    seed-11 phantom at 8 lanes, the 8-lane run on kernels and with K4-K7 on
+    their plain versions, identical. Returns the 64-lane run's launches."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
-    from tools import synthetic_em
 
     settings = dataclasses.replace(
         r2, concurrent_requests=LANES,
         segmentation_output_dir=os.path.join(tmp, "hop"))
     probe = _HopProbe()
     _build.launches.clear()
-    seg, moves, wall, agree = _run_hop_slice(
-        "with model-r2 on kernels", settings, dev, **phantom, probe=probe)
+    run = _run_slice("hop slice with model-r2 on kernels", settings, dev,
+                     **phantom, hops=HOPS, probe=probe)
     launches = dict(_build.launches)
     print(f"kernel launches on the hop path: {launches}")
-    for name in ("conv3d_ndhwc_f32", "hop_pop", "hop_gather", "hop_update",
-                 "hop_screen", "lane_threshold"):
-        require(launches.get(name, 0) > 0,
-                f"kernel {name} was not launched on the hop path")
-    hops = len(probe.events["hop_pop"])
+    _require_launched(launches, "the hop path", (
+        "conv3d_ndhwc_f32", "hop_pop", "hop_gather", "hop_update",
+        "hop_screen", "lane_threshold"))
     lane_evals = sum(n for n, _ in probe.batches)
     buckets = [n for n, screen in probe.batches if not screen]
     screens = [n for n, screen in probe.batches if screen]
-    ms = probe.device_ms()
-    print(f"hops {hops}, mean conv bucket {statistics.mean(buckets):.2f} "
-          f"lanes over {len(buckets)} hop convs; screen batches "
-          f"{len(screens)} ({sum(screens)} lane-evaluations for "
-          f"{probe.candidates} candidates); conv "
-          f"lane-evaluations {lane_evals} ({moves / lane_evals:.3f} "
+    print(f"hops {len(probe.events['hop_pop'])}, mean conv bucket "
+          f"{statistics.mean(buckets):.2f} lanes over {len(buckets)} hop "
+          f"convs; screen batches {len(screens)} ({sum(screens)} "
+          f"lane-evaluations for {probe.candidates} candidates); conv "
+          f"lane-evaluations {lane_evals} ({run['moves'] / lane_evals:.3f} "
           f"executed moves per lane-evaluation)")
-    device = sum(ms.values())
-    print("device ms by call (CUDA events): " + ", ".join(
-        f"{name} {t:.1f} ({t / hops:.4f}/hop)" for name, t in ms.items())
-        + f"; sum {device:.1f} ms of {1e3 * wall:.1f} ms wall: host and "
-          f"idle {1e3 * wall - device:.1f} ms")
-
-    with mock.patch.object(hop_ops, "hop_pop", hop_ops.hop_pop_plain), \
-            mock.patch.object(hop_ops, "hop_gather",
-                              hop_ops.hop_gather_plain), \
-            mock.patch.object(hop_ops, "hop_update",
-                              hop_ops.hop_update_plain), \
-            mock.patch.object(hop_ops, "hop_screen",
-                              hop_ops.hop_screen_plain), \
-            mock.patch.object(lane_ops, "lane_verdicts",
-                              lane_ops.lane_verdicts_plain), \
-            mock.patch.object(lane_ops, "lane_mask",
-                              lane_ops.lane_mask_plain):
-        seg_p, moves_p, _, _ = _run_hop_slice(
-            "with model-r2, K4-K7 on plain versions", dataclasses.replace(
-                settings, segmentation_output_dir=os.path.join(
-                    tmp, "hop_plain")), dev, **phantom)
-    require(np.array_equal(seg, seg_p) and moves == moves_p,
-            "the hop slice on K4-K7 differs from their plain versions")
-    print("hop slice, kernels vs K4-K7 plain: identical voxels, same "
-          "fov-moves")
-
-    require(agree >= 0.95, f"hop slice model-r2 agreement {agree} below "
-                           f"the quality gate's 0.95")
+    probe.report("hop slice", run["wall"], "hop_pop")
+    require(run["agree"] >= 0.95, f"hop slice model-r2 agreement "
+                                  f"{run['agree']} below the quality gate's "
+                                  f"0.95")
     # Printed, not required: at 48-64 lanes on these 8-cell phantoms the
     # batched path splits a cell the serial one keeps whole (0.4762 here,
     # 0.8889 on the gate's phantom, NVIDIA H100 80GB HBM3, 700 W), and so
     # does the JAX package: phase_gate_reference holds the port to its
     # 64-lane run, which scores 0.8571.
     _lanes_vs_serial(LANES, "model-r2, the slice's phantom (seed 0)",
-                     phantom, seg_serial, seg)
+                     phantom, seg_serial, run["seg"])
 
     # The quality gate's batched-vs-serial pair (tools/quality_eval.py
     # :193-219) on its held-out seed-11 phantom, at 8 lanes, where lanes do
-    # not outnumber the cells: held to the gate's 0.99.
+    # not outnumber the cells: held to the gate's 0.99. The 8-lane run
+    # again with K4-K7 on their plain versions must be identical.
     path, gate = _phantom(tmp, seed=11)
     gate_r2 = dataclasses.replace(r2, image=path)
-    seg_1, _, _ = _run_slice(
+    seg_1 = _run_slice(
         "gate phantom (seed 11), serial, model-r2", dataclasses.replace(
             gate_r2, segmentation_output_dir=os.path.join(tmp, "gate_1")),
-        dev, **gate)
-    seg_n, _, _, gate_agree = _run_hop_slice(
-        f"gate phantom (seed 11), {GATE_LANES} lanes, model-r2",
-        dataclasses.replace(gate_r2, concurrent_requests=GATE_LANES,
-                            segmentation_output_dir=os.path.join(
-                                tmp, "gate_n")), dev, **gate)
+        dev, **gate)["seg"]
+    gate_n, _ = _pair("the gate's 8-lane hop slice", lambda label, sfx: (
+        _run_slice(f"gate phantom (seed 11), {GATE_LANES} lanes, model-r2, "
+                   f"{label}", dataclasses.replace(
+                       gate_r2, concurrent_requests=GATE_LANES,
+                       segmentation_output_dir=os.path.join(
+                           tmp, "gate_n" + sfx)), dev, **gate, hops=HOPS)),
+        _plain(hop_ops, "hop_pop", "hop_gather", "hop_update", "hop_screen")
+        + _plain(lane_ops, "lane_verdicts", "lane_mask"))
     cells = _lanes_vs_serial(GATE_LANES, "model-r2, the gate's phantom",
-                             gate, seg_1, seg_n)
-    require(gate_agree >= 0.95 and cells >= 0.99,
-            f"gate phantom: agreement {gate_agree}, lanes-vs-serial {cells}")
+                             gate, seg_1, gate_n["seg"])
+    require(gate_n["agree"] >= 0.95 and cells >= 0.99,
+            f"gate phantom: agreement {gate_n['agree']}, lanes-vs-serial "
+            f"{cells}")
     return launches
 
 
@@ -1509,66 +1559,82 @@ def phase_select_kernels(dev):
     candidates below the threshold ahead of a valid one, ignore, weak and
     NaN starts, inactive lanes, candidates on every face and out of the
     volume; tied and NaN model outputs) in select mode (K = 4) and in
-    step_batch's fixed mode (K = 1, ignore everywhere); times and bounds of
-    the select-mode round."""
+    step_batch's fixed mode (K = 1, ignore everywhere), with float32 and
+    with bfloat16 seeds (bf16_select_edges: starts, candidates and seeds on
+    the thresholds' rounding edges; logits off the bfloat16 grid); times
+    and bounds of the select-mode rounds."""
     from ffn_tpu_torch.ops import select as select_ops
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    import test_torch_kernels as tk
-
+    tk = _tests()
     rng = np.random.RandomState(5)
     vol = (PHANTOM_SIZE + 2 * PHANTOM_PAD,) * 3
-    fov, deltas = 33, (8, 8, 8)
-    patch = 4 * fov ** 3   # bytes of one 33^3 float32 patch
+    fov, deltas, nvox = 33, (8, 8, 8), 33 ** 3
     image = torch.from_numpy(rng.randn(*vol).astype(np.float32)).to(dev)
-    logits = tk.tied_logits(rng, LANES, fov)
-    logits[3, 4, 4, 1] = np.nan
-    logits = torch.from_numpy(logits).to(dev)
-    kw = dict(fov=fov, pred=fov, deltas=deltas, disco=0.0)
     results = {}
-    for mode, K in (("fixed", 1), ("select", 4)):
-        seeds, packed = tk.crafted_select(rng, LANES, K, vol, mode == "fixed")
-        pk = torch.from_numpy(packed).to(dev)
-        ks = torch.from_numpy(seeds).to(dev)
-        ps = ks.clone()
-        del seeds
-        got = tk.select_round(select_ops, image, ks, pk, logits, **kw)
-        want = tk.select_round(tk._PlainSelect, image, ps, pk, logits, **kw)
-        torch.cuda.synchronize()
-        same = all(g.shape == w.shape and tk.nan_equal(g, w)
-                   for g, w in zip(got, want)) and tk.nan_equal(ks, ps)
-        rec = want[2].cpu().numpy()
-        n_exec = int(rec[:, 0].sum())
-        print(f"K13 select_gather + K14 select_update, {mode} mode (K={K}), "
-              f"{LANES} lanes on {vol}: bit-exact {same}; {n_exec} lanes "
-              f"executed, chosen {sorted(set(rec[:, 1].tolist()))}")
-        require(same, f"K13/K14 differ from their plain versions in "
-                      f"{mode} mode")
-        require(0 < n_exec < LANES or mode == "fixed",
-                "the crafted round executed no lane or every lane")
-        del ps, want
-    gkw = dict(image_size=(fov,) * 3, seed_size=(fov,) * 3,
-               move_threshold=tk.MOVE_T, pad=tk.PAD)
-    # K13 reads each lane's K + 1 seed values, its image and seed patches
-    # and its packed row, and writes both model inputs and its record.
-    results["select_gather"] = entry(0.0, *time_pair(
-        lambda: select_ops.select_gather(image, ks, pk, **gkw),
-        lambda: select_ops.select_gather_plain(image, ks, pk, **gkw)),
-        LANES * (4 * patch + 4 * (K + 1) + pk.shape[1] * 4 + 24))
-    rec = got[2]
-    ukw = dict(pred_size=(fov,) * 3, deltas=deltas, move_threshold=tk.MOVE_T,
-               disco_threshold=0.0)
-    # K14 reads each lane's logits crop, its old box and its record, writes
-    # the box where the lane executed and the packed row.
-    results["select_update"] = entry(0.0, *time_pair(
-        lambda: select_ops.select_update(logits, ks, rec, **ukw),
-        lambda: select_ops.select_update_plain(logits, ks, rec, **ukw)),
-        LANES * (2 * patch + 24 + 120) + n_exec * patch)
-    for name in ("select_gather", "select_update"):
-        r = results[name]
-        print(f"{name} at {LANES} lanes on {vol} (select mode, {n_exec} "
-              f"executing): kernel {r['ms']:.4f} ms plain "
-              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']})")
+    for seed_dtype in (torch.float32, torch.bfloat16):
+        bf16 = seed_dtype == torch.bfloat16
+        sfx, nbytes = ("_bf16", 2) if bf16 else ("", 4)
+        move_t = tk.MOVE_T_LO if bf16 else tk.MOVE_T
+        logits = tk.tied_logits(rng, LANES, fov)
+        if bf16:
+            logits += rng.randn(*logits.shape).astype(np.float32) * 1e-3
+        logits[3, 4, 4, 1] = np.nan
+        logits = torch.from_numpy(logits).to(dev)
+        kw = dict(fov=fov, pred=fov, deltas=deltas, disco=0.0,
+                  move_threshold=move_t)
+        for mode, K in (("fixed", 1), ("select", 4)):
+            seeds, packed = tk.crafted_select(rng, LANES, K, vol,
+                                              mode == "fixed")
+            if bf16:
+                tk.bf16_select_edges(rng, seeds, packed, move_t)
+            pk = torch.from_numpy(packed).to(dev)
+            ks = torch.from_numpy(seeds).to(dev).to(seed_dtype)
+            ps = ks.clone()
+            del seeds
+            got = tk.select_round(select_ops, image, ks, pk, logits, **kw)
+            want = tk.select_round(tk._PlainSelect, image, ps, pk, logits,
+                                   **kw)
+            torch.cuda.synchronize()
+            same = all(g.shape == w.shape and tk.nan_equal(g, w)
+                       for g, w in zip(got, want)) and tk.nan_equal(ks, ps)
+            rec = want[2].cpu().numpy()
+            n_exec = int(rec[:, 0].sum())
+            print(f"K13 select_gather{sfx} + K14 select_update{sfx}, {mode} "
+                  f"mode (K={K}), {LANES} lanes on {vol}: bit-exact {same}; "
+                  f"{n_exec} lanes executed, chosen "
+                  f"{sorted(set(rec[:, 1].tolist()))}")
+            require(same, f"K13/K14{sfx} differ from their plain versions "
+                          f"in {mode} mode")
+            require(0 < n_exec < LANES or mode == "fixed",
+                    "the crafted round executed no lane or every lane")
+            del ps, want
+        gkw = dict(image_size=(fov,) * 3, seed_size=(fov,) * 3,
+                   move_threshold=move_t, pad=tk.PAD)
+        # K13 reads each lane's K + 1 seed values, its image and seed
+        # patches and its packed row, and writes both float32 model inputs
+        # and its record.
+        results["select_gather" + sfx] = entry(0.0, *time_pair(
+            lambda: select_ops.select_gather(image, ks, pk, **gkw),
+            lambda: select_ops.select_gather_plain(image, ks, pk, **gkw)),
+            LANES * ((12 + nbytes) * nvox + nbytes * (K + 1)
+                     + 4 * pk.shape[1] + 24))
+        rec = got[2]
+        ukw = dict(pred_size=(fov,) * 3, deltas=deltas,
+                   move_threshold=move_t, disco_threshold=0.0)
+        # K14 reads each lane's logits crop, its old box and its record and
+        # writes its float32 masked crop and packed row, and the box where
+        # the lane executed.
+        results["select_update" + sfx] = entry(0.0, *time_pair(
+            lambda: select_ops.select_update(logits, ks, rec, **ukw),
+            lambda: select_ops.select_update_plain(logits, ks, rec, **ukw)),
+            LANES * ((8 + nbytes) * nvox + 24 + 120) + n_exec * nbytes * nvox)
+        for name in ("select_gather" + sfx, "select_update" + sfx):
+            r = results[name]
+            print(f"{name} at {LANES} lanes on {vol} (select mode, {n_exec} "
+                  f"executing): kernel {r['ms']:.4f} ms plain "
+                  f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']})")
+        del ks, pk, logits, got
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1726,132 +1792,47 @@ def phase_bf16_kernels(dev):
     return results
 
 
-def _run_round_slice(label, settings, dev, box, gt, inner, probe=None):
-    """One Runner.run of the batched request with hops 0 (BatchCanvas); prints
-    and returns its numbers."""
-    from ffn_tpu_torch.inference import runner as runner_lib
-    from ffn_tpu_torch.inference import storage
-    from ffn_tpu_torch.ops import select as select_ops
-    from tools import synthetic_em
-
-    runner = runner_lib.Runner(device=dev)
-    runner.canvas_defaults.update(hops=0, max_iters_per_segment=MAX_ITERS)
-    runner.start(settings)
-    patches = []
-    if probe is not None:
-        for name in ("select_gather", "select_update"):
-            patches.append(mock.patch.object(
-                select_ops, name, probe.wrap(name, getattr(select_ops,
-                                                           name))))
-        patches.append(mock.patch.object(
-            runner.model, "apply", probe.wrap("model.apply",
-                                              runner.model.apply)))
-    for p in patches:
-        p.start()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    try:
-        canvas = runner.run((0, 0, 0), box, keep_probability_maps=False)
-        torch.cuda.synchronize()
-    finally:
-        for p in patches:
-            p.stop()
-    wall = time.perf_counter() - t0
-    require(type(canvas).__name__ == "BatchCanvas" and
-            canvas.lanes == settings.concurrent_requests,
-            f"the round slice ran {type(canvas)}")
-    seg_path = storage.segmentation_path(settings.segmentation_output_dir,
-                                         (0, 0, 0))
-    with np.load(seg_path, allow_pickle=True) as data:
-        seg = data["segmentation"].astype(np.uint64)
-    c = runner.counters
-    moves = c["fov-moves"].value
-    rounds = c["predict-calls"].value
-    predict_s = c["predict-time-ms"].value / 1e3
-    agree = synthetic_em.object_level_agreement(gt.astype(np.uint64),
-                                                seg[inner], min_size=1000)
-    print(f"round slice {label}: {moves} fov-moves in {rounds} rounds "
-          f"({moves / max(rounds, 1):.2f} executing lanes per round), "
-          f"{wall:.3f} s wall, {moves / wall:.2f} FOV moves/s; predict "
-          f"(select_step) {predict_s:.3f} s, the rest "
-          f"{wall - predict_s:.3f} s; {len(np.unique(seg[seg > 0]))} "
-          f"objects, ground-truth agreement {agree:.4f}; counters "
-          f"seed_got_too_weak {c['seed_got_too_weak'].value}, "
-          f"skip_threshold {c['skip_threshold'].value}, iter-cap-hit "
-          f"{c['iter-cap-hit'].value}, relaxed-deferral-seeds "
-          f"{c['relaxed-deferral-seeds'].value}")
-    return dict(
-        seg=seg, moves=moves, wall=wall, agree=agree,
-        origins=sorted((k, tuple(int(v) for v in o.start_zyx), o.iters)
-                       for k, o in canvas.origins.items()),
-        counts={n: v.value for n, v in c if not n.endswith("-ms")})
-
-
 def phase_round_slice(dev, phantom, r2, seg_serial, tmp):
     """The round-based slice at full width (model-r2, depth 12, 32 features,
     33^3, float32) on phase 5's padded 132^3 phantom: concurrent_requests 8
     and hops 0 through Runner -> BatchCanvas.segment_all -> select_step
-    (K13 -> K1 -> K14) on kernels, again with K13/K14 plain (K1 kept), and
-    once at 64 lanes on kernels; returns the 8-lane kernel run's launches."""
-    from ffn_tpu_torch import _build
+    (K13 -> K1 -> K14) on kernels, probed, again with K13/K14 plain (K1
+    kept), identical, and once at 64 lanes on kernels; returns the 8-lane
+    kernel run's launches."""
     from ffn_tpu_torch.ops import select as select_ops
 
-    settings = dataclasses.replace(
-        r2, concurrent_requests=ROUND_LANES,
-        segmentation_output_dir=os.path.join(tmp, "round"))
+    settings = dataclasses.replace(r2, concurrent_requests=ROUND_LANES)
     probe = _HopProbe()
-    _build.launches.clear()
-    run = _run_round_slice(f"{ROUND_LANES} lanes, model-r2, on kernels",
-                           settings, dev, **phantom, probe=probe)
-    launches = dict(_build.launches)
-    print(f"kernel launches on the round path: {launches}")
-    for name in ("conv3d_ndhwc_f32", "select_gather", "select_update",
-                 "lane_threshold"):
-        require(launches.get(name, 0) > 0,
-                f"kernel {name} was not launched on the round path")
+    run, launches = _pair("the round slice", lambda label, sfx: _run_slice(
+        f"{ROUND_LANES} lanes, model-r2, {label}", dataclasses.replace(
+            settings, segmentation_output_dir=os.path.join(
+                tmp, "round" + sfx)), dev, **phantom, hops=0,
+        probe=None if sfx else probe),
+        _plain(select_ops, "select_gather", "select_update"))
+    _require_launched(launches, "the round path", (
+        "conv3d_ndhwc_f32", "select_gather", "select_update",
+        "lane_threshold"))
     require(launches["select_gather"] == launches["select_update"],
             "K13 and K14 launched unequal times")
-    ms = probe.device_ms()
-    wall_ms = 1e3 * run["wall"]
-    device = sum(ms.values())
-    rounds = launches["select_gather"]
-    print("round slice device ms by call (CUDA events): " + ", ".join(
-        f"{name} {t:.1f} ({t / rounds:.4f}/round)" for name, t in ms.items())
-        + f"; sum {device:.1f} ms of {wall_ms:.1f} ms wall: host and idle "
-          f"{wall_ms - device:.1f} ms; K1 (model.apply) share of wall "
+    ms = probe.report("round slice", run["wall"], "select_gather")
+    wall_ms, rounds = 1e3 * run["wall"], launches["select_gather"]
+    print(f"round slice: K1 (model.apply) share of wall "
           f"{ms['model.apply'] / wall_ms:.4f}, K13+K14 "
-          f"{(ms['select_gather'] + ms['select_update']) / wall_ms:.4f}; "
-          f"K1 {ms['model.apply'] / rounds / ROUND_LANES:.4f} ms per lane "
+          f"{(ms['select_gather'] + ms['select_update']) / wall_ms:.4f}; K1 "
+          f"{ms['model.apply'] / rounds / ROUND_LANES:.4f} ms per lane "
           f"evaluation")
-
-    with mock.patch.object(select_ops, "select_gather",
-                           select_ops.select_gather_plain), \
-            mock.patch.object(select_ops, "select_update",
-                              select_ops.select_update_plain):
-        plain = _run_round_slice(
-            f"{ROUND_LANES} lanes, model-r2, K13/K14 on plain versions",
-            dataclasses.replace(settings, segmentation_output_dir=os.path.join(
-                tmp, "round_plain")), dev, **phantom)
-    same = {key: (np.array_equal(run[key], plain[key]) if key == "seg"
-                  else run[key] == plain[key])
-            for key in ("seg", "origins", "counts", "moves")}
-    print(f"round slice, kernels vs K13/K14 plain: identical {same}")
-    require(all(same.values()),
-            "the round slice on K13/K14 differs from their plain versions")
     require(run["agree"] >= 0.95, f"round slice agreement {run['agree']} "
                                   f"below the quality gate's 0.95")
     _lanes_vs_serial(ROUND_LANES, "model-r2, round-based, the slice's "
-                     "phantom (seed 0)", phantom, seg_serial,
-                     run["seg"][phantom["inner"]])
+                     "phantom (seed 0)", phantom, seg_serial, run["seg"])
 
-    wide = _run_round_slice(
+    wide = _run_slice(
         f"{LANES} lanes, model-r2, on kernels", dataclasses.replace(
             settings, concurrent_requests=LANES,
             segmentation_output_dir=os.path.join(tmp, "round64")),
-        dev, **phantom)
+        dev, **phantom, hops=0)
     _lanes_vs_serial(LANES, "model-r2, round-based, the slice's phantom "
-                     "(seed 0)", phantom, seg_serial,
-                     wide["seg"][phantom["inner"]])
+                     "(seed 0)", phantom, seg_serial, wide["seg"])
     require(wide["agree"] >= ROUND64_AGREE_FLOOR,
             f"round slice at {LANES} lanes: agreement {wide['agree']} below "
             f"{ROUND64_AGREE_FLOOR}")
@@ -1882,8 +1863,8 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
     plain version (K2-K14 kept). Serial and round are held to ground-truth
     agreement >= 0.95, hop and fused to floors just under their measured
     values; each pair's object-level agreement is printed. Returns the K15
-    runs' launches by path (serial_bf16, hop_bf16, round_bf16,
-    fused_bf16)."""
+    runs' launches by path (serial_bf16, hop_bf16, round_bf16, fused_bf16)
+    and the fused K15 run (float32 seeds), which phase 16 compares with."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
@@ -1893,8 +1874,12 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
     bf16 = dataclasses.replace(r2, model_args=json.dumps(model_args))
     launches = {}
 
-    def runs(path, run):
-        """run(label, out_dir) on K15, then on its plain version."""
+    k15_plain = mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
+                                  conv3d.conv3d_ndhwc_bf16_plain)
+
+    def runs(path, run, floor, seg="seg", plain=None):
+        """run(label, out_dir) on K15, then `plain` (by default the same
+        run) on K15's plain version."""
         _build.launches.clear()
         got = run("bf16 on K15", os.path.join(tmp, path))
         launches[path] = dict(_build.launches)
@@ -1902,167 +1887,179 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
         require(launches[path].get("conv3d_ndhwc_bf16", 0) > 0 and
                 "conv3d_ndhwc_f32" not in launches[path],
                 f"the {path} path did not run its convolutions on K15")
-        with mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
-                               conv3d.conv3d_ndhwc_bf16_plain):
-            want = run("bf16 on K15's plain version",
-                       os.path.join(tmp, path + "_plain"))
-        return got, want
+        with k15_plain:
+            want = (plain or run)("bf16 on K15's plain version",
+                                  os.path.join(tmp, path + "_plain"))
+        if plain is None:
+            _bf16_pair(path, got[seg], want[seg])
+        require(got["agree"] >= floor, f"{path} slice agreement "
+                                       f"{got['agree']} below {floor}")
+        return got
 
-    seg, seg_p = runs("serial_bf16", lambda label, out: _run_slice(
-        f"{label}, model-r2", dataclasses.replace(
-            bf16, segmentation_output_dir=out), dev, **phantom)[::2])
-    _bf16_pair("serial_bf16", seg[0], seg_p[0])
-    require(seg[1] >= 0.95, f"bf16 serial slice agreement {seg[1]} below "
-                            f"the quality gate's 0.95")
-
-    hop, hop_p = runs("hop_bf16", lambda label, out: _run_hop_slice(
-        f"{GATE_LANES} lanes, {label}, model-r2", dataclasses.replace(
-            bf16, concurrent_requests=GATE_LANES,
-            segmentation_output_dir=out), dev, **phantom))
-    _bf16_pair("hop_bf16", hop[0], hop_p[0])
-    require(hop[3] >= BF16_HOP_AGREE_FLOOR,
-            f"bf16 hop slice agreement {hop[3]} below "
-            f"{BF16_HOP_AGREE_FLOOR}")
-
-    rnd, rnd_p = runs("round_bf16", lambda label, out: _run_round_slice(
-        f"{ROUND_LANES} lanes, {label}, model-r2", dataclasses.replace(
-            bf16, concurrent_requests=ROUND_LANES,
-            segmentation_output_dir=out), dev, **phantom))
-    _bf16_pair("round_bf16", rnd["seg"], rnd_p["seg"])
-    require(rnd["agree"] >= 0.95, f"bf16 round slice agreement "
-                                  f"{rnd['agree']} below the quality gate's "
-                                  f"0.95")
-
-    image = os.path.join(tmp, "phantom_s0.npy")   # phase 5's phantom
-    edge = np.load(image, mmap_mode="r").shape[0]
-    ckpt = os.path.join(REPO, "models", "phantom", "model-r2.npz")
+    for path, lanes, hops, floor in (
+            ("serial_bf16", 1, None, 0.95),
+            ("hop_bf16", GATE_LANES, HOPS, BF16_HOP_AGREE_FLOOR),
+            ("round_bf16", ROUND_LANES, 0, 0.95)):
+        runs(path, lambda label, out: _run_slice(
+            f"{lanes} lanes, {label}, model-r2", dataclasses.replace(
+                bf16, concurrent_requests=lanes,
+                segmentation_output_dir=out), dev, **phantom, hops=hops),
+             floor)
 
     def fused(label, out):
-        argv = _sharded_args(
-            _request_text(image, out, ckpt, model_args, 1000), edge,
-            FUSED_SUB, FUSED_OVERLAP, LANES, FUSED_SLOTS, HOPS)
-        wall, stats = _run_worker(argv)
-        moves = stats["executed"]
-        print(f"fused slice {label}: {moves} FOV moves in {wall:.3f} s "
-              f"wall, {moves / wall:.2f} moves/s; {stats['rounds']} rounds;"
-              f" t_hops {stats['t_hops']:.3f} t_seed {stats['t_seed']:.3f} "
-              f"s")
-        stitch_s, stitched = _stitch(argv, out + ".npz", as_process=False)
-        return stitched, _stitched_agreement(f"fused slice {label}",
-                                             stitch_s, stitched,
-                                             phantom["gt"])
+        run = _fused(f"fused slice {label}", os.path.basename(out), tmp,
+                     model_args)
+        stitch_s, run["stitched"] = _stitch(run["argv"], out + ".npz",
+                                            as_process=False)
+        run["agree"] = _stitched_agreement(f"fused slice {label}", stitch_s,
+                                           run["stitched"], phantom["gt"])
+        return run
 
-    fus, fus_p = runs("fused_bf16", fused)
-    _bf16_pair("fused_bf16", fus[0], fus_p[0])
-    require(fus[1] >= BF16_FUSED_AGREE_FLOOR,
-            f"bf16 fused slice agreement {fus[1]} below "
-            f"{BF16_FUSED_AGREE_FLOOR}")
-    return launches
+    def fused_pair(label, out):
+        """K15's plain version against K15 on one subvolume."""
+        want = _fused(f"fused slice {label}", os.path.basename(out), tmp,
+                      model_args, size=FUSED_PAIR_BOX)
+        with mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
+                               conv3d.conv3d_ndhwc_bf16):   # K15 again
+            got = _fused("fused slice bf16 on K15", "fused_bf16_pair", tmp,
+                         model_args, size=FUSED_PAIR_BOX)
+        _bf16_pair("fused_bf16, one subvolume", got["subs"][0][0],
+                   want["subs"][0][0])
+
+    return launches, runs("fused_bf16", fused, BF16_FUSED_AGREE_FLOOR,
+                          plain=fused_pair)
 
 
-def phase_bf16_seed_slice(dev, phantom, r2, tmp):
-    """bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) at the JAX e2e bench's
-    configuration: model-r2 in bfloat16 (K15) on phase 5's padded 132^3
-    phantom with concurrent_requests 48, hops 16, max_iters_per_segment
-    2000 and host finalization, through Runner -> HopBatchCanvas ->
-    HopEngine.run_hops. Runs it with float32 seeds (the comparison), with
-    bfloat16 seeds on K4-K7's bfloat16 instantiations, and with K4-K7 on
-    their plain versions (K15 kept): the two bfloat16-seed runs must give
-    the same voxels, origins, counters and moves; the kernel run launches
-    the *_bf16 kernels and no float32 instantiation of K4, K6 or K7 (K5's
-    float32 launches are the screening gathers, which hold no seeds); its
-    ground-truth agreement is held to BF16_SEED_AGREE_FLOOR. Returns the
-    kernel run's launches."""
-    from contextlib import ExitStack
-
-    from ffn_tpu_torch import _build
+def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
+    """bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) with model-r2 in
+    bfloat16 (K15) on every inference path, each on the *_bf16 seed
+    kernels and on their plain versions (K15 kept), identical, the kernel
+    runs launching no float32 instantiation: hop at the JAX e2e bench's
+    configuration (48 lanes, hops 16, max_iters_per_segment 2000, host
+    finalization; K4-K7), also with float32 seeds; fused as phase 8 (K4,
+    K8), against phase 14's float32-seed run, and with host finalization
+    on FUSED_PAIR_BOX (K4, K7); FFN_TPU_DEVFIN=1 at 8 lanes (K4-K6, K8);
+    round at 8 lanes (K13, K14); serial (K2, K3). Agreement floors:
+    BF16_SEED_*_FLOOR, 0.95 for devfin and serial. Returns the kernel
+    runs' launches by path."""
+    from ffn_tpu_torch.ops import finalize as fin_ops
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
+    from ffn_tpu_torch.ops import select as select_ops
+    from ffn_tpu_torch.ops import step as step_ops
 
     model_args = json.loads(r2.model_args)
     model_args["dtype"] = "bfloat16"
-    settings = dataclasses.replace(r2, model_args=json.dumps(model_args),
-                                   concurrent_requests=SEED_LANES)
-    plain = [(hop_ops, name, getattr(hop_ops, name + "_plain"))
-             for name in ("hop_pop", "hop_gather", "hop_update",
-                          "hop_screen")] + \
-        [(lane_ops, name, getattr(lane_ops, name + "_plain"))
-         for name in ("lane_verdicts", "lane_mask")]
+    settings = dataclasses.replace(r2, model_args=json.dumps(model_args))
+    hop_plain = (_plain(hop_ops, "hop_pop", "hop_gather", "hop_update",
+                        "hop_screen")
+                 + _plain(lane_ops, "lane_verdicts", "lane_mask"))
+    seed_bytes = {torch.float32: 4, torch.bfloat16: 2}
+    lane_bytes = int(np.prod(phantom["box"]))   # one lane's seed voxels
+    launches = {}
 
-    def run(label, seeds, k4_k7_plain=False):
-        keep = {}
-        _build.launches.clear()
-        torch.cuda.reset_peak_memory_stats()
-        with ExitStack() as stack:
-            stack.enter_context(mock.patch.dict(os.environ))
-            os.environ.pop("FFN_TPU_SEED_DTYPE", None)
-            if seeds == "bf16":
-                os.environ["FFN_TPU_SEED_DTYPE"] = "bf16"
-            for mod, name, fn in plain if k4_k7_plain else ():
-                stack.enter_context(mock.patch.object(mod, name, fn))
-            seg, moves, wall, agree = _run_hop_slice(
-                f"{SEED_LANES} lanes, model-r2 in bf16, {label}",
-                dataclasses.replace(settings, segmentation_output_dir=(
-                    os.path.join(tmp, "seed_" + label.replace(" ", "_")))),
-                dev, **phantom, max_iters=SEED_MAX_ITERS, keep=keep)
-        canvas = keep["canvas"]
-        state = canvas._state.seeds
-        out = dict(seg=seg, moves=moves, agree=agree,
-                   launches=dict(_build.launches), dtype=state.dtype,
-                   seed_bytes=SEED_LANES * int(np.prod(phantom["box"]))
-                   * state.element_size(),
-                   peak=torch.cuda.max_memory_allocated(),
-                   origins={k: (tuple(v.start_zyx), v.iters)
-                            for k, v in canvas.origins.items()},
-                   counters={n: c.value for n, c in keep["runner"].counters
-                             if not n.endswith("-ms")})
-        print(f"  seeds {state.dtype}: {SEED_LANES} lanes x "
-              f"{phantom['box']} = {out['seed_bytes'] / 1e6:.1f} MB; peak "
-              f"device memory {out['peak'] / 1e6:.1f} MB; "
-              f"{moves / wall:.2f} moves/s")
-        print(f"  kernel launches: {out['launches']}")
-        del keep, canvas, state
-        torch.cuda.empty_cache()
-        return out
+    def slice_run(path, lanes, hops, floor, plain, needed, env=(),
+                  max_iters=MAX_ITERS, seeds="bf16"):
+        def run(label, sfx):
+            with mock.patch.dict(os.environ, dict(env)):
+                os.environ.pop("FFN_TPU_SEED_DTYPE", None)
+                if seeds == "bf16":
+                    os.environ["FFN_TPU_SEED_DTYPE"] = "bf16"
+                torch.cuda.reset_peak_memory_stats()
+                out = _run_slice(
+                    f"{path}, {lanes} lanes, model-r2 in bf16, {seeds} "
+                    f"seeds, {label}", dataclasses.replace(
+                        settings, concurrent_requests=lanes,
+                        segmentation_output_dir=os.path.join(
+                            tmp, f"seeds_{path}_{seeds}{sfx}")), dev,
+                    **phantom, hops=hops, max_iters=max_iters)
+            out["peak"] = torch.cuda.max_memory_allocated()
+            out["seed_bytes"] = (lanes * lane_bytes
+                                 * seed_bytes[out["seed_dtype"]])
+            print(f"  seeds {out['seed_dtype']}: {lanes} lanes x "
+                  f"{phantom['box']} = {out['seed_bytes'] / 1e6:.1f} MB; "
+                  f"peak device memory {out['peak'] / 1e6:.1f} MB; "
+                  f"{out['moves'] / out['wall']:.2f} moves/s")
+            torch.cuda.empty_cache()
+            return out
 
-    f32 = run("float32 seeds", "f32")
-    got = run("bf16 seeds on kernels", "bf16")
-    want = run("bf16 seeds, K4-K7 plain", "bf16", k4_k7_plain=True)
-    require(f32["dtype"] == torch.float32 and
-            got["dtype"] == want["dtype"] == torch.bfloat16,
-            f"seed tensors {f32['dtype']}, {got['dtype']}, "
-            f"{want['dtype']}")
-    launches = got["launches"]
-    for name in ("hop_pop", "hop_gather", "hop_update", "lane_threshold"):
-        require(launches.get(name + "_bf16", 0) > 0,
-                f"{name}_bf16 was not launched on the bf16-seed path")
-        require(f32["launches"].get(name + "_bf16", 0) == 0 and
-                not any(k.endswith("_bf16") and not k.startswith("conv3d")
-                        for k in want["launches"]),
-                "a float32-seed or plain run launched a *_bf16 kernel")
-    for name in ("hop_pop", "hop_update", "lane_threshold",
-                 "conv3d_ndhwc_f32"):
-        require(launches.get(name, 0) == 0,
-                f"the bf16-seed path launched {name} (float32)")
-    require(launches.get("hop_gather", 0) == launches.get("hop_screen", 0)
-            and launches.get("conv3d_ndhwc_bf16", 0) > 0,
-            "the bf16-seed path's float32 K5 launches are not the screens'")
-    same = (np.array_equal(got["seg"], want["seg"])
-            and got["moves"] == want["moves"]
-            and got["origins"] == want["origins"]
-            and got["counters"] == want["counters"])
-    require(same, "bf16 seeds: K4-K7 differ from their plain versions "
-                  "(segmentation, origins, counters or moves)")
-    print(f"bf16 seeds, kernels vs K4-K7 plain: identical voxels, origins, "
-          f"counters and moves ({got['moves']}); seed bytes "
-          f"{got['seed_bytes'] / 1e6:.1f} MB against "
-          f"{f32['seed_bytes'] / 1e6:.1f} MB in float32")
+        if plain is None:   # the float32-seed comparison alone
+            return run("on kernels", "")
+        got, launches[path] = _pair(f"the bf16-seed {path} slice", run,
+                                    plain)
+        _check_bf16_launches(path, launches[path], needed)
+        require(got["seed_dtype"] == torch.bfloat16 and got["agree"] >= floor,
+                f"the bf16-seed {path} slice: seeds {got['seed_dtype']}, "
+                f"agreement {got['agree']} below {floor}")
+        return got
+
+    f32 = slice_run("hop", SEED_LANES, HOPS, 0, None, (),
+                    max_iters=SEED_MAX_ITERS, seeds="f32")
+    got = slice_run("hop", SEED_LANES, HOPS, BF16_SEED_AGREE_FLOOR,
+                    hop_plain, ("hop_pop", "hop_gather", "hop_update",
+                                "lane_threshold"), max_iters=SEED_MAX_ITERS)
+    require(f32["seed_dtype"] == torch.float32,
+            f"the float32-seed hop slice ran {f32['seed_dtype']} seeds")
     _bf16_pair("hop_bf16_seeds", got["seg"], f32["seg"],
                what="bf16 seeds vs float32 seeds")
-    require(got["agree"] >= BF16_SEED_AGREE_FLOOR,
-            f"bf16-seed slice agreement {got['agree']} below "
-            f"{BF16_SEED_AGREE_FLOOR}")
-    return launches
+    print(f"bf16-seed hop slice: {got['moves'] / got['wall']:.2f} moves/s "
+          f"against {f32['moves'] / f32['wall']:.2f} with float32 seeds; "
+          f"seed bytes {got['seed_bytes'] / 1e6:.1f} MB against "
+          f"{f32['seed_bytes'] / 1e6:.1f} MB; peak device memory "
+          f"{got['peak'] / 1e6:.1f} MB against {f32['peak'] / 1e6:.1f} MB")
+    slice_run("devfin", GATE_LANES, HOPS, 0.95,
+              hop_plain + _plain(fin_ops, "finalize_pass"),
+              ("hop_pop", "hop_gather", "hop_update", "finalize_pass"),
+              env={"FFN_TPU_DEVFIN": "1"})
+    slice_run("round", ROUND_LANES, 0, BF16_SEED_ROUND_AGREE_FLOOR,
+              _plain(select_ops, "select_gather", "select_update"),
+              ("select_gather", "select_update", "lane_threshold"))
+    slice_run("serial", 1, None, 0.95,
+              _plain(step_ops, "step_gather", "step_update"),
+              ("step_gather", "step_update"))
+
+    fused = {}
+    with mock.patch.dict(os.environ, {"FFN_TPU_SEED_DTYPE": "bf16"}):
+        for path, flags, size, needed in (
+                ("fused", [], None, ("hop_pop", "hop_gather", "hop_update",
+                                     "finalize_pass")),
+                ("fused_host", ["--no-device_finalize"], FUSED_PAIR_BOX,
+                 ("hop_pop", "hop_gather", "hop_update", "lane_threshold",
+                  "lane_masks"))):
+            fused[path], launches[path] = _pair(
+                f"the bf16-seed {path} slice", lambda label, sfx: _fused(
+                    f"bf16-seed {path} slice {label}", f"seeds_{path}{sfx}",
+                    tmp, model_args, flags, size), _fused_plain(),
+                keys=("subs", "moves"))
+            _check_bf16_launches(path, launches[path], needed)
+    run, f32 = fused["fused"], fused_f32_seeds   # f32: phase 14's run
+    stitch_s, stitched = _stitch(run["argv"], os.path.join(
+        tmp, "seeds_fused.npz"), as_process=False)
+    agree = _stitched_agreement("bf16-seed fused slice", stitch_s, stitched,
+                                phantom["gt"])
+    vox = LANES * FUSED_SUB ** 3   # the lanes' seed voxels
+    print(f"bf16-seed fused slice: {run['moves'] / run['wall']:.2f} moves/s "
+          f"against {f32['moves'] / f32['wall']:.2f} with float32 seeds; "
+          f"lane seed bytes {2 * vox / 1e6:.1f} MB against "
+          f"{4 * vox / 1e6:.1f} MB; peak device memory "
+          f"{run['peak'] / 1e6:.1f} MB against {f32['peak'] / 1e6:.1f} MB")
+    require(agree >= BF16_SEED_FUSED_AGREE_FLOOR,
+            f"bf16-seed fused slice agreement {agree} below "
+            f"{BF16_SEED_FUSED_AGREE_FLOOR}")
+    return {f"{path}_bf16_seeds": p for path, p in launches.items()}
+
+
+def _check_bf16_launches(path, launches, needed):
+    """The bf16-seed kernels `needed` launched on `path` and none of their
+    float32 instantiations, but hop_gather's screening gathers (no seeds;
+    one per hop_screen)."""
+    _require_launched(launches, f"the bf16-seed {path} path",
+                      [n + "_bf16" for n in needed] + ["conv3d_ndhwc_bf16"],
+                      absent=[n for n in needed if n != "hop_gather"]
+                      + ["conv3d_ndhwc_f32"])
+    require(launches.get("hop_gather", 0) == launches.get("hop_screen", 0),
+            f"the bf16-seed {path} path's float32 K5 launches are not the "
+            f"screens'")
 
 
 def phase_round_golden(dev, r2, tmp):
@@ -2593,7 +2590,7 @@ def _train_plain_patches():
     ]
 
 
-def phase_train(have, dev, tmp):
+def phase_train(dev, tmp):
     """Training at full width through `python -m ffn_tpu_torch.cli.train`'s
     entry point (the CLI's defaults: depth 12, 32 features, 33^3 FOV,
     deltas 8, batch 4, the fixed policy's 27 offsets, sgd at 0.001 with the
@@ -2681,7 +2678,7 @@ def phase_train(have, dev, tmp):
 
     _train_profile(dev)
     _train_golden(dev)
-    _train_inference(have, dev, tmp, kdir)
+    _train_inference(dev, tmp, kdir)
     return launches
 
 
@@ -2991,13 +2988,13 @@ def _train_golden(dev):
                 f"train golden {opt} weights: {param_err}")
 
 
-def _train_inference(have, dev, tmp, kdir):
+def _train_inference(dev, tmp, kdir):
     """The trained checkpoint in the port's serial Runner, on a 64^3 corner
     of the training phantom."""
     from ffn_tpu_torch.inference import runner as runner_lib
     from ffn_tpu_torch.inference import storage
     ckpt = os.path.join(kdir, "ckpt", f"model.ckpt-{TRAIN_STEPS}.npz")
-    settings = _settings(have, os.path.join(tmp, "train_img.npy"),
+    settings = _settings(os.path.join(tmp, "train_img.npy"),
                          os.path.join(tmp, "train_infer"))
     settings = dataclasses.replace(settings, model_checkpoint_path=ckpt)
     runner = runner_lib.Runner(device=dev)
@@ -3037,32 +3034,47 @@ def _lanes_vs_serial(lanes, label, phantom, seg_serial, seg_lanes):
     return cells
 
 
+def _clock(t0, what):
+    print(f"[{time.perf_counter() - t0:.1f} s] {what} done", flush=True)
+
+
 def main():
-    have = phase_device()
+    t0 = time.perf_counter()
+    phase_device()
     dev = torch.device("cuda")
     phase_build()
-    results = phase_kernels(dev)
-    results.update(phase_hop_kernels(dev))
-    results.update(phase_fused_kernels(dev))
-    results.update(phase_train_kernels(dev))
-    results.update(phase_select_kernels(dev))
-    results.update(phase_bf16_kernels(dev))
+    results = {}
+    for phase in (phase_kernels, phase_hop_kernels, phase_fused_kernels,
+                  phase_train_kernels, phase_select_kernels,
+                  phase_bf16_kernels):
+        results.update(phase(dev))
+        _clock(t0, phase.__name__)
     phase_golden(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = {}
-        launches["serial"], phantom, r2, seg_r2 = phase_slice(have, dev, tmp)
+        launches["serial"], phantom, r2, seg_r2 = phase_slice(dev, tmp)
+        _clock(t0, "phase_slice")
         launches["hop"] = phase_hop_slice(dev, phantom, r2, seg_r2, tmp)
+        _clock(t0, "phase_hop_slice")
         phase_gate_reference(dev, r2, tmp)
         launches.update(phase_fused_slice(dev, tmp))
+        _clock(t0, "phase_fused_slice")
         phase_fused_golden(dev, tmp)
         phase_fused_r2_reference(dev, tmp)
-        launches["train"] = phase_train(have, dev, tmp)
+        _clock(t0, "phases 7, 9, 10 (goldens)")
+        launches["train"] = phase_train(dev, tmp)
         launches["train_host"] = phase_train_host(dev, tmp)
+        _clock(t0, "phases 11, 15 (training)")
         launches["round"] = phase_round_slice(dev, phantom, r2, seg_r2, tmp)
         phase_round_golden(dev, r2, tmp)
-        launches.update(phase_bf16_slices(dev, phantom, r2, tmp))
-        launches["hop_bf16_seeds"] = phase_bf16_seed_slice(dev, phantom, r2,
+        _clock(t0, "phases 12, 13 (round)")
+        bf16_launches, fused_f32_seeds = phase_bf16_slices(dev, phantom, r2,
                                                            tmp)
+        launches.update(bf16_launches)
+        _clock(t0, "phase_bf16_slices")
+        launches.update(phase_bf16_seed_slice(dev, phantom, r2,
+                                              fused_f32_seeds, tmp))
+        _clock(t0, "phase_bf16_seed_slice")
     # K1 runs on every path: its error is the largest of all phases', its
     # time the 32->32 layer's at N=1 (the serial path's shape).
     results["conv3d_ndhwc_f32"]["max_abs_err"] = max(
@@ -3078,6 +3090,8 @@ def main():
         ("conv3d_ndhwc_bf16", "conv3d_bf16.cu", "models/convstack_3d.py:49"),
         ("step_gather", "step.cu", "inference/engine.py:121"),
         ("step_update", "step.cu", "inference/engine.py:88"),
+        ("step_gather_bf16", "step.cu", "inference/engine.py:121"),
+        ("step_update_bf16", "step.cu", "inference/engine.py:88"),
         ("hop_pop", "hop.cu", "inference/hop_engine.py:553"),
         ("hop_gather", "hop.cu", "inference/hop_engine.py:923"),
         ("hop_update", "hop.cu", "inference/hop_engine.py:976"),
@@ -3089,6 +3103,7 @@ def main():
         ("hop_update_bf16", "hop.cu", "inference/hop_engine.py:976"),
         ("lane_threshold_bf16", "lane.cu", "inference/hop_engine.py:1209"),
         ("finalize_pass", "finalize.cu", "inference/hop_engine.py:624"),
+        ("finalize_pass_bf16", "finalize.cu", "inference/hop_engine.py:624"),
         ("conv3d_dgrad_f32", "conv3d_bwd.cu", "training/train_lib.py:368"),
         ("conv3d_wgrad_f32", "conv3d_bwd.cu", "training/train_lib.py:368"),
         ("train_prep", "train.cu", "training/train_lib.py:239"),
@@ -3098,13 +3113,15 @@ def main():
         ("optim_update", "optim.cu", "training/train_lib.py:370"),
         ("fov_loss", "train.cu", "training/train_lib.py:425"),
         ("select_gather", "select.cu", "inference/engine.py:211"),
-        ("select_update", "select.cu", "inference/engine.py:266")]}
+        ("select_update", "select.cu", "inference/engine.py:266"),
+        ("select_gather_bf16", "select.cu", "inference/engine.py:211"),
+        ("select_update_bf16", "select.cu", "inference/engine.py:266")]}
     # `launches` sums the main paths' runs; `launches_by_path` splits them
     # (fused and fused_host: the full-width fused slice with device and
     # with host finalization; train: the full-width training run;
-    # train_host: the host-loop trainer's run; round:
-    # the round-based slice at 8 lanes; *_bf16: the serial, hop, round and
-    # fused slices in bfloat16; hop_bf16_seeds: the bf16-seed slice).
+    # train_host: the host-loop trainer's run; round: the round-based slice
+    # at 8 lanes; *_bf16: the serial, hop, round and fused slices in
+    # bfloat16; *_bf16_seeds: phase 16's bf16-seed slices on kernels).
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(p.get(name, 0) for p in launches.values()),
                     launches_by_path={path: p.get(name, 0)

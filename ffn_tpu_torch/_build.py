@@ -48,8 +48,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ffn_conv3d_ndhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "ffn_conv3d_ndhwc_bf16": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
-    "ffn_step_gather": [_P, _P, _P, _P] + [_I] * 12 + [_F, _P],
-    "ffn_step_update": [_P, _P, _P] + [_I] * 12 + [_F, _F, _P],
+    "ffn_step_gather": [_P, _P, _P, _P] + [_I] * 12 + [_F, _I, _P],
+    "ffn_step_update": [_P, _P, _P] + [_I] * 12 + [_F, _F, _I, _P],
     "ffn_hop_pop": [_P] * 22 + [_I] * 18 + [_F, _I, _P],
     "ffn_hop_gather": [_P] * 7 + [_I] * 11 + [_F, _F, _I, _P],
     "ffn_hop_update": [_P] * 17 + [_I] * 20 + [_F, _F, _I, _P],
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "ffn_lane_mask": [_P] * 3 + [_I] * 13 + [_F, _F, _I, _P],
     "ffn_lane_masks": [_P] * 4 + [_I] * 4 + [_L, _L, _F, _F, _I, _P],
     "ffn_finalize_pass": [_P] * 26 + [_I] * 6 + [_L] + [_I] * 12
-                         + [_F] * 3 + [_P],
+                         + [_F] * 4 + [_I, _P],
     "ffn_conv3d_dgrad_f32": [_P] * 6 + [_I] * 7 + [_P],
     "ffn_conv3d_wgrad_f32": [_P] * 6 + [_I] * 9 + [_P],
     "ffn_train_prep": [_P] * 5 + [_L, _L] + [_I] * 4 + [_F] * 6 + [_P],
@@ -67,8 +67,8 @@ _SIGNATURES = {
     "ffn_train_eval": [_P] * 7 + [_I, _P, _I, _P],
     "ffn_fov_loss": [_P] * 7 + [_L, _I, _P],
     "ffn_optim_update": [_P] * 6 + [_I] + [_P] * 7 + [_I, _P],
-    "ffn_select_gather": [_P] * 6 + [_I] * 11 + [_F, _F, _P],
-    "ffn_select_update": [_P] * 5 + [_I] * 13 + [_F, _F, _P],
+    "ffn_select_gather": [_P] * 6 + [_I] * 11 + [_F, _F, _I, _P],
+    "ffn_select_update": [_P] * 5 + [_I] * 13 + [_F, _F, _I, _P],
 }
 
 _lib = None

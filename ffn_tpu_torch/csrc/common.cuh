@@ -2,10 +2,10 @@
 // (K4-K6), lane.cu (K7), finalize.cu (K8) and select.cu (K13, K14).
 //
 // Lane seeds (POM logits, NaN = unvisited) are float32, or bfloat16 under
-// FFN_TPU_SEED_DTYPE=bf16 (engine.py:63-67) in K4-K7: those kernels read a
-// seed through seed_load (exact for both) and write one through seed_store
-// (round to nearest even for bfloat16, as `astype(bfloat16)`; NaN stays
-// NaN). seed_round is the value a store keeps.
+// FFN_TPU_SEED_DTYPE=bf16 (engine.py:63-67): every kernel that touches a
+// seed reads it through seed_load (exact for both) and writes it through
+// seed_store (round to nearest even for bfloat16, as `astype(bfloat16)`;
+// NaN stays NaN). seed_round is the value a store keeps.
 //
 // Start indices follow lax.dynamic_slice and lax.dynamic_update_slice (a
 // negative start wraps once, then clamps into [0, shape - size]); face
@@ -90,9 +90,11 @@ __device__ inline bool disco_applies(const float* lg, int fz, int fy, int fx,
 // One warp's face maximum: face f = 2 * axis + (sign > 0) of the pred-size
 // patch whose voxel (a, b, c) is patch[a * sa + b * sb + c], for raw deltas
 // r (0 disables an axis: its faces score -inf at offset 0). Lane 0 writes
-// the score and the offset from the patch center. `patch` may be written
-// earlier in the same kernel, so it is read through the coherent path.
-__device__ inline void face_max_warp(const float* patch, size_t sa,
+// the score and the offset from the patch center. `patch` (float32, or a
+// box of bfloat16 seeds) may be written earlier in the same kernel, so it is
+// read through the coherent path.
+template <typename T>
+__device__ inline void face_max_warp(const T* patch, size_t sa,
                                      size_t sb, int qz, int qy, int qx,
                                      int r0, int r1, int r2, int f,
                                      float* score, int* off) {
@@ -111,7 +113,7 @@ __device__ inline void face_max_warp(const float* patch, size_t sa,
       q[axis] = cen[axis] + sign * d;
       q[a0] = cen[a0] - raw[a0] + j / n1;
       q[a1] = cen[a1] - raw[a1] + j % n1;
-      const float v = patch[q[0] * sa + q[1] * sb + q[2]];
+      const float v = seed_load(patch + q[0] * sa + q[1] * sb + q[2]);
       if (better(v, j, best, best_i)) {
         best = v;
         best_i = j;

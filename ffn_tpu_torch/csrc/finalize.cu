@@ -33,6 +33,17 @@
 // (one atomicAdd per block), then the id write, then the blank and the
 // dedup-grid clear. Reads of data other blocks wrote in the same launch
 // (segmentation, broadcast values) bypass L1 (__ldcg).
+//
+// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16: one body,
+// templated on the seed type T (common.cuh). With bfloat16 seeds the JAX
+// program treats one origin two ways in one pass, and this kernel copies
+// it: the dud kill compares it with the unrounded float32 move threshold
+// (`move_t`, :835-836), the verdict with the threshold rounded to bfloat16
+// (`verdict_t`, :650); the claim mask compares each seed with the segment
+// threshold rounded to bfloat16 (:662); the blank is bfloat16 NaN and the
+// init activation is stored rounded (:747-767). The wrapper rounds the
+// thresholds once. The float32 instantiation is the kernel as it was
+// before bfloat16 seeds.
 
 #include "common.cuh"
 
@@ -62,7 +73,7 @@ enum {
 };
 
 struct FinPtrs {
-  float* seeds;
+  void* seeds;  // T (B,Z,Y,X)
   int* sv;
   int* qpos;
   float* qscore;
@@ -98,7 +109,7 @@ struct FinParams {
   int bz, by, bx;  // small blank block
   int oz, oy, ox;  // its corner's offset from the visited minimum
   int max_iters, min_size;
-  float move_t, seg_t, init_act;
+  float move_t, verdict_t, seg_t, init_act;
 };
 
 __device__ inline int ld(const int* p) { return __ldcg(p); }
@@ -132,8 +143,10 @@ __device__ inline bool in_mask(float seed, int seg, uint8_t blk, float t) {
   return seed >= t && seg == 0 && (blk & kClaimed) == 0;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 finalize_pass_kernel(FinPtrs P, FinParams p) {
+  T* const seeds = static_cast<T*>(P.seeds);
   __shared__ uint8_t nmask[kMaxLanes], rmask[kMaxLanes];
   __shared__ int warp_counts[kThreads / 32];
   const bool leader = blockIdx.x == 0 && threadIdx.x == 0;
@@ -156,7 +169,8 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
       const bool capped =
           running && p.max_iters > 0 && P.iters[b] >= p.max_iters;
       const int* o = P.start + 3 * b;
-      const float origin = P.seeds[b * vol + vox(p, o[0], o[1], o[2])];
+      const float origin =
+          seed_load(seeds + b * vol + vox(p, o[0], o[1], o[2]));
       const bool weak_now =
           running && !capped && !P.fresh[b] && !(origin >= p.move_t);
       if (capped) st = kDoneCap;
@@ -191,7 +205,8 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
         do_fin = status == kDoneEmpty || status == kDoneWeak ||
                  status == kDoneCap;
         const size_t at = vox(p, s[0], s[1], s[2]);
-        const bool start_ok = P.seeds[li * vol + at] >= p.move_t;
+        const bool start_ok =
+            seed_load(seeds + li * vol + at) >= p.verdict_t;
         claimed_at = ld(P.seg + sv * vol + at) > 0 ||
                      (P.blocked[sv * vol + at] & kClaimed) != 0;
         weak = status == kDoneWeak || !start_ok;
@@ -210,7 +225,7 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
     if (lane < 0) break;
     const int slot = ld(ctrl + kSlot);
     const bool cand = ld(ctrl + kCand) != 0;
-    const float* seed = P.seeds + lane * vol;
+    const T* seed = seeds + lane * vol;
     int* seg = P.seg + slot * vol;
     const uint8_t* blk = P.blocked + slot * vol;
 
@@ -218,7 +233,7 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
     if (cand) {
       int count = 0;
       for (size_t i = tid; i < vol; i += stride)
-        count += in_mask(seed[i], ld(seg + i), blk[i], p.seg_t);
+        count += in_mask(seed_load(seed + i), ld(seg + i), blk[i], p.seg_t);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         count += __shfl_down_sync(0xffffffffu, count, off);
@@ -238,7 +253,8 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
       // Each voxel is read and written by one thread: the mask is the
       // count's.
       for (size_t i = tid; i < vol; i += stride)
-        if (in_mask(seed[i], ld(seg + i), blk[i], p.seg_t)) seg[i] = id;
+        if (in_mask(seed_load(seed + i), ld(seg + i), blk[i], p.seg_t))
+          seg[i] = id;
     }
     grid_sync(ctrl);
 
@@ -302,8 +318,8 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
 
     // The reseed's blank and dedup-grid clear.
     if (ld(ctrl + kGot)) {
-      float* lane_seed = P.seeds + lane * vol;
-      const float nan = __int_as_float(0x7fc00000);
+      T* lane_seed = seeds + lane * vol;
+      const float nan = f32_nan();
       if (ld(ctrl + kSmall)) {
         const int z0 = ld(ctrl + kCorner), y0 = ld(ctrl + kCorner + 1),
                   x0 = ld(ctrl + kCorner + 2);
@@ -311,10 +327,11 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
         for (size_t i = tid; i < n; i += stride) {
           const int c = i % p.bx, b = (i / p.bx) % p.by,
                     a = i / ((size_t)p.bx * p.by);
-          lane_seed[vox(p, z0 + a, y0 + b, x0 + c)] = nan;
+          seed_store(lane_seed + vox(p, z0 + a, y0 + b, x0 + c), nan);
         }
       } else {
-        for (size_t i = tid; i < vol; i += stride) lane_seed[i] = nan;
+        for (size_t i = tid; i < vol; i += stride)
+          seed_store(lane_seed + i, nan);
       }
       uint8_t* dn = P.done + lane * (size_t)p.G;
       for (size_t i = tid; i < (size_t)p.G; i += stride) dn[i] = 0;
@@ -326,7 +343,8 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
       if (got) {
         if (s[0] >= 0 && s[0] < p.Z && s[1] >= 0 && s[1] < p.Y &&
             s[2] >= 0 && s[2] < p.X)
-          P.seeds[li * vol + vox(p, s[0], s[1], s[2])] = p.init_act;
+          seed_store(seeds + li * vol + vox(p, s[0], s[1], s[2]),
+                     p.init_act);
         int* q = P.qpos + (size_t)li * p.Q * 3;
         for (int a = 0; a < 3; ++a) {
           q[a] = s[a];
@@ -347,10 +365,35 @@ finalize_pass_kernel(FinPtrs P, FinParams p) {
   }
 }
 
+template <typename T>
+int launch_pass(FinPtrs P, FinParams p, void* stream) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, finalize_pass_kernel<T>, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  // One block per SM: every block resident, one barrier arrival per SM.
+  const dim3 grid(sms), block(kThreads);
+  void* args[] = {&P, &p};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(finalize_pass_kernel<T>), grid, block, args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Lane state, finalize state and blocked as in ops/finalize.py; alive (1,)
-// int32 or null; ctrl (16,) int32 zeroed scratch.
+// Lane state, finalize state and blocked as in ops/finalize.py; seeds
+// bfloat16 where bf16 != 0, else float32; alive (1,) int32 or null; ctrl
+// (16,) int32 zeroed scratch. move_t is the float32 move threshold (the dud
+// kill, the reseed's queue score); verdict_t and seg_t are the thresholds
+// the verdict and the claim mask compare seeds with (rounded to bfloat16
+// for bfloat16 seeds).
 extern "C" int ffn_finalize_pass(
     void* seeds, void* sv, void* qpos, void* qscore, void* head, void* tail,
     void* done, void* start, void* minp, void* maxp, void* iters,
@@ -360,9 +403,10 @@ extern "C" int ffn_finalize_pass(
     const void* blocked, void* alive, void* ctrl, int B, int Q, int K, int Z,
     int Y, int X, long long G, int L, int pz, int py, int px, int bz, int by,
     int bx, int oz, int oy, int ox, int max_iters, int min_size,
-    float move_t, float seg_t, float init_act, void* stream) {
+    float move_t, float verdict_t, float seg_t, float init_act, int bf16,
+    void* stream) {
   if (B < 1 || B > kMaxLanes) return static_cast<int>(cudaErrorInvalidValue);
-  FinPtrs P{static_cast<float*>(seeds),       static_cast<int*>(sv),
+  FinPtrs P{seeds,                            static_cast<int*>(sv),
             static_cast<int*>(qpos),          static_cast<float*>(qscore),
             static_cast<int*>(head),          static_cast<int*>(tail),
             static_cast<uint8_t*>(done),      static_cast<int*>(start),
@@ -377,22 +421,7 @@ extern "C" int ffn_finalize_pass(
             static_cast<int*>(alive),         static_cast<int*>(ctrl)};
   FinParams p{B,  Q,  K,  Z,  Y,  X,  G,         L,        pz,     py,
               px, bz, by, bx, oz, oy, ox, max_iters, min_size, move_t,
-              seg_t, init_act};
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, finalize_pass_kernel, kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  // One block per SM: every block resident, one barrier arrival per SM.
-  const dim3 grid(sms), block(kThreads);
-  void* args[] = {&P, &p};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(finalize_pass_kernel), grid, block, args, 0,
-      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+              verdict_t, seg_t, init_act};
+  return (bf16 ? launch_pass<__nv_bfloat16> : launch_pass<float>)(P, p,
+                                                                   stream);
 }

@@ -38,6 +38,17 @@
 // face; six warps then take the face maxima of the written box and thread 0
 // packs the row. K1 runs on all B lanes, inactive ones too, as JAX's vmap
 // does.
+//
+// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16: one body
+// per kernel, templated on the seed type T (common.cuh). With bfloat16
+// seeds K13 compares the stored start and candidate values with the
+// unrounded float32 move threshold (engine.py:241, :249) and puts the pad
+// rounded to bfloat16 (the wrapper rounds it) where a seed is NaN (:93);
+// K14's disco mask compares the stored old seed with the float32 logits
+// (:118), the write-back rounds to nearest even (:271), the face maxima come
+// from the rounded box (:274), and `masked` stays unrounded, as
+// _step_batch_impl returns it (:170-173). The float32 instantiations are
+// the kernels as they were before bfloat16 seeds.
 
 #include "common.cuh"
 
@@ -52,15 +63,17 @@ struct SelectGatherParams {
 
 // seed[z, y, x] of one lane with jnp's indexing of a traced index: a
 // negative index wraps once, then it clamps into the volume.
-__device__ inline float seed_at(const float* seed, const SelectGatherParams& p,
+template <typename T>
+__device__ inline float seed_at(const T* seed, const SelectGatherParams& p,
                                 const int* zyx) {
   const int z = clamp_start(zyx[0], p.Z, 1), y = clamp_start(zyx[1], p.Y, 1),
             x = clamp_start(zyx[2], p.X, 1);
-  return seed[((size_t)z * p.Y + y) * p.X + x];
+  return seed_load(seed + ((size_t)z * p.Y + y) * p.X + x);
 }
 
+template <typename T>
 __global__ void select_gather_kernel(const float* __restrict__ image,
-                                     const float* __restrict__ seeds,
+                                     const T* __restrict__ seeds,
                                      const int* __restrict__ packed,
                                      float* __restrict__ img_out,
                                      float* __restrict__ seed_out,
@@ -69,7 +82,7 @@ __global__ void select_gather_kernel(const float* __restrict__ image,
   __shared__ int pos_s[3];
   const int b = blockIdx.y;
   const size_t vol = (size_t)p.Z * p.Y * p.X;
-  const float* seed = seeds + (size_t)b * vol;
+  const T* seed = seeds + (size_t)b * vol;
   if (threadIdx.x == 0) {
     const int* row = packed + (size_t)b * (3 * p.K + 5);
     const int* start = row + 3 * p.K;
@@ -111,7 +124,8 @@ __global__ void select_gather_kernel(const float* __restrict__ image,
     const int y0 = clamp_start(py - p.sy / 2, p.Y, p.sy);
     const int x0 = clamp_start(px - p.sx / 2, p.X, p.sx);
     const int c = i % p.sx, bb = (i / p.sx) % p.sy, a = i / (p.sx * p.sy);
-    const float v = seed[((size_t)(z0 + a) * p.Y + y0 + bb) * p.X + x0 + c];
+    const float v =
+        seed_load(seed + ((size_t)(z0 + a) * p.Y + y0 + bb) * p.X + x0 + c);
     seed_out[(size_t)b * n_seed + i] = isnan(v) ? p.pad : v;
   }
 }
@@ -127,8 +141,9 @@ struct SelectUpdateParams {
   float move_t, disco_t;
 };
 
+template <typename T>
 __global__ void __launch_bounds__(kUpdateThreads)
-select_update_kernel(const float* __restrict__ logits, float* seeds,
+select_update_kernel(const float* __restrict__ logits, T* seeds,
                      const int* __restrict__ rec, float* masked,
                      float* __restrict__ packed, SelectUpdateParams p) {
   __shared__ int warp_counts[kUpdateThreads / 32];
@@ -138,7 +153,7 @@ select_update_kernel(const float* __restrict__ logits, float* seeds,
   const int* r = rec + 6 * b;
   const bool executed = r[0] != 0;
   const int pz = r[3], py = r[4], px = r[5];
-  float* seed = seeds + (size_t)b * p.Z * p.Y * p.X;
+  T* seed = seeds + (size_t)b * p.Z * p.Y * p.X;
   const float* lg = logits + (size_t)b * p.fz * p.fy * p.fx;
   const int n = p.qz * p.qy * p.qx;
   float* out = masked + (size_t)b * n;
@@ -157,23 +172,24 @@ select_update_kernel(const float* __restrict__ logits, float* seeds,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int c = i % p.qx, bb = (i / p.qx) % p.qy, a = i / (p.qx * p.qy);
     const float v = lg[((size_t)(a + dz) * p.fy + bb + dy) * p.fx + c + dx];
-    const float old = seed[((size_t)(oz + a) * p.Y + oy + bb) * p.X + ox + c];
+    const float old =
+        seed_load(seed + ((size_t)(oz + a) * p.Y + oy + bb) * p.X + ox + c);
     // (old < 0) is false for NaN: unvisited voxels always take the update.
     out[i] = (apply && old < 0.f && v > old) ? old : v;
   }
   __syncthreads();  // every `old` is read before any seed voxel is written
-  float* box = seed + ((size_t)wz * p.Y + wy) * p.X + wx;
+  T* box = seed + ((size_t)wz * p.Y + wy) * p.X + wx;
   const size_t sa = (size_t)p.Y * p.X, sb = p.X;
   if (executed) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int c = i % p.qx, bb = (i / p.qx) % p.qy, a = i / (p.qx * p.qy);
-      box[a * sa + bb * sb + c] = out[i];
+      seed_store(box + a * sa + bb * sb + c, out[i]);
     }
   }
   __syncthreads();
 
-  // Face maxima of the written box (the old values where the lane did not
-  // execute): warp f takes face f.
+  // Face maxima of the written (rounded) box (the old values where the
+  // lane did not execute): warp f takes face f.
   const int warp = threadIdx.x >> 5;
   if (warp < 6)
     face_max_warp(box, sa, sb, p.qz, p.qy, p.qx, p.r0, p.r1, p.r2, warp,
@@ -195,44 +211,59 @@ select_update_kernel(const float* __restrict__ logits, float* seeds,
   }
 }
 
+template <typename T>
+void launch_gather(const void* image, const void* seeds, const void* packed,
+                   void* img_out, void* seed_out, void* rec, dim3 grid,
+                   const SelectGatherParams& p, void* stream) {
+  select_gather_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(image), static_cast<const T*>(seeds),
+      static_cast<const int*>(packed), static_cast<float*>(img_out),
+      static_cast<float*>(seed_out), static_cast<int*>(rec), p);
+}
+
+template <typename T>
+void launch_update(const void* logits, void* seeds, const void* rec,
+                   void* masked, void* packed, int B,
+                   const SelectUpdateParams& p, void* stream) {
+  select_update_kernel<T><<<B, kUpdateThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(logits), static_cast<T*>(seeds),
+      static_cast<const int*>(rec), static_cast<float*>(masked),
+      static_cast<float*>(packed), p);
+}
+
 }  // namespace
 
-// image (Z,Y,X); seeds (B,Z,Y,X); packed (B, 3K+5) int32: K candidates,
-// start, active, ignore per lane.
+// image (Z,Y,X); seeds (B,Z,Y,X), bfloat16 where bf16 != 0, else float32;
+// packed (B, 3K+5) int32: K candidates, start, active, ignore per lane.
 extern "C" int ffn_select_gather(const void* image, const void* seeds,
                                  const void* packed, void* img_out,
                                  void* seed_out, void* rec, int B, int K,
                                  int Z, int Y, int X, int iz, int iy, int ix,
                                  int sz, int sy, int sx, float move_t,
-                                 float pad, void* stream) {
+                                 float pad, int bf16, void* stream) {
   if (B < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
   SelectGatherParams p{B, K, Z, Y, X, iz, iy, ix, sz, sy, sx, move_t, pad};
   const int n_img = iz * iy * ix, n_seed = sz * sy * sx;
   const int n = n_img > n_seed ? n_img : n_seed;
-  const int threads = 256;
-  const dim3 grid((n + threads - 1) / threads, B);
-  select_gather_kernel<<<grid, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(image), static_cast<const float*>(seeds),
-      static_cast<const int*>(packed), static_cast<float*>(img_out),
-      static_cast<float*>(seed_out), static_cast<int*>(rec), p);
+  const dim3 grid((n + 255) / 256, B);
+  (bf16 ? launch_gather<__nv_bfloat16> : launch_gather<float>)(
+      image, seeds, packed, img_out, seed_out, rec, grid, p, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
-// logits (B, fz,fy,fx): lane b's model output; rec (B, 6) from K13.
+// logits (B, fz,fy,fx): lane b's model output; rec (B, 6) from K13; seeds
+// bfloat16 where bf16 != 0.
 extern "C" int ffn_select_update(const void* logits, void* seeds,
                                  const void* rec, void* masked, void* packed,
                                  int B, int Z, int Y, int X, int fz, int fy,
                                  int fx, int qz, int qy, int qx, int r0,
                                  int r1, int r2, float move_t, float disco_t,
-                                 void* stream) {
+                                 int bf16, void* stream) {
   if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
   SelectUpdateParams p{Z, Y, X, fz, fy, fx, qz, qy, qx, r0, r1, r2,
                        move_t, disco_t};
-  select_update_kernel<<<B, kUpdateThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<float*>(seeds),
-      static_cast<const int*>(rec), static_cast<float*>(masked),
-      static_cast<float*>(packed), p);
+  (bf16 ? launch_update<__nv_bfloat16> : launch_update<float>)(
+      logits, seeds, rec, masked, packed, B, p, stream);
   return static_cast<int>(cudaGetLastError());
 }

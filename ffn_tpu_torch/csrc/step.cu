@@ -22,6 +22,14 @@
 // the seed buffer. Start indices follow lax.dynamic_slice and
 // lax.dynamic_update_slice: a negative start wraps once (start + shape),
 // then clamps into [0, shape - size].
+//
+// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16: one body
+// per kernel, templated on the seed type T (common.cuh). With bfloat16
+// seeds K2 puts the pad rounded to bfloat16 (the wrapper rounds it) where a
+// seed is NaN (engine.py:93); K3's disco mask compares the stored old seed
+// with the float32 logits (:118), its write-back rounds to nearest even
+// (:135), and the patch it returns stays unrounded (:136). The float32
+// instantiations are the kernels as they were before bfloat16 seeds.
 
 #include "common.cuh"
 
@@ -32,8 +40,9 @@ struct Box {
   int sz, sy, sx;  // size
 };
 
+template <typename T>
 __global__ void step_gather_kernel(const float* __restrict__ image,
-                                   const float* __restrict__ seed,
+                                   const T* __restrict__ seed,
                                    float* __restrict__ image_patch,
                                    float* __restrict__ seed_in, int Y, int X,
                                    Box ib, Box sb, float pad) {
@@ -46,15 +55,17 @@ __global__ void step_gather_kernel(const float* __restrict__ image,
   }
   if (i < n_seed) {
     const int c = i % sb.sx, b = (i / sb.sx) % sb.sy, a = i / (sb.sx * sb.sy);
-    const float v = seed[((size_t)(sb.z + a) * Y + sb.y + b) * X + sb.x + c];
+    const float v =
+        seed_load(seed + ((size_t)(sb.z + a) * Y + sb.y + b) * X + sb.x + c);
     seed_in[i] = isnan(v) ? pad : v;
   }
 }
 
 constexpr int kUpdateThreads = 1024;
 
+template <typename T>
 __global__ void __launch_bounds__(kUpdateThreads)
-step_update_kernel(const float* __restrict__ logits, float* seed,
+step_update_kernel(const float* __restrict__ logits, T* seed,
                    float* __restrict__ patch, int Y, int X, int fy, int fx,
                    int dz, int dy, int dx, Box old_box, Box write_box,
                    float move_t, float disco_t) {
@@ -88,46 +99,71 @@ step_update_kernel(const float* __restrict__ logits, float* seed,
   for (int i = tid; i < n; i += kUpdateThreads) {
     const int c = i % px, b = (i / px) % py, a = i / (px * py);
     const float v = logits[((size_t)(a + dz) * fy + b + dy) * fx + c + dx];
-    const float old =
-        seed[((size_t)(old_box.z + a) * Y + old_box.y + b) * X + old_box.x + c];
+    const float old = seed_load(
+        seed + ((size_t)(old_box.z + a) * Y + old_box.y + b) * X + old_box.x +
+        c);
     // (old < 0) is false for NaN: unvisited voxels always take the update.
     patch[i] = (apply && old < 0.f && v > old) ? old : v;
   }
   __syncthreads();  // every `old` is read before any seed voxel is written
   for (int i = tid; i < n; i += kUpdateThreads) {
     const int c = i % px, b = (i / px) % py, a = i / (px * py);
-    seed[((size_t)(write_box.z + a) * Y + write_box.y + b) * X + write_box.x +
-         c] = patch[i];
+    seed_store(seed + ((size_t)(write_box.z + a) * Y + write_box.y + b) * X +
+                   write_box.x + c,
+               patch[i]);
   }
+}
+
+template <typename T>
+void launch_gather(const float* image, const void* seed, float* image_patch,
+                   float* seed_in, int n, int Y, int X, const Box& ib,
+                   const Box& sb, float pad, void* stream) {
+  const int threads = 256;
+  step_gather_kernel<T><<<(n + threads - 1) / threads, threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      image, static_cast<const T*>(seed), image_patch, seed_in, Y, X, ib, sb,
+      pad);
+}
+
+template <typename T>
+void launch_update(const float* logits, void* seed, float* patch, int Y,
+                   int X, int fy, int fx, int dz, int dy, int dx,
+                   const Box& old_box, const Box& write_box, float move_t,
+                   float disco_t, void* stream) {
+  step_update_kernel<T><<<1, kUpdateThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      logits, static_cast<T*>(seed), patch, Y, X, fy, fx, dz, dy, dx,
+      old_box, write_box, move_t, disco_t);
 }
 
 }  // namespace
 
-// image, seed (Z,Y,X); image_patch (iz,iy,ix); seed_in (sz,sy,sx).
-extern "C" int ffn_step_gather(const float* image, const float* seed,
+// image (Z,Y,X); seed (Z,Y,X), bfloat16 where bf16 != 0, else float32;
+// image_patch (iz,iy,ix); seed_in (sz,sy,sx).
+extern "C" int ffn_step_gather(const float* image, const void* seed,
                                float* image_patch, float* seed_in, int Z,
                                int Y, int X, int pz, int py, int px, int iz,
                                int iy, int ix, int sz, int sy, int sx,
-                               float pad, void* stream) {
+                               float pad, int bf16, void* stream) {
   const Box ib{clamp_start(pz - iz / 2, Z, iz), clamp_start(py - iy / 2, Y, iy),
                clamp_start(px - ix / 2, X, ix), iz, iy, ix};
   const Box sb{clamp_start(pz - sz / 2, Z, sz), clamp_start(py - sy / 2, Y, sy),
                clamp_start(px - sx / 2, X, sx), sz, sy, sx};
   const int n_img = iz * iy * ix, n_seed = sz * sy * sx;
   const int n = n_img > n_seed ? n_img : n_seed;
-  const int threads = 256;
-  step_gather_kernel<<<(n + threads - 1) / threads, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      image, seed, image_patch, seed_in, Y, X, ib, sb, pad);
+  (bf16 ? launch_gather<__nv_bfloat16> : launch_gather<float>)(
+      image, seed, image_patch, seed_in, n, Y, X, ib, sb, pad, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
-// logits (fz,fy,fx): the model output at the seed patch; seed (Z,Y,X) is
-// updated in place; patch (qz,qy,qx) receives the written values.
-extern "C" int ffn_step_update(const float* logits, float* seed, float* patch,
+// logits (fz,fy,fx): the model output at the seed patch; seed (Z,Y,X),
+// bfloat16 where bf16 != 0, is updated in place; patch (qz,qy,qx) receives
+// the values before the write-back's rounding.
+extern "C" int ffn_step_update(const float* logits, void* seed, float* patch,
                                int Z, int Y, int X, int pz, int py, int px,
                                int fz, int fy, int fx, int qz, int qy, int qx,
-                               float move_t, float disco_t, void* stream) {
+                               float move_t, float disco_t, int bf16,
+                               void* stream) {
   const int dz = (fz - qz) / 2, dy = (fy - qy) / 2, dx = (fx - qx) / 2;
   // `old` comes from the clamped seed patch; the write start is the
   // unclamped seed start plus the pred delta, clamped on its own
@@ -138,9 +174,8 @@ extern "C" int ffn_step_update(const float* logits, float* seed, float* patch,
   const Box write_box{clamp_start(pz - fz / 2 + dz, Z, qz),
                       clamp_start(py - fy / 2 + dy, Y, qy),
                       clamp_start(px - fx / 2 + dx, X, qx), qz, qy, qx};
-  step_update_kernel<<<1, kUpdateThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  (bf16 ? launch_update<__nv_bfloat16> : launch_update<float>)(
       logits, seed, patch, Y, X, fy, fx, dz, dy, dx, old_box, write_box,
-      move_t, disco_t);
+      move_t, disco_t, stream);
   return static_cast<int>(cudaGetLastError());
 }

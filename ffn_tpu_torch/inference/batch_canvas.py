@@ -175,9 +175,6 @@ class BatchCanvas:
                  voxel_size_zyx=(1, 1, 1), counters=None, restrictor=None,
                  corner_zyx=None, keep_probability_maps=False,
                  checkpoint_path=None, checkpoint_interval_sec=0):
-        if self._allocate_seed_batch:
-            engine.require_float32_seeds(
-                "the round-based BatchCanvas (hops 0; K13, K14)")
         self.engine = engine
         self.image = np.ascontiguousarray(image, dtype=np.float32)
         self.voxel_size_zyx = voxel_size_zyx

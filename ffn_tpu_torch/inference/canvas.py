@@ -52,7 +52,6 @@ class Canvas:
           corner_zyx: spatial corner of `image` within the containing volume
           keep_probability_maps: track the quantized POM for .prob output
         """
-        engine.require_float32_seeds("the serial Canvas (K2, K3)")
         self.engine = engine
         self.image = np.ascontiguousarray(image, dtype=np.float32)
         self.voxel_size_zyx = voxel_size_zyx

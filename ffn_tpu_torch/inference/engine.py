@@ -27,11 +27,12 @@ calls run the kernels' plain PyTorch versions.
 
 Seeds are stored in `seed_dtype`: float32, or bfloat16 (the Runner's
 FFN_TPU_SEED_DTYPE=bf16, engine.py:63-67), which halves the seed memory
-per lane. Only the hop path with host finalization (K4-K7) takes bfloat16
-seeds so far; the serial step (K2, K3), the round-based step (K13, K14) and
-device finalization (K8) raise NotImplementedError on them
-(`require_float32_seeds`, ROADMAP.md Queue 2). Region downloads are
-float32, as the JAX engine's; uploads round into the seed dtype.
+per lane. Every kernel takes either (ops/step.py and ops/select.py say
+where bfloat16 rounds, as the JAX program does); each call dispatches on
+its seed tensor's dtype, so a serial seed rebuilt in float32 by a checkpoint
+restore stays float32, as in the JAX canvas. step and step_batch return the
+unrounded float32 patches. Region downloads are float32, as the JAX
+engine's; uploads and resets round into the seed dtype.
 """
 
 from __future__ import annotations
@@ -75,7 +76,8 @@ class FloodFillEngine:
         if seed_dtype not in hop_ops.SEED_DTYPES:
             raise NotImplementedError(
                 f"seed dtype {seed_dtype}: ffn_tpu_torch stores seeds in "
-                f"float32 or bfloat16 (ROADMAP.md, Queue 2)")
+                f"float32 or bfloat16, the dtypes the JAX Runner picks "
+                f"(ROADMAP.md)")
         self.seed_dtype = seed_dtype
         self.device = resolve_device(device)
         self.model = model
@@ -94,16 +96,6 @@ class FloodFillEngine:
                                 for v in self.info.pred_mask_size[::-1])
         self._pred_delta = tuple(
             (s - p) // 2 for s, p in zip(self._seed_size, self._pred_size))
-
-    def require_float32_seeds(self, what: str):
-        """Raises NotImplementedError where bfloat16 seeds would reach a
-        kernel that takes float32 seeds only."""
-        if self.seed_dtype != torch.float32:
-            raise NotImplementedError(
-                f"{what} with bfloat16 seeds (FFN_TPU_SEED_DTYPE=bf16) is "
-                f"not ported: ffn_tpu_torch runs bfloat16 seeds on the hop "
-                f"path with host finalization only (ROADMAP.md, Queue 2 "
-                f"item 2)")
 
     def new_seed_buffer(self, shape) -> torch.Tensor:
         return torch.full(tuple(shape), float("nan"), dtype=self.seed_dtype,

@@ -112,9 +112,6 @@ class HopBatchCanvas(batch_canvas_lib.BatchCanvas):
         self.device_finalize = (bool(device_finalize)
                                 and not self.keep_probability_maps
                                 and self.lanes > 1)
-        if self.device_finalize:
-            engine.require_float32_seeds(
-                "device finalization (FFN_TPU_DEVFIN=1; K8)")
         self._fstate = None
         self._state = engine.init_lane_state(self.lanes, self.shape)
         self._blocked_dev = engine.put_blocked(self._build_blocked())

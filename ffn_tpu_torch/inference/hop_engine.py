@@ -50,8 +50,7 @@ Seeds are float32 or bfloat16 (`seed_dtype`, FFN_TPU_SEED_DTYPE=bf16 in the
 Runner): K4-K7 read and write either (ops/hop.py says where bfloat16 rounds,
 as the JAX program does), the reseed plants init_activation rounded to
 bfloat16, and screening keeps its float32 fresh patch. Device finalization
-(K8) takes float32 seeds only: `init_finalize_state` raises
-NotImplementedError on bfloat16 seeds (ROADMAP.md, Queue 2 item 2).
+(K8) takes either too (ops/finalize.py says where it rounds).
 """
 
 from __future__ import annotations
@@ -226,8 +225,7 @@ class HopEngine(FloodFillEngine):
         :190-214). The log cannot overflow within a round: every kernel
         finalization consumes a lane that was RUNNING, and lanes enter
         RUNNING by a host reseed (<= B a round) or a kernel reseed (each
-        consumes a FIFO entry, <= S a round). K8 takes float32 seeds only."""
-        self.require_float32_seeds("device finalization (K8)")
+        consumes a FIFO entry, <= S a round)."""
         S = int(fifo_capacity) or max(2 * lanes, 256)
         L = S + lanes + 4
         if K > 17:

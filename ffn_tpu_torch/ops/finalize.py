@@ -30,6 +30,17 @@ kernel in `csrc/finalize.cu`; on CPU tensors it runs `finalize_pass_plain`,
 a Python loop over lanes, which is also the kernel's oracle on the card.
 Both update the lane and finalize state in place, where the JAX program
 donates its buffers.
+
+Lane seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16. With
+bfloat16 seeds the JAX program treats one origin two ways in one pass, and
+both versions copy it: the dud kill compares it with the unrounded float32
+move threshold (:835-836, promoted), the verdict with the threshold rounded
+to bfloat16 (:650). So a RUNNING lane whose origin v has bf16(move_t) <= v
+< move_t is killed as weak, while a DONE_EMPTY lane with the same v is
+finalized. The claim mask compares each seed with the segment threshold
+rounded to bfloat16 (:662), the blank is bfloat16 NaN and the init
+activation is stored rounded (:747-767). The kernel counts its bfloat16
+launches as "finalize_pass_bf16".
 """
 
 from __future__ import annotations
@@ -72,12 +83,23 @@ def blank_geometry(pred_size, seed_size, deltas, dims):
             tuple(int(v) for v in block - pred))
 
 
-def _fin_values(fin_opts):
-    """fin_opts as the kernel reads it: float32 segment threshold, the
-    minimum size cast to int32 as `astype` truncates, float32 init."""
+def _fin_values(fin_opts, seeds):
+    """fin_opts as the kernel reads it: the segment threshold and the init
+    activation in float32, rounded to bfloat16 for bfloat16 seeds, and the
+    minimum size cast to int32 as `astype` truncates."""
     fin_opts = np.asarray(fin_opts, np.float32)
-    return (float(fin_opts[0]), int(fin_opts[1].astype(np.int32)),
-            float(fin_opts[2]))
+    rnd = hop_ops.bf16_round if hop_ops.is_bf16(seeds) else float
+    return (rnd(fin_opts[0]), int(fin_opts[1].astype(np.int32)),
+            rnd(fin_opts[2]))
+
+
+def _verdict_threshold(move_threshold, seeds) -> float:
+    """The move threshold of finalize_one's verdict: rounded to bfloat16
+    for bfloat16 seeds (`move_t.astype(seed.dtype)`), unlike the dud
+    kill's."""
+    move_t = np.float32(move_threshold)
+    return hop_ops.bf16_round(move_t) if hop_ops.is_bf16(seeds) else \
+        float(move_t)
 
 
 def _at(t, pos):
@@ -92,8 +114,9 @@ def _clamped(pos, dims):
 def finalize_pass_plain(state, fstate, blocked, *, fin_opts, move_threshold,
                         max_iters, pred_size, seed_size, deltas):
     dev = state.seeds.device
-    seg_t, min_size, init_act = _fin_values(fin_opts)
+    seg_t, min_size, init_act = _fin_values(fin_opts, state.seeds)
     move_t = float(np.float32(move_threshold))
+    verdict_t = _verdict_threshold(move_threshold, state.seeds)
     dims = tuple(state.seeds.shape[1:])
     block, off0, reach = blank_geometry(pred_size, seed_size, deltas, dims)
     big = float(np.float32(2.0) * np.abs(np.float32(move_t))
@@ -107,7 +130,7 @@ def finalize_pass_plain(state, fstate, blocked, *, fin_opts, move_threshold,
     running = state.status == hop_ops.RUNNING
     lanes = torch.arange(state.status.shape[0], device=dev)
     s = state.start.long()
-    origin = state.seeds[lanes, s[:, 0], s[:, 1], s[:, 2]]
+    origin = state.seeds[lanes, s[:, 0], s[:, 1], s[:, 2]].float()
     capped = running & (state.iters >= max_iters) if max_iters > 0 else \
         torch.zeros_like(running)
     weak_now = (running & ~capped & ~state.fresh
@@ -141,7 +164,7 @@ def finalize_pass_plain(state, fstate, blocked, *, fin_opts, move_threshold,
 
         do_fin = status in (hop_ops.DONE_EMPTY, hop_ops.DONE_WEAK,
                             hop_ops.DONE_CAP)
-        start_ok = bool(_at(seed, start) >= move_t)
+        start_ok = bool(_at(seed, start).float() >= verdict_t)
         claimed_at = (bool(_at(seg_sv, start) > 0)
                       or bool(_at(blk_sv, start) & hop_ops.BLOCKED_CLAIMED))
         weak = status == hop_ops.DONE_WEAK or not start_ok
@@ -150,7 +173,7 @@ def finalize_pass_plain(state, fstate, blocked, *, fin_opts, move_threshold,
         sid = int(fstate.next_sid[sv])
         nvox = 0
         if cand:
-            mask = ((seed >= seg_t) & (seg_sv == 0)
+            mask = ((seed.float() >= seg_t) & (seg_sv == 0)
                     & ((blk_sv & hop_ops.BLOCKED_CLAIMED) == 0))
             nvox = int(mask.sum(dtype=torch.int32))
         ok = cand and nvox >= min_size
@@ -223,9 +246,9 @@ def finalize_pass(state, fstate, blocked: torch.Tensor, *, fin_opts,
                   deltas: Sequence[int]) -> torch.Tensor:
     """K8: one finalize pass over every lane, in place.
 
-    state is a LaneState (seeds (B,Z,Y,X) f32, the (B,) and (B,3) int32
-    fields, qpos (B,Q,3), qscore (B,Q), done (B,G0,G1,G2) u8, fresh (B,)
-    bool) and fstate a FinalizeState (seg (K,Z,Y,X) int32, next_sid (K,),
+    state is a LaneState (seeds (B,Z,Y,X) f32 or bf16, the (B,) and (B,3)
+    int32 fields, qpos (B,Q,3), qscore (B,Q), done (B,G0,G1,G2) u8, fresh
+    (B,) bool) and fstate a FinalizeState (seg (K,Z,Y,X) int32, next_sid (K,),
     fifo_pos (S,3), fifo_sv (S,), the 0-d fifo_n, fifo_head and log_n,
     log (L,10), hold (B,) bool, claimed (K,)), all int32 but where stated;
     blocked (K,Z,Y,X) uint8. fin_opts is float32 [segment_threshold,
@@ -239,7 +262,8 @@ def finalize_pass(state, fstate, blocked: torch.Tensor, *, fin_opts,
             fstate.next_sid, fstate.fifo_pos, fstate.fifo_sv, fstate.fifo_n,
             fstate.fifo_head, fstate.log, fstate.log_n, fstate.claimed)
     hop_ops._check_dtypes(NAME, torch.int32, *ints)
-    hop_ops._check_dtypes(NAME, torch.float32, seeds, state.qscore)
+    hop_ops._check_dtypes(NAME, torch.float32, state.qscore)
+    hop_ops.check_seeds(NAME, seeds)
     hop_ops._check_dtypes(NAME, torch.uint8, state.done, blocked)
     hop_ops._check_dtypes(NAME, torch.bool, state.fresh, fstate.hold)
     if (fstate.seg.shape != blocked.shape
@@ -260,7 +284,7 @@ def finalize_pass(state, fstate, blocked: torch.Tensor, *, fin_opts,
                          f"{MAX_LANES}")
     hop_ops._check_cuda(NAME, seeds, blocked, state.done, state.fresh,
                         state.qscore, fstate.hold, *ints)
-    seg_t, min_size, init_act = _fin_values(fin_opts)
+    seg_t, min_size, init_act = _fin_values(fin_opts, seeds)
     dims = tuple(seeds.shape[1:])
     block, off0, _ = blank_geometry(pred_size, seed_size, deltas, dims)
     alive = torch.zeros((1,), dtype=torch.int32, device=seeds.device)
@@ -284,8 +308,9 @@ def finalize_pass(state, fstate, blocked: torch.Tensor, *, fin_opts,
             B, state.qpos.shape[1], fstate.seg.shape[0], *dims,
             int(state.done[0].numel()), fstate.log.shape[0],
             *(int(v) for v in pred_size), *block, *off0, int(max_iters),
-            min_size, float(np.float32(move_threshold)), seg_t, init_act,
-            hop_ops._stream(seeds))
+            min_size, float(np.float32(move_threshold)),
+            _verdict_threshold(move_threshold, seeds), seg_t, init_act,
+            int(hop_ops.is_bf16(seeds)), hop_ops._stream(seeds))
     _build.check(err, NAME)
-    _build.launches[NAME] += 1
+    _build.launches[hop_ops.launch_name(NAME, seeds)] += 1
     return alive

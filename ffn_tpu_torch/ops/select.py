@@ -25,6 +25,17 @@ program donates and returns new ones.
 A read of one seed voxel follows jnp's indexing of a traced index (a
 negative index wraps once, then it clamps into the volume); patch starts
 follow `lax.dynamic_slice` (wrap once, then clamp into [0, shape - size]).
+
+Lane seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16. With
+bfloat16 seeds the JAX program rounds in some places and not in others, and
+the kernels and their plain versions copy it: K13 compares the stored start
+and candidate values with the unrounded float32 move threshold
+(engine.py:241, :249) and puts the pad value rounded to bfloat16 where a
+seed is NaN (:93); K14's disco mask compares the stored old seed with the
+float32 logits (:118), the write-back rounds to nearest even (:271) and the
+face maxima come from the rounded patch (:274), while the masked crops it
+returns, which step_batch returns (:170-173), stay unrounded. The kernels
+count their bfloat16 launches under their name plus "_bf16".
 """
 
 from __future__ import annotations
@@ -35,9 +46,10 @@ import torch
 
 from ffn_tpu_torch import _build
 from ffn_tpu_torch.ops.hop import (_check_cuda, _check_dtypes, _device_of,
-                                   _disco, _f32, _i32, _stream, box_index,
-                                   dynamic_starts, face_scores_plain,
-                                   hop_gather_plain)
+                                   _disco, _f32, _i32, _stream, bf16_round,
+                                   box_index, check_seeds, dynamic_starts,
+                                   face_scores_plain, hop_gather_plain,
+                                   is_bf16, launch_name)
 
 GATHER = "select_gather"
 UPDATE = "select_update"
@@ -68,7 +80,8 @@ def select_gather_plain(image, seeds, packed_in, *, image_size, seed_size,
 
     def values(pos):   # (B, n, 3) -> (B, n) seed values
         idx = dynamic_starts(pos, vol, 1).long()
-        return seeds[rows[:, None], idx[..., 0], idx[..., 1], idx[..., 2]]
+        return seeds[rows[:, None], idx[..., 0], idx[..., 1],
+                     idx[..., 2]].float()
 
     start_ok = (values(start[:, None])[:, 0] >= move_t) | ignore
     ok = values(cands) >= move_t
@@ -93,13 +106,14 @@ def select_gather(image: torch.Tensor, seeds: torch.Tensor,
     """K13: each lane's pick among its K candidates and the model inputs at
     it.
 
-    image (Z,Y,X) f32; seeds (B,Z,Y,X) f32; packed_in (B, 3K+5) int32 holds
-    per lane K candidate positions, the segment start, active and ignore.
-    Returns (image patches (B,*image_size), seed patches (B,*seed_size) with
-    NaN -> pad, record (B, 6) int32 [executed, chosen (-1 if none),
-    start_ok, pos z, y, x]).
+    image (Z,Y,X) f32; seeds (B,Z,Y,X) f32 or bf16; packed_in (B, 3K+5)
+    int32 holds per lane K candidate positions, the segment start, active
+    and ignore. Returns (image patches (B,*image_size), float32 seed patches
+    (B,*seed_size) with NaN -> pad (rounded to bf16 for bf16 seeds), record
+    (B, 6) int32 [executed, chosen (-1 if none), start_ok, pos z, y, x]).
     """
-    _check_dtypes(GATHER, torch.float32, image, seeds)
+    _check_dtypes(GATHER, torch.float32, image)
+    check_seeds(GATHER, seeds)
     _check_dtypes(GATHER, torch.int32, packed_in)
     B = seeds.shape[0]
     if (packed_in.dim() != 2 or packed_in.shape[0] != B
@@ -128,9 +142,11 @@ def select_gather(image: torch.Tensor, seeds: torch.Tensor,
         img.data_ptr(), seed_in.data_ptr(), rec.data_ptr(), B,
         (packed_in.shape[1] - 5) // 3, *seeds.shape[1:],
         *(int(v) for v in image_size), *(int(v) for v in seed_size),
-        float(move_threshold), float(pad), _stream(seeds))
+        float(move_threshold),
+        bf16_round(pad) if is_bf16(seeds) else float(pad),
+        int(is_bf16(seeds)), _stream(seeds))
     _build.check(err, GATHER)
-    _build.launches[GATHER] += 1
+    _build.launches[launch_name(GATHER, seeds)] += 1
     return img, seed_in, rec
 
 
@@ -153,11 +169,13 @@ def select_update_plain(logits, seeds, rec, *, pred_size, deltas,
     d = [int(v) for v in delta.tolist()]
     crop = logits[:, d[0]:d[0] + pred_size[0], d[1]:d[1] + pred_size[1],
                   d[2]:d[2] + pred_size[2]]
-    masked = _disco(crop, seeds[box_index(rows, old_start, pred_size)],
-                    move_threshold, disco_threshold)
+    old = seeds[box_index(rows, old_start, pred_size)].float()
+    masked = _disco(crop, old, move_threshold, disco_threshold)
     box = box_index(rows, write_start, pred_size)
-    patch = torch.where(executed[:, None, None, None], masked, seeds[box])
-    seeds[box] = patch
+    # The write-back's rounding, before the face maxima.
+    patch = torch.where(executed[:, None, None, None],
+                        masked.to(seeds.dtype), seeds[box]).float()
+    seeds[box] = patch.to(seeds.dtype)
     scores, offsets = face_scores_plain(patch, deltas)
     scores = torch.where(executed[:, None], scores,
                          torch.tensor(float("-inf"), device=dev))
@@ -175,11 +193,13 @@ def select_update(logits: torch.Tensor, seeds: torch.Tensor,
 
     logits (B, *seed_size) is the model output at the patches K13 gathered;
     rec (B, 6) int32 is K13's record. Per lane: the disco-masked crop, its
-    write-back where the lane executed, the face maxima of the written patch
-    (scores -inf where it did not). Returns (packed (B, 30) f32, the masked
-    crops (B, *pred_size)); `seeds` is updated in place.
+    write-back where the lane executed (rounded to bf16 for bf16 seeds), the
+    face maxima of the written patch (scores -inf where it did not). Returns
+    (packed (B, 30) f32, the unrounded masked crops (B, *pred_size) f32);
+    `seeds` is updated in place.
     """
-    _check_dtypes(UPDATE, torch.float32, logits, seeds)
+    _check_dtypes(UPDATE, torch.float32, logits)
+    check_seeds(UPDATE, seeds)
     _check_dtypes(UPDATE, torch.int32, rec)
     B = seeds.shape[0]
     if logits.shape[0] != B or rec.shape != (B, 6):
@@ -203,7 +223,7 @@ def select_update(logits: torch.Tensor, seeds: torch.Tensor,
         masked.data_ptr(), packed.data_ptr(), B, *seeds.shape[1:],
         *logits.shape[1:], *(int(v) for v in pred_size),
         *(int(v) for v in deltas), float(move_threshold),
-        float(disco_threshold), _stream(seeds))
+        float(disco_threshold), int(is_bf16(seeds)), _stream(seeds))
     _build.check(err, UPDATE)
-    _build.launches[UPDATE] += 1
+    _build.launches[launch_name(UPDATE, seeds)] += 1
     return packed, masked

@@ -10,6 +10,16 @@ Start indices follow `lax.dynamic_slice` and `lax.dynamic_update_slice`:
 a negative start first wraps once (start + shape, as numpy indexing
 does), then clamps into [0, shape - size]. So a FOV near a face reads and
 writes the same voxels as the JAX package.
+
+The seed is float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16. With
+bfloat16 seeds the JAX program rounds where ops/hop.py's K5 and K6 do: K2
+puts the pad value rounded to bfloat16 where a seed is NaN (engine.py:93),
+K3's disco mask compares the stored old seed with the float32 logits
+(:118) and its write-back rounds to nearest even (:135), but the patch K3
+returns is the unrounded float32 one (:136), which the serial canvas keeps
+in its host mirror. The kernels count their bfloat16 launches under their
+name plus "_bf16". They dispatch on the seed tensor's dtype: after a serial
+checkpoint restore the seed is float32, as in the JAX canvas.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import numpy as np
 import torch
 
 from ffn_tpu_torch import _build
+from ffn_tpu_torch.ops.hop import SEED_DTYPES, bf16_round, is_bf16, launch_name
 
 Int3 = Tuple[int, int, int]
 
@@ -36,11 +47,15 @@ def _box(start: Int3, size: Sequence[int]):
     return tuple(slice(s, s + int(z)) for s, z in zip(start, size))
 
 
-def _check_volume(name, *tensors):
+def _check_volume(name, seed, *tensors):
+    """float32 (Z,Y,X) tensors on one device; `seed` float32 or bfloat16."""
+    tensors = (seed,) + tensors
     for t in tensors:
-        if t.dim() != 3 or t.dtype != torch.float32:
-            raise ValueError(f"{name} takes float32 (Z,Y,X) volumes, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+        dtypes = SEED_DTYPES if t is seed else (torch.float32,)
+        if t.dim() != 3 or t.dtype not in dtypes:
+            raise ValueError(f"{name} takes (Z,Y,X) volumes, float32 (a seed "
+                             f"float32 or bfloat16), got {t.dtype} "
+                             f"{tuple(t.shape)}")
         if t.device != tensors[0].device:
             raise ValueError(f"{name}: tensors on {t.device} and "
                              f"{tensors[0].device}")
@@ -66,7 +81,8 @@ def step_gather_plain(image, seed, pos, image_size, seed_size, pad):
     seed_start = clamp_start([p - s // 2 for p, s in zip(pos, seed_size)],
                              seed.shape, seed_size)
     image_patch = image[_box(img_start, image_size)].contiguous()
-    seed_patch = seed[_box(seed_start, seed_size)]
+    seed_patch = seed[_box(seed_start, seed_size)].float()
+    pad = bf16_round(pad) if is_bf16(seed) else pad
     seed_in = torch.where(torch.isnan(seed_patch),
                           torch.tensor(pad, dtype=torch.float32,
                                        device=seed.device),
@@ -77,12 +93,14 @@ def step_gather_plain(image, seed, pos, image_size, seed_size, pad):
 def step_gather(image: torch.Tensor, seed: torch.Tensor, pos: Sequence[int],
                 image_size: Sequence[int], seed_size: Sequence[int],
                 pad: float):
-    """K2: (image_patch, seed_in) at `pos`; NaN seed voxels become `pad`.
+    """K2: (image_patch, seed_in) at `pos`; NaN seed voxels become `pad`
+    (rounded to bf16 for bf16 seeds).
 
-    image and seed are (Z,Y,X) float32; sizes are zyx; each patch starts at
-    pos - size // 2, clamped into the volume.
+    image is (Z,Y,X) float32, seed (Z,Y,X) float32 or bfloat16; sizes are
+    zyx; each patch starts at pos - size // 2, clamped into the volume. Both
+    patches are float32.
     """
-    _check_volume(GATHER, image, seed)
+    _check_volume(GATHER, seed, image)
     if image.shape != seed.shape:
         raise ValueError(f"{GATHER}: image {tuple(image.shape)} and seed "
                          f"{tuple(seed.shape)} differ")
@@ -99,9 +117,10 @@ def step_gather(image: torch.Tensor, seed: torch.Tensor, pos: Sequence[int],
         image.data_ptr(), seed.data_ptr(), image_patch.data_ptr(),
         seed_in.data_ptr(), *image.shape, *(int(p) for p in pos),
         *(int(s) for s in image_size), *(int(s) for s in seed_size),
-        float(pad), torch.cuda.current_stream(image.device).cuda_stream)
+        bf16_round(pad) if is_bf16(seed) else float(pad), int(is_bf16(seed)),
+        torch.cuda.current_stream(image.device).cuda_stream)
     _build.check(err, GATHER)
-    _build.launches[GATHER] += 1
+    _build.launches[launch_name(GATHER, seed)] += 1
     return image_patch, seed_in
 
 
@@ -130,7 +149,7 @@ def step_update_plain(logits, seed, pos, pred_size, move_threshold,
     delta, old_start, write_start = _update_boxes(pos, seed.shape,
                                                   logits.shape, pred_size)
     crop = logits[_box(tuple(delta), pred_size)]
-    old = seed[_box(old_start, pred_size)]
+    old = seed[_box(old_start, pred_size)].float()
     # jnp.mean of the 0/1 vector: an exact f32 count over one f32 division.
     count = int((crop >= float(np.float32(move_threshold))).sum())
     frac = np.float32(count) / np.float32(crop.numel())
@@ -139,7 +158,7 @@ def step_update_plain(logits, seed, pos, pred_size, move_threshold,
     keep = (old < 0) & (crop > old) if apply else torch.zeros_like(
         crop, dtype=torch.bool)
     patch = torch.where(keep, old, crop)
-    seed[_box(write_start, pred_size)] = patch
+    seed[_box(write_start, pred_size)] = patch.to(seed.dtype)
     return patch
 
 
@@ -148,11 +167,12 @@ def step_update(logits: torch.Tensor, seed: torch.Tensor, pos: Sequence[int],
                 disco_threshold: float) -> torch.Tensor:
     """K3: crop, disco mask and write-back of one step; returns the patch.
 
-    logits is the model's (fz,fy,fx) output at the seed patch around `pos`;
-    `seed` (Z,Y,X) is updated in place. disco_threshold < 0 disables the
-    keep-old mask.
+    logits is the model's float32 (fz,fy,fx) output at the seed patch around
+    `pos`; `seed` (Z,Y,X) float32 or bfloat16 is updated in place (rounded
+    to nearest even for bfloat16). The returned float32 patch is unrounded.
+    disco_threshold < 0 disables the keep-old mask.
     """
-    _check_volume(UPDATE, logits, seed)
+    _check_volume(UPDATE, seed, logits)
     _check_fits(UPDATE, seed.shape, logits.shape)
     _check_fits(UPDATE, logits.shape, pred_size)
     if seed.device.type == "cpu":
@@ -165,8 +185,8 @@ def step_update(logits: torch.Tensor, seed: torch.Tensor, pos: Sequence[int],
     err = _build.lib().ffn_step_update(
         logits.data_ptr(), seed.data_ptr(), patch.data_ptr(), *seed.shape,
         *(int(p) for p in pos), *logits.shape, *(int(s) for s in pred_size),
-        float(move_threshold), float(disco_threshold),
+        float(move_threshold), float(disco_threshold), int(is_bf16(seed)),
         torch.cuda.current_stream(seed.device).cuda_stream)
     _build.check(err, UPDATE)
-    _build.launches[UPDATE] += 1
+    _build.launches[launch_name(UPDATE, seed)] += 1
     return patch

@@ -151,9 +151,6 @@ class MultiSubvolumeHopDriver:
         self.engine = runner.engine
         if not isinstance(self.engine, hop_engine_lib.HopEngine):
             raise TypeError("MultiSubvolumeHopDriver needs a HopEngine")
-        self.engine.require_float32_seeds(
-            "the fused multi-subvolume driver (K8, K4 with the device "
-            "segmentation)")
         self.tasks = deque(
             (tuple(int(v) for v in c), tuple(int(v) for v in s))
             for c, s in tasks)

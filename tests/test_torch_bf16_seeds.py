@@ -59,11 +59,12 @@ FOV = 9
 
 
 class _JaxSeedModel:
-    """2 image + seed / 2: reads the seed, exact in float32."""
+    """2 image + seed / 2: reads the seed, exact in float32; the engine
+    crops `pred`."""
 
-    def __init__(self):
+    def __init__(self, pred=FOV):
         self.info = jax_model_info.ModelInfo(
-            deltas=list(DELTAS[::-1]), pred_mask_size=[FOV] * 3,
+            deltas=list(DELTAS[::-1]), pred_mask_size=[pred] * 3,
             input_seed_size=[FOV] * 3, input_image_size=[FOV] * 3,
             additive=False)
 
@@ -72,9 +73,9 @@ class _JaxSeedModel:
 
 
 class _PortSeedModel:
-    def __init__(self):
+    def __init__(self, pred=FOV):
         self.info = model_info.ModelInfo(
-            deltas=list(DELTAS[::-1]), pred_mask_size=[FOV] * 3,
+            deltas=list(DELTAS[::-1]), pred_mask_size=[pred] * 3,
             input_seed_size=[FOV] * 3, input_image_size=[FOV] * 3,
             additive=False)
 

@@ -240,9 +240,9 @@ def test_port_refuses_what_it_does_not_run():
     state = peng.init_lane_state(2, (20, 20, 20))
     img = peng.put_image(np.zeros((20, 20, 20), np.float32))
     blk = peng.put_blocked(np.zeros((20, 20, 20), np.uint8))
-    # Device finalization and sync=False are ported; what stays refused is
-    # what the JAX engine refuses too, and device finalization (K8) on
-    # bfloat16 seeds.
+    # Device finalization and sync=False are ported, on bfloat16 seeds too;
+    # what stays refused is what the JAX engine refuses too, and float16
+    # seeds, which the JAX Runner never picks.
     with pytest.raises(ValueError, match="needs fin_opts"):
         peng.run_hops(img, blk, state, 2,
                       fstate=peng.init_finalize_state(1, 2, (20, 20, 20)))
@@ -254,9 +254,12 @@ def test_port_refuses_what_it_does_not_run():
                                 move_threshold=MOVE_T,
                                 disco_seed_threshold=0.0, device="cpu",
                                 seed_dtype=torch.bfloat16)
-    assert beng.init_lane_state(2, (20, 20, 20)).seeds.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        beng.init_finalize_state(1, 2, (20, 20, 20))
+    bstate = beng.init_lane_state(2, (20, 20, 20))
+    assert bstate.seeds.dtype == torch.bfloat16
+    fstate = beng.init_finalize_state(1, 2, (20, 20, 20))
+    bstate, fstate, _ = beng.run_hops(img, blk, bstate, 2, fstate=fstate,
+                                      fin_opts=[0.4, 5, 2.0])
+    assert bstate.seeds.dtype == torch.bfloat16 and int(fstate.log_n) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         hop_engine.HopEngine(peng.model, pad_value=PAD, move_threshold=MOVE_T,
                              disco_seed_threshold=0.0, device="cpu",

@@ -625,9 +625,9 @@ class _Fields:
 
 
 def finalize_step(fn, lanes, fin, blocked, opts, *, fov, deltas,
-                  max_iters):
+                  max_iters, move_threshold=MOVE_T):
     return fn(_Fields(lanes), _Fields(fin), blocked, fin_opts=opts,
-              move_threshold=MOVE_T, max_iters=max_iters,
+              move_threshold=move_threshold, max_iters=max_iters,
               pred_size=(fov,) * 3, seed_size=(fov,) * 3, deltas=deltas)
 
 
@@ -1180,15 +1180,15 @@ def crafted_select(rng, B, K, shape, fixed=False):
 
 
 def select_round(ops, image, seeds, packed, logits, *, fov, pred, deltas,
-                 disco):
+                 disco, move_threshold=MOVE_T):
     """K13 -> (fixed logits) -> K14 through `ops`; returns (img, seed_in,
     rec, packed row, masked)."""
     img, seed_in, rec = ops.select_gather(
         image, seeds, packed, image_size=(fov,) * 3, seed_size=(fov,) * 3,
-        move_threshold=MOVE_T, pad=PAD)
+        move_threshold=move_threshold, pad=PAD)
     row, masked = ops.select_update(
         logits, seeds, rec, pred_size=(pred,) * 3, deltas=deltas,
-        move_threshold=MOVE_T, disco_threshold=disco)
+        move_threshold=move_threshold, disco_threshold=disco)
     return img, seed_in, rec, row, masked
 
 
@@ -1243,3 +1243,207 @@ def test_select_plain_runs_on_crafted_rounds():
     assert rec[3, 1] == 2 and rec[4, 1] == 0 and rec[0, 1] == 0
     assert rec[[5, 7, 8, 9], 0].all()
     assert np.isinf(row.numpy()[rec[:, 0] == 0, 3:9]).all()
+
+
+# -- K2, K3, K8, K13, K14 on bfloat16 seeds -----------------------------------
+
+# A segment threshold that rounds down to bfloat16 too.
+SEG_T_LO = float(np.float32(0.299))
+
+
+def bf16_edges(move_t, seg_t=SEG_T_LO):
+    """bfloat16 seed values on the thresholds' rounding edges: bf16(move_t)
+    (below a move_t that rounds down) and the next bfloat16 above it,
+    bf16(seg_t) and the next one below it."""
+    from ffn_tpu_torch.ops.hop import bf16_round
+    move_bf, seg_bf = bf16_round(move_t), bf16_round(seg_t)
+    return np.float32([move_bf, bf16_round(move_bf * (1 + 2 ** -8)), seg_bf,
+                       bf16_round(seg_bf * (1 - 2 ** -8))])
+
+
+def bf16_round_array(values):
+    """float32 numpy values rounded to bfloat16, back in float32."""
+    return torch.from_numpy(np.ascontiguousarray(values, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def bf16_finalize_edges(rng, lanes, fin, opts, move_t):
+    """crafted_finalize's state for bfloat16 seeds, in place: SEG_T_LO,
+    objects on bf16_edges, lanes 16 (RUNNING) and 17 (DONE_EMPTY) on the
+    origin bf16(move_t) < move_t (weak to the dud kill, strong to the
+    verdict); the seeds rounded to bfloat16 (as float32)."""
+    opts[0] = SEG_T_LO
+    seeds = lanes["seeds"]
+    edges = bf16_edges(move_t)
+    for b in (0, 1, 10):
+        box = np.nonzero(seeds[b] == 2.0)
+        pick = rng.rand(len(box[0])) < 0.4
+        seeds[(b,) + tuple(a[pick] for a in box)] = rng.choice(
+            edges, size=int(pick.sum()))
+    for b in (16, 17):
+        seeds[(b,) + tuple(lanes["start"][b])] = edges[0]
+    lanes["status"][16], lanes["fresh"][16], lanes["iters"][16] = 1, False, 2
+    lanes["status"][17], fin["hold"][17], lanes["iters"][17] = 2, False, 3
+    lanes["seeds"] = bf16_round_array(seeds)
+
+
+def bf16_select_edges(rng, seeds, packed, move_t):
+    """crafted_select's round for bfloat16 seeds, in place: seeds on
+    bf16_edges, starts and candidates at bf16(move_t) < move_t on some
+    lanes; the seeds rounded to bfloat16 (as float32)."""
+    B = seeds.shape[0]
+    K = (packed.shape[1] - 5) // 3
+    edges = bf16_edges(move_t)
+    pick = rng.rand(*seeds.shape) < 0.15
+    seeds[pick] = rng.choice(edges, size=int(pick.sum()))
+    dims = np.array(seeds.shape[1:])
+    for b in rng.choice(B, size=B // 3, replace=False):
+        k = rng.randint(K + 1)   # K: the start
+        p = packed[b, 3 * k:3 * k + 3]
+        idx = np.clip(np.where(p < 0, p + dims, p), 0, dims - 1)
+        seeds[(b,) + tuple(idx)] = edges[rng.randint(2)]
+    seeds[...] = bf16_round_array(seeds)
+
+
+def _bf16_launches(names):
+    from ffn_tpu_torch import _build
+    return {n: _build.launches[n] for n in names}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("disco", [-1.0, 0.0, 0.5])
+def test_step_kernels_match_plain_bf16_seeds(card, disco):
+    # K2/K3's bfloat16 instantiations bit for bit against the plain
+    # versions: the pad rounded to bf16, the disco mask on the stored old
+    # seed, the rounded write-back and the unrounded returned patch.
+    rng = np.random.RandomState(16)
+    image = torch.from_numpy(rng.randn(*SHAPE).astype(np.float32)).to(card)
+    seed_np = (rng.randn(*SHAPE) * 3).astype(np.float32)
+    seed_np[rng.rand(*SHAPE) < 0.3] = np.nan
+    pick = rng.rand(*SHAPE) < 0.2
+    seed_np[pick] = rng.choice(bf16_edges(MOVE_T_LO), size=int(pick.sum()))
+    names = ("step_gather", "step_update", "step_gather_bf16",
+             "step_update_bf16")
+    before = _bf16_launches(names)
+    for pos in POSITIONS:
+        seed = torch.from_numpy(seed_np).to(card).to(torch.bfloat16)
+        got = step_ops.step_gather(image, seed, pos, (FOV,) * 3, (7, 7, 7),
+                                   PAD)
+        want = step_ops.step_gather_plain(image, seed, pos, (FOV,) * 3,
+                                          (7, 7, 7), PAD)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+        logits = torch.from_numpy((rng.randn(FOV, FOV, FOV) * 3).astype(
+            np.float32)).to(card)
+        pseed = seed.clone()
+        kpatch = step_ops.step_update(logits, seed, pos, (7, 7, 7),
+                                      MOVE_T_LO, disco)
+        ppatch = step_ops.step_update_plain(logits, pseed, pos, (7, 7, 7),
+                                            MOVE_T_LO, disco)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(kpatch.cpu().numpy(),
+                                      ppatch.cpu().numpy())
+        np.testing.assert_array_equal(seed.float().cpu().numpy(),
+                                      pseed.float().cpu().numpy())
+        assert kpatch.dtype == torch.float32 and seed.dtype == torch.bfloat16
+    after = _bf16_launches(names)
+    n = len(POSITIONS)
+    assert [after[k] - before[k] for k in names] == [0, 0, n, n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,fixed,pred,deltas,disco", [
+    (4, False, FOV, (2, 2, 2), 0.0), (1, True, FOV, (2, 2, 2), 0.5),
+    (3, False, 7, (3, 0, 2), -1.0)])
+def test_select_kernels_match_plain_bf16_seeds(card, K, fixed, pred, deltas,
+                                               disco):
+    # K13/K14's bfloat16 instantiations: starts and candidates against the
+    # unrounded move threshold, the pad rounded, the rounded write-back
+    # with its face maxima, the unrounded masked crops.
+    rng = np.random.RandomState(17)
+    B = 37
+    seeds, packed = crafted_select(rng, B, K, SHAPE, fixed)
+    bf16_select_edges(rng, seeds, packed, MOVE_T_LO)
+    image = torch.from_numpy(rng.randn(*SHAPE).astype(np.float32)).to(card)
+    logits = tied_logits(rng, B, FOV) + rng.randn(B, FOV, FOV, FOV).astype(
+        np.float32) * 1e-3
+    lg = torch.from_numpy(logits).to(card)
+    pk = torch.from_numpy(packed).to(card)
+    ks = torch.from_numpy(seeds).to(card).to(torch.bfloat16)
+    ps = ks.clone()
+    kw = dict(fov=FOV, pred=pred, deltas=deltas, disco=disco,
+              move_threshold=MOVE_T_LO)
+    names = ("select_gather", "select_update", "select_gather_bf16",
+             "select_update_bf16")
+    before = _bf16_launches(names)
+    got = select_round(select_ops, image, ks, pk, lg, **kw)
+    want = select_round(_PlainSelect, image, ps, pk, lg, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("img", "seed_in", "rec", "row", "masked"), got,
+                          want):
+        assert g.shape == w.shape and nan_equal(g, w), name
+    assert ks.dtype == torch.bfloat16 and nan_equal(ks, ps)
+    after = _bf16_launches(names)
+    assert [after[k] - before[k] for k in names] == [0, 0, 1, 1]
+
+
+@pytest.mark.cuda
+def test_finalize_pass_matches_plain_bf16_seeds(card):
+    # K8's bfloat16 instantiation: the dud kill against the float32 move
+    # threshold, the verdict and the claim mask against thresholds rounded
+    # to bf16, bf16 blanks and the rounded init activation.
+    from ffn_tpu_torch.ops import finalize as fin_ops
+    rng = np.random.RandomState(18)
+    lanes, fin, blocked, opts = crafted_finalize(
+        rng, 24, 2, SHAPE, 64, 24, FOV, (2, 2, 2), 5, 20)
+    bf16_finalize_edges(rng, lanes, fin, opts, MOVE_T_LO)
+    blk = torch.from_numpy(blocked).to(card)
+    ks = (to_torch(lanes, card), to_torch(fin, card))
+    ps = (to_torch(lanes, card), to_torch(fin, card))
+    for s in (ks, ps):
+        s[0]["seeds"] = s[0]["seeds"].to(torch.bfloat16)
+    kw = dict(fov=FOV, deltas=(2, 2, 2), max_iters=5,
+              move_threshold=MOVE_T_LO)
+    before = _bf16_launches(("finalize_pass", "finalize_pass_bf16"))
+    for _ in range(2):   # the second pass finds the first one's results
+        got = finalize_step(fin_ops.finalize_pass, *ks, blk, opts, **kw)
+        want = finalize_step(fin_ops.finalize_pass_plain, *ps, blk, opts,
+                             **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for k, p in zip(ks, ps):
+            for name in p:
+                assert nan_equal(k[name], p[name]), name
+    log = ps[1]["log"][:int(ps[1]["log_n"])].cpu().numpy()
+    first = {}
+    for row in log:
+        first.setdefault(int(row[9]), int(row[8]))
+    assert first[16] == fin_ops.FIN_WEAK and first[17] != fin_ops.FIN_WEAK
+    after = _bf16_launches(("finalize_pass", "finalize_pass_bf16"))
+    assert after["finalize_pass"] == before["finalize_pass"]
+    assert after["finalize_pass_bf16"] == before["finalize_pass_bf16"] + 2
+
+
+def test_bf16_crafted_states_hit_their_edges():
+    """The bfloat16 crafted states reach their edges (on the CPU)."""
+    from ffn_tpu_torch.ops import finalize as fin_ops
+    rng = np.random.RandomState(18)
+    lanes, fin, blocked, opts = crafted_finalize(
+        rng, 24, 2, SHAPE, 64, 24, FOV, (2, 2, 2), 5, 20)
+    bf16_finalize_edges(rng, lanes, fin, opts, MOVE_T_LO)
+    st = (to_torch(lanes, "cpu"), to_torch(fin, "cpu"))
+    st[0]["seeds"] = st[0]["seeds"].to(torch.bfloat16)
+    finalize_step(fin_ops.finalize_pass_plain, *st, torch.from_numpy(blocked),
+                  opts, fov=FOV, deltas=(2, 2, 2), max_iters=5,
+                  move_threshold=MOVE_T_LO)
+    rows = st[1]["log"][:int(st[1]["log_n"])].numpy()
+    outcome = {int(r[9]): int(r[8]) for r in rows}
+    assert outcome[16] == fin_ops.FIN_WEAK
+    # Past the verdict's start test: claimed by an earlier finalization.
+    assert outcome[17] == fin_ops.FIN_CLAIMED
+    rng = np.random.RandomState(17)
+    seeds, packed = crafted_select(rng, 37, 4, SHAPE)
+    bf16_select_edges(rng, seeds, packed, MOVE_T_LO)
+    assert (seeds == bf16_edges(MOVE_T_LO)[0]).any()
+    np.testing.assert_array_equal(seeds[~np.isnan(seeds)],
+                                  bf16_round_array(seeds[~np.isnan(seeds)]))

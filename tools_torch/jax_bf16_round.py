@@ -8,7 +8,16 @@ options) on the padded 100^3 phantom of seed 0, through ffn_tpu's Runner.
   python tools_torch/jax_bf16_round.py
 
 Prints the moves, objects and ground-truth agreement, to set beside the
-port's run of the same slice on K15 and on K15's plain version.
+port's run of the same slice on K15 and on K15's plain version. With
+FFN_TPU_SEED_DTYPE=bf16 both packages keep bf16 lane seeds. With
+`--port` it runs ffn_tpu_torch's Runner instead, on the CPU, with the JAX
+model's own bf16 convolutions in place of the port's: everything else of
+the round path is the port's. `--ci` takes the CI checkpoint (depth 2, 16
+features, 17^3) in bf16 instead of model-r2 (minutes). XLA's CPU backend
+may keep a bf16 model's intermediates in float32 where it fuses them
+(`xla_allow_excess_precision`, on by default), so the JAX model's outputs
+depend on the program it is compiled into: with XLA_FLAGS=
+--xla_allow_excess_precision=false the two runs should be equal.
 """
 
 import json
@@ -49,12 +58,26 @@ def main():
     request.model_checkpoint_path = os.path.join(
         REPO, "models", "phantom", "model-r2.npz")
     args = json.loads(request.model_args)
+    if "--ci" in sys.argv:
+        request.model_checkpoint_path = os.path.join(
+            REPO, "models", "phantom", "model-ci-tiny.npz")
+        args = {"depth": 2, "fov_size": [17] * 3, "deltas": [6] * 3,
+                "features": 16}
     args["dtype"] = "bfloat16"
     request.model_args = json.dumps(args)
     request.concurrent_requests = 8
     runner = jax_runner.Runner()
     runner.canvas_defaults.update(hops=0, max_iters_per_segment=4000)
     runner.start(request)
+    if "--port" in sys.argv:
+        import torch
+        from ffn_tpu_torch.inference import runner as torch_runner
+        model, params = runner.model, runner.model_params
+        runner = torch_runner.Runner(device="cpu")
+        runner.canvas_defaults.update(hops=0, max_iters_per_segment=4000)
+        runner.start(request)
+        runner.model.apply = lambda image, seed: torch.from_numpy(np.array(
+            model.apply(params, image.numpy(), seed.numpy()), np.float32))
     t0 = time.time()
     runner.run((0, 0, 0), raw.shape, keep_probability_maps=False)
     seg = jax_storage.load_segmentation(request.segmentation_output_dir,
