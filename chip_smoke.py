@@ -5,57 +5,44 @@ trainers on one NVIDIA card.
 
   python3 chip_smoke.py
 
-Phases (any failure ends the run with a non-zero exit; each phase's
-function says what it holds and to what):
+Phases (a failure ends the run with a non-zero exit; each function says
+what it holds):
   1. device: the card's name and power limit, torch/CUDA versions, which
      of protobuf/absl/h5py/jax this machine has;
-  2. build: K1-K16 from ffn_tpu_torch/csrc, one nvcc per source;
-  3. every kernel against its plain PyTorch version at the main paths'
-     shapes, with median CUDA-event times per call (kernel and plain in
-     turns), bounds and library calls: K1 per layer at N = 1-256 and as
-     the depth-12 stack; K2-K8, K13 and K14 bit for bit with float32 and
-     with bfloat16 seeds (thresholds' rounding edges, NaN): K2/K3 at the
-     serial shapes, K4-K7 on crafted 64-lane states on 132^3, K8 on a
-     crafted pass of 64 lanes and 4 slots of 82^3, K13/K14 on a crafted
-     64-lane round; K6's screen mode; K4 with the device segmentation,
-     K7's batched masks; K9-K12 and K16 at batch 4; K15 per layer at N =
-     1-256 and as the stack, against its plain version and the float64
-     sums;
+  2. build: K1-K18 from ffn_tpu_torch/csrc, one nvcc per source;
+  3. every kernel against its plain version at the main paths' shapes,
+     with CUDA-event times (kernel, plain, library), bounds: K1 per layer
+     and as the stack; K2-K8, K13, K14 bit for bit with float32 and bf16
+     seeds on crafted states; K9-K12, K16 at batch 4; K15 per layer and
+     as the stack against plain and the float64 sums; the 16-bit training
+     kernels (K15 in float16, K17, K18, K12's scale);
   4. the fib25 model against the JAX package's stored logits;
-  5. the serial slice (Runner -> Canvas) on the padded 100^3 quality-gate
-     phantom, on kernels and plain, then model-r2 held to 0.95;
-  6. the 64-lane hop slice (Runner -> HopBatchCanvas -> run_hops) on
-     kernels; the gate's 8-lane pair, its hop run also with K4-K7 plain,
-     identical;
+  5. the serial slice (Runner -> Canvas) on the padded 100^3 phantom,
+     kernels and plain, then model-r2 held to 0.95;
+  6. the 64-lane hop slice (HopBatchCanvas -> run_hops); the gate's
+     8-lane pair, also with K4-K7 plain, identical;
   7. the gate pair at 64 lanes with the CI checkpoint against the JAX
      package's run (tests/golden/gate_ci_lanes_golden.npz);
-  8. the fused slice (the sharded CLI, 8 x 82^3, 4 slots, 64 lanes) with
-     device and host finalization; each on one subvolume on kernels and
-     with K4/K7/K8 plain, identical; stitched agreements held to floors;
-  9. the CI checkpoint's fused runs against tests/golden/fused_ci_golden;
- 10. model-r2's fused run on 96^3 against tests/golden/fused_r2_golden;
- 11. the scan trainer at full width for 8 steps: kernels against plain,
-     an exact resume, a profiled step, tests/golden/train_ci_golden.npz,
-     the trained checkpoint in the serial Runner;
- 12. the round-based slice (hops 0: K13 -> K1 -> K14) at 8 lanes on
-     kernels and plain, identical; then 64 lanes;
+  8. the fused slice (sharded CLI, 8 x 82^3, 4 slots, 64 lanes), device
+     and host finalization, each also on one box with K4/K7/K8 plain;
+  9-10. the CI checkpoint's and model-r2's fused runs against
+     tests/golden/fused_{ci,r2}_golden;
+ 11. the scan trainer at full width, 8 steps: kernels against plain, an
+     exact resume, a profiled step, train_ci_golden, the Runner;
+ 12. the round-based slice (hops 0) at 8 lanes, kernels and plain; 64;
  13. the CI checkpoint at 64 lanes, hops 0, against the JAX package's run;
- 14. bfloat16 inference (model_args dtype "bfloat16") on K15 and on its
-     plain version: the serial, 8-lane hop, 8-lane round and fused
-     slices, each pair's agreement printed;
- 15. the host-loop trainer at full width for 40 steps (K16);
- 16. bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) with model-r2 in
-     bfloat16 on every inference path (hop at the JAX e2e bench's 48
-     lanes, FFN_TPU_DEVFIN=1, round, serial, fused in both finalize modes),
-     each on the *_bf16 seed kernels and on their plain versions,
-     identical; against float32 seeds on the hop and fused slices.
+ 14. bfloat16 inference on K15 and its plain version: serial, hop, round
+     and fused slices;
+ 15. the host-loop trainer at full width, 40 steps (K16);
+ 16. bf16 lane seeds on every inference path, on the *_bf16 kernels and
+     plain versions, identical; against float32 seeds;
+ 17. the train CLI with --precision bf16 and f16 (K15, K17, K18; f16's
+     loss scale in K11, K12), against plain, f16 resumed exactly; the
+     host loop in bf16.
 The line before the last, {"kernels": [...]}, gives each kernel its
-launches on every main path's run (`launches_by_path`) and their sum, its
-error against its plain version, its median time, its plain version's, a
-library call's where one PyTorch call computes the same function, and its
-bound (bytes, or float32 or bfloat16 operations, at the H100's published
-peaks). The last line is {"ok": true, "device": {...}}. Imports nothing
-of JAX.
+launches by path and in sum, its error against plain, its median time,
+its plain version's, a library call's where one exists, and its bound.
+The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -79,7 +66,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHANTOM_SIZE = 100   # cube edge of the phantom (250 in the shipped demo)
 PHANTOM_CELLS = 8    # the demo's 120 cells per 250^3, scaled to 100^3
 PHANTOM_PAD = 16     # reflect padding = FOV margin: border cells reachable
-REPS = 25            # timed runs per kernel and per plain version
+REPS = 10            # timed runs per kernel and per plain version
 LANES = 64           # concurrent_requests of the hop slice (README.md)
 HOPS = 16            # FFN_TPU_HOPS' default
 MAX_ITERS = 4000     # tools/quality_eval.py's Q_MAX_ITERS
@@ -90,47 +77,34 @@ FUSED_OVERLAP = 32
 FUSED_SLOTS = 4      # fewer slots than subvolumes: slots reload
 CI_SUB, CI_OVERLAP, CI_LANES, CI_HOPS = 48, 16, 16, 8   # the fused golden
 R2_SUB, R2_OVERLAP = 64, 32   # the model-r2 fused reference (96^3)
-# Stitched agreement floors of the fused slice at 64 lanes, just under the
-# values measured on the H100 (0.625 and 0.875: whole cells of 8), so a
-# regression fails; 64 lanes split cells as the JAX package's do.
+# Agreement floors just under the values measured on the H100 (whole cells
+# of 8): the fused slice at 64 lanes (0.625, 0.875; lanes split cells as
+# the JAX package's do) and the round slice at 64 lanes (1.0).
 FUSED_AGREE_FLOOR, FUSED_HOST_AGREE_FLOOR = 0.6, 0.85
 ROUND_LANES = 8      # concurrent_requests of the round slice (hops 0)
-# Ground-truth agreement floor of the round slice at 64 lanes, just under
-# the 1.0 measured on the H100 (whole cells of 8).
 ROUND64_AGREE_FLOOR = 0.99
 INIT_ACT = float(np.float32(np.log(0.95 / 0.05)))   # init_activation 0.95
-# Ground-truth agreement floors of the bfloat16 hop (8 lanes) and fused
-# slices: the quality gate's 0.95, and just under the 0.625 measured on the
-# H100 (the fused slice's 64 lanes split cells, as in float32). The serial
-# and round slices are held to the quality gate's 0.95.
+# bfloat16 floors: hop (8 lanes) the quality gate's 0.95, fused under its
+# measured 0.625; serial and round 0.95.
 BF16_HOP_AGREE_FLOOR = 0.95
 BF16_FUSED_AGREE_FLOOR = 0.6
-# bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) at the JAX e2e bench's
-# configuration (tools/e2e_bench.py:45-50, 110-126): 48 lanes, hops 16,
-# max_iters_per_segment 2000, host finalization, model-r2 in bfloat16.
-# Its ground-truth agreement floor, just under the 1.0 measured on the H100.
+# bf16 lane seeds at the JAX e2e bench's configuration
+# (tools/e2e_bench.py:45-50: 48 lanes, hops 16, max_iters 2000, host
+# finalization, model-r2 in bfloat16); floor under its measured 1.0.
 SEED_LANES, SEED_MAX_ITERS = 48, 2000
 BF16_SEED_AGREE_FLOOR = 0.99
-# Floors just under the bf16-seed fused slice's (0.75, as phase 8's) and
-# round slice's (0.875: a split cell, on K13/K14 and their plain versions
-# alike; the JAX package's own CPU run of it scores 1.0 with other moves,
-# ROADMAP Queue 3) agreements measured on the H100.
+# Floors under the bf16-seed fused (0.75) and round (0.875: a split cell,
+# on plain versions too; ROADMAP Queue 3) slices' measured agreements.
 BF16_SEED_FUSED_AGREE_FLOOR = 0.7
 BF16_SEED_ROUND_AGREE_FLOOR = 0.85
-# K15 against its plain version: per layer one bfloat16 ulp per rounding
-# the layer makes and at most DIFFER_SHARE of its outputs differing
-# (ffn_tpu_torch/ops/conv3d_bf16_check.py); the depth-12 stack within 2^-6
-# of max|plain logit|. Against the exact sums (conv3d_ndhwc_bf16_exact),
-# layers and stack bit for bit.
+# K15's batch sizes; its depth-12 stack within 2^-6 of max|plain logit|.
 K15_NS = (1, 8, 64, 256)
 K15_STACK_TOL = 2.0 ** -6
 
 
-# Published H100 SXM peaks (NVIDIA's H100 datasheet): HBM
-# bandwidth, float32 outside the tensor cores and dense bfloat16 on them. A
-# kernel's bound is the larger of its bytes (each input read once, each
-# output written once) over the first and its operations over the peak of
-# their type.
+# Published H100 SXM peaks (NVIDIA's datasheet): HBM, float32 and dense
+# 16-bit tensor cores. A bound is the larger of bytes (each input read and
+# output written once) over the first and operations over their peak.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -218,12 +192,10 @@ def k1_work(n, k, cin, cout):
 
 
 def check_k1(randn, n, reps):
-    """K1 against its plain version (cuDNN) on N samples of the 33^3 FOV
-    for every layer kind, within 1e-4 of max|plain|; times each layer
-    with `reps` samples (none if 0), and beside it one library call,
-    torch.nn.functional.conv3d on NCDHW copies of the same inputs (the
-    convolution without the fused relus and residual add). Returns
-    [(name, err, ms, plain_ms, library_ms)]."""
+    """K1 against its plain version (cuDNN) on N 33^3 samples for every layer
+    kind, within 1e-4 of max|plain|; with `reps`, timed beside one F.conv3d
+    call (no fused relus or residual). Returns [(name, err, ms, plain_ms,
+    library_ms)]."""
     from ffn_tpu_torch.ops import conv3d
     out = []
     for name, (k, cin, cout, pre, post, res) in K1_LAYERS.items():
@@ -383,14 +355,11 @@ def _tests():
 
 
 def _hop_lane_kernels(dev, seed_dtype):
-    """K4-K7 against their plain versions on a crafted 64-lane state at the
-    hop slice's shapes (132^3 slots, queues of 32768, a 33^3 FOV), with
-    seeds in `seed_dtype`, bit for bit, and their times. With bfloat16
-    seeds the state also holds seeds on the move and segment thresholds'
-    bfloat16 rounding edges, and K7 compares with a move threshold that
-    rounds down (a seed of bf16(move_t) is weak to K4, strong to K7).
-    Returns (results keyed by kernel name, plus "_bf16" for bfloat16
-    seeds; the state; the tests' helpers)."""
+    """K4-K7 against their plain versions, bit for bit, on a crafted 64-lane
+    state at the hop slice's shapes (132^3, queues of 32768, 33^3), seeds in
+    `seed_dtype` (bfloat16: seeds on the thresholds' rounding edges, a move
+    threshold that rounds down); their times. Returns (results, the state,
+    the tests' helpers)."""
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
     tk = _tests()
@@ -538,11 +507,8 @@ def _hop_lane_kernels(dev, seed_dtype):
 
 
 def phase_hop_kernels(dev):
-    """K4-K7 against their plain versions on crafted 64-lane states with
-    float32 and with bfloat16 seeds (_hop_lane_kernels) and K6's screen
-    mode at a 256-candidate screen batch; K1 against its plain version at
-    N=64 and N=256 and as the whole stack at N=64; K1 at N=1 against
-    N=64."""
+    """K4-K7 on crafted 64-lane states (float32 and bf16 seeds), K6's screen
+    mode on 256 candidates, K1 at N = 64, 256 and as the stack, N=1 = N=64."""
     from ffn_tpu_torch.models import convstack_3d, params_io
     from ffn_tpu_torch.ops import conv3d
     from ffn_tpu_torch.ops import hop as hop_ops
@@ -627,13 +593,9 @@ def phase_hop_kernels(dev):
 
 
 def _k8_kernels(dev, seed_dtype):
-    """K8 finalize_pass against its plain version, bit for bit on every
-    field, over two passes of a crafted state of 64 lanes and 4 slots of
-    82^3 (tests/test_torch_kernels.py crafted_finalize: every branch), with
-    seeds in `seed_dtype`; for bfloat16 (bf16_finalize_edges) thresholds
-    that round down, seeds on their edges, and a RUNNING and a DONE_EMPTY
-    lane on the same origin bf16(move_t) < move_t: weak to the dud kill,
-    strong to the verdict."""
+    """K8 against its plain version, bit for bit, over two passes of a crafted
+    state (64 lanes, 4 slots of 82^3, every branch; bfloat16: thresholds that
+    round down and two lanes on the origin bf16(move_t) < move_t)."""
     from ffn_tpu_torch.ops import finalize as fin_ops
     tk = _tests()
     bf16 = seed_dtype == torch.bfloat16
@@ -901,20 +863,19 @@ def _subvolumes(out_dir, edge, sub, overlap):
 
 
 def _fused(label, name, tmp, model_args, flags=(), size=None, patches=()):
-    """One worker run of the sharded CLI (phase 5's phantom, model-r2 with
-    `model_args`, subvolumes of 82^3 with overlap 32, 64 lanes, 4 slots,
-    16 hops) over the box `size` (x, y, z; the whole phantom by default),
-    in this process so launches and CUDA events are visible. Prints its
-    numbers; returns dict(subs, moves, wall, argv, launches, peak device
-    bytes)."""
+    """One worker run of the sharded CLI in this process (phase 5's phantom,
+    model-r2 with `model_args`, 82^3 subvolumes or the box's edge, overlap 32,
+    64 lanes, 4 slots, 16 hops) over the box `size` (default: all). Returns
+    dict(subs, moves, wall, argv, launches, peak)."""
     from ffn_tpu_torch import _build
     image = os.path.join(tmp, "phantom_s0.npy")   # phase 5's phantom
+    sub = FUSED_SUB if size is None else min(FUSED_SUB, *size)
     size = size or np.load(image, mmap_mode="r").shape
     out_dir = os.path.join(tmp, name)
     argv = _sharded_args(
         _request_text(image, out_dir, os.path.join(
             REPO, "models", "phantom", "model-r2.npz"), model_args, 1000),
-        size, FUSED_SUB, FUSED_OVERLAP, LANES, FUSED_SLOTS, HOPS) + list(flags)
+        size, sub, FUSED_OVERLAP, LANES, FUSED_SLOTS, HOPS) + list(flags)
     _build.launches.clear()
     torch.cuda.reset_peak_memory_stats()
     wall, stats = _run_worker(argv, patches)
@@ -929,7 +890,7 @@ def _fused(label, name, tmp, model_args, flags=(), size=None, patches=()):
               f"t_seed {stats['t_seed']:.3f} t_ingest "
               f"{stats['t_ingest']:.3f} t_load {stats['t_load']:.3f} s; "
               if stats else "") + f"launches {launches}")
-    return dict(subs=_subvolumes(out_dir, size, FUSED_SUB, FUSED_OVERLAP),
+    return dict(subs=_subvolumes(out_dir, size, sub, FUSED_OVERLAP),
                 moves=moves, wall=wall, argv=argv, launches=launches,
                 peak=torch.cuda.max_memory_allocated())
 
@@ -944,27 +905,21 @@ def _fused_plain():
             + _plain(lane_ops, "lane_verdicts", "lane_mask", "lane_masks"))
 
 
-# The fused pairs' box: one subvolume of 82^3.
-FUSED_PAIR_BOX = (82, 82, 82)
+# The fused pairs' box: one subvolume of 64^3.
+FUSED_PAIR_BOX = (64, 64, 64)
 
 
 def phase_fused_slice(dev, tmp):
-    """The fused multi-subvolume path at full width, in both finalize
-    modes: the padded 100^3 phantom (seed 0, 132^3) through `python -m
-    ffn_tpu_torch.cli.run_sharded_inference` in worker mode (its entry
-    point, in this process) with model-r2, 8 subvolumes of 82^3, 64 lanes,
-    4 slots and 16 hops, with device finalization (K8, K4 with the device
-    segmentation) and with host finalization (--no-device_finalize: seed
-    screening, K7's verdicts and batched masks), then stitch mode. Each
-    mode again on one subvolume (FUSED_PAIR_BOX), on kernels and with K4, K7
-    and K8 on their plain versions (K1 kept): the same subvolumes, origins,
-    counters and moves. 64 lanes over 8 cells split cells into pure pieces,
-    as the JAX package's lanes do (phases 7 and 10; ROADMAP Queue 3), so
-    each mode's stitched agreement is held to a floor just under its
-    measured value, and the quality gate's 0.95 holds the decomposition and
-    the stitcher: the CLI's serial workers (--no-fused) on the same
-    subvolumes, stitched. Returns the full runs' launches by path (fused,
-    fused_host)."""
+    """The fused path at full width in both finalize modes: the padded 100^3
+    phantom (seed 0, 132^3) through the sharded CLI's worker mode (in this
+    process), model-r2, 8 subvolumes of 82^3, 64 lanes, 4 slots, 16 hops,
+    with device finalization (K8, K4 with the segmentation) and host
+    finalization (K7's verdicts and masks), then stitched. Each mode again
+    on FUSED_PAIR_BOX on kernels and with K4, K7, K8 plain: identical. 64
+    lanes split cells as the JAX package's do (ROADMAP Queue 3), so each
+    stitched agreement has a floor under its measured value; the serial
+    workers (--no-fused), stitched, hold the quality gate's 0.95. Returns
+    the full runs' launches (fused, fused_host)."""
     from ffn_tpu_torch.ops import finalize as fin_ops
     from tools import synthetic_em
 
@@ -1034,11 +989,9 @@ def _stitched_agreement(label, stitch_s, stitched, gt):
 
 
 def phase_fused_golden(dev, tmp):
-    """The fused driver with the CI checkpoint in both finalize modes on the
-    JAX package's own input (tests/golden/fused_ci_golden.npz, written by
-    tests/make_torch_fused_golden.py): every subvolume's segmentation,
-    origins and counters and the stitched volume must be the JAX package's.
-    """
+    """The CI checkpoint's fused runs in both modes against the JAX package's
+    (tests/golden/fused_ci_golden.npz): subvolumes, origins, counters and the
+    stitched volume equal."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.cli import run_sharded_inference
     ref = np.load(os.path.join(REPO, "tests", "golden",
@@ -1095,19 +1048,13 @@ def phase_fused_golden(dev, tmp):
 
 
 def phase_fused_r2_reference(dev, tmp):
-    """The JAX package's own model-r2 run of the fused driver at 64 lanes
-    (tests/golden/fused_r2_golden.npz, written by `python
-    tests/make_torch_fused_golden.py --model r2`): a 64^3 phantom (seed 0,
-    4 cells) padded to 96^3 as 8 subvolumes of 64^3, model-r2, 64 lanes, 4
-    slots, 16 hops, device finalization. The JAX run splits cells; the
-    port on the card must reach the same stitched ground-truth agreement,
-    on K1 and on its plain version.
-    Voxels may differ: the two packages' depth-12 convolutions round
-    differently, and 64 racing lanes turn one flipped decision into other
-    objects. The same run with K1's plain version (cuDNN) shows that
-    spread within the port. The CLI's serial workers on the same
-    subvolumes, stitched, are held to the quality gate's 0.95: the
-    decomposition alone does not split cells."""
+    """The JAX package's model-r2 run of the fused driver
+    (tests/golden/fused_r2_golden.npz, `tests/make_torch_fused_golden.py
+    --model r2`: a 64^3 phantom padded to 96^3, 8 subvolumes of 64^3, 64
+    lanes, 4 slots, 16 hops, device finalization): the port must reach its
+    stitched agreement, on K1 and on its plain version. Voxels may differ
+    (the packages' depth-12 convolutions round differently and 64 racing
+    lanes amplify it); the serial workers, stitched, hold 0.95."""
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
     from tools import synthetic_em
@@ -1205,12 +1152,9 @@ def _settings(image_path, out_dir):
 
 def _run_slice(label, settings, dev, box, gt, inner, hops=None,
                probe=None, max_iters=MAX_ITERS):
-    """One Runner.run over the phantom: the serial Canvas (hops None; the
-    settings leave concurrent_requests unset), the hop path (HopBatchCanvas)
-    or, with hops 0, the round-based path (BatchCanvas). `probe`, a
-    _HopProbe, times the batched path's calls. Prints and returns
-    dict(seg (the inner box), moves, wall, agree, rounds, origins, counts,
-    seed_dtype)."""
+    """One Runner.run over the phantom: serial Canvas (hops None), hop path or,
+    hops 0, round path; `probe` (_HopProbe) times the batched calls. Returns
+    dict(seg, moves, wall, agree, rounds, origins, counts, seed_dtype)."""
     from ffn_tpu_torch.inference import runner as runner_lib
     from ffn_tpu_torch.inference import storage
     from tools import synthetic_em
@@ -1318,11 +1262,9 @@ def _phantom(tmp, seed):
 
 
 def phase_slice(dev, tmp):
-    """The serial slice (Runner -> Canvas -> K2 -> K1 -> K3) with
-    configs/inference_phantom.pbtxt's checkpoint on kernels and on the plain
-    versions, identical voxels; then with model-r2, held to the quality
-    gate's 0.95. Returns (the kernel run's launches, the phantom, the
-    settings with model-r2, and model-r2's serial segmentation)."""
+    """The serial slice (Canvas -> K2 -> K1 -> K3) with the request's checkpoint
+    on kernels and plain, identical; then model-r2, held to 0.95. Returns
+    (launches, the phantom, model-r2's settings, its segmentation)."""
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
     from ffn_tpu_torch.ops import step as step_ops
@@ -1430,10 +1372,8 @@ class _HopProbe:
 
 
 def phase_hop_slice(dev, phantom, r2, seg_serial, tmp):
-    """The batched request (concurrent_requests 64, hops 16) with model-r2
-    on kernels, probed; the quality gate's batched-vs-serial pair on its
-    seed-11 phantom at 8 lanes, the 8-lane run on kernels and with K4-K7 on
-    their plain versions, identical. Returns the 64-lane run's launches."""
+    """64 lanes, hops 16, model-r2, probed; the gate's pair on its seed-11
+    phantom at 8 lanes, also with K4-K7 plain, identical. Returns launches."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
@@ -1498,13 +1438,10 @@ def phase_hop_slice(dev, phantom, r2, seg_serial, tmp):
 
 
 def phase_gate_reference(dev, r2, tmp):
-    """The quality gate's pair with the CI checkpoint (depth 2, 16
-    features, 17^3) against the JAX package's own run of it in float32 on
-    a CPU (tests/golden/gate_ci_lanes_golden.npz, written by
-    tests/make_torch_gate_golden.py): serial and 64 lanes on kernels must
-    give its segmentations voxel for voxel, its origins and its moves. The
-    phantom comes from the golden: this machine's numpy may draw it a
-    voxel differently."""
+    """The gate pair with the CI checkpoint against the JAX package's CPU run
+    (tests/golden/gate_ci_lanes_golden.npz, make_torch_gate_golden.py):
+    serial and 64 lanes equal in voxels, origins and moves, on the golden's
+    own phantom (another numpy may draw it a voxel differently)."""
     from ffn_tpu_torch.inference import runner as runner_lib
     ref = np.load(os.path.join(REPO, "tests", "golden",
                                "gate_ci_lanes_golden.npz"))
@@ -1553,15 +1490,12 @@ def phase_gate_reference(dev, r2, tmp):
 
 
 def phase_select_kernels(dev):
-    """K13 select_gather and K14 select_update against their plain versions,
-    bit for bit, on a crafted 64-lane round on 132^3 with a 33^3 FOV
-    (tests/test_torch_kernels.py crafted_select: NaN seeds and candidates,
-    candidates below the threshold ahead of a valid one, ignore, weak and
-    NaN starts, inactive lanes, candidates on every face and out of the
-    volume; tied and NaN model outputs) in select mode (K = 4) and in
-    step_batch's fixed mode (K = 1, ignore everywhere), with float32 and
-    with bfloat16 seeds (bf16_select_edges: starts, candidates and seeds on
-    the thresholds' rounding edges; logits off the bfloat16 grid); times
+    """K13 and K14 against their plain versions, bit for bit, on a crafted
+    64-lane round on 132^3 (tests/test_torch_kernels.py crafted_select:
+    NaN seeds and candidates, weak and NaN starts, inactive lanes, faces,
+    out-of-volume candidates, tied and NaN logits) in select mode (K = 4)
+    and step_batch's fixed mode (K = 1), with float32 and bfloat16 seeds
+    (bf16_select_edges: values on the thresholds' rounding edges); times
     and bounds of the select-mode rounds."""
     from ffn_tpu_torch.ops import select as select_ops
     tk = _tests()
@@ -1638,81 +1572,47 @@ def phase_select_kernels(dev):
     return results
 
 
-def phase_bf16_kernels(dev):
-    """K15 conv3d_ndhwc_bf16 against its plain version: every layer kind of
-    the bfloat16 stack at N = 1, 8, 64 and 256 on random
-    inputs, every output within one bfloat16 ulp per rounding its layer
-    makes and at most DIFFER_SHARE of them differing at all
-    (ffn_tpu_torch/ops/conv3d_bf16_check.py), and equal to the layer with
-    float64 sums (conv3d_ndhwc_bf16_exact) bit for bit, a repeated
-    call bit for bit, and at N=64 sample 17 alone bit-identical to the
-    same sample inside the batch; the depth-12 model-r2 stack in bfloat16
-    at N=64 within 2^-6 of max|plain logit| and equal to the stack with
-    float64 sums bit for bit, and samples 0, 17 and 63 at
-    N=1 bit-identical to the batch's. Times each layer kind at N=1 and 64:
-    K15, its plain version, one library call (cuDNN's bfloat16 conv3d on
-    channels-last tensors, without the stack's roundings, relus and
-    residual) and K1 in float32 on the same values."""
+def _k15_layers(gen, dt, ns, timed, entry_n):
+    """K15 in `dt` per layer kind at each N in `ns` against its plain
+    version: one ulp per rounding (k15_tolerance), at most DIFFER_SHARE
+    differing, the float64 sums' rounding, a repeat and (N=64) sample 17
+    alone bit for bit; times the kinds `timed[n]` beside its plain version,
+    cuDNN's conv3d and K1; returns the kernel's entry (block_a at
+    entry_n)."""
     import torch.nn.functional as F
-    from ffn_tpu_torch.models import convstack_3d, params_io
     from ffn_tpu_torch.ops import conv3d
     from ffn_tpu_torch.ops import conv3d_bf16_check as check
-
-    gen = torch.Generator(device=dev).manual_seed(15)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device=dev) * scale
-
-    results, err = {}, 0.0
-    for n in K15_NS:
-        # The stack's layer kinds at 32 features (K15_CASES): block_a is
-        # 22 of its 24 3^3 layers.
+    label, out, err = "conv3d_ndhwc_" + conv3d.SUFFIX[dt], None, 0.0
+    for n in ns:
         for name in ("conv0_a", "block_a", "block_b", "conv_lom"):
             k, cin, cout, pre, post, rdt, _ = check.K15_CASES[name]
-            x, w, b, r = check.k15_inputs(gen, n, (33, 33, 33), name)
+            x, w, b, r = check.k15_inputs(gen, n, (33, 33, 33), name, dt)
             kw = dict(pre_relu=pre, post_relu=post, residual=r)
             got = conv3d.conv3d_ndhwc_bf16(x, w, b, **kw)
             want = conv3d.conv3d_ndhwc_bf16_plain(x, w, b, **kw)
-            require(got.dtype == want.dtype and got.shape == want.shape
-                    and bool(torch.isfinite(got).all()),
-                    f"K15 N={n} {name}: {got.dtype} {tuple(got.shape)}, "
-                    f"want {want.dtype} {tuple(want.shape)}")
             delta = (got.float() - want.float()).abs()
             differ = float((delta > 0).float().mean())
-            # Beyond one ulp of the rounded sum: a second rounding's step.
-            second = float((delta > check.bf16_ulp(
-                conv3d.conv3d_ndhwc_bf16_plain(
-                    x, w, torch.zeros_like(b), pre_relu=pre))).float().mean())
             worst = float((delta / check.k15_tolerance(x, w, b, **kw)).max())
-            err = max(err, float(delta.max()))
-            require(torch.equal(got, conv3d.conv3d_ndhwc_bf16(x, w, b, **kw)),
-                    f"K15 N={n} {name}: a repeated call differs")
-            alone = ""
-            if n == 64:
-                one = conv3d.conv3d_ndhwc_bf16(
-                    x[17:18].clone(), w, b, pre_relu=pre, post_relu=post,
-                    residual=None if r is None else r[17:18].clone())
-                require(torch.equal(one[0], got[17]),
-                        f"K15 {name}: sample 17 alone differs from N=64")
-                alone = "; sample 17 alone bit-identical"
-            print(f"K15 conv3d_ndhwc_bf16 N={n} {name}: {differ:.3e} of "
-                  f"outputs differ from plain (limit {check.DIFFER_SHARE}),"
-                  f" {second:.3e} by more than one ulp of the rounded sum; "
-                  f"max {worst:.3f} of the tolerance (one ulp per "
-                  f"rounding); equal to the float64 sums' rounding{alone}")
-            require(worst <= 1.0, f"K15 N={n} {name}: {worst} of the "
-                                  f"tolerance from the plain version")
-            require(differ <= check.DIFFER_SHARE,
-                    f"K15 N={n} {name}: {differ} of outputs differ from the "
-                    f"plain version, above {check.DIFFER_SHARE}")
             off = check.differ_share(
                 got, check.conv3d_ndhwc_bf16_exact(x, w, b, **kw))
-            require(off == 0.0, f"K15 N={n} {name}: {off} of outputs differ "
-                                f"from the float64 sums' rounding")
+            err = max(err, float(delta.max()))
+            one = n != 64 or torch.equal(conv3d.conv3d_ndhwc_bf16(
+                x[17:18].clone(), w, b, pre_relu=pre, post_relu=post,
+                residual=None if r is None else r[17:18].clone())[0],
+                got[17])
+            print(f"K15 {label} N={n} {name}: {differ:.3e} of outputs "
+                  f"differ from plain, max {worst:.3f} of the tolerance; "
+                  f"{off} off the float64 sums' rounding")
+            require(got.dtype == want.dtype and got.shape == want.shape
+                    and bool(torch.isfinite(got).all()) and worst <= 1.0
+                    and differ <= check.DIFFER_SHARE and off == 0.0 and one
+                    and torch.equal(got, conv3d.conv3d_ndhwc_bf16(
+                        x, w, b, **kw)),
+                    f"K15 {label} N={n} {name} against plain or exact")
             del got, want, delta
-            if n not in (1, LANES):
+            if name not in timed.get(n, ()):
                 continue
-            xc = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+            xc = x.to(dt).permute(0, 4, 1, 2, 3)
             wc = w.permute(4, 3, 0, 1, 2).contiguous(
                 memory_format=torch.channels_last_3d)
             xf, wf, bf = x.float(), w.float(), b.float()
@@ -1723,24 +1623,40 @@ def phase_bf16_kernels(dev):
                 lambda: F.conv3d(xc, wc, b, padding=k // 2),
                 lambda: conv3d.conv3d_ndhwc_f32(
                     xf, wf, bf, pre_relu=pre, post_relu=post, residual=rf),
-                reps=REPS if name == "block_a" else 10)
+                reps=REPS if name == "block_a" else 5)
             work = k15_work(n, k, cin, cout, x.element_size(),
                             0 if r is None else r.element_size(),
                             4 if rdt == torch.float32 else 2)
-            bound_ms, bound_by = bound_of(*work, peak=BF16_FLOPS)
-            print(f"K15 N={n} {name}: kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.4f} ms library (cuDNN bf16 conv3d) "
-                  f"{lib_ms:.4f} ms K1 float32 {k1_ms:.4f} ms bound "
-                  f"{bound_ms:.4f} ms ({bound_by}; {work[1] / 1e9:.2f} "
-                  f"GFLOP, {work[0] / 1e6:.1f} MB): "
-                  f"{work[1] / ms / 1e9:.1f} TFLOP/s")
-            if n == LANES and name == "block_a":
-                results["conv3d_ndhwc_bf16"] = entry(
-                    0.0, ms, plain_ms, *work, library_ms=lib_ms,
-                    peak=BF16_FLOPS)
+            e = entry(0.0, ms, plain_ms, *work, library_ms=lib_ms,
+                      peak=BF16_FLOPS)
+            print(f"K15 {label} N={n} {name}: kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms library (cuDNN conv3d) {lib_ms:.4f} "
+                  f"ms K1 float32 {k1_ms:.4f} ms bound {e['bound_ms']:.4f} "
+                  f"ms ({e['bound_by']}): {work[1] / ms / 1e9:.1f} TFLOP/s")
+            if n == entry_n and name == "block_a":
+                out = e
             del xc, wc, xf, wf, bf, rf
         torch.cuda.empty_cache()
-    results["conv3d_ndhwc_bf16"]["max_abs_err"] = err
+    out["max_abs_err"] = err
+    return {label: out}
+
+
+def phase_bf16_kernels(dev):
+    """K15 in bfloat16 (_k15_layers) at N = 1, 8, 64, 256, timed at N=1
+    and 64; the depth-12 model-r2 stack at N=64 within 2^-6 of max|plain
+    logit|, equal to the float64 stack, N=1 samples equal to the batch's."""
+    from ffn_tpu_torch.models import convstack_3d, params_io
+    from ffn_tpu_torch.ops import conv3d
+    from ffn_tpu_torch.ops import conv3d_bf16_check as check
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    kinds = ("conv0_a", "block_a", "block_b", "conv_lom")
+    results = _k15_layers(gen, torch.bfloat16, K15_NS,
+                          {1: kinds, LANES: kinds}, LANES)
 
     fov, deltas = 33, [8, 8, 8]
     model = convstack_3d.ConvStack3DFFNModel(
@@ -1752,7 +1668,7 @@ def phase_bf16_kernels(dev):
     sd = randn(LANES, fov, fov, fov, 1, scale=3.0)
     batch = model.apply(img, sd)
     # The plain stack on the CPU, the version the CPU tests hold to flax's
-    # (ISSUE bound 2^-6 max|logit|); F.conv3d's float32 sums on the card
+    # (bound 2^-6 max|logit|); F.conv3d's float32 sums on the card
     # (cuDNN) are one more order, printed beside it. The exact stack (float64
     # sums) is K15's function, held bit for bit.
     model.to("cpu")
@@ -1766,18 +1682,12 @@ def phase_bf16_kernels(dev):
         exact = model.apply(img, sd)
     stack_err = float((batch - plain).abs().max())
     bound = K15_STACK_TOL * float(plain.abs().max())
-    print(f"K15 conv stack in bfloat16 (model-r2, depth 12, 33^3) at "
-          f"N={LANES}: max_abs_err {stack_err:.4e} against the plain stack "
-          f"on the CPU (bound {bound:.4e} = 2^-6 max|logit|), "
-          f"{float((batch != plain).float().mean()):.4e} of logits differ; "
-          f"the plain stack on the card (cuDNN) against it: max_abs_err "
-          f"{float((card - plain).abs().max()):.4e}, "
-          f"{float((card != plain).float().mean()):.4e} differ; K15 against "
-          f"the plain stack on the card: "
-          f"{float((batch - card).abs().max()):.4e}; equal to the stack "
-          f"with float64 sums: {torch.equal(batch, exact)} (the plain "
-          f"stack on the card {float((card != exact).float().mean()):.4e} "
-          f"of logits from it)")
+    print(f"K15 stack (model-r2, N={LANES}): max_abs_err {stack_err:.4e} "
+          f"against the CPU's plain stack (bound {bound:.4e}), "
+          f"{float((batch != plain).float().mean()):.4e} differ; the card's "
+          f"plain stack {float((card - plain).abs().max()):.4e}; K15 against "
+          f"it {float((batch - card).abs().max()):.4e}; equal to the "
+          f"float64 stack: {torch.equal(batch, exact)}")
     require(batch.dtype == torch.float32 and
             bool(torch.isfinite(batch).all()) and stack_err <= bound,
             f"K15 stack at N={LANES}: error {stack_err} above {bound}")
@@ -1793,12 +1703,9 @@ def phase_bf16_kernels(dev):
 
 
 def phase_round_slice(dev, phantom, r2, seg_serial, tmp):
-    """The round-based slice at full width (model-r2, depth 12, 32 features,
-    33^3, float32) on phase 5's padded 132^3 phantom: concurrent_requests 8
-    and hops 0 through Runner -> BatchCanvas.segment_all -> select_step
-    (K13 -> K1 -> K14) on kernels, probed, again with K13/K14 plain (K1
-    kept), identical, and once at 64 lanes on kernels; returns the 8-lane
-    kernel run's launches."""
+    """The round-based slice (model-r2, float32, hops 0, 8 lanes: K13 -> K1 ->
+    K14) on kernels, probed, and with K13/K14 plain, identical; then 64
+    lanes. Returns the 8-lane run's launches."""
     from ffn_tpu_torch.ops import select as select_ops
 
     settings = dataclasses.replace(r2, concurrent_requests=ROUND_LANES)
@@ -1854,17 +1761,13 @@ def _bf16_pair(path, seg_k, seg_p, what="K15 vs its plain version"):
 
 
 def phase_bf16_slices(dev, phantom, r2, tmp):
-    """bfloat16 inference at full width: model-r2 (depth 12, 32 features,
-    33^3) with model_args dtype "bfloat16", the default of bench.py and
-    tools/e2e_fused_bench.py, on phase 5's padded 132^3 phantom: the serial
-    slice, the 8-lane hop slice, the 8-lane round slice (hops 0) and the
-    fused slice (the sharded CLI's worker, 8 subvolumes of 82^3, 64 lanes,
-    device finalization, then stitched), each on K15 and again with K15's
-    plain version (K2-K14 kept). Serial and round are held to ground-truth
-    agreement >= 0.95, hop and fused to floors just under their measured
-    values; each pair's object-level agreement is printed. Returns the K15
-    runs' launches by path (serial_bf16, hop_bf16, round_bf16, fused_bf16)
-    and the fused K15 run (float32 seeds), which phase 16 compares with."""
+    """bfloat16 inference at full width (model-r2, "dtype": "bfloat16", the
+    benches' default) on phase 5's phantom: serial, 8-lane hop, 8-lane round
+    and fused slices, each on K15 and on K15's plain version (the pair's
+    agreement printed). Serial and round held to 0.95, hop and fused to
+    floors under their measured values. Returns the K15 runs' launches
+    (serial_bf16, hop_bf16, round_bf16, fused_bf16) and the fused run, which
+    phase 16 compares with."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
@@ -1931,17 +1834,14 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
 
 
 def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
-    """bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) with model-r2 in
-    bfloat16 (K15) on every inference path, each on the *_bf16 seed
-    kernels and on their plain versions (K15 kept), identical, the kernel
-    runs launching no float32 instantiation: hop at the JAX e2e bench's
-    configuration (48 lanes, hops 16, max_iters_per_segment 2000, host
-    finalization; K4-K7), also with float32 seeds; fused as phase 8 (K4,
-    K8), against phase 14's float32-seed run, and with host finalization
-    on FUSED_PAIR_BOX (K4, K7); FFN_TPU_DEVFIN=1 at 8 lanes (K4-K6, K8);
-    round at 8 lanes (K13, K14); serial (K2, K3). Agreement floors:
-    BF16_SEED_*_FLOOR, 0.95 for devfin and serial. Returns the kernel
-    runs' launches by path."""
+    """bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) with model-r2 in bfloat16
+    on every path, each on the *_bf16 seed kernels and their plain versions,
+    identical, with no float32 instantiation launched: hop at the JAX e2e
+    bench's configuration (48 lanes, hops 16, max_iters 2000; K4-K7), also
+    with float32 seeds; fused (K4, K8; against phase 14's float32 seeds) and
+    fused with host finalization on FUSED_PAIR_BOX (K4, K7);
+    FFN_TPU_DEVFIN=1 at 8 lanes (K4-K6, K8); round (K13, K14); serial (K2,
+    K3). Floors: BF16_SEED_*_FLOOR, 0.95. Returns the launches by path."""
     from ffn_tpu_torch.ops import finalize as fin_ops
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
@@ -2063,12 +1963,9 @@ def _check_bf16_launches(path, launches, needed):
 
 
 def phase_round_golden(dev, r2, tmp):
-    """The CI checkpoint (depth 2, 16 features, 17^3) at 64 lanes with hops
-    0 on the gate's seed-11 phantom against the JAX package's own run of it
-    in float32 on a CPU (tests/golden/gate_ci_lanes_golden.npz's *_round
-    entries, written by tests/make_torch_gate_golden.py): voxel for voxel,
-    origin for origin, move for move, round for round. The phantom comes
-    from the golden."""
+    """The CI checkpoint at 64 lanes, hops 0, against the JAX package's CPU run
+    (gate_ci_lanes_golden.npz's *_round entries): voxels, origins, moves and
+    rounds equal."""
     from ffn_tpu_torch.inference import runner as runner_lib
     ref = np.load(os.path.join(REPO, "tests", "golden",
                                "gate_ci_lanes_golden.npz"))
@@ -2131,14 +2028,11 @@ def _rel_err(got, want):
 
 
 def phase_train_kernels(dev):
-    """K9-K12 against their plain versions at the training path's shapes:
-    batch 4, the 33^3 FOV at 32 features in a 49^3 canvas, the depth-12
-    model's 50 parameter tensors (638,433 floats). K9 and K10 within 1e-4 of
-    max|plain| for every layer kind (float32 sums in another order than
-    cuDNN's), K10 twice bit for bit (deterministic); K11's prep and gather
-    bit for bit, its loss and eval counts, write-back and counts bit for
-    bit and sums within 1e-5; K12 within 1e-6 for sgd and adam. Median
-    CUDA-event times of kernel, plain version and library call, in turns."""
+    """K9-K12 against their plain versions at the training shapes (batch 4,
+    33^3 at 32 features, a 49^3 canvas, the depth-12 model's 50 tensors):
+    K9, K10 within 1e-4 of max|plain| for every layer kind, K10 twice bit for
+    bit; K11's prep, gather, write-back and counts bit for bit, sums within
+    1e-5; K12 within 1e-6 (sgd, adam). Times of kernel, plain and library."""
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
     from ffn_tpu_torch.ops import optim as optim_ops
@@ -2363,12 +2257,10 @@ def phase_train_kernels(dev):
 
 
 def _check_k16(randn, n, fov):
-    """K16 fov_loss at the host-loop step's shapes (batch 4 of 33^3
-    logits, soft labels and weights with zeros, x = 0 and +-30 among the
-    logits): dlogits within 1e-6 of max|plain| and the loss within 1e-5
-    relative (float32 sums in another order), twice bit for bit; then a
-    NaN logit gives NaN where the plain version has it. Times beside the
-    library's binary_cross_entropy_with_logits forward and autograd."""
+    """K16 at the host-loop step's shapes (x = 0 and +-30 among the logits,
+    zero weights): dlogits within 1e-6 of max|plain|, loss 1e-5 relative,
+    twice bit for bit, NaN where plain has it; timed beside
+    binary_cross_entropy_with_logits and its autograd."""
     import torch.nn.functional as F
     from ffn_tpu_torch.ops import train as train_ops
     x = randn(n, *fov, 1, scale=4.0)
@@ -2442,13 +2334,14 @@ class _KernelProbe:
     launch of each wrapper (used on the resumed run only, whose numbers are
     held bit for bit against the unprobed run's)."""
 
-    def __init__(self, train_kernels=TRAIN_K11):
+    def __init__(self, train_kernels=TRAIN_K11, extra=False):
         from ffn_tpu_torch.ops import conv3d
         from ffn_tpu_torch.ops import optim as optim_ops
         from ffn_tpu_torch.ops import train as train_ops
-        self.targets = [(conv3d, n) for n in ("conv3d_ndhwc_f32",
-                                              "conv3d_dgrad_f32",
-                                              "conv3d_wgrad_f32")]
+        self.targets = [(conv3d, n) for n in (
+            ("conv3d_ndhwc_bf16", "conv3d_dgrad_16", "conv3d_wgrad_16")
+            if extra else ("conv3d_ndhwc_f32", "conv3d_dgrad_f32",
+                           "conv3d_wgrad_f32"))]
         self.targets += [(train_ops, n) for n in train_kernels]
         self.targets += [(optim_ops, "optim_update")]
         self.pairs = {n: [] for _, n in self.targets}
@@ -2577,13 +2470,14 @@ def _train_plain_patches():
                               s, i, lab, tuple(off), tuple(fov), mt, lt,
                               window)),
         mock.patch.object(train_ops, "train_loss",
-                          lambda *a: train_ops.train_loss_plain(*a[:8])),
+                          lambda *a, scale=None: train_ops.train_loss_plain(
+                              *a[:8], scale=scale)),
         mock.patch.object(train_ops, "train_eval",
                           lambda s, lab, ev, ws: train_ops.train_eval_plain(
                               s, lab, tuple(ev))),
         mock.patch.object(train_ops, "fov_loss",
-                          lambda lg, lab, w, ticket: train_ops.fov_loss_plain(
-                              lg, lab, w)),
+                          lambda lg, lab, w, ticket, scale=None:
+                          train_ops.fov_loss_plain(lg, lab, w, scale)),
         mock.patch.object(optim_ops, "optim_update",
                           lambda *a, **k: optim_ops.optim_update_plain(
                               *a[:10], **k)),
@@ -2591,18 +2485,13 @@ def _train_plain_patches():
 
 
 def phase_train(dev, tmp):
-    """Training at full width through `python -m ffn_tpu_torch.cli.train`'s
-    entry point (the CLI's defaults: depth 12, 32 features, 33^3 FOV,
-    deltas 8, batch 4, the fixed policy's 27 offsets, sgd at 0.001 with the
-    +-0.7 clip, float32) for 8 steps on the seed-0 phantom, checkpointing
-    every 4; the same run with K1 and K9-K12 plain (step 1 held: per-offset
-    losses within 1e-4 relative, counts exactly, weights within 1e-5);
-    a fresh run resumed from the first run's step 4 (weights and optimizer
-    state at step 8 bit for bit; its kernels timed by CUDA events); one
-    step under torch.profiler; the port against the JAX package's CPU run
-    of the CI model
-    (tests/golden/train_ci_golden.npz); the trained checkpoint in the
-    port's inference Runner. Returns the kernel run's launches."""
+    """The train CLI at its defaults (depth 12, 32 features, 33^3, deltas 8,
+    batch 4, 27 offsets, sgd 0.001, float32) for 8 steps on the seed-0
+    phantom, checkpoints every 4; 2 steps on plain versions (step 1: losses
+    1e-4 relative, counts equal, weights 1e-5); a run resumed from step 4
+    (step 8 bit for bit; kernels timed by CUDA events); one profiled step;
+    the CI model against tests/golden/train_ci_golden.npz; the trained
+    checkpoint in the serial Runner. Returns the kernel run's launches."""
     import shutil
     from ffn_tpu_torch import _build
 
@@ -2626,8 +2515,9 @@ def phase_train(dev, tmp):
     for p in patches:
         p.start()
     try:
-        prec, pwall = _train_run("on plain versions (cuDNN autograd)",
-                                 _train_argv(tmp, pdir))
+        argv = _train_argv(tmp, pdir)
+        argv[argv.index("--max_steps") + 1] = "2"   # step 1 is compared
+        prec, pwall = _train_run("on plain versions (cuDNN autograd)", argv)
     finally:
         for p in patches:
             p.stop()
@@ -2653,7 +2543,7 @@ def phase_train(dev, tmp):
         shutil.copy(os.path.join(kdir, "ckpt", f"{p}.ckpt-{TRAIN_CKPT_EVERY}"
                                  ".npz"), os.path.join(rdir, "ckpt"))
     with _KernelProbe() as probe:
-        rrec, rwall = _train_run(f"resumed at step {TRAIN_CKPT_EVERY}, "
+        rrec, _ = _train_run(f"resumed at step {TRAIN_CKPT_EVERY}, "
                                  f"probed", _train_argv(tmp, rdir))
     device_ms = probe.ms()
     a = _ckpt_arrays(kdir, TRAIN_STEPS)
@@ -2668,17 +2558,323 @@ def phase_train(dev, tmp):
     steps = len(rrec.metrics)
     steady_ms = krec.events[1].elapsed_time(krec.events[-1]) / (
         len(krec.metrics) - 2)
-    print(f"resumed run, device ms by kernel over {steps} steps (CUDA "
-          f"events): " + ", ".join(f"{n} {v:.1f}" for n, v in
-                                   device_ms.items())
-          + f"; kernels {busy / steps:.1f} ms a step against the kernel "
-          f"run's steady {steady_ms:.1f} ms a step: device busy share "
-          f"{busy / steps / steady_ms:.4f}; {busy:.1f} ms of the resumed "
-          f"run's {1e3 * rwall:.1f} ms wall (start-up included)")
+    print(f"resumed run, device ms over {steps} steps: " + ", ".join(
+        f"{n} {v:.1f}" for n, v in device_ms.items())
+          + f"; {busy / steps:.1f} ms a step against the steady "
+          f"{steady_ms:.1f}: busy {busy / steps / steady_ms:.4f}")
 
     _train_profile(dev)
     _train_golden(dev)
     _train_inference(dev, tmp, kdir)
+    return launches
+
+
+# -- reduced-precision training (phases 3 and 17) ----------------------------
+
+LOWP = {"bf16": torch.bfloat16, "f16": torch.float16}
+LOWP_STEPS = 8
+LOWP_HOST_STEPS = 12
+# Step 1 on kernels against plain versions: the per-offset losses and the
+# weights (sgd, lr 0.001) after the 27 offsets (a 16-bit sum that rounds
+# the other way moves an output by one ulp of its type); measured on the
+# H100: losses equal, weights 1.5e-8 (bf16) and 3.8e-9 (f16).
+LOWP_LOSS_RTOL, LOWP_PARAM_ATOL = 1e-4, 1e-6
+# Largest share of K17's outputs that may differ from its plain version:
+# its float32 order is not the plain one's, and float16's finer ulp meets
+# more rounding points (measured on the H100: 1.8e-4 bf16, 1.8e-3 f16).
+K17_DIFFER_SHARE = {torch.bfloat16: 1e-3, torch.float16: 5e-3}
+
+
+def _lowp_plain_patches():
+    """K15, K17 and K18 on their plain versions (the 16-bit autograd
+    Functions look them up in ops.conv3d at each call)."""
+    from ffn_tpu_torch.ops import conv3d
+    return [mock.patch.object(conv3d, name, getattr(conv3d, name + "_plain"))
+            for name in ("conv3d_ndhwc_bf16", "conv3d_dgrad_16",
+                         "conv3d_wgrad_16")]
+
+
+def phase_lowp_kernels(dev):
+    """K15 in float16 per layer kind at N = 1, 4, 64 against plain
+    (k15_tolerance, DIFFER_SHARE) and the float64 sums (bit for bit), a
+    repeat, sample 17 alone; K17 and K18 in bfloat16 and float16 at batch 4
+    against plain, each repeat bit for bit: K17 (a block's first layer with
+    masks and the residual's cotangent, 32->32) within one ulp per rounding
+    plus 2^-20 of the sum of |w||g|, at most K17_DIFFER_SHARE differing,
+    conv_lom bit for bit; K18 (32->32 with and without masks, 2->32 float32
+    x, 32->1 float32 dy) within one ulp plus 2^-16 of the sum of |x||g|; K12
+    with a DynamicLossScale (50 tensors, gradients x2^15: finite, inf, NaN)
+    and K16 with the scale bit for bit. Times beside cuDNN's and bounds."""
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.ops import conv3d
+    from ffn_tpu_torch.ops import conv3d_bf16_check as check
+    from ffn_tpu_torch.ops import optim as optim_ops
+    from ffn_tpu_torch.ops import train as train_ops
+    from ffn_tpu_torch.training import optimizer as optimizer_lib
+    from ffn_tpu_torch.training import precision as precision_lib
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    results = _k15_layers(gen, torch.float16, (1, TRAIN_B, LANES),
+                          {TRAIN_B: ("block_a",)}, TRAIN_B)
+
+    n, fov = TRAIN_B, (33, 33, 33)
+    vox, flops = n * 33 ** 3, 2 * TRAIN_B * 33 ** 3 * 27 * 32 * 32
+    for dt in LOWP.values():
+        sfx = conv3d.SUFFIX[dt]
+
+        def ulp(t):
+            return check.bf16_ulp(t, dt)
+        x, a = randn(n, *fov, 32).to(dt), randn(n, *fov, 32).to(dt)
+        dy, acc = (randn(n, *fov, 32, scale=0.01).to(dt) for _ in "da")
+        w = randn(3, 3, 3, 32, 32, scale=(2 / 864) ** 0.5).to(dt)
+        derr = werr = 0.0
+        for case, kw in (("block_a", dict(x=x, y=a, accum=acc)),
+                         ("32->32", {})):
+            got = conv3d.conv3d_dgrad_16(dy, w, **kw)
+            want = conv3d.conv3d_dgrad_16_plain(dy, w, **kw)
+            s = conv3d.conv3d_dgrad_16_plain(dy, w, x=kw.get("x"),
+                                             y=kw.get("y")).float().abs()
+            mag = conv3d.conv3d_dgrad_plain(
+                dy.float().abs(), w.float().abs(),
+                y=kw["y"].float() if kw else None)
+            tol = ulp(s) + mag * 2.0 ** -20 + (
+                ulp(torch.maximum(s, want.float().abs())) if kw else 0)
+            delta = (got.float() - want.float()).abs()
+            worst = float((delta / tol).max())
+            differ = float((delta > 0).float().mean())
+            derr = max(derr, float(delta.max()))
+            print(f"K17 conv3d_dgrad_{sfx} B={n} {case}: {differ:.3e} of "
+                  f"outputs differ from plain, max {worst:.3f} of the "
+                  f"tolerance")
+            require(worst <= 1.0 and differ <= K17_DIFFER_SHARE[dt] and
+                    torch.equal(got, conv3d.conv3d_dgrad_16(dy, w, **kw)),
+                    f"K17 {sfx} {case} against plain")
+        lom_dy = randn(n, *fov, 1, scale=2.0 ** 15 / vox)
+        lom_w = randn(1, 1, 1, 32, 1, scale=0.2).to(dt)
+        require(torch.equal(conv3d.conv3d_dgrad_16(lom_dy, lom_w, x=x),
+                            conv3d.conv3d_dgrad_16_plain(lom_dy, lom_w,
+                                                         x=x)),
+                f"K17 {sfx} conv_lom differs from plain")
+        for case, args, kw in (
+                ("32->32 pre_relu, mask", (x, dy, 3), dict(pre_relu=True,
+                                                            y=a)),
+                ("32->32", (a, dy, 3), {}),
+                ("2->32 float32 x, mask", (randn(n, *fov, 2), dy, 3),
+                 dict(y=a)),
+                ("32->1 k=1 float32 dy", (x, lom_dy, 1),
+                 dict(pre_relu=True))):
+            got = conv3d.conv3d_wgrad_16(*args, **kw)
+            want = conv3d.conv3d_wgrad_16_plain(*args, **kw)
+            mag = conv3d.conv3d_wgrad_plain(
+                *(t.to(dt).float().abs() for t in args[:2]), args[2],
+                y=kw["y"].float() if "y" in kw else None)
+            worst = max(float(((g - p).abs() / (ulp(p) + m * 2.0 ** -16))
+                              .max()) for g, p, m in zip(got, want, mag))
+            werr = max([werr] + [float((g - p).abs().max())
+                                 for g, p in zip(got, want)])
+            again = conv3d.conv3d_wgrad_16(*args, **kw)
+            print(f"K18 conv3d_wgrad_{sfx} B={n} {case}: max {worst:.3f} of "
+                  f"the tolerance")
+            require(worst <= 1.0 and all(torch.equal(g, h) for g, h in zip(
+                again, got)), f"K18 {sfx} {case}")
+        xc, gc, wc = (t.permute(*p).contiguous() for t, p in (
+            (x, (0, 4, 1, 2, 3)), (dy, (0, 4, 1, 2, 3)),
+            (w, (4, 3, 0, 1, 2))))
+        kw = dict(x=x, y=a, accum=acc)
+        for name, e, fns, nbytes in (
+                ("conv3d_dgrad_" + sfx, derr, (
+                    lambda: conv3d.conv3d_dgrad_16(dy, w, **kw),
+                    lambda: conv3d.conv3d_dgrad_16_plain(dy, w, **kw),
+                    lambda: torch.nn.grad.conv3d_input(xc.shape, wc, gc,
+                                                       padding=1)),
+                 2 * (5 * vox * 32 + 27 * 1024)),
+                ("conv3d_wgrad_" + sfx, werr, (
+                    lambda: conv3d.conv3d_wgrad_16(x, dy, 3, pre_relu=True,
+                                                   y=a),
+                    lambda: conv3d.conv3d_wgrad_16_plain(
+                        x, dy, 3, pre_relu=True, y=a),
+                    lambda: torch.nn.grad.conv3d_weight(xc, wc.shape, gc,
+                                                        padding=1)),
+                 2 * 3 * vox * 32 + 4 * (27 * 1024 + 32))):
+            ms, plain_ms, lib_ms = time_many(*fns, reps=10)
+            r = results[name] = entry(e, ms, plain_ms, nbytes, flops,
+                                      library_ms=lib_ms, peak=BF16_FLOPS)
+            print(f"{name} (32->32, B={n}): kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms library (cuDNN {sfx}) {lib_ms:.4f} ms "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        del x, a, dy, acc, xc, gc, wc
+        torch.cuda.empty_cache()
+
+    # K12 with the loss scale; the scale in K16.
+    model = convstack_3d.ConvStack3DFFNModel(
+        fov_size=[33] * 3, deltas=[8] * 3, depth=12, features=32)
+    shapes = [tuple(p.shape) for p in model.module.parameters()]
+    h = optimizer_lib.hyper_from_config(optimizer_lib.OptimizerConfig())
+    ctrl = optim_ops.ctrl_buffer(dev)
+    none, active = [None] * len(shapes), torch.tensor(4.0, device=dev)
+    flags = [torch.zeros((), dtype=torch.bool, device=dev) for _ in "kp"]
+    for bad in (None, float("inf"), float("nan")):
+        kp = [randn(*s, scale=0.02) for s in shapes]
+        pp = [t.clone() for t in kp]
+        scales = [precision_lib.DynamicLossScale.init(
+            2.0 ** 15, growth_interval=2, device=dev) for _ in "kp"]
+        for step in range(3):
+            grads = [randn(*s, scale=0.5 * 2.0 ** 15) for s in shapes]
+            if bad is not None and step == 1:
+                grads[7].view(-1)[5] = bad
+            optim_ops.optim_update(kp, grads, none, none, None, h, None,
+                                   None, active, flags[0], ctrl,
+                                   loss_scale=scales[0])
+            optim_ops.optim_update_plain(pp, grads, none, none, None, h,
+                                         None, None, active, flags[1],
+                                         loss_scale=scales[1])
+            require(all(torch.equal(a, b) for a, b in zip(kp, pp)) and
+                    torch.equal(flags[0], flags[1]) and all(torch.equal(
+                        getattr(scales[0], f), getattr(scales[1], f))
+                        for f in ("scale", "counter")),
+                    f"K12 with the scale ({bad}) step {step} differs")
+        print(f"K12 with a DynamicLossScale, gradients x2^15 ({bad}): "
+              f"parameters, scale {float(scales[0].scale)}, counter "
+              f"{int(scales[0].counter)}, flag equal to plain bit for bit")
+    scale = precision_lib.DynamicLossScale.init(device=dev)
+    ms, plain_ms = time_pair(*(
+        lambda f=f, p=p, c=c: f(p, grads, none, none, None, h, None, None,
+                                active, flags[0], *c, loss_scale=scale)
+        for f, p, c in ((optim_ops.optim_update, kp, (ctrl,)),
+                        (optim_ops.optim_update_plain, pp, ()))))
+    total = sum(int(np.prod(s)) for s in shapes)
+    results["optim_update_scaled"] = entry(0.0, ms, plain_ms, 3 * 4 * total)
+    print(f"K12 optim_update_scaled (50 tensors, sgd): kernel {ms:.4f} ms "
+          f"plain {plain_ms:.4f} ms")
+    lg = randn(n, *fov, 1, scale=4.0)
+    lab = (randn(n, *fov, 1) > 0).float() * 0.9 + 0.05
+    wt = torch.rand(n, *fov, 1, generator=gen, device=dev)
+    s15, ticket = torch.tensor(2.0 ** 15, device=dev), \
+        train_ops.new_ticket(dev)
+    d1, l1 = train_ops.fov_loss(lg, lab, wt, ticket)
+    d2, l2 = train_ops.fov_loss(lg, lab, wt, ticket, scale=s15)
+    require(torch.equal(d1 * s15, d2) and torch.equal(l1, l2),
+            "K16 with the scale differs from scale x unscaled")
+    print("K16 fov_loss with the loss scale 2^15: scale x the unscaled "
+          "gradient bit for bit")
+    return results
+
+
+def _lowp_run(prec, tmp, out, steps, probe=None):
+    argv = _train_argv(tmp, out) + ["--precision", prec]
+    argv[argv.index("--max_steps") + 1] = str(steps)
+    if probe is None:
+        return _train_run(f"{prec}, {os.path.basename(out)}", argv)
+    with probe:
+        return _train_run(f"{prec}, {os.path.basename(out)}, probed", argv)
+
+
+def phase_train_lowp(dev, tmp):
+    """The train CLI at full width (phase 11's run) with --precision bf16 and
+    f16, 8 steps each on K15/K17/K18, K11 and K12 (f16: optim_update_scaled),
+    kernels timed by CUDA events; 2 steps on plain versions (step 1 within
+    LOWP_LOSS_RTOL and LOWP_PARAM_ATOL, the scale equal); f16 resumed from
+    step 4 (step 8 with its scale bit for bit); the host-loop trainer in bf16
+    for LOWP_HOST_STEPS. Returns the launches (train_bf16, train_f16,
+    train_host_bf16)."""
+    import shutil
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.cli import train as train_cli
+    from ffn_tpu_torch.training import train_lib, train_loop
+
+    launches = {}
+    for prec, dt in LOWP.items():
+        sfx = prec
+        kdir = os.path.join(tmp, f"train_{prec}")
+        _build.launches.clear()
+        probe = _KernelProbe(extra=True) if prec == "bf16" else None
+        krec, _ = _lowp_run(prec, tmp, kdir, LOWP_STEPS, probe)
+        launches[f"train_{prec}"] = got = dict(_build.launches)
+        print(f"kernel launches on the {prec} training path: {got}")
+        need = [f"conv3d_ndhwc_{sfx}", f"conv3d_dgrad_{sfx}",
+                f"conv3d_wgrad_{sfx}", "optim_update_scaled" if prec == "f16"
+                else "optim_update"] + list(TRAIN_K11)
+        require(all(got.get(k, 0) > 0 for k in need) and not any(
+            k.endswith("f32") for k in got), f"{prec} training launches "
+                                             f"{got}")
+        patches = _train_plain_patches() + _lowp_plain_patches()
+        for p in patches:
+            p.start()
+        try:
+            prec_, _ = _lowp_run(prec, tmp, kdir + "_plain", 2)
+        finally:
+            for p in patches:
+                p.stop()
+        km, pm = krec.metrics[0], prec_.metrics[0]
+        loss_err = float(((km["loss"] - pm["loss"]).abs()
+                          / pm["loss"].abs().clamp(min=1e-30)).max())
+        param_err = max(float((krec.params1[k] - prec_.params1[k]).abs()
+                              .max()) for k in krec.params1)
+        same = {k: torch.equal(km[k], pm[k]) for k in (
+            "active", "correct", "missed", "spurious", "grads_finite",
+            "loss_scale")}
+        print(f"train {prec} step 1, kernels vs plain: per-offset loss max "
+              f"relative error {loss_err:.3e} (bound {LOWP_LOSS_RTOL}), "
+              f"weights max abs error {param_err:.3e} (bound "
+              f"{LOWP_PARAM_ATOL}); equal: {same}")
+        require(loss_err <= LOWP_LOSS_RTOL and param_err <= LOWP_PARAM_ATOL
+                and same["grads_finite"] and same["loss_scale"],
+                f"train {prec} step 1: kernels against plain")
+        if probe is not None:
+            ms = probe.ms()
+            print(f"train {prec}, device ms a step by kernel (CUDA events, "
+                  f"{len(krec.metrics)} steps): " + ", ".join(
+                      f"{k} {v / len(krec.metrics):.1f}" for k, v in
+                      ms.items()))
+        if prec != "f16":
+            continue
+        rdir = os.path.join(tmp, "train_f16_resumed")
+        os.makedirs(os.path.join(rdir, "ckpt"))
+        for p in ("model", "opt", "extra"):
+            shutil.copy(os.path.join(kdir, "ckpt", f"{p}.ckpt-"
+                                     f"{TRAIN_CKPT_EVERY}.npz"),
+                        os.path.join(rdir, "ckpt"))
+        probe = _KernelProbe(extra=True)
+        rrec, _ = _lowp_run(prec, tmp, rdir, LOWP_STEPS, probe)
+        a, b = (dict(_ckpt_arrays(d, LOWP_STEPS), **np.load(os.path.join(
+            d, "ckpt", f"extra.ckpt-{LOWP_STEPS}.npz"))) for d in (kdir,
+                                                                   rdir))
+        same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                              for k in a)
+        print(f"f16 resume from step {TRAIN_CKPT_EVERY} to {LOWP_STEPS}: "
+              f"weights, optimizer state, scale {a['scale0']} and counter "
+              f"{a['scale1']} bit for bit {same}; device ms a step by "
+              f"kernel (CUDA events): " + ", ".join(
+                  f"{k} {v / len(rrec.metrics):.1f}"
+                  for k, v in probe.ms().items()))
+        require(same and "scale0" in a, "the f16 resume differs")
+
+    hdir = os.path.join(tmp, "train_host_bf16")
+    argv = _train_argv(tmp, hdir) + [
+        "--precision", "bf16", "--trainer", "host_loop", "--fov_policy",
+        "max_pred_moves", "--model_args", json.dumps(HOST_MODEL)]
+    for flag in ("--max_steps", "--checkpoint_every_steps",
+                 "--summary_every_steps"):
+        argv[argv.index(flag) + 1] = str(LOWP_HOST_STEPS)
+    rec = _HostRecorder()
+    _build.launches.clear()
+    with mock.patch.object(train_loop.train_lib, "make_fov_train_step",
+                           rec.make(train_lib.make_fov_train_step)):
+        train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches["train_host_bf16"] = got = dict(_build.launches)
+    steady_ms = rec.events[1].elapsed_time(rec.events[-1]) / (
+        len(rec.events) - 2)
+    print(f"train host_loop bf16: {len(rec.events)} steps, steady "
+          f"{1e3 / steady_ms:.4f} steps/s; launches {got}")
+    require(len(rec.events) == LOWP_HOST_STEPS and all(bool(torch.isfinite(
+        v)) for v in rec.losses) and all(got.get(k, 0) > 0 for k in (
+            "conv3d_ndhwc_bf16", "conv3d_dgrad_bf16", "conv3d_wgrad_bf16",
+            "fov_loss", "optim_update")), "host loop bf16")
     return launches
 
 
@@ -2695,11 +2891,9 @@ HOST_MODEL = dict(fov_size=[33] * 3, deltas=[8] * 3, depth=12, features=32)
 
 
 class _HostRecorder:
-    """Wraps make_fov_train_step: keeps the first batch and the weights
-    before it (device copies), each step's loss (a device tensor), the
-    parameters, and a CUDA event at the end of each step; and adds up the
-    host's own time in BatchExampleIter (the next batch, the policy's
-    moves, the seed write-back) after the first two steps."""
+    """Wraps make_fov_train_step: keeps the first batch and weights (copies),
+    each loss, the parameters, a CUDA event a step, and the host's time in
+    BatchExampleIter after the first two steps."""
 
     def __init__(self):
         self.losses, self.events = [], []
@@ -2737,17 +2931,13 @@ class _HostRecorder:
 
 
 def phase_train_host(dev, tmp):
-    """The host-loop trainer at full width through the train CLI's entry
-    point: --trainer host_loop --fov_policy max_pred_moves at the CLI's
-    defaults (depth 12, 32 features, 33^3 FOV, deltas 8, fov_moves 1 (a
-    65^3 canvas), batch 4, sgd at 0.001, float32) on phase 11's seed-0
-    phantom, 40 steps, one checkpoint at the end, every kernel timed by
-    CUDA events. Requires finite losses and parameters, moves, the
-    checkpoint read back by the port's _restore bit for bit; then the
-    run's first batch through make_fov_train_step on kernels and on the
-    plain versions from the same weights (loss within 1e-4 relative,
-    logits within 1e-4 of max|plain|, weights within 1e-5). Returns the
-    run's launches."""
+    """The host-loop trainer at full width through the train CLI (--trainer
+    host_loop --fov_policy max_pred_moves, depth 12, 32 features, 33^3,
+    batch 4, sgd, float32), 40 steps, kernels timed by CUDA events: finite
+    losses, moves, the checkpoint restored bit for bit; then the first batch
+    through make_fov_train_step on kernels and plain versions from the same
+    weights (loss 1e-4 relative, logits 1e-4 of max|plain|, weights 1e-5).
+    Returns the run's launches."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.cli import train as train_cli
     from ffn_tpu_torch.models import convstack_3d
@@ -2797,18 +2987,14 @@ def phase_train_host(dev, tmp):
     with open(os.path.join(hdir, "summaries.jsonl")) as f:
         summary = json.loads(f.readlines()[-1])
     losses = [float(v) for v in rec.losses]
-    print(f"train host_loop max_pred_moves: {steps} steps in {wall:.3f} s "
-          f"wall; steady {1e3 / steady_ms:.4f} steps/s (steps 3-{steps}, "
-          f"{steady_ms:.3f} ms a step), {1e3 * TRAIN_B / steady_ms:.2f} "
-          f"FOV forward+backward/s; device ms a step by kernel (CUDA "
-          f"events, all steps): " + ", ".join(
+    print(f"train host_loop: {steps} steps in {wall:.3f} s; steady "
+          f"{1e3 / steady_ms:.4f} steps/s ({steady_ms:.3f} ms a step); "
+          f"device ms a step: " + ", ".join(
               f"{n} {v / steps:.3f}" for n, v in device_ms.items())
-          + f"; kernels {busy:.3f} ms a step, device busy share "
-          f"{busy / steady_ms:.4f}; host (BatchExampleIter: batch, moves, "
-          f"write-back) {host_ms:.3f} ms a step, share "
-          f"{host_ms / steady_ms:.4f}; moves/total {summary['moves/total']}"
-          f" moves/correct {summary['moves/correct']:.4f} eval/patches "
-          f"{summary['eval/patches']}; loss first/last {losses[0]:.5f}/"
+          + f"; busy {busy / steady_ms:.4f}; host (BatchExampleIter) "
+          f"{host_ms:.3f} ms a step, {host_ms / steady_ms:.4f}; moves "
+          f"{summary['moves/total']}, correct "
+          f"{summary['moves/correct']:.4f}; loss {losses[0]:.5f} -> "
           f"{losses[-1]:.5f}")
     require(summary["step"] == HOST_STEPS and summary["moves/total"] > 0,
             f"host loop summaries: {summary}")
@@ -2863,11 +3049,8 @@ def phase_train_host(dev, tmp):
     logit_err = _rel_err(klogits, plogits)
     param_err = max(float((kparams[n] - pparams[n]).detach().abs().max())
                     for n in kparams)
-    print(f"host-loop first batch, make_fov_train_step on kernels vs plain "
-          f"(cuDNN autograd): loss {float(kloss):.6f} vs {float(ploss):.6f}, "
-          f"relative error {loss_err:.3e} (bound {HOST_LOSS_RTOL}); logits "
-          f"{logit_err:.3e} of max|plain| (bound {HOST_LOGIT_TOL}); weights "
-          f"max abs error {param_err:.3e} (bound {HOST_PARAM_ATOL})")
+    print(f"host-loop first batch, kernels vs plain: loss {loss_err:.3e} "
+          f"relative, logits {logit_err:.3e} of max, weights {param_err:.3e}")
     require(loss_err <= HOST_LOSS_RTOL, f"host fov step loss: {loss_err}")
     require(logit_err <= HOST_LOGIT_TOL, f"host fov step logits: {logit_err}")
     require(param_err <= HOST_PARAM_ATOL,
@@ -3046,7 +3229,7 @@ def main():
     results = {}
     for phase in (phase_kernels, phase_hop_kernels, phase_fused_kernels,
                   phase_train_kernels, phase_select_kernels,
-                  phase_bf16_kernels):
+                  phase_bf16_kernels, phase_lowp_kernels):
         results.update(phase(dev))
         _clock(t0, phase.__name__)
     phase_golden(dev)
@@ -3064,7 +3247,8 @@ def main():
         _clock(t0, "phases 7, 9, 10 (goldens)")
         launches["train"] = phase_train(dev, tmp)
         launches["train_host"] = phase_train_host(dev, tmp)
-        _clock(t0, "phases 11, 15 (training)")
+        launches.update(phase_train_lowp(dev, tmp))
+        _clock(t0, "phases 11, 15, 17 (training)")
         launches["round"] = phase_round_slice(dev, phantom, r2, seg_r2, tmp)
         phase_round_golden(dev, r2, tmp)
         _clock(t0, "phases 12, 13 (round)")
@@ -3106,6 +3290,12 @@ def main():
         ("finalize_pass_bf16", "finalize.cu", "inference/hop_engine.py:624"),
         ("conv3d_dgrad_f32", "conv3d_bwd.cu", "training/train_lib.py:368"),
         ("conv3d_wgrad_f32", "conv3d_bwd.cu", "training/train_lib.py:368"),
+        ("conv3d_ndhwc_f16", "conv3d_bf16.cu", "models/convstack_3d.py:49"),
+        ("conv3d_dgrad_bf16", "conv3d_bwd16.cu", "training/train_lib.py:368"),
+        ("conv3d_dgrad_f16", "conv3d_bwd16.cu", "training/train_lib.py:368"),
+        ("conv3d_wgrad_bf16", "conv3d_bwd16.cu", "training/train_lib.py:368"),
+        ("conv3d_wgrad_f16", "conv3d_bwd16.cu", "training/train_lib.py:368"),
+        ("optim_update_scaled", "optim.cu", "training/precision.py:74"),
         ("train_prep", "train.cu", "training/train_lib.py:239"),
         ("train_gather", "train.cu", "training/train_lib.py:341"),
         ("train_loss", "train.cu", "training/train_lib.py:357"),
@@ -3121,7 +3311,8 @@ def main():
     # with host finalization; train: the full-width training run;
     # train_host: the host-loop trainer's run; round: the round-based slice
     # at 8 lanes; *_bf16: the serial, hop, round and fused slices in
-    # bfloat16; *_bf16_seeds: phase 16's bf16-seed slices on kernels).
+    # bfloat16; *_bf16_seeds: phase 16's bf16-seed slices on kernels;
+    # train_bf16, train_f16, train_host_bf16: phase 17's training runs).
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(p.get(name, 0) for p in launches.values()),
                     launches_by_path={path: p.get(name, 0)

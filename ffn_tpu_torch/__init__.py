@@ -1,10 +1,7 @@
-"""ffn_tpu_torch: the PyTorch/CUDA port of ffn_tpu for NVIDIA Hopper.
-
-Mirrors ffn_tpu's layout and module names. It imports torch and never jax,
-flax or ffn_tpu; ffn_tpu stays the reference it is tested against. The
-serial, batched hop and fused multi-subvolume inference paths run on
-hand-written CUDA kernels (csrc/) on a CUDA device and on their plain
-PyTorch versions on the CPU.
+"""ffn_tpu_torch: the PyTorch/CUDA port of ffn_tpu for NVIDIA Hopper. It
+mirrors ffn_tpu's layout, imports torch and never jax, flax or ffn_tpu
+(the reference it is tested against); every path runs on hand-written CUDA
+kernels (csrc/) on a card and on their plain PyTorch versions on the CPU.
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,12 @@
 """Builds and loads the port's hand-written CUDA kernels.
 
-Each `ffn_tpu_torch/csrc/*.cu` compiles in its own `nvcc` process, all
-started together (the device helpers they share are in
-`csrc/common.cuh`), and one more `nvcc` links the objects into a shared
-library with a plain C interface, loaded through ctypes. The library sits
-under `build/ffn_tpu_torch_kernels/<hash of the sources and headers>/`, so
-an edit to any of them builds anew and an unchanged tree reuses the last
-build. Nothing is compiled when this module is imported: the first kernel
-launch builds.
-
-A missing `nvcc` or a failed build raises. There is no fallback.
-
-`launches` counts kernel launches by kernel name. Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that the
-main path went through the kernels.
+Each `csrc/*.cu` compiles in its own `nvcc` process, all started together
+(shared headers: `csrc/*.cuh`); one more links them into a shared library
+with a plain C interface, loaded through ctypes, under
+`build/ffn_tpu_torch_kernels/<hash of sources and headers>/`. The first
+launch builds, not the import; a missing `nvcc` or a failed build raises.
+`launches` counts launches by kernel name: each wrapper adds one where it
+launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -48,6 +41,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "ffn_conv3d_ndhwc_f32": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "ffn_conv3d_ndhwc_bf16": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    "ffn_conv3d_ndhwc_f16": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    "ffn_conv3d_dgrad_16": [_P, _I] + [_P] * 5 + [_I] * 8 + [_P],
+    "ffn_conv3d_wgrad_16": [_P, _I, _P, _I] + [_P] * 4 + [_I] * 10 + [_P],
     "ffn_step_gather": [_P, _P, _P, _P] + [_I] * 12 + [_F, _I, _P],
     "ffn_step_update": [_P, _P, _P] + [_I] * 12 + [_F, _F, _I, _P],
     "ffn_hop_pop": [_P] * 22 + [_I] * 18 + [_F, _I, _P],
@@ -63,10 +59,10 @@ _SIGNATURES = {
     "ffn_conv3d_wgrad_f32": [_P] * 6 + [_I] * 9 + [_P],
     "ffn_train_prep": [_P] * 5 + [_L, _L] + [_I] * 4 + [_F] * 6 + [_P],
     "ffn_train_gather": [_P] * 7 + [_I, _P, _I, _I, _F, _F, _P],
-    "ffn_train_loss": [_P] * 10 + [_I, _P, _I, _P],
+    "ffn_train_loss": [_P] * 11 + [_I, _P, _I, _P],
     "ffn_train_eval": [_P] * 7 + [_I, _P, _I, _P],
-    "ffn_fov_loss": [_P] * 7 + [_L, _I, _P],
-    "ffn_optim_update": [_P] * 6 + [_I] + [_P] * 7 + [_I, _P],
+    "ffn_fov_loss": [_P] * 8 + [_L, _I, _P],
+    "ffn_optim_update": [_P] * 6 + [_I] + [_P] * 7 + [_I, _P, _P, _I, _P],
     "ffn_select_gather": [_P] * 6 + [_I] * 11 + [_F, _F, _I, _P],
     "ffn_select_update": [_P] * 5 + [_I] * 13 + [_F, _F, _I, _P],
 }

@@ -1,17 +1,14 @@
 #!/usr/bin/env python3
-"""Runs FFN inference within a dense bounding box on one device.
+"""Runs FFN inference in a dense box on one device;
+ffn_tpu/cli/run_inference.py's flags plus --device:
 
-Counterpart of ffn_tpu/cli/run_inference.py with the same flags plus
---device:
-
-  python -m ffn_tpu_torch.cli.run_inference \\
-    --inference_request="$(cat configs/inference_phantom.pbtxt)" \\
-    --bounding_box 'start { x:0 y:0 z:0 } size { x:250 y:250 z:250 }' \\
+  python -m ffn_tpu_torch.cli.run_inference \
+    --inference_request="$(cat configs/inference_phantom.pbtxt)" \
+    --bounding_box 'start { x:0 y:0 z:0 } size { x:250 y:250 z:250 }' \
     --device cuda
 
-The request and the box are text protos (a request may also be given as
-@<path>); protobuf is imported only to parse them. Writes seg-X_Y_Z.npz and
-.prob under the request's segmentation_output_dir, and a counters dump.
+Text protos (or @path); writes seg-X_Y_Z.npz, .prob and counters under
+the request's segmentation_output_dir.
 """
 
 from __future__ import annotations

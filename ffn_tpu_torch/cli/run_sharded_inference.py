@@ -1,25 +1,21 @@
 #!/usr/bin/env python3
 """Sharded FFN inference on one device: decomposition, workers, stitching.
 
-Counterpart of ffn_tpu/cli/run_sharded_inference.py with the same flags
-plus --device, --device_finalize (the fused driver's finalize mode) and
---max_iters_per_segment (the Runner's canvas default, 0 = unlimited):
+Counterpart of ffn_tpu/cli/run_sharded_inference.py with its flags plus
+--device, --device_finalize and --max_iters_per_segment (0 = unlimited):
 
-  python -m ffn_tpu_torch.cli.run_sharded_inference \\
-    --inference_request=@req.pbtxt \\
-    --bounding_box 'start { x:0 y:0 z:0 } size { x:500 y:500 z:500 }' \\
-    --subvolume_size 165,165,165 --overlap 48,48,48 \\
+  python -m ffn_tpu_torch.cli.run_sharded_inference \
+    --inference_request=@req.pbtxt \
+    --bounding_box 'start { x:0 y:0 z:0 } size { x:500 y:500 z:500 }' \
+    --subvolume_size 165,165,165 --overlap 48,48,48 \
     --worker_id 0 --num_workers 1 --device cuda
-  python -m ffn_tpu_torch.cli.run_sharded_inference ... --mode stitch \\
+  python -m ffn_tpu_torch.cli.run_sharded_inference ... --mode stitch \
     --output global.npz
 
-Worker mode processes the subvolumes with index % num_workers ==
-worker_id (finished ones are skipped, so reruns are safe), by default all
-at once through the fused multi-subvolume driver; it prints a summary line
-and a JSON line of the driver's stats. Stitch mode builds the global id
-space from the finished outputs and, with --output, writes the assembled
-volume as .npz (key `segmentation`) or, where h5py is installed, as
-file.h5:dataset.
+Worker mode runs the subvolumes with index % num_workers == worker_id
+(finished ones skipped) through the fused driver and prints its stats;
+stitch mode builds the global ids and writes `segmentation` to .npz (or
+file.h5:dataset with h5py).
 """
 
 from __future__ import annotations

@@ -1,21 +1,16 @@
 #!/usr/bin/env python3
-"""Trains an FFN on one card.
+"""Trains an FFN on one card; ffn_tpu/cli/train.py's flags plus --device:
 
-Counterpart of ffn_tpu/cli/train.py with the same flags plus --device:
-
-  python -m ffn_tpu_torch.cli.train \\
-    --train_coords coords.npz \\
-    --data_volumes 'v:/data/img.npy' --label_volumes 'v:/data/labels.npy' \\
-    --image_mean 128 --image_stddev 33 --train_dir /tmp/train \\
+  python -m ffn_tpu_torch.cli.train \
+    --train_coords coords.npz \
+    --data_volumes 'v:/data/img.npy' --label_volumes 'v:/data/labels.npy' \
+    --image_mean 128 --image_stddev 33 --train_dir /tmp/train \
     --max_steps 1000 --device cuda
 
-Volumes are `name:path:dataset` (h5) or `name:path.npy`. Runs the packed
-scan trainer (train_loop.run_training), or with --trainer host_loop the
-host-loop trainer (train_loop.run_training_host_loop), which also takes
---fov_policy max_pred_moves and no_step; `--device cpu` runs the kernels'
-plain PyTorch versions. Not ported yet, each raising NotImplementedError
-(ROADMAP.md): --precision bf16/f16, --remat, and multi-process training
-(--coordinator_address, --num_processes, --process_id).
+Volumes are `name:path:dataset` (h5) or `name:path.npy`. The packed scan
+trainer, or --trainer host_loop (also max_pred_moves and no_step);
+`--device cpu` runs the plain versions; --precision bf16|f16 trains in 16
+bits. --remat and multi-process training raise NotImplementedError.
 """
 
 from __future__ import annotations

@@ -1,16 +1,10 @@
-// Device helpers shared by the flood-fill kernels: step.cu (K2, K3), hop.cu
-// (K4-K6), lane.cu (K7), finalize.cu (K8) and select.cu (K13, K14).
-//
-// Lane seeds (POM logits, NaN = unvisited) are float32, or bfloat16 under
-// FFN_TPU_SEED_DTYPE=bf16 (engine.py:63-67): every kernel that touches a
-// seed reads it through seed_load (exact for both) and writes it through
-// seed_store (round to nearest even for bfloat16, as `astype(bfloat16)`;
-// NaN stays NaN). seed_round is the value a store keeps.
-//
-// Start indices follow lax.dynamic_slice and lax.dynamic_update_slice (a
-// negative start wraps once, then clamps into [0, shape - size]); face
-// maxima follow _face_scores
-// (ffn_tpu/inference/engine.py:177-209) with jnp.argmax's order; the
+// Device helpers of the flood-fill kernels (step.cu, hop.cu, lane.cu,
+// finalize.cu, select.cu). Lane seeds (POM logits, NaN = unvisited) are
+// float32 or bfloat16 (FFN_TPU_SEED_DTYPE=bf16, engine.py:63-67), read
+// through seed_load (exact) and written through seed_store (round to
+// nearest even, NaN stays NaN); seed_round is what a store keeps. Starts
+// follow lax.dynamic_(update_)slice (wrap once, then clamp); face maxima
+// follow _face_scores (engine.py:177-209) with jnp.argmax's order; the
 // disco-seed test is _apply_model's (engine.py:115-117).
 
 #pragma once

@@ -1,49 +1,20 @@
-// K8 finalize_pass: device finalization of finished lanes, one pass.
+// K8 finalize_pass: device finalization of finished lanes, one pass,
+// replacing finalize_pass + finalize_one of HopEngine._run_hops_impl
+// (ffn_tpu/inference/hop_engine.py:624-864); ops/finalize.py gives the
+// semantics (dud kill, the sequential loop, verdicts, log row, FIFO pops,
+// reseed) and where bfloat16 seeds round (one body templated on the seed
+// type; the wrapper rounds the thresholds once).
 //
-// Replace: finalize_pass + finalize_one of HopEngine._run_hops_impl
-// (ffn_tpu/inference/hop_engine.py:624-864), run at each hop's entry and
-// after its update in device-finalize mode:
-//   1. the same-hop dud kill (:828-840);
-//   2. the sequential loop (:847-863): the lowest-index finishable lane
-//      (DONE_EMPTY without hold, DONE_WEAK, DONE_CAP), else the lowest-index
-//      IDLE / DONE_FINALIZED lane while the FIFO holds entries;
-//   3. finalize_one's verdicts (weak -> invalid -> seed-claimed -> too
-//      small, :647-689), the masked voxel count over the lane's whole slot
-//      and the id write;
-//   4. the log row, at an index clamped to L - 1, only for a finished lane;
-//   5. the FIFO pops against the just-written segmentation, the per-slot
-//      skip counts (an accumulating add), and the lane's reseed: the NaN
-//      blank (a small block at the visited minimum when the span fits it,
-//      with lax.dynamic_update_slice's start: a negative start wraps once,
-//      then clamps; else the whole buffer), the init activation at the new
-//      origin, the cleared dedup grid (:703-802).
-//
-// Bound on the H100: device-memory bandwidth and latency. A finalization
-// that counts reads the lane's seeds, the slot's segmentation and its
-// blocked volume once (9 bytes a voxel: 4.9 MB at 82^3, 40 MB at 165^3)
-// and writes the claimed voxels; a blank writes up to the lane's buffer.
-// The loop is sequential by design (each claim decides the next verdicts
-// and pops), so most of its time is dependent scalar work and grid-wide
-// barriers.
-// Design: one cooperative persistent launch per pass (all blocks resident,
-// a grid barrier of two counters in a scratch buffer). Thread 0 of block 0
-// runs the scalar logic (dud kill, lane choice, verdicts, log row, FIFO
-// pops, lane fields) and broadcasts through the scratch buffer; all blocks
-// share the voxel work: the masked count as an exact int32 grid reduction
-// (one atomicAdd per block), then the id write, then the blank and the
-// dedup-grid clear. Reads of data other blocks wrote in the same launch
-// (segmentation, broadcast values) bypass L1 (__ldcg).
-//
-// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16: one body,
-// templated on the seed type T (common.cuh). With bfloat16 seeds the JAX
-// program treats one origin two ways in one pass, and this kernel copies
-// it: the dud kill compares it with the unrounded float32 move threshold
-// (`move_t`, :835-836), the verdict with the threshold rounded to bfloat16
-// (`verdict_t`, :650); the claim mask compares each seed with the segment
-// threshold rounded to bfloat16 (:662); the blank is bfloat16 NaN and the
-// init activation is stored rounded (:747-767). The wrapper rounds the
-// thresholds once. The float32 instantiation is the kernel as it was
-// before bfloat16 seeds.
+// Bound on the H100: bandwidth and latency. A counting finalization reads
+// the lane's seeds, the slot's segmentation and blocked volume once (9
+// bytes a voxel: 4.9 MB at 82^3) and writes the claims; the loop is
+// sequential by design, so most of the time is dependent scalar work and
+// grid barriers. Design: one cooperative persistent launch per pass (a grid
+// barrier of two counters in scratch). Thread 0 of block 0 runs the scalar
+// logic and broadcasts through scratch; all blocks share the voxel work:
+// the masked count, an exact int32 reduction (one atomicAdd a block),
+// the id write, the blank and the dedup clear. Reads of data the launch
+// wrote bypass L1.
 
 #include "common.cuh"
 

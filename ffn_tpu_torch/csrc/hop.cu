@@ -1,51 +1,21 @@
 // K4 hop_pop, K5 hop_gather and K6 hop_update: one hop of the batched
-// flood fill, around the conv stack (K1).
+// flood fill around the conv stack, replacing the non-model parts of
+// HopEngine._run_hops_impl (ffn_tpu/inference/hop_engine.py:535-1046);
+// ops/hop.py gives the semantics, line by line, and where bfloat16 seeds
+// round (one body per kernel, templated on the seed type, common.cuh).
 //
-// Replace: the non-model parts of one hop of HopEngine._run_hops_impl
-// (ffn_tpu/inference/hop_engine.py:535-1046), which XLA fuses into one
-// while-loop body:
-//   K4  lane_pre + pop_one (:553-622, :879-918): iteration cap, weak origin
-//       (NaN counts as weak), queue-full stall, then the FIFO drain to the
-//       first valid candidate (bounds, claimed, restricted, dedup, seed
-//       value; in device-finalize mode the device segmentation is a second
-//       claim source, :566-567) with the skip counters attributed as :602-612 does; a fresh
-//       lane bypasses every check of its first pop. Then the exec-first
-//       lane order argsort(~execute, stable) and n_exec (:947-950).
-//   K5  lane_patches (:923-933) with the NaN -> pad of _apply_model
-//       (engine.py:92-94); with no seed buffer, the screening gather
-//       (:1148-1154) around one shared fresh seed patch.
-//   K6  _apply_model's crop and disco mask (engine.py:100-119), lane_exec
-//       (:976-1010) with _face_scores (engine.py:177-209), the lexsort and
-//       duplicate drop, and the ring-buffer push loop (:1020-1033); its
-//       screen entry point is the screening readout (:1156).
-//
-// Bound on the H100: latency, not bandwidth or arithmetic. A hop moves a
-// few MB (S patches of 144 KB each way) beside the conv's ~46 GFLOP per
-// lane, and K4's work is a dependent chain of small gathers per lane.
-// Design: K4 is one CTA with one thread per lane, so the block-wide scan of
-// the execute flags gives the order and n_exec without a second launch; a
-// lane's drain is sequential, as the FIFO semantics are. K5 is one
-// elementwise grid with one y-block row per bucket slot. K6 is one CTA per
-// executing lane: it counts the disco fraction, writes the patch to a
-// scratch buffer, and only after a barrier (all `old` voxels read) copies
-// it into the seed buffer, because the box it reads `old` from and the box
-// it writes may differ near a face. Six warps then take the six face maxima
-// in parallel (first index among equal maxima, NaN above all, as
-// jnp.argmax), and one thread sorts the six moves and pushes them. Start
-// indices follow lax.dynamic_slice: a negative start wraps once, then
-// clamps into [0, shape - size].
-//
-// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16: one body
-// per kernel, templated on the seed type T (common.cuh's seed_load,
-// seed_store, seed_round). With bfloat16 seeds the JAX program rounds in
-// some places and not in others, and these kernels copy it: K4 compares the
-// stored seed with the unrounded float32 move threshold (:572, :890); K5
-// substitutes the pad value rounded to bfloat16 for NaN (engine.py:93;
-// the screening gather keeps a float32 fresh patch, :1148); K6's disco mask
-// compares the stored old seed with the float32 logits (engine.py:118),
-// the write-back rounds to nearest even (:983), and the face maxima and the
-// queued scores come from the rounded patch (:998-999). The float32
-// instantiations are the kernels as they were before bfloat16 seeds.
+// Bound on the H100: latency. A hop moves a few MB (144 KB patches each
+// way) beside the conv's ~46 GFLOP a lane, and K4's work is a dependent
+// chain of small gathers per lane. Design: K4 is one CTA with a thread per
+// lane, so a block-wide scan of the execute flags gives the exec-first
+// order and n_exec in the same launch; a lane's drain is sequential, as
+// the FIFO is. K5 is one elementwise grid, a y-row of blocks per bucket
+// slot. K6 is one CTA per executing lane: it counts the disco fraction,
+// writes the patch to scratch and copies it into the seed buffer only after
+// a barrier (the box it reads `old` from and the box it writes may differ
+// near a face); six warps take the face maxima (first index among equal
+// maxima, NaN above all, as jnp.argmax) and one thread sorts and pushes the
+// six moves. Starts follow lax.dynamic_slice (wrap once, then clamp).
 
 #include "common.cuh"
 

@@ -1,34 +1,16 @@
-// K7 lane_threshold: thresholded reductions and downloads of lane seeds.
+// K7 lane_threshold: thresholded reductions and downloads of lane seeds,
+// replacing HopEngine.lane_verdicts (ffn_tpu/inference/hop_engine.py:1209),
+// FloodFillEngine.lane_mask_region (engine.py:446) and lane_mask_regions
+// (:489): per-lane counts of unclaimed voxels >= the segment threshold and
+// the origin's move verdict; one box's uint8 mask; N boxes packed into one
+// buffer with their verdicts, one copy a round. NaN thresholds to False.
+// Seeds float32 or bfloat16 (one body; the wrapper rounds the thresholds to
+// bfloat16 first, as `thr.astype(seed.dtype)`: ops/lane.py).
 //
-// Replace: HopEngine.lane_verdicts (ffn_tpu/inference/hop_engine.py:1209),
-// FloodFillEngine.lane_mask_region (ffn_tpu/inference/engine.py:446) and
-// its batched form lane_mask_regions (engine.py:489), the host-finalize
-// path's reads of lane POMs:
-//   verdicts  per lane, the count of unclaimed voxels >= the segment
-//             threshold over its whole (Z,Y,X) buffer, and whether its
-//             origin is >= the move threshold;
-//   mask      the uint8 (seed >= threshold) mask of one lane's bucketed
-//             box, and the origin's verdict;
-//   masks     the same for N boxes of any lanes in one launch, packed one
-//             after another into one buffer with the N verdicts at its
-//             end, so a round's finalization downloads cross in one copy.
-// NaN (unvisited) thresholds to False in both, as the comparisons do.
-//
-// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16 (one body
-// per kernel, templated on the seed type; reads through seed_load, exact).
-// With bfloat16 seeds the JAX programs compare with the thresholds rounded
-// to bfloat16 (`thr.astype(seed.dtype)`, hop_engine.py:1232-1235,
-// engine.py:475-478, :533-536); the wrapper rounds them before the launch,
-// so a seed v with bf16(move_t) <= v < move_t is weak to K4 (which compares
-// with the float32 threshold) and strong here, as in the JAX package.
-//
-// Bound on the H100: device-memory bandwidth. A verdict call reads every
-// lane's seed buffer once (64 lanes of 132^3 f32: 589 MB), plus the shared
-// blocked volume, which stays in L2. Design: one CTA per (chunk, lane),
+// Bound on the H100: bandwidth (a verdict call reads every lane's seeds
+// once: 589 MB at 64 lanes of 132^3). Design: one CTA per (chunk, lane),
 // coalesced grid-stride loads, a warp-shuffle block sum and one int32
-// atomicAdd per CTA; an integer sum is exact in any order, so the count
-// equals the plain version's. The mask is one elementwise grid; the batched
-// masks one grid with a y-row of blocks per box.
+// atomicAdd per CTA (exact in any order); masks are elementwise grids.
 
 #include "common.cuh"
 

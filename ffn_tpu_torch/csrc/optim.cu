@@ -1,31 +1,23 @@
-// K12 optim_update: the clipped optimizer update of every parameter tensor
-// of the model, with the finite gate and the EMA, in one launch.
+// K12 optim_update: the clipped optimizer update of every parameter tensor,
+// with the loss scale, the finite gate and the EMA, in one launch, replacing
+// the optax chain (ffn_tpu/training/optimizer.py:45-69, optax 0.2.6's
+// arithmetic), DynamicLossScale (training/precision.py:74-114), all_finite /
+// select_tree (:155-167) and the scan body's update (train_lib.py:368-388).
+// In the JAX order: (0) with a loss scale, every gradient entry unscaled,
+// g * (1 / scale), exact for a power of two; (1) finite = every entry
+// finite (per-block flags, a grid barrier); (2) do_update = (active > 0) &
+// finite (`active` from K11), or always with the gate off (the legacy
+// host-loop step, train_lib.py:445-458: a NaN reaches the parameters, as in
+// JAX); per entry g = clip(g, +-c) (NaN stays NaN), the optimizer's step,
+// p += u; without do_update nothing changes; the EMA e = d e + (1 - d) p
+// whenever ema_decay > 0; (3) the scale's adjust(finite) in place. Counts
+// and the scale are read before the barrier and written after it by one
+// thread.
 //
-// Replaces: the optax chain of ffn_tpu/training/optimizer.py:45-69 (clip,
-// then sgd, momentum, adagrad, adam or rmsprop, with the staircase
-// exponential decay), precision.all_finite / select_tree
-// (ffn_tpu/training/precision.py:155-167) and the update, gate and EMA of
-// the scan body (ffn_tpu/training/train_lib.py:370-388), with optax
-// 0.2.6's arithmetic. Two phases, in the JAX order:
-//   1. finite = every gradient entry finite (each block reduces its share,
-//      a grid barrier, every block reads all blocks' flags);
-//   2. do_update = (active > 0) & finite, read from device memory (the
-//      step's `active` count, written by K11's train_loss); with the gate
-//      off (the host-loop trainer's legacy step, make_fov_train_step without
-//      a config, train_lib.py:445-458), do_update always, so a NaN gradient
-//      reaches the parameters as it does in JAX. Each entry:
-//      g = clip(g, +-c) (a NaN stays NaN, as jnp.clip leaves it); the
-//      optimizer's step; p += u. Without do_update the parameters, the
-//      optimizer state and the counts keep their values.
-//      Then, whenever ema_decay > 0, e = d e + (1 - d) p.
-// The counts (adam's and the schedule's) are read before the barrier and
-// written after it by one thread, so no block reads a new count.
-//
-// Bound on the H100: bytes (params, grads, EMA and up to two state tensors,
-// ~638k float32 each at full width). One cooperative launch of one block
-// per SM over a table of tensor pointers passed by value; products and sums
-// are rounded one at a time (__fmul_rn, __fadd_rn), as the plain version's
-// separate torch ops are.
+// Bound on the H100: bytes (params, grads, EMA and up to two state tensors
+// of ~638k floats). One cooperative launch, a block per SM, over a table of
+// tensor pointers by value; each product and sum rounds on its own
+// (__fmul_rn, __fadd_rn), as the plain version's torch ops.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +52,9 @@ struct State {
   const float* active;     // sum of valid lanes at this offset
   uint8_t* finite_out;     // the offset's grads_finite metric
   int* ctrl;               // barrier counters and per-block flags
+  float* scale;            // the DynamicLossScale's scale or null
+  int* scale_counter;      // its counter (with scale)
+  int growth_interval;
 };
 
 __device__ void grid_sync(int* ctrl) {
@@ -92,10 +87,15 @@ optim_update_kernel(Table t, Hyper h, State st) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
 
   // Phase 1: the finite flag of this block's share; the counts.
+  const float scale = st.scale ? *st.scale : 1.f;
+  const int scale_counter = st.scale ? *st.scale_counter : 0;
+  const float inv_scale = __fdiv_rn(1.f, scale);
   int ok = 1;
   for (int j = 0; j < t.count; ++j)
-    for (size_t i = tid; i < (size_t)t.n[j]; i += stride)
-      ok &= isfinite(t.g[j][i]) ? 1 : 0;
+    for (size_t i = tid; i < (size_t)t.n[j]; i += stride) {
+      const float g = st.scale ? __fmul_rn(t.g[j][i], inv_scale) : t.g[j][i];
+      ok &= isfinite(g) ? 1 : 0;
+    }
   ok = __syncthreads_and(ok);
   if (threadIdx.x == 0) st.ctrl[kFlags + blockIdx.x] = ok;
   const int adam_count = st.adam_count ? *st.adam_count : 0;
@@ -116,6 +116,12 @@ optim_update_kernel(Table t, Hyper h, State st) {
     if (do_update) {
       if (st.adam_count) *st.adam_count = safe_increment(adam_count);
       if (st.sched_count) *st.sched_count = safe_increment(sched_count);
+    }
+    if (st.scale) {
+      const bool grow = scale_counter + 1 >= st.growth_interval;
+      *st.scale = finite ? (grow ? __fmul_rn(scale, 2.f) : scale)
+                         : fmaxf(__fmul_rn(scale, 0.5f), 1.f);
+      *st.scale_counter = finite && !grow ? scale_counter + 1 : 0;
     }
   }
 
@@ -141,7 +147,7 @@ optim_update_kernel(Table t, Hyper h, State st) {
     for (size_t i = tid; i < (size_t)t.n[j]; i += stride) {
       float pv = p[i];
       if (do_update) {
-        float g = gp[i];
+        float g = st.scale ? __fmul_rn(gp[i], inv_scale) : gp[i];
         if (h.clip > 0.f && !isnan(g)) g = fminf(fmaxf(g, -h.clip), h.clip);
         float u;
         switch (h.opt) {
@@ -199,13 +205,16 @@ optim_update_kernel(Table t, Hyper h, State st) {
 // sizes. hyper_i = {opt, use_sched, decay_steps, use_ema, gate}; hyper_f =
 // {clip, lr, decay_rate, b1, 1-b1, b2, 1-b2, eps, momentum, rho, 1-rho,
 // ema_d, 1-ema_d}. ctrl: 2 + (number of SMs) zeroed ints, kept across calls.
+// scale (float32) and scale_counter (int32): a DynamicLossScale, or null.
 extern "C" int ffn_optim_update(void* const* p, void* const* g,
                                 void* const* s1, void* const* s2,
                                 void* const* e, const long long* n, int count,
                                 const int* hyper_i, const float* hyper_f,
                                 void* adam_count, void* sched_count,
                                 const float* active, void* finite_out,
-                                void* ctrl, int ctrl_len, void* stream) {
+                                void* ctrl, int ctrl_len, void* scale,
+                                void* scale_counter, int growth_interval,
+                                void* stream) {
   if (count > kMaxTensors) return static_cast<int>(cudaErrorInvalidValue);
   Table t;
   for (int j = 0; j < count; ++j) {
@@ -222,7 +231,9 @@ extern "C" int ffn_optim_update(void* const* p, void* const* g,
                 hyper_f[5], hyper_f[6], hyper_f[7], hyper_f[8], hyper_f[9],
                 hyper_f[10], hyper_f[11], hyper_f[12]};
   State st{static_cast<int*>(adam_count), static_cast<int*>(sched_count),
-           active, static_cast<uint8_t*>(finite_out), static_cast<int*>(ctrl)};
+           active, static_cast<uint8_t*>(finite_out), static_cast<int*>(ctrl),
+           static_cast<float*>(scale), static_cast<int*>(scale_counter),
+           growth_interval};
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)

@@ -1,54 +1,22 @@
 // K13 select_gather and K14 select_update: one round of the round-based
-// batched flood fill, around the conv stack (K1).
-//
-// Replace: FloodFillEngine._select_step_impl with its packed jit wrapper
-// (ffn_tpu/inference/engine.py:211-293, :387-403), one XLA program of B
-// vmapped lanes, and _step_batch_impl (:138-175), which runs as the same two
-// kernels with K = 1, the start at the position and `ignore` set on every
-// lane (then executed = active):
-//   K13  per lane: the seed values at the start and at the K candidates
-//        against the move threshold (a NaN value is below it), start_ok =
-//        (v >= move_t) | ignore, ok[k] = v_k >= move_t with ok[0] |= ignore,
-//        the first ok candidate (chosen, -1 if none), executed = active &
-//        start_ok & any(ok), pos = cands[max(chosen, 0)]; then the image
-//        patch and the seed patch (NaN -> pad, engine.py:92-94) at pos, in
-//        the (B, z, y, x) layout K5 writes for K1, and a per-lane record
-//        [executed, chosen, start_ok, pz, py, px] (int32) that stays on the
-//        device for K14.
-//   K14  per lane: _apply_model's crop and disco-seed mask (engine.py
-//        :100-119), whose `old` is the crop of the clamped seed patch; the
-//        write-back where(executed, masked, old) at the write start clamped on
-//        its own (:266-273); the six face maxima of the written patch
-//        (_face_scores, :177-209: first index among equal maxima, NaN above
-//        all, -inf for a zero-delta axis); scores -inf where the lane did not
-//        execute; the packed (B, 30) f32 row [executed, chosen, start_ok, 6
-//        scores, 18 offsets, pos] (:285-292). The masked crop of every lane
-//        is left in `masked`, which step_batch returns.
-//
-// Bound on the H100: bytes. Per lane K13 reads a 33^3 f32 image patch and a
-// seed patch and writes both (4 x 143,748 B), and K14 reads the logits crop
-// and the old box and writes the box (3 x 143,748 B); the arithmetic is a
-// compare per voxel. Design: K13 is one elementwise grid with one y-row of
-// blocks per lane, as K5; each block recomputes its lane's selection (K + 1
-// scalar reads that hit L2) in thread 0, so no second launch or host read
-// sits between the selection and the gather. K14 is one CTA per lane, as
-// K6: it counts the disco fraction, writes the masked crop to `masked`, and
-// only after a barrier (every `old` voxel read) copies it into the seed
-// buffer, because the box `old` comes from and the write box differ near a
-// face; six warps then take the face maxima of the written box and thread 0
-// packs the row. K1 runs on all B lanes, inactive ones too, as JAX's vmap
-// does.
-//
-// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16: one body
-// per kernel, templated on the seed type T (common.cuh). With bfloat16
-// seeds K13 compares the stored start and candidate values with the
-// unrounded float32 move threshold (engine.py:241, :249) and puts the pad
-// rounded to bfloat16 (the wrapper rounds it) where a seed is NaN (:93);
-// K14's disco mask compares the stored old seed with the float32 logits
-// (:118), the write-back rounds to nearest even (:271), the face maxima come
-// from the rounded box (:274), and `masked` stays unrounded, as
-// _step_batch_impl returns it (:170-173). The float32 instantiations are
-// the kernels as they were before bfloat16 seeds.
+// batched flood fill around the conv stack, replacing
+// FloodFillEngine._select_step_impl and its packed jit (ffn_tpu/inference/
+// engine.py:211-293, :387-403) and _step_batch_impl (:138-175, the same two
+// kernels with K = 1 and `ignore` everywhere); ops/select.py gives the
+// semantics and where bfloat16 seeds round (one body per kernel, templated
+// on the seed type).
+//   K13 per lane: start and candidate values against the move threshold,
+//       the first ok candidate, executed, pos; the image and seed patches
+//       (NaN -> pad) at pos; a record [executed, chosen, start_ok, pz, py,
+//       px] left on the device for K14.
+//   K14 per lane: the crop and disco mask, the write-back where executed,
+//       the six face maxima of the written box (-inf where not executed),
+//       the packed (B, 30) row; every lane's masked crop in `masked`.
+// Bound on the H100: bytes (4 and 3 x 143,748 B a lane; a compare a voxel).
+// Design: K13 one elementwise grid, a y-row of blocks per lane, each block
+// recomputing its lane's choice in thread 0 (no second launch or host
+// read); K14 one CTA per lane, as K6 (scratch, a barrier, then the copy;
+// six warps for the face maxima). K1 runs on all B lanes, as JAX's vmap.
 
 #include "common.cuh"
 

@@ -1,35 +1,15 @@
-// K2 step_gather and K3 step_update: the two ends of one serial FFN step.
+// K2 step_gather and K3 step_update: the two ends of one serial FFN step,
+// replacing FloodFillEngine._step_impl (ffn_tpu/inference/engine.py:121-136)
+// and _apply_model's non-model part (:88-119) around K1. K2: the image and
+// seed patches at pos - size/2, NaN -> pad. K3: the crop, the disco-seed
+// fraction mean(logits >= move_t), the keep-old mask, the write-back.
+// ops/step.py gives where bfloat16 seeds round (one body per kernel).
 //
-// Replace: the device program FloodFillEngine._step_impl
-// (ffn_tpu/inference/engine.py:121-136) and the non-model part of
-// FloodFillEngine._apply_model (engine.py:88-119). XLA fuses them around
-// the conv stack; here the conv stack is K1 (conv3d.cu) and these two
-// kernels are its prologue and epilogue.
-//
-// K2: clamped patch gather of the image and the seed (POM) at
-// pos - size/2, with NaN (unvisited) seed voxels replaced by `pad`.
-// K3: crop to the predicted region, the disco-seed reduction
-// frac = mean(logits >= move_t), the keep-old mask, and the write-back into
-// the seed buffer.
-//
-// Bound on the H100: launch latency and one SM's bandwidth. A 33^3 patch
-// is 144 KB, microseconds of traffic next to the milliseconds of K1.
-// Design: K2 is one elementwise grid. K3 is a single CTA, because its
-// reduction decides every output voxel and the region it writes may
-// overlap the region it reads `old` from: the CTA counts, then reads every
-// `old` and writes the result to the returned patch, then -- after a
-// barrier that orders all reads before any write -- copies the patch into
-// the seed buffer. Start indices follow lax.dynamic_slice and
-// lax.dynamic_update_slice: a negative start wraps once (start + shape),
-// then clamps into [0, shape - size].
-//
-// Seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16: one body
-// per kernel, templated on the seed type T (common.cuh). With bfloat16
-// seeds K2 puts the pad rounded to bfloat16 (the wrapper rounds it) where a
-// seed is NaN (engine.py:93); K3's disco mask compares the stored old seed
-// with the float32 logits (:118), its write-back rounds to nearest even
-// (:135), and the patch it returns stays unrounded (:136). The float32
-// instantiations are the kernels as they were before bfloat16 seeds.
+// Bound on the H100: latency (a 144 KB patch beside K1's milliseconds).
+// Design: K2 one elementwise grid; K3 one CTA, because its reduction decides
+// every output and the region it writes may overlap the one it reads `old`
+// from: it counts, writes the returned patch, and after a barrier copies it
+// into the seed buffer. Starts follow lax.dynamic_(update_)slice.
 
 #include "common.cuh"
 

@@ -1,41 +1,23 @@
-// K11 train_step_ops: the scan train step's own passes, all but the conv
-// stack and the optimizer. Four entry points:
-//   train_prep    the packed prelude (ffn_tpu/training/train_lib.py:239-248):
-//                 uint8 image -> (x - mean) / stddev, uint8 mask -> soft
-//                 labels, and the seed canvas at logit(pad) with its centre
-//                 at logit(init);
-//   train_gather  the gate and the crops of one offset (:341-355, the
-//                 fixed_window test :326-335): each lane's centre values give
-//                 `valid` (seed >= logit(threshold)) and `wanted` (label >=
-//                 threshold); the seed and image canvases are cropped into
-//                 the model's (B, f^3, 2) input with the concatenation fused,
-//                 and the seed crop once more as the residual (B, f^3, 1);
-//   train_loss    after the forward (:357-366, :390-401): the masked sigmoid
-//                 cross entropy max(x,0) - x z + log1p(exp(-|x|)), the loss
-//                 sum_b valid_b mean(ce w)_b / max(sum valid, 1), its
-//                 gradient valid w (sigmoid(x) - z) / (V max(sum valid, 1))
-//                 (conv_lom's output gradient), the write-back of the logits
-//                 into the seed canvas for valid lanes, and the counts
-//                 active, correct, missed, spurious;
-//   train_eval    after the offsets (:255-266): the eval region's centre
-//                 crop, its mean cross entropy and exact int32 tp/fp/fn/tn.
-// And K16, the host-loop trainer's loss:
-//   fov_loss      make_fov_train_step's loss (:425-505): mean(ce(x, z) w)
-//                 over every voxel of the batch, weights of zero included
-//                 and no per-lane gate, and its gradient w (sigmoid(x) - z)
-//                 / N (conv_lom's output gradient); at x = 0 exactly -w z /
-//                 N, JAX's derivative there (max splits the tie 0.5/0.5,
-//                 abs' derivative at 0 is 1, so the log1p term gives -0.5).
-//                 Two outputs: dlogits and the scalar loss.
-// Crop starts are lax.dynamic_slice's (wrapped once, then clamped) and come
-// from the host, which knows every offset.
+// K11 train_step_ops (the scan step's passes around the conv stack and the
+// optimizer) and K16 fov_loss, replacing parts of ffn_tpu/training/
+// train_lib.py; ops/train.py gives the semantics:
+//   train_prep    the packed prelude (:239-248);
+//   train_gather  one offset's gate and crops (:341-355, fixed_window
+//                 :326-335), the model input's concatenation fused;
+//   train_loss    the masked CE max(x,0) - x z + log1p(exp(-|x|)), the loss
+//                 sum_b valid_b mean(ce w)_b / max(sum valid, 1), dlogits
+//                 valid w (sigmoid(x) - z) / (V max(sum valid, 1)), the
+//                 logits' write-back for valid lanes, the counts (:357-401);
+//   train_eval    the eval crop's CE and exact tp/fp/fn/tn (:255-266);
+//   fov_loss      make_fov_train_step's ungated mean(ce w) and w (sigmoid(x)
+//                 - z) / N (:425-505); at x = 0 exactly -w z / N, as jax.grad.
+// train_loss and fov_loss multiply dlogits by the loss scale (a device float
+// or 1): the gradient of `scale_loss(loss)` (:364, :469), exact for the
+// power of two the scale is. Crop starts come from the host.
 //
-// Bound on the H100: bytes (a few float32 canvases of 49^3 and patches of
-// 33^3 per lane; K16 reads three (B, 33^3) tensors and writes one); each
-// pass is one launch, so at these sizes launch latency dominates.
-// Reductions are deterministic: each block writes its partial sums, the
-// last block to finish (an integer ticket) adds them in block order and
-// resets the ticket.
+// Bound on the H100: bytes (49^3 canvases, 33^3 patches); each pass is one
+// launch, so latency dominates. Reductions are deterministic: blocks write
+// partial sums, the last block (an integer ticket) adds them in order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,7 +180,8 @@ __global__ void train_loss_kernel(const float* __restrict__ logits,
                                   float* __restrict__ dlogits,
                                   float* __restrict__ partial,
                                   unsigned* __restrict__ ticket,
-                                  float* __restrict__ metrics, int B,
+                                  float* __restrict__ metrics,
+                                  const float* __restrict__ scale, int B,
                                   LossArgs a) {
   __shared__ float s_warp[kThreads / 32];
   __shared__ bool s_last;
@@ -212,6 +195,7 @@ __global__ void train_loss_kernel(const float* __restrict__ logits,
   const float valid_f = valid[b] ? 1.f : 0.f;
   // d loss / d per_lane_b = valid_b / denom; the mean divides by V.
   const float coef = __fdiv_rn(__fdiv_rn(valid_f, denom), static_cast<float>(V));
+  const float sc = scale != nullptr ? *scale : 1.f;
 
   float sum = 0.f;
   const int v0 = blockIdx.x * a.chunk, v1 = min(v0 + a.chunk, V);
@@ -230,7 +214,8 @@ __global__ void train_loss_kernel(const float* __restrict__ logits,
     // fails both tests and stays NaN.
     const float sig =
         lx == 0.f ? 0.f : lx > 0.f ? 1.f / (1.f + e) : e / (1.f + e);
-    dlogits[(size_t)b * V + v] = __fmul_rn(__fmul_rn(coef, w), __fsub_rn(sig, lz));
+    dlogits[(size_t)b * V + v] =
+        __fmul_rn(__fmul_rn(__fmul_rn(coef, w), __fsub_rn(sig, lz)), sc);
     if (valid[b])
       seeds[b * svol + at3(a.s, a.w0.z + z, a.w0.y + y, a.w0.x + x)] = lx;
   }
@@ -334,11 +319,13 @@ __global__ void fov_loss_kernel(const float* __restrict__ logits,
                                 float* __restrict__ dlogits,
                                 float* __restrict__ partial,
                                 unsigned* __restrict__ ticket,
-                                float* __restrict__ loss, long long n,
+                                float* __restrict__ loss,
+                                const float* __restrict__ scale, long long n,
                                 int chunk) {
   __shared__ float s_warp[kThreads / 32];
   __shared__ bool s_last;
   const float nf = static_cast<float>(n);
+  const float sc = scale != nullptr ? *scale : 1.f;
   const long long v0 = (long long)blockIdx.x * chunk;
   const long long v1 = min(v0 + (long long)chunk, n);
   float sum = 0.f;
@@ -351,7 +338,7 @@ __global__ void fov_loss_kernel(const float* __restrict__ logits,
     // A NaN fails both tests and stays NaN.
     const float sig =
         lx == 0.f ? 0.f : lx > 0.f ? 1.f / (1.f + e) : e / (1.f + e);
-    dlogits[v] = __fmul_rn(__fdiv_rn(w, nf), __fsub_rn(sig, lz));
+    dlogits[v] = __fmul_rn(__fmul_rn(__fdiv_rn(w, nf), __fsub_rn(sig, lz)), sc);
   }
   const float s = block_sum(sum, s_warp);
   if (threadIdx.x == 0) {
@@ -418,8 +405,8 @@ extern "C" int ffn_train_loss(const float* logits, float* seeds,
                               const float* labels, const float* weights,
                               const void* valid, const void* wanted,
                               float* dlogits, float* partial, void* ticket,
-                              float* metrics, int B, const int* dims,
-                              int chunk, void* stream) {
+                              float* metrics, const float* scale, int B,
+                              const int* dims, int chunk, void* stream) {
   LossArgs a;
   Dims* d[] = {&a.fov, &a.s, &a.lab, &a.w0, &a.l0};
   for (int k = 0; k < 5; ++k) *d[k] = Dims{dims[3 * k], dims[3 * k + 1], dims[3 * k + 2]};
@@ -429,7 +416,7 @@ extern "C" int ffn_train_loss(const float* logits, float* seeds,
   train_loss_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       logits, seeds, labels, weights, static_cast<const uint8_t*>(valid),
       static_cast<const uint8_t*>(wanted), dlogits, partial,
-      static_cast<unsigned*>(ticket), metrics, B, a);
+      static_cast<unsigned*>(ticket), metrics, scale, B, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -456,10 +443,11 @@ extern "C" int ffn_train_eval(const float* seeds, const float* labels,
 extern "C" int ffn_fov_loss(const float* logits, const float* labels,
                             const float* weights, float* dlogits,
                             float* partial, void* ticket, float* loss,
-                            long long n, int chunk, void* stream) {
+                            const float* scale, long long n, int chunk,
+                            void* stream) {
   const int grid = static_cast<int>((n + chunk - 1) / chunk);
   fov_loss_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       logits, labels, weights, dlogits, partial,
-      static_cast<unsigned*>(ticket), loss, n, chunk);
+      static_cast<unsigned*>(ticket), loss, scale, n, chunk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,24 +1,15 @@
 """Batched multi-seed flood-fill canvas, round by round.
 
-Counterpart of ffn_tpu/inference/batch_canvas.py. B objects ("lanes")
-advance concurrently on one subvolume. This module holds what every batched
-canvas does on the host (the seed pool with its deferral of seeds near
-running lanes, the validity checks of a seed, lane bookkeeping and the
-finalization of a finished lane into the shared segmentation, with its
-exact verdict order: weak -> seed-claimed drop -> too small -> segment) and
-the round-based main loop (hops=0): per round each running lane submits the
-K front entries of its host FIFO, the engine's select_step (K13 -> K1 ->
-K14) drops the ones below the move threshold against the same seed state,
-runs the FFN update at the first valid one and returns face-max scores, so
-a round moves one packed array each way. HopBatchCanvas (hop_canvas.py)
-keeps the FIFOs on the device instead.
-
-Semantics per object are Canvas.segment_all's (movement FIFO order,
-delta-lattice dedup, logit thresholds, weak-seed and min-size rejection,
-origins and overlaps). Deviation by design, as in the JAX package: objects
-whose flood fills overlap in time do not see each other's voxels until one
-is finalized; contested voxels go to whichever object finalizes first.
-lanes=1 matches the serial Canvas exactly.
+Counterpart of ffn_tpu/inference/batch_canvas.py: B lanes advance on one
+subvolume. Holds what every batched canvas does on the host (the seed pool
+deferring seeds near running lanes, seed validity, lane bookkeeping,
+finalization with the verdict order weak -> seed-claimed -> too small ->
+segment) and the round-based loop (hops 0): each running lane submits its
+FIFO's K front entries, select_step (K13 -> model -> K14) takes the first
+valid one, and a round moves one packed array each way. HopBatchCanvas
+keeps the FIFOs on the device. Per object the semantics are
+Canvas.segment_all's (lanes=1 matches it); as in JAX, overlapping flood
+fills see each other's voxels only after a finalization.
 """
 
 from __future__ import annotations

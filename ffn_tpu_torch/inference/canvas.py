@@ -1,12 +1,8 @@
-"""Inference canvas: per-subvolume flood-fill state and control flow.
-
-Counterpart of the serial Canvas of ffn_tpu/inference/canvas.py, with the
-host logic copied line for line: logit-space thresholds, NaN-as-unvisited
-seed, the movement loop, weak-seed/min-size rejection, origin/overlap
-bookkeeping, and checkpoint save/restore (same npz keys). Only the engine
-calls differ: the canvas drives ffn_tpu_torch.inference.engine and keeps an
-exact host mirror of the device seed, assembled from the same patches the
-device writes.
+"""Inference canvas: the serial Canvas of ffn_tpu/inference/canvas.py, its
+host logic copied line for line (logit thresholds, NaN as unvisited, the
+movement loop, weak-seed and min-size rejection, origins, checkpoints with
+the same npz keys); it drives ffn_tpu_torch's engine and keeps an exact
+host mirror of the device seed from the patches it writes.
 """
 
 from __future__ import annotations

@@ -1,9 +1,7 @@
-"""Thread-safe counters and timers for inference instrumentation.
-
-Counterpart of ffn_tpu/inference/counters.py (StatCounter, Counters,
-timer_counter, TimedIter). A saved segmentation (`dumps`) and a checkpoint
-(`dumps_np`) carry the counters as a serialized TaskCounters proto, as the
-JAX package's do; protobuf is imported only there.
+"""Thread-safe counters and timers (ffn_tpu/inference/counters.py:
+StatCounter, Counters, timer_counter, TimedIter). Saved segmentations
+(`dumps`) and checkpoints (`dumps_np`) carry them as a serialized
+TaskCounters proto, as JAX's do; protobuf is imported only there.
 """
 
 from __future__ import annotations

@@ -1,38 +1,22 @@
 """Device-resident flood-fill engine: the serial step, the round-based
 batched step and the lane reads.
 
-Counterpart of ffn_tpu/inference/engine.py's FloodFillEngine: put_image,
-new_seed_buffer, reset_seed and step for the serial canvas; new_seed_batch,
-reset_seed_lane, reset_lanes, select_step and step_batch for the round-based
-BatchCanvas; _face_scores, lane_seed_region, lane_mask_region and
-lane_mask_regions (K7) and set_lane_seed_region for the batched canvases.
-The seed (POM logits, NaN = unvisited) lives on the device. One serial step
-is
+Counterpart of ffn_tpu/inference/engine.py's FloodFillEngine (put_image,
+seed buffers and resets, step, select_step, step_batch, _face_scores, the
+lane region reads and writes). One serial step is K2 step_gather (patches,
+NaN -> pad) -> model.apply (K1, or K15 in bfloat16) -> K3 step_update
+(crop, disco mask, write-back), and only the pred-size patch comes back.
+One round of B lanes is one (B, 3K+5) int32 upload -> K13 select_gather ->
+model.apply on all B lanes -> K14 select_update -> one (B, 30) download.
+Lane resets are fills and index sets, as JAX's memsets and scatters. On a
+CPU device the kernels' plain versions run.
 
-  K2 step_gather (image and seed patches, NaN -> pad)
-  -> model.apply (the conv stack: K1 for every layer)
-  -> K3 step_update (crop, disco-seed mask, write-back)
-
-and only the pred-size patch comes back to the host, for the canvas's
-mirror and the movement policy. One round of B lanes is
-
-  one (B, 3K+5) int32 upload (candidates, start, active, ignore)
-  -> K13 select_gather (the first valid candidate, image and seed patches)
-  -> model.apply on all B lanes (K1)
-  -> K14 select_update (disco mask, masked write-back, face maxima)
-
-and one (B, 30) f32 download. The lane resets are fills and index sets,
-as the JAX package's are memsets and scatters. On a CPU device the same
-calls run the kernels' plain PyTorch versions.
-
-Seeds are stored in `seed_dtype`: float32, or bfloat16 (the Runner's
-FFN_TPU_SEED_DTYPE=bf16, engine.py:63-67), which halves the seed memory
-per lane. Every kernel takes either (ops/step.py and ops/select.py say
-where bfloat16 rounds, as the JAX program does); each call dispatches on
-its seed tensor's dtype, so a serial seed rebuilt in float32 by a checkpoint
-restore stays float32, as in the JAX canvas. step and step_batch return the
-unrounded float32 patches. Region downloads are float32, as the JAX
-engine's; uploads and resets round into the seed dtype.
+Seeds are float32 or bfloat16 (`seed_dtype`, FFN_TPU_SEED_DTYPE=bf16,
+engine.py:63-67; ops/step.py and ops/select.py say where bfloat16 rounds).
+Each call dispatches on its seed tensor's dtype, so a serial seed rebuilt
+in float32 by a checkpoint restore stays float32, as in the JAX canvas;
+step and step_batch return unrounded float32 patches; downloads are
+float32, uploads round into the seed dtype.
 """
 
 from __future__ import annotations

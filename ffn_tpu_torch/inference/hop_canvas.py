@@ -1,30 +1,21 @@
 """BatchCanvas with the device-resident movement policy (HopEngine).
 
-Counterpart of ffn_tpu/inference/hop_canvas.py. The movement FIFO and dedup
-grid of every lane live on the device (hop_engine.LaneState), and the host
-talks to the device every `hops` moves. With host finalization (the
-default) it reseeds idle lanes per round, runs `run_hops`, ingests a small
-per-lane status array, and finalizes finished lanes; segmentation claims
-are mirrored into a device `blocked` volume so candidate validity is
-evaluated on the device at pop time. With device finalization
-(`device_finalize=True` or FFN_TPU_DEVFIN=1) K8 finalizes and reseeds lanes
-inside the round from a FIFO of screened seeds, and the host applies the
-round's finalization log (`apply_finalize_rows`); the segmentation crosses
-to the host once, at the end and at checkpoints.
+Counterpart of ffn_tpu/inference/hop_canvas.py. Every lane's FIFO and
+dedup grid live on the device (hop_engine.LaneState); the host talks to
+it every `hops` moves. With host finalization (the default) it reseeds
+idle lanes, runs `run_hops`, ingests a per-lane status array and
+finalizes finished lanes, mirroring claims into a device `blocked` volume
+so validity is checked at pop time. With device finalization
+(`device_finalize=True` or FFN_TPU_DEVFIN=1) K8 finalizes and reseeds in
+the round and the host applies its log (`apply_finalize_rows`); the
+segmentation crosses to the host at the end and at checkpoints.
 
-Semantics: per object the same as the serial Canvas (pop-time checks, FIFO
-order, weak-seed and min-size gates; lanes=1 matches it exactly). Another
-lane's claim becomes visible at the next round boundary; contested voxels go
-to whichever object finalizes first.
-
-Queue overflow never truncates objects: a lane whose device FIFO cannot
-take a move's pushes STALLS (hop_engine.STALLED_FULL); the host drains the
-queue (dropping stale entries, spilling the newest overflow to a host-side
-list) and resumes the lane; spilled entries return when the device FIFO
-empties, preserving FIFO order.
-
-A checkpoint of the round-based BatchCanvas restores here too: each lane's
-host FIFO and done cells become its device queue and dedup grid.
+Per object the semantics are the serial Canvas's (lanes=1 matches it);
+another lane's claim shows at the next round boundary. A lane whose FIFO
+cannot take a move's pushes STALLS; the host drains its queue (spilling
+the newest overflow to a host list that returns when the device FIFO
+empties) and resumes it, so objects are never truncated. A round-based
+BatchCanvas checkpoint restores here too.
 """
 
 from __future__ import annotations

@@ -1,56 +1,30 @@
 """Device-resident movement policy: multi-hop flood fill.
 
-Counterpart of ffn_tpu/inference/hop_engine.py, in both finalize modes. Per
-lane the device holds a FIFO ring buffer of scored candidate positions, a
-visited-cell dedup grid and the seed (POM) buffer; a shared `blocked`
-volume carries the claimed and restricted bits. `run_hops` executes up to H
-pop -> FFN -> score -> push hops per call, and the host sees one small
-per-lane status array per round.
+Counterpart of ffn_tpu/inference/hop_engine.py, in both finalize modes.
+Per lane the device holds a FIFO of scored candidates, a visited-cell
+dedup grid and the seed (POM) buffer; a shared `blocked` volume carries
+the claimed and restricted bits. `run_hops` executes up to H hops a call:
 
-One hop is
+  [K8 finalize_pass] -> K4 hop_pop -> K5 hop_gather -> model.apply (K1 or
+  K15) -> K6 hop_update -> [K8 finalize_pass]
 
-  [K8 finalize_pass]  (device-finalize mode: finish and reseed lanes)
-  -> K4 hop_pop (caps, weak origins, stalls, the FIFO drain; exec-first order)
-  -> K5 hop_gather (the conv bucket's image and seed patches)
-  -> model.apply (the conv stack: K1 for every layer)
-  -> K6 hop_update (disco mask, write-back, dedup cell, face maxima, push)
-  -> [K8 finalize_pass]
+with K7 (ops/lane.py) for host finalization's reads and torch ops for
+data movement without arithmetic (reseeds, region ORs, slot-stack
+updates, FIFO loads, queue transfers), as the JAX programs' fills and box
+copies. In device-finalize mode (`fstate`) K8 writes claims into
+`fstate.seg` at once and reseeds freed lanes from a FIFO the host loads
+each round; the host reads one packed array a round (unpack_round).
 
-with K7 (ops/lane.py) for host finalization's reads, and plain torch tensor
-ops for the data movement with no arithmetic (reseed, blocked-region OR,
-slot-stack updates, the FIFO load, segmentation slices, lane compaction,
-queue and dedup-grid transfers), as the JAX package's XLA programs are
-fills, box copies and row gathers there.
-
-In device-finalize mode (`fstate`, a FinalizeState) finished objects are
-finalized on the device: claims land in `fstate.seg` at once, so another
-lane's flood into a claimed object dies at its next pop, and freed lanes
-reseed themselves from a FIFO of screened seeds that the host loads each
-round. The host reads one packed array per round: B aux rows, a header row
-[log_n, fifo_head, claimed per slot] and the finalization log (unpack_round).
-
-Deviations from the JAX program:
-- JAX runs the hops of a round in one `lax.while_loop` on the device. Here
-  a Python loop runs them, and each hop makes ONE small device->host read,
-  after K4, where JAX evaluates its loop `cond`: K4's (n_exec, lanes still
-  RUNNING) and, in device-finalize mode, K8's flag of whether the loop's
-  cond held at the hop's entry. The read picks the conv bucket (the
-  smallest of B/8, B/4, B/2, B that covers the executing lanes,
-  hop_engine.py:948-974) and ends the round early (:1052-1071). In
-  device-finalize mode the hop whose entry finds the cond false has run
-  only K8 and K4, which change nothing then, so the state is JAX's.
-- So `run_hops(sync=False)` returns the packed result as a device tensor
-  (HostCopy starts its copy into pinned memory), but the round itself has
-  already run to its end: the host cannot queue seed screening behind an
-  in-flight round as the JAX driver does. The fused driver's t_seed
-  against t_hops shows what that costs (PERF.md).
-Lane state is updated in place where the JAX program donates its buffers.
-
-Seeds are float32 or bfloat16 (`seed_dtype`, FFN_TPU_SEED_DTYPE=bf16 in the
-Runner): K4-K7 read and write either (ops/hop.py says where bfloat16 rounds,
-as the JAX program does), the reseed plants init_activation rounded to
-bfloat16, and screening keeps its float32 fresh patch. Device finalization
-(K8) takes either too (ops/finalize.py says where it rounds).
+Deviations: JAX runs a round's hops in one `lax.while_loop`; here a Python
+loop does, with ONE small device->host read a hop after K4 (n_exec and the
+running lanes; in device-finalize mode K8's view of the loop's cond),
+which picks the conv bucket (B/8 .. B covering the executing lanes,
+hop_engine.py:948-974) and ends the round early (:1052-1071). So
+`run_hops(sync=False)` returns the packed result as a device tensor but
+the round has already run: seed screening cannot queue behind an
+in-flight round (PERF.md: t_seed against t_hops). Lane state is updated
+in place where JAX donates. Seeds are float32 or bfloat16 (`seed_dtype`);
+ops/hop.py and ops/finalize.py say where bfloat16 rounds.
 """
 
 from __future__ import annotations
@@ -431,22 +405,16 @@ class HopEngine(FloodFillEngine):
                  fin_opts: Optional[np.ndarray] = None):
         """Executes up to `hops` FFN moves per running lane on the device.
 
-        image/blocked are (Z, Y, X) volumes or (K, Z, Y, X) stacks (lanes
-        bind to slots via state.sv). `shapes` gives each slot's actual
-        (z, y, x) extent for the bounds check; it defaults to the full stack
-        shape.
-
-        With `fstate` (device-finalize mode), finished lanes are finalized
-        by K8 (claims written to fstate.seg at once) and reseeded from
-        fstate's FIFO mid-round; `fin_opts` is float32 [segment_threshold,
-        min_segment_size, init_activation]. Returns (state, fstate, aux) in
-        that mode, (state, aux) otherwise: the same state objects, updated
-        in place, and a dict of small host arrays: status, iters, minp,
-        maxp, queue_len, overflow, the three skip counters, executed, pops,
-        sv and start. With sync=False, the packed device tensor takes aux's
-        place (unpack_aux, or unpack_round in device-finalize mode, reads
-        it); see the module docstring for what it does not overlap.
-        """
+        image/blocked are (Z, Y, X) volumes or (K, Z, Y, X) stacks (lanes bind
+        to slots via state.sv); `shapes` gives each slot's (z, y, x) extent for
+        the bounds check (default: the stack's). With `fstate` (device-finalize
+        mode) K8 finalizes finished lanes (claims into fstate.seg at once) and
+        reseeds them from fstate's FIFO mid-round; `fin_opts` is float32
+        [segment_threshold, min_segment_size, init_activation]. Returns (state,
+        fstate, aux) in that mode, else (state, aux): the states updated in place
+        and a dict of small host arrays (status, iters, minp, maxp, queue_len,
+        overflow, the skip counters, executed, pops, sv, start); with
+        sync=False the packed device tensor instead (unpack_aux, unpack_round)."""
         fin = fstate is not None
         if fin and fin_opts is None:
             raise ValueError("device-finalize mode needs fin_opts")

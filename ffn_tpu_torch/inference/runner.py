@@ -1,11 +1,8 @@
-"""Inference run orchestration: settings -> canvas -> saved npz.
-
-Counterpart of ffn_tpu/inference/runner.py (Runner.start, .run). A request
-with concurrent_requests <= 1 builds the serial Canvas; a larger one builds
-HopBatchCanvas, whose lanes run on the device through HopEngine.run_hops,
-or with hops 0 the round-based BatchCanvas (engine.select_step).
-The request may be an InferenceSettings or a parsed InferenceRequest
-proto. Model weights load from the JAX package's flat npz checkpoints.
+"""Inference run orchestration (ffn_tpu/inference/runner.py: Runner.start,
+.run): concurrent_requests <= 1 builds the serial Canvas, more the
+HopBatchCanvas (HopEngine.run_hops) or with hops 0 the round-based
+BatchCanvas; settings or a parsed InferenceRequest; weights from the JAX
+package's flat npz checkpoints.
 """
 
 from __future__ import annotations
@@ -86,6 +83,11 @@ class Runner:
                 if request.model_args else {}
             self.model = model_class(**model_args)
             self._model_info = self.model.info
+        if getattr(self.model, "dtype", None) == torch.float16:
+            raise NotImplementedError(
+                "float16 inference is not ported to ffn_tpu_torch "
+                "(ROADMAP.md): no JAX bench or config runs it; float16 "
+                "models train (--precision f16)")
 
         with timer_counter(self.counters, "load-params"):
             if request.model_checkpoint_path:

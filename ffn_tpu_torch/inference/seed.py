@@ -1,11 +1,8 @@
-"""Seed policies: iterators over (z, y, x) starting points for flood fill.
-
-A copy of ffn_tpu/inference/seed.py without JAX: the policies are host
-numpy and scipy, with stdlib logging in place of absl and the port's
-storage and image modules. Seed ORDER determines segmentation results, so
-the operation sequence is kept exactly (Sobel -> adaptive threshold ->
-anisotropic EDT -> noisy peak_local_max -> ascending zyx for PolicyPeaks;
-offset-major lattices; the same tie-breaking noise).
+"""Seed policies: iterators over (z, y, x) starting points. A copy of
+ffn_tpu/inference/seed.py without JAX (numpy, scipy, logging). Seed ORDER
+decides the segmentation, so the operations keep their sequence (Sobel ->
+adaptive threshold -> anisotropic EDT -> noisy peak_local_max ->
+ascending zyx; offset-major lattices; the same tie-breaking noise).
 """
 
 from __future__ import annotations

@@ -1,12 +1,8 @@
-"""Inference request settings without protobuf.
-
-`InferenceSettings` and `InferenceOptions` hold the fields of the JAX
-package's InferenceRequest and InferenceOptions protos that the serial
-path reads. `InferenceSettings.from_proto` converts a parsed
-InferenceRequest and `to_proto` converts back; only `to_proto` imports
-protobuf. Float fields are rounded to float32 as the protos store them, so
-settings built by hand decide thresholds exactly as settings parsed from a
-pbtxt.
+"""Inference request settings without protobuf: the InferenceRequest and
+InferenceOptions fields the paths read; `from_proto` and `to_proto`
+convert (only `to_proto` imports protobuf). Floats round to float32 as
+the protos store them, so hand-built settings decide thresholds as parsed
+ones do.
 """
 
 from __future__ import annotations

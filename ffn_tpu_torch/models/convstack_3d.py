@@ -1,21 +1,17 @@
 """The residual 3D conv-stack FFN model in PyTorch.
 
-Counterpart of ffn_tpu/models/convstack_3d.py (ConvStack3D and
-ConvStack3DFFNModel): conv0_a (+relu) -> conv0_b -> depth-1 pre-activation
-residual blocks -> relu -> 1x1x1 conv_lom, whose output is added to the
-input seed. Every layer is one call of a conv kernel
-(ffn_tpu_torch.ops.conv3d) with its relus and residual add fused: K1 in
-float32, K15 in bfloat16. With grad enabled (training, `train_apply`) a
-float32 layer goes through `Conv3dFunction` and a residual block through
-`ResidualBlockFunction`: K1 forward, K9 and K10 backward.
-
-Layout is the JAX package's: activations channels-last (N, z, y, x, C) and
-weights DHWIO, so JAX checkpoints load without a transpose (params_io).
-`dtype` float32 computes in float32 throughout, the precision of the JAX
-model's default Precision.HIGHEST (the kernel uses no TF32); bfloat16 is
-flax's `dtype=bfloat16`: bfloat16 activations, weights and biases (rounded
-from the float32 parameters), float32 sums, float32 logits added to the
-float32 seed.
+Counterpart of ffn_tpu/models/convstack_3d.py: conv0_a (+relu) -> conv0_b
+-> depth-1 pre-activation residual blocks -> relu -> 1x1x1 conv_lom, added
+to the input seed. Each layer is one conv kernel call with its relus and
+residual fused (ops/conv3d.py): K1 in float32, K15 in bfloat16/float16.
+With grad enabled (`train_apply`) float32 layers and blocks run
+`Conv3dFunction`/`ResidualBlockFunction` (K1; K9, K10 backward), 16-bit
+ones `Conv16Function`/`ResidualBlock16Function` (K15; K17, K18), which
+round the float32 parameters at every call as flax does. Layout is JAX's
+(NDHWC activations, DHWIO weights). float32 runs at the JAX model's
+Precision.HIGHEST (no TF32); 16 bits are flax's `dtype`: 16-bit
+activations, weights and biases, float32 sums and logits. The Runner
+refuses float16 models (ROADMAP.md); --precision f16 trains them.
 """
 
 from __future__ import annotations
@@ -28,19 +24,23 @@ from torch import nn
 
 from ffn_tpu_torch.models import model_info as model_info_lib
 from ffn_tpu_torch.models import params_io
-from ffn_tpu_torch.ops.conv3d import (conv3d_ndhwc_bf16, conv3d_ndhwc_f32,
-                                      conv3d_train, residual_block_train)
+from ffn_tpu_torch.ops.conv3d import (conv16_train, conv3d_ndhwc_bf16,
+                                      conv3d_ndhwc_f32, conv3d_train,
+                                      residual_block16_train,
+                                      residual_block_train)
 
 _DTYPES = {"float32": torch.float32, torch.float32: torch.float32,
-           "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+           "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16,
+           "float16": torch.float16, torch.float16: torch.float16}
 
 
 class Conv3d(nn.Module):
     """SAME 3D convolution; weight (k, k, k, Cin, Cout), NDHWC activations.
 
-    The parameters are float32. In bfloat16 (`compute_dtype`) the layer
-    computes with bfloat16 copies of them, which are not in the state_dict
-    and are rounded anew by `round_params` after a load.
+    The parameters are float32. In bfloat16 or float16 (`compute_dtype`)
+    the layer's inference computes with 16-bit copies of them, which are
+    not in the state_dict and are rounded anew by `round_params` after a
+    load; training rounds them at every call.
     """
 
     def __init__(self, in_features: int, out_features: int, kernel: int = 3,
@@ -52,25 +52,27 @@ class Conv3d(nn.Module):
         # The JAX package's init: TruncatedNormal(stddev=0.01) at 2 sigma.
         nn.init.trunc_normal_(self.weight, std=0.01, a=-0.02, b=0.02)
         self.compute_dtype = compute_dtype
-        if compute_dtype == torch.bfloat16:
-            self.register_buffer("weight_bf16", torch.empty(
-                self.weight.shape, dtype=torch.bfloat16), persistent=False)
-            self.register_buffer("bias_bf16", torch.empty(
-                self.bias.shape, dtype=torch.bfloat16), persistent=False)
+        if compute_dtype != torch.float32:
+            self.register_buffer("weight16", torch.empty(
+                self.weight.shape, dtype=compute_dtype), persistent=False)
+            self.register_buffer("bias16", torch.empty(
+                self.bias.shape, dtype=compute_dtype), persistent=False)
             self.round_params()
 
     @torch.no_grad()
     def round_params(self):
-        """The bfloat16 copies, rounded to nearest even: what flax's bf16
+        """The 16-bit copies, rounded to nearest even: what flax's 16-bit
         Conv computes with, rounding its float32 parameters at every call."""
-        self.weight_bf16.copy_(self.weight)
-        self.bias_bf16.copy_(self.bias)
+        self.weight16.copy_(self.weight)
+        self.bias16.copy_(self.bias)
 
     def forward(self, x, *, pre_relu=False, post_relu=False, residual=None):
-        if self.compute_dtype == torch.bfloat16:
-            return conv3d_ndhwc_bf16(x, self.weight_bf16, self.bias_bf16,
-                                     pre_relu=pre_relu, post_relu=post_relu,
-                                     residual=residual)
+        kw = dict(pre_relu=pre_relu, post_relu=post_relu, residual=residual)
+        if self.compute_dtype != torch.float32:
+            if torch.is_grad_enabled():
+                return conv16_train(x, self.weight, self.bias,
+                                    self.compute_dtype, **kw)
+            return conv3d_ndhwc_bf16(x, self.weight16, self.bias16, **kw)
         conv = conv3d_train if torch.is_grad_enabled() else conv3d_ndhwc_f32
         return conv(x, self.weight, self.bias, pre_relu=pre_relu,
                     post_relu=post_relu, residual=residual)
@@ -91,6 +93,7 @@ class ConvStack3D(nn.Module):
         feats = [features] * (2 * depth) if isinstance(features, int) \
             else list(features)
         self.depth = depth
+        self.compute_dtype = compute_dtype
         conv = functools.partial(Conv3d, compute_dtype=compute_dtype)
         self.conv0_a = conv(in_features, feats[0])
         self.conv0_b = conv(feats[0], feats[1])
@@ -109,8 +112,11 @@ class ConvStack3D(nn.Module):
             conv_a, conv_b = (getattr(self, f"conv{i}_a"),
                               getattr(self, f"conv{i}_b"))
             if torch.is_grad_enabled():
-                net = residual_block_train(net, conv_a.weight, conv_a.bias,
-                                           conv_b.weight, conv_b.bias)
+                params = (net, conv_a.weight, conv_a.bias, conv_b.weight,
+                          conv_b.bias)
+                net = (residual_block_train(*params)
+                       if self.compute_dtype == torch.float32 else
+                       residual_block16_train(*params, self.compute_dtype))
                 continue
             block_in = net
             net = conv_a(net, pre_relu=True, post_relu=True)
@@ -122,8 +128,8 @@ class ConvStack3DFFNModel(nn.Module):
     """FFN model: geometry plus `apply(image, seed) -> updated seed`.
 
     Takes the same `model_args` JSON as the JAX package's
-    ConvStack3DFFNModel: `dtype` "float32" or "bfloat16" (or the torch
-    dtype). `precision` is accepted and ignored: float32 always runs at
+    ConvStack3DFFNModel: `dtype` "float32", "bfloat16" or "float16" (or
+    the torch dtype). `precision` is accepted and ignored: float32 always runs at
     Precision.HIGHEST, and the products of bfloat16 values are exact in
     float32 at any precision.
     """
@@ -138,7 +144,7 @@ class ConvStack3DFFNModel(nn.Module):
         if dtype not in _DTYPES:
             raise NotImplementedError(
                 f"dtype {dtype!r}: ffn_tpu_torch runs the conv stack in "
-                f"float32 or bfloat16 (ROADMAP.md)")
+                f"float32, bfloat16 or float16 (ROADMAP.md)")
         self.dtype = _DTYPES[dtype]
         self.info = model_info_lib.ModelInfo(
             deltas=deltas, pred_mask_size=fov_size, input_seed_size=fov_size,
@@ -150,10 +156,17 @@ class ConvStack3DFFNModel(nn.Module):
                                   compute_dtype=self.dtype)
 
     def load_params(self, params):
-        """Loads JAX parameters (flat npz dict or flax tree); in bfloat16
+        """Loads JAX parameters (flat npz dict or flax tree); in 16 bits
         also rounds the layers' copies."""
         self.module.load_state_dict(params_io.convert_params(params))
-        if self.dtype == torch.bfloat16:
+        self.round_params()
+
+    def round_params(self):
+        """Rounds the 16-bit layers' copies of the parameters anew: `apply`
+        calls it after `train_apply` has run (the parameters may have moved
+        since the copies were made)."""
+        self._rounded = True
+        if self.dtype != torch.float32:
             for layer in self.module.children():
                 layer.round_params()
 
@@ -163,6 +176,8 @@ class ConvStack3DFFNModel(nn.Module):
 
         The addition is fused into conv_lom as its residual.
         """
+        if not getattr(self, "_rounded", True):
+            self.round_params()
         net = torch.cat([image, seed.to(image.dtype)], dim=-1)
         return self.module(net, residual=seed)
 
@@ -172,11 +187,9 @@ class ConvStack3DFFNModel(nn.Module):
         image and seed channels, already joined (K11's train_gather fuses
         the concatenation), `seed` (B, z, y, x, 1) the seed patch added to
         the update. Gradients reach the parameters only: the seed is
-        stop-gradient-ed, as in the JAX scan body."""
-        if self.dtype != torch.float32:
-            raise NotImplementedError(
-                "training in bfloat16 is not ported to ffn_tpu_torch "
-                "(ROADMAP.md, Queue 1 item 6)")
+        stop-gradient-ed, as in the JAX scan body. In 16 bits the float32
+        parameters are rounded at every call, as flax casts them."""
+        self._rounded = False
         with torch.enable_grad():
             return self.module(net, residual=seed)
 

@@ -1,15 +1,8 @@
-"""Model weights in the JAX package's flat npz checkpoints, both ways.
-
-The JAX package saves flax variable trees as flat npz archives with keys
-like `params/conv0_a/kernel` (ffn_tpu/models/params_io.py). This module
-reads them with numpy alone and maps them onto the port's modules, and
-writes the port's modules back under the same names (`save_params_npz`),
-so either package loads the other's weights.
-
-`jax_leaf_order` is the one place that knows the order in which JAX lists
-the leaves of a parameter tree (`jax.tree.leaves` sorts dict keys:
-`conv10_a` before `conv1_a`, `bias` before `kernel`); the optimizer-state
-and EMA files of training checkpoints store leaves in that order.
+"""Model weights in the JAX package's flat npz checkpoints (`params/conv0_a/
+kernel` keys), read with numpy and mapped onto the port's modules, and
+written back under the same names (`save_params_npz`). `jax_leaf_order`
+is JAX's leaf order (sorted keys: `conv10_a` before `conv1_a`, `bias`
+before `kernel`), in which the optimizer and EMA files store leaves.
 """
 
 from __future__ import annotations

@@ -1,16 +1,12 @@
-"""K1: SAME-padded 3D convolution, channels-last (NDHWC), float32; K15 the
-same in bfloat16; K9 and K10 K1's backward.
+"""K1: SAME 3D convolution, channels-last (NDHWC), float32; K15 the same in
+bfloat16 or float16 (the weights' type); K9/K10 K1's backward, K17/K18
+K15's; and the autograd Functions of the stack's training layers.
 
-`conv3d_ndhwc_f32` is the one convolution of the port's float32
-ConvStack3D, `conv3d_ndhwc_bf16` of its bfloat16 one. On a CUDA tensor each
-launches its hand-written kernel (`csrc/conv3d.cu`, `csrc/conv3d_bf16.cu`);
-on a CPU tensor it runs its plain version (`conv3d_ndhwc_plain`,
-`conv3d_ndhwc_bf16_plain`), the same function in plain PyTorch, which also
-serves as the kernel's oracle on the card.
-
-Weights keep the JAX package's DHWIO layout (k, k, k, Cin, Cout): the
-kernel reads it as [tap][ci][co], so no transpose is needed to load a JAX
-checkpoint. The plain version permutes to PyTorch's OIDHW per call.
+On a CUDA tensor each wrapper launches its kernel (`csrc/conv3d.cu`,
+`conv3d_bf16.cu`, `conv3d_bwd{,16}.cu`); on a CPU tensor it runs its
+plain version (`*_plain`), which is also the kernel's oracle on the card.
+Weights keep the JAX package's DHWIO layout (k, k, k, Cin, Cout), read as
+[tap][ci][co]; the plain versions permute to OIDHW per call.
 """
 
 from __future__ import annotations
@@ -98,6 +94,9 @@ def conv3d_ndhwc_f32(x: torch.Tensor, weight: torch.Tensor,
 # -- K15: the layer in bfloat16 ---------------------------------------------
 
 BF16 = "conv3d_ndhwc_bf16"
+HALF = (torch.bfloat16, torch.float16)
+# Launch names of the 16-bit kernels by type: K15, K17, K18.
+SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16"}
 # (Cin, Cout) pairs of K15's tensor-core kernel (3^3 layers): the stack's
 # input layer and its inner layers at 32 features (model-r2, the benches)
 # and at 16 (the CI checkpoint). 1^3 layers take any widths.
@@ -109,35 +108,28 @@ def conv3d_ndhwc_bf16_plain(x: torch.Tensor, weight: torch.Tensor,
                             post_relu: bool = False,
                             residual: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-    """flax's `nn.Conv(dtype=bfloat16)` with the stack's relus and residual:
-    `x` (float32 or bfloat16) rounds to bfloat16 (nearest even), the
-    products of bfloat16 `x` and `weight` are summed in float32, the sum
-    rounds to bfloat16, the bfloat16 `bias` is added and the result rounds
-    again; then relu (post_relu) and the residual: a bfloat16 residual is
-    added and rounded, giving a bfloat16 output; a float32 residual (the
-    seed, under conv_lom) gives `float32(y) + residual`. Without a residual
-    the output is bfloat16.
-
-    The sums run in float32 through F.conv3d on bfloat16-valued float32
-    tensors: the products are exact (in TF32 too), the sums are added in
-    an order of the convolution library's choosing, so the kernel's
-    results may round differently (tests/test_torch_kernels.py
-    k15_tolerance).
-    """
-    xf = x.to(torch.bfloat16).float()
+    """flax's `nn.Conv(dtype=r)` (r = weight.dtype, bfloat16 or float16) with
+    the stack's relus and residual: r(x) * weight summed in float32, rounded
+    to r, the bias added and rounded again, relu (post_relu), then a 16-bit
+    residual added and rounded, or a float32 one (the seed) giving
+    `float32(y) + residual`. The sums run through F.conv3d on float32 copies
+    (exact products, the library's order), so the kernel may round
+    differently (conv3d_bf16_check.k15_tolerance)."""
+    dt = weight.dtype
+    xf = x.to(dt).float()
     if pre_relu:
         xf = torch.relu(xf)
     k = weight.shape[0]
     acc = F.conv3d(xf.permute(0, 4, 1, 2, 3),
                    weight.float().permute(4, 3, 0, 1, 2), padding=k // 2)
-    y = acc.permute(0, 2, 3, 4, 1).to(torch.bfloat16)
-    y = (y.float() + bias.float()).to(torch.bfloat16)
+    y = acc.permute(0, 2, 3, 4, 1).to(dt)
+    y = (y.float() + bias.float()).to(dt)
     if post_relu:
         y = torch.relu(y)
     if residual is not None:
         if residual.dtype == torch.float32:
             return (y.float() + residual).contiguous()
-        y = (y.float() + residual.float()).to(torch.bfloat16)
+        y = (y.float() + residual.float()).to(dt)
     return y.contiguous()
 
 
@@ -154,21 +146,21 @@ def _check_bf16(x, weight, bias, residual):
         raise ValueError(f"{BF16}: channel mismatch: x {tuple(x.shape)}, "
                          f"weight {tuple(weight.shape)}, bias "
                          f"{tuple(bias.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{BF16}: x must be float32 or bfloat16, got "
-                        f"{x.dtype}")
-    if weight.dtype != torch.bfloat16 or bias.dtype != torch.bfloat16:
-        raise TypeError(f"{BF16}: weight and bias must be bfloat16, got "
-                        f"{weight.dtype} and {bias.dtype}")
+    dt = weight.dtype
+    if dt not in HALF or bias.dtype != dt:
+        raise TypeError(f"{BF16}: weight and bias must be bfloat16 or "
+                        f"float16, got {weight.dtype} and {bias.dtype}")
+    if x.dtype not in (torch.float32, dt):
+        raise TypeError(f"{BF16}: x must be float32 or {dt}, got {x.dtype}")
     tensors = [x, weight, bias]
     if residual is not None:
         if tuple(residual.shape) != tuple(x.shape[:4]) + (cout,):
             raise ValueError(f"{BF16}: residual {tuple(residual.shape)} "
                              f"does not match the output "
                              f"{tuple(x.shape[:4])}+{cout}")
-        if residual.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{BF16}: residual must be float32 or "
-                            f"bfloat16, got {residual.dtype}")
+        if residual.dtype not in (torch.float32, dt):
+            raise TypeError(f"{BF16}: residual must be float32 or {dt}, "
+                            f"got {residual.dtype}")
         tensors.append(residual)
     for t in tensors:
         if t.device != x.device:
@@ -181,7 +173,8 @@ def conv3d_ndhwc_bf16(x: torch.Tensor, weight: torch.Tensor,
                       post_relu: bool = False,
                       residual: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """K15. CPU tensors take the plain version; CUDA tensors the kernel.
+    """K15 (launches counted as conv3d_ndhwc_bf16 or _f16 by the weights'
+    type). CPU tensors take the plain version; CUDA tensors the kernel.
     Arguments and result as conv3d_ndhwc_bf16_plain's."""
     tensors = _check_bf16(x, weight, bias, residual)
     if x.device.type == "cpu":
@@ -202,15 +195,16 @@ def conv3d_ndhwc_bf16(x: torch.Tensor, weight: torch.Tensor,
                          f"16-byte vectors; they must be 16-byte aligned")
     out_f32 = residual is not None and residual.dtype == torch.float32
     y = torch.empty((n, d, h, w, cout), device=x.device,
-                    dtype=torch.float32 if out_f32 else torch.bfloat16)
-    err = _build.lib().ffn_conv3d_ndhwc_bf16(
+                    dtype=torch.float32 if out_f32 else weight.dtype)
+    name = "conv3d_ndhwc_" + SUFFIX[weight.dtype]
+    err = getattr(_build.lib(), "ffn_" + name)(
         x.data_ptr(), int(x.dtype == torch.float32), weight.data_ptr(),
         bias.data_ptr(), residual.data_ptr() if residual is not None
         else None, y.data_ptr(), n, d, h, w, cin, cout, k, int(pre_relu),
         int(post_relu), int(out_f32),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, BF16)
-    _build.launches[BF16] += 1
+    _build.check(err, name)
+    _build.launches[name] += 1
     return y
 
 
@@ -367,14 +361,10 @@ def conv3d_wgrad_f32(x: torch.Tensor, dy: torch.Tensor, k: int, *,
 
 class Conv3dFunction(torch.autograd.Function):
     """One K1 layer with its backward on K9 (input) and K10 (weight, bias).
-
-    forward(x, weight, bias, residual, pre_relu, post_relu) is K1 with the
-    same flags. The residual's gradient is dy itself. The input gradient is
-    computed only where autograd asks for it (conv0_a's input, the image and
-    the stop-gradient seed, asks for none). post_relu with a residual is
-    refused: the relu mask is read from the saved output, which a residual
-    would change (the model never combines them).
-    """
+    forward(x, weight, bias, residual, pre_relu, post_relu) is K1; the
+    residual's gradient is dy; the input gradient only where autograd asks.
+    post_relu with a residual is refused (the relu mask is read from the
+    saved output; the model never combines them)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, residual, pre_relu, post_relu):
@@ -410,13 +400,9 @@ def conv3d_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 class ResidualBlockFunction(torch.autograd.Function):
-    """A pre-activation residual block of the stack, `x + conv_b(relu(
-    conv_a(relu(x))))`, as two K1 launches, with its backward on K9 and K10.
-
-    The block's input takes two gradients, dy through the residual add and
-    conv_a's input gradient; K9 adds the first in its epilogue, so autograd
-    sums nothing.
-    """
+    """A residual block, `x + conv_b(relu(conv_a(relu(x))))`, as two K1
+    launches, its backward on K9 and K10; K9 adds the residual's gradient in
+    its epilogue."""
 
     @staticmethod
     def forward(ctx, x, wa, ba, wb, bb):
@@ -446,3 +432,208 @@ def residual_block_plain(x, wa, ba, wb, bb):
     """The same block as plain K1 layers (autograd of torch ops)."""
     a = conv3d_ndhwc_plain(x, wa, ba, pre_relu=True, post_relu=True)
     return conv3d_ndhwc_plain(a, wb, bb, residual=x)
+
+
+# -- K17 and K18: K15's backward, and the 16-bit training layers ------------
+#
+# XLA's backward of flax's 16-bit Conv (ffn_tpu/training/train_lib.py:368,
+# :471), type r (bfloat16 or float16): the float32 cotangent of the logits
+# is cast to r before conv_lom's backward; each conv transpose outputs r
+# (dx = r(sum), dW = f32(r(sum)), db = f32(r(sum over N, z, y, x))); a relu
+# selects; a residual's two cotangents meet in one add of type r.
+
+DGRAD16_SHAPES = ((32, 32), (16, 16))   # K17's 3^3 (Cin, Cout) pairs
+
+
+def conv3d_dgrad_16_plain(dy, weight, *, x=None, y=None, accum=None):
+    """The input gradient of a K15 layer of type r = weight.dtype: dy (r, or
+    float32 rounded to r), masked where the forward output `y` was not > 0
+    (post_relu); r(sum) masked where the forward input `x` was not > 0
+    (pre_relu); `accum`, the input's other cotangent, added and rounded."""
+    dt = weight.dtype
+    g = _masked(dy.to(dt), y).float()
+    k, cin = weight.shape[0], weight.shape[3]
+    shape = (dy.shape[0], cin) + tuple(dy.shape[1:4])
+    dx = torch.nn.grad.conv3d_input(
+        shape, weight.float().permute(4, 3, 0, 1, 2), g.permute(0, 4, 1, 2, 3),
+        padding=k // 2).permute(0, 2, 3, 4, 1).to(dt)
+    if x is not None:
+        dx = torch.where(x > 0, dx, torch.zeros((), dtype=dt,
+                                                device=dx.device))
+    if accum is not None:
+        dx = (dx.float() + accum.float()).to(dt)
+    return dx.contiguous()
+
+
+def conv3d_wgrad_16_plain(x, dy, k, *, pre_relu=False, y=None):
+    """(dW, db) of a K15 layer, float32 values of type r: x and dy (each of
+    type r, or float32 rounded to r; r from the one that is 16-bit) as
+    conv3d_wgrad_plain's; each sum rounded to r once."""
+    dt = _dtype16(x, dy)
+    dw, db = conv3d_wgrad_plain(x.to(dt).float(), dy.to(dt).float(), k,
+                                pre_relu=pre_relu,
+                                y=y.float() if y is not None else None)
+    return dw.to(dt).float(), db.to(dt).float()
+
+
+def _dtype16(*tensors):
+    dts = {t.dtype for t in tensors} - {torch.float32}
+    if len(dts) != 1 or not dts <= set(HALF):
+        raise TypeError(f"want one 16-bit type (and float32), got "
+                        f"{[t.dtype for t in tensors]}")
+    return dts.pop()
+
+
+def _check16(name, tensors, dev):
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda" and not all(
+            t.is_contiguous() and t.data_ptr() % 16 == 0
+            for t in tensors if t is not None):
+        raise ValueError(f"{name} takes contiguous, 16-byte aligned tensors")
+    return dev.type == "cpu"
+
+
+def conv3d_dgrad_16(dy, weight, *, x=None, y=None, accum=None):
+    """K17 (launches conv3d_dgrad_bf16 or _f16). Arguments and result as
+    conv3d_dgrad_16_plain's; on the card a 3^3 layer takes (Cin, Cout) in
+    DGRAD16_SHAPES and a 16-bit dy, a 1^3 layer any widths."""
+    dt = weight.dtype
+    if dt not in HALF or dy.dtype not in (dt, torch.float32) or any(
+            t is not None and t.dtype != dt for t in (x, y, accum)):
+        raise TypeError(f"conv3d_dgrad_16: want 16-bit tensors of one type "
+                        f"(dy may be float32), got weight {dt}, dy "
+                        f"{dy.dtype}")
+    n, d, h, w, cout = dy.shape
+    k, cin = weight.shape[0], weight.shape[3]
+    for t, c in ((x, cin), (y, cout), (accum, cin)):
+        if t is not None and tuple(t.shape) != (n, d, h, w, c):
+            raise ValueError(f"conv3d_dgrad_16: {tuple(t.shape)} does not "
+                             f"match dy {tuple(dy.shape)}")
+    if _check16("conv3d_dgrad_16", (dy, weight, x, y, accum), dy.device):
+        return conv3d_dgrad_16_plain(dy, weight, x=x, y=y, accum=accum)
+    if weight.shape[-1] != cout or (k == 3 and (
+            (cin, cout) not in DGRAD16_SHAPES or dy.dtype != dt)):
+        raise ValueError(f"conv3d_dgrad_16: the 3^3 kernel takes a 16-bit "
+                         f"dy and (Cin, Cout) in {DGRAD16_SHAPES}, got "
+                         f"{tuple(weight.shape)} {dy.dtype}")
+    dx = torch.empty((n, d, h, w, cin), device=dy.device, dtype=dt)
+    name = "conv3d_dgrad_" + SUFFIX[dt]
+    err = _build.lib().ffn_conv3d_dgrad_16(
+        dy.data_ptr(), int(dy.dtype == torch.float32),
+        *(t.data_ptr() if t is not None else None
+          for t in (y, weight, x, accum, dx)),
+        n, d, h, w, cin, cout, k, int(dt == torch.float16),
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    _build.check(err, name)
+    _build.launches[name] += 1
+    return dx
+
+
+def conv3d_wgrad_16(x, dy, k, *, pre_relu=False, y=None):
+    """K18 (launches conv3d_wgrad_bf16 or _f16): (dW, db) float32, as
+    conv3d_wgrad_16_plain's. Deterministic on the card (no atomics)."""
+    dt = _dtype16(x, dy, *(() if y is None else (y,)))
+    if y is not None and y.dtype != dt:
+        raise TypeError(f"conv3d_wgrad_16: y must be {dt}")
+    if x.dim() != 5 or dy.dim() != 5 or x.shape[:4] != dy.shape[:4] or (
+            y is not None and y.shape != dy.shape) or k not in (1, 3):
+        raise ValueError(f"conv3d_wgrad_16: want x (N,D,H,W,Cin), dy and y "
+                         f"(N,D,H,W,Cout), k 1 or 3, got {tuple(x.shape)}, "
+                         f"{tuple(dy.shape)}, {k}")
+    if _check16("conv3d_wgrad_16", (x, dy, y), x.device):
+        return conv3d_wgrad_16_plain(x, dy, k, pre_relu=pre_relu, y=y)
+    n, d, h, w, cin = x.shape
+    cout = dy.shape[-1]
+    if ((cin + 3) // 4) * ((cout + 3) // 4) > 256 or cout > 256:
+        raise ValueError(f"conv3d_wgrad_16: at most 64x64 channels, got "
+                         f"{cin}x{cout}")
+    chunks = -(-(n * d * h) // WGRAD_ROWS)
+    partial = torch.empty((chunks, k ** 3 * cin * cout + cout),
+                          device=x.device, dtype=torch.float32)
+    dw = torch.empty((k, k, k, cin, cout), device=x.device,
+                     dtype=torch.float32)
+    db = torch.empty((cout,), device=x.device, dtype=torch.float32)
+    name = "conv3d_wgrad_" + SUFFIX[dt]
+    err = _build.lib().ffn_conv3d_wgrad_16(
+        x.data_ptr(), int(x.dtype == torch.float32), dy.data_ptr(),
+        int(dy.dtype == torch.float32),
+        y.data_ptr() if y is not None else None, partial.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), n, d, h, w, cin, cout, k,
+        int(pre_relu), WGRAD_ROWS, int(dt == torch.float16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, name)
+    _build.launches[name] += 1
+    return dw, db
+
+
+class Conv16Function(torch.autograd.Function):
+    """One K15 layer of type `dtype` on float32 parameters (rounded at every
+    call, as flax casts them), its backward on K17 and K18; arguments as
+    Conv3dFunction's (conv_lom: a float32 output and cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, pre_relu, post_relu, dtype):
+        if post_relu and residual is not None:
+            raise ValueError("Conv16Function: post_relu with a residual has "
+                             "no gradient here")
+        w = weight.to(dtype)
+        y = conv3d_ndhwc_bf16(x, w, bias.to(dtype), pre_relu=pre_relu,
+                              post_relu=post_relu, residual=residual)
+        ctx.pre_relu = pre_relu
+        ctx.save_for_backward(x, w, y if post_relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_dgrad_16(dy, w, x=x if ctx.pre_relu else None, y=y)
+        dw, db = conv3d_wgrad_16(x, dy, w.shape[0], pre_relu=ctx.pre_relu,
+                                 y=y)
+        dres = dy if ctx.needs_input_grad[3] else None
+        return dx, dw, db, dres, None, None, None
+
+
+def conv16_train(x, weight, bias, dtype, *, pre_relu=False, post_relu=False,
+                 residual=None):
+    """K15 under autograd, its backward on K17 and K18 (Conv16Function)."""
+    return Conv16Function.apply(x, weight, bias, residual, pre_relu,
+                                post_relu, dtype)
+
+
+class ResidualBlock16Function(torch.autograd.Function):
+    """A residual block of type `dtype`, `x + conv_b(relu(conv_a(relu(x))))`
+    as two K15 launches, with its backward on K17 and K18: the block input's
+    cotangent is r(dy + r(conv_a's transpose) [x > 0]), K17 adding dy in its
+    epilogue."""
+
+    @staticmethod
+    def forward(ctx, x, wa, ba, wb, bb, dtype):
+        wa, wb = wa.to(dtype), wb.to(dtype)
+        a = conv3d_ndhwc_bf16(x, wa, ba.to(dtype), pre_relu=True,
+                              post_relu=True)
+        ctx.save_for_backward(x, a, wa, wb)
+        return conv3d_ndhwc_bf16(a, wb, bb.to(dtype), residual=x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, wa, wb = ctx.saved_tensors
+        dy = dy.contiguous()
+        dwb, dbb = conv3d_wgrad_16(a, dy, 3)
+        da = conv3d_dgrad_16(dy, wb)
+        dwa, dba = conv3d_wgrad_16(x, da, 3, pre_relu=True, y=a)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_dgrad_16(da, wa, x=x, y=a, accum=dy)
+        return dx, dwa, dba, dwb, dbb, None
+
+
+def residual_block16_train(x, wa, ba, wb, bb, dtype):
+    """A 16-bit residual block under autograd (ResidualBlock16Function)."""
+    return ResidualBlock16Function.apply(x, wa, ba, wb, bb, dtype)

@@ -1,21 +1,13 @@
-"""How K15 (conv3d_ndhwc_bf16) is held to its plain version and to the
-exact sum.
+"""How K15 (conv3d_ndhwc_bf16, also in float16) is held to its plain version
+and to the exact sum; shared by the tests, chip_smoke.py and tools_torch/.
 
-Shared by tests/test_torch_kernels.py, tests/test_torch_bf16.py,
-chip_smoke.py and tools_torch/: the bfloat16 stack's layer kinds, random
-inputs for them, the limits a K15 layer must keep against its plain
-version, and `conv3d_ndhwc_bf16_exact`, the layer with its sums in float64.
-
-bfloat16 layers are not bit-exact across float32 summation orders: a sum
-run in another order can round to the neighbouring bfloat16 value. So
-against the plain version (F.conv3d's float32 order) a layer is held to
-one bfloat16 ulp per rounding it makes (`k15_tolerance`), and the share of
-its outputs that differ at all to `DIFFER_SHARE`. The second limit catches
-a kernel that rounds differently from flax, which the first admits:
-rounding once, bf16(acc + b), instead of flax's bf16(bf16(acc) + b), stays
-within one ulp per rounding but changes 0.12-0.34 of a layer's outputs.
-K15 rounds as the exact sum would, so on the card it is also held to
-`conv3d_ndhwc_bf16_exact` bit for bit.
+A sum taken in another float32 order can round to the neighbouring 16-bit
+value, so a layer is held to one ulp per rounding it makes
+(`k15_tolerance`) and its differing outputs to `DIFFER_SHARE`; the second
+limit catches a kernel that rounds once, r(acc + b), instead of flax's
+r(r(acc) + b) (0.12-0.34 of outputs differ). K15 rounds as the exact sum
+would, so on the card it is also held to `conv3d_ndhwc_bf16_exact` (the
+layer with float64 sums) bit for bit.
 """
 
 import itertools
@@ -45,24 +37,29 @@ K15_CASES = {
 DIFFER_SHARE = 1e-3
 
 
-def bf16_ulp(t):
-    """The spacing of bfloat16 values (8 significant bits) at |t|, at least
-    that of its smallest normal."""
-    m = t.abs().float().clamp_min(2.0 ** -126)
-    return torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8)
+def bf16_ulp(t, dtype=torch.bfloat16):
+    """The spacing of bfloat16 values (8 significant bits; float16: 11) at
+    |t|, at least that of its smallest normal."""
+    bits, tiny = (11, 2.0 ** -14) if dtype == torch.float16 else (8,
+                                                                 2.0 ** -126)
+    m = t.abs().float().clamp_min(tiny)
+    return torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - bits)
 
 
-def k15_inputs(gen, n, shape, case):
-    """Random inputs of a K15_CASES layer on `gen`'s device."""
+def k15_inputs(gen, n, shape, case, dtype=torch.bfloat16):
+    """Random inputs of a K15_CASES layer on `gen`'s device, 16-bit values
+    of `dtype`."""
     k, cin, cout, _, _, rdt, xdt = K15_CASES[case]
+    rdt = dtype if rdt == torch.bfloat16 else rdt
+    xdt = dtype if xdt == torch.bfloat16 else xdt
 
     def randn(*size, scale=1.0):
         return torch.randn(*size, generator=gen, device=gen.device) * scale
 
     x = randn(n, *shape, cin).to(xdt)
     w = randn(k, k, k, cin, cout,
-              scale=(2.0 / (k ** 3 * cin)) ** 0.5).to(torch.bfloat16)
-    b = randn(cout, scale=0.1).to(torch.bfloat16)
+              scale=(2.0 / (k ** 3 * cin)) ** 0.5).to(dtype)
+    b = randn(cout, scale=0.1).to(dtype)
     r = None if rdt is None else randn(n, *shape, cout).to(rdt)
     return x, w, b, r
 
@@ -75,17 +72,22 @@ def k15_tolerance(x, w, b, *, pre_relu=False, post_relu=False,
     sum can round to the neighbouring bfloat16 value; the bias add then
     rounds again, and a step the sum took can meet a tie there and become
     two; a bfloat16 residual rounds a third time; a float32 residual
-    (conv_lom plus the seed) adds one float32 rounding."""
-    plain = conv3d_ndhwc_bf16_plain
+    (conv_lom plus the seed) adds one float32 rounding. In float16 a
+    float32 order's own error (up to ~2^-20 of the sum of |x||w|, K15's
+    bound) can exceed an ulp of a sum that cancels: that much is added."""
+    plain, dt = conv3d_ndhwc_bf16_plain, w.dtype
     a = plain(x, w, torch.zeros_like(b), pre_relu=pre_relu).float().abs()
     t = torch.maximum(a, plain(x, w, b, pre_relu=pre_relu).float().abs())
-    tol = bf16_ulp(a) + bf16_ulp(t)
+    tol = bf16_ulp(a, dt) + bf16_ulp(t, dt)
+    if dt == torch.float16:
+        tol += conv_sums_f64(x, w, pre_relu=pre_relu,
+                             absolute=True).float() * 2.0 ** -20
     del a
     if residual is not None:
         y = plain(x, w, b, pre_relu=pre_relu, post_relu=post_relu,
                   residual=residual).float().abs()
-        tol += (bf16_ulp(torch.maximum(t, y))
-                if residual.dtype == torch.bfloat16 else y * 2.0 ** -23)
+        tol += (bf16_ulp(torch.maximum(t, y), dt)
+                if residual.dtype == dt else y * 2.0 ** -23)
     return tol
 
 
@@ -95,17 +97,18 @@ def differ_share(got, want):
 
 
 def conv_sums_f64(x, w, *, pre_relu=False, absolute=False, chunk=16):
-    """The layer's sums over taps and input channels of bf16(x) * w in
-    float64, by im2col and a float64 matmul, `chunk` samples at a time:
-    exact but in rare cases, the products having 16 significant bits. With
-    `absolute`, the sums of |x| * |w|. (N, D, H, W, Cout) float64."""
+    """The layer's sums over taps and input channels of r(x) * w (r: w's
+    type) in float64, by im2col and a float64 matmul, `chunk` samples at a
+    time: exact but in rare cases, the products having 16 (bfloat16) or 22
+    (float16) significant bits. With `absolute`, the sums of |x| * |w|.
+    (N, D, H, W, Cout) float64."""
     k, cout = w.shape[0], w.shape[-1]
     wd = w.double().reshape(-1, cout)
     if absolute:
         wd = wd.abs()
     out = []
     for xs in x.split(chunk):
-        xd = xs.to(torch.bfloat16).double()
+        xd = xs.to(w.dtype).double()
         if pre_relu:
             xd = torch.relu(xd)
         if absolute:
@@ -127,14 +130,15 @@ def conv3d_ndhwc_bf16_exact(x, weight, bias, *, pre_relu=False,
                             post_relu=False, residual=None):
     """conv3d_ndhwc_bf16_plain with its sums in float64, rounded to
     float32: the float32 sum nearest the exact one, which K15 gives."""
+    dt = weight.dtype
     acc = conv_sums_f64(x, weight, pre_relu=pre_relu).float()
-    y = acc.to(torch.bfloat16)
+    y = acc.to(dt)
     del acc
-    y = (y.float() + bias.float()).to(torch.bfloat16)
+    y = (y.float() + bias.float()).to(dt)
     if post_relu:
         y = torch.relu(y)
     if residual is not None:
         if residual.dtype == torch.float32:
             return (y.float() + residual).contiguous()
-        y = (y.float() + residual.float()).to(torch.bfloat16)
+        y = (y.float() + residual.float()).to(dt)
     return y.contiguous()

@@ -1,46 +1,29 @@
 """K8 `finalize_pass`: device finalization of finished lanes.
 
-Counterpart of `finalize_pass` and `finalize_one` inside the JAX package's
-multi-hop program (ffn_tpu/inference/hop_engine.py:624-864), which run at
-each hop's entry and after its update in device-finalize mode. One pass:
+Counterpart of `finalize_pass`/`finalize_one` in the JAX multi-hop
+program (ffn_tpu/inference/hop_engine.py:624-864), run at each hop's entry
+and after its update in device-finalize mode. One pass: (1) the same-hop
+dud kill (:828-840: capped RUNNING lanes DONE_CAP, those whose origin fell
+below the move threshold DONE_WEAK, NaN weak); (2) a sequential loop
+(:847-863) over the lowest-index finishable lane, then IDLE or
+DONE_FINALIZED lanes while the FIFO holds entries; (3) finalize_one:
+verdicts weak -> invalid -> seed-claimed -> too small (:647-689), the
+masked count over the lane's slot, the id written, next_sid[sv]
+incremented; (4) the log row (:690-696, at a row clamped to L - 1); (5)
+FIFO pops against the updated segmentation (:703-727, skips counted per
+slot) and the reseed (:729-802: the NaN blank, small block or whole
+buffer, the init activation, the cleared dedup grid).
 
-  1. the same-hop dud kill (:828-840): capped RUNNING lanes become
-     DONE_CAP, RUNNING lanes whose origin fell below the move threshold
-     DONE_WEAK (`~(origin >= move_t)`, so NaN counts as weak);
-  2. a sequential loop (:847-863): each turn takes the lowest-index
-     finishable lane (DONE_EMPTY without `hold`, DONE_WEAK, DONE_CAP), or,
-     when none is left, the lowest-index IDLE or DONE_FINALIZED lane while
-     the FIFO holds entries;
-  3. finalize_one on it: verdicts weak -> invalid -> seed-claimed ->
-     too-small (:647-689); the masked count (seed >= segment threshold) &
-     (seg == 0) & !(blocked & CLAIMED) over the lane's whole slot; the id
-     written where the mask holds, and next_sid[sv] incremented;
-  4. the log row (:690-696), written only for a lane that finished, at a
-     row index clamped to L - 1;
-  5. the FIFO pops against the just-updated segmentation (:703-727), each
-     skipped entry counted on its slot with an accumulating add, then the
-     lane's reseed (:729-802): the NaN blank (a small block when the visited
-     span fits it, `dynamic_update_slice` start semantics, else the whole
-     buffer), the init activation at the new origin and the cleared dedup
-     grid, all only when a seed was popped.
-
-The loop is sequential by design: each finalization's claims decide the
-next one's verdicts and pops. On CUDA tensors `finalize_pass` launches the
-kernel in `csrc/finalize.cu`; on CPU tensors it runs `finalize_pass_plain`,
-a Python loop over lanes, which is also the kernel's oracle on the card.
-Both update the lane and finalize state in place, where the JAX program
-donates its buffers.
-
-Lane seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16. With
-bfloat16 seeds the JAX program treats one origin two ways in one pass, and
-both versions copy it: the dud kill compares it with the unrounded float32
-move threshold (:835-836, promoted), the verdict with the threshold rounded
-to bfloat16 (:650). So a RUNNING lane whose origin v has bf16(move_t) <= v
-< move_t is killed as weak, while a DONE_EMPTY lane with the same v is
-finalized. The claim mask compares each seed with the segment threshold
-rounded to bfloat16 (:662), the blank is bfloat16 NaN and the init
-activation is stored rounded (:747-767). The kernel counts its bfloat16
-launches as "finalize_pass_bf16".
+The loop is sequential by design (each claim decides the next verdicts).
+CUDA tensors launch `csrc/finalize.cu`, CPU tensors run
+`finalize_pass_plain`, the oracle; both update state in place. With
+bfloat16 seeds both copy the JAX program, which treats one origin two ways
+in one pass: the dud kill against the unrounded float32 move threshold
+(:835-836), the verdict against it rounded to bfloat16 (:650), so a
+RUNNING lane with bf16(move_t) <= v < move_t dies weak while a DONE_EMPTY
+lane with the same v is finalized; the claim mask against the segment
+threshold rounded (:662); blank and activation stored rounded (:747-767).
+Launches count as "finalize_pass_bf16".
 """
 
 from __future__ import annotations

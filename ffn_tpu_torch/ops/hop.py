@@ -1,40 +1,32 @@
 """K4 `hop_pop`, K5 `hop_gather` and K6 `hop_update`: one hop of the
 batched flood fill.
 
-They are the non-model parts of one hop of the JAX package's multi-hop
-program (`HopEngine._run_hops_impl`, ffn_tpu/inference/hop_engine.py:535):
+The non-model parts of one hop of `HopEngine._run_hops_impl`
+(ffn_tpu/inference/hop_engine.py:535):
 
-  K4 hop_pop     lane_pre + pop_one (:553-622, :879-918) and the exec-first
-                 lane order with n_exec (:947-950);
-  K5 hop_gather  lane_patches (:923-933), the NaN -> pad of `_apply_model`
-                 (engine.py:92-94), and the screening gather (:1148-1154);
-  K6 hop_update  the crop and disco mask of `_apply_model` (engine.py:100-119),
-                 lane_exec (:976-1010) with `_face_scores` (engine.py:177-209),
-                 and the push loop (:1020-1033); its screen mode
-                 `hop_screen`, a kernel of its own with its own launch
-                 count, is the screening readout (:1156).
+  K4 hop_pop     lane_pre + pop_one (:553-622, :879-918), the exec-first
+                 lane order and n_exec (:947-950);
+  K5 hop_gather  lane_patches (:923-933) with the NaN -> pad of
+                 `_apply_model` (engine.py:92-94); the screening gather
+                 (:1148-1154);
+  K6 hop_update  `_apply_model`'s crop and disco mask (engine.py:100-119),
+                 lane_exec (:976-1010) with `_face_scores` (engine.py:
+                 177-209) and the pushes (:1020-1033); its screen mode
+                 `hop_screen` (own launch count) the screening readout
+                 (:1156).
 
-On CUDA tensors they launch the kernels in `csrc/hop.cu`; on CPU tensors
-they run the plain PyTorch versions beside them, which are also the
-kernels' oracles on the card. Lane state is updated in place where the
-JAX program donates and returns new buffers.
+CUDA tensors launch `csrc/hop.cu`; CPU tensors run the plain versions, the
+kernels' oracles. Lane state is updated in place where JAX donates.
 
-Lane seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16 (the JAX
-engine's seed dtype, engine.py:63-67). With bfloat16 seeds the JAX program
-rounds in some places and not in others, and the kernels and their plain
-versions copy it: K4 compares a stored seed with the unrounded float32 move
-threshold (hop_engine.py:572, :890); K5 puts the pad value rounded to
-bfloat16 where a seed is NaN (engine.py:93; screening keeps its float32
-fresh patch, :1148); K6's disco mask compares the stored old seed with the
-float32 logits (engine.py:118), the write-back rounds to nearest even
-(:983), and the face maxima and queued scores come from the rounded patch
-(:998-999). The kernels count their bfloat16 launches under their name
-plus "_bf16".
-
-Start indices follow `lax.dynamic_slice`: a negative start wraps once, then
-clamps into [0, shape - size]. Dedup-grid cells are clamped into the grid,
-which is what JAX's gather does with an out-of-range index (a hop never
-produces one: `grid_geometry` sizes the grid for every reachable cell).
+With bfloat16 seeds (FFN_TPU_SEED_DTYPE=bf16) both copy where the JAX
+program rounds: K4 compares a stored seed with the unrounded float32 move
+threshold (hop_engine.py:572, :890); K5 pads NaN with the pad value rounded
+to bfloat16 (engine.py:93; screening keeps its float32 patch, :1148); K6's
+disco mask compares the stored seed with the float32 logits (engine.py:
+118), the write-back rounds (:983), face maxima and scores come from the
+rounded patch (:998-999). Launches count as "<name>_bf16". Starts follow
+`lax.dynamic_slice` (wrap once, then clamp); dedup cells clamp into the
+grid, as JAX's gather (a hop never makes one out of range).
 """
 
 from __future__ import annotations

@@ -1,27 +1,13 @@
 """K7 `lane_threshold`: the thresholded reads of lane seed buffers that host
-finalization makes.
-
-Two entry points of one kernel source, `csrc/lane.cu`:
-
-  lane_verdicts  HopEngine.lane_verdicts (ffn_tpu/inference/hop_engine.py
-                 :1209-1245): per lane, the count of unclaimed voxels at or
-                 above the segment threshold, and whether its origin is at
-                 or above the move threshold;
-  lane_mask      the device part of FloodFillEngine.lane_mask_region
-                 (ffn_tpu/inference/engine.py:446-487): the uint8 mask of a
-                 box of one lane, and its origin's verdict;
-  lane_masks     the device part of lane_mask_regions (engine.py:489-552):
-                 the masks and verdicts of N boxes of any lanes in one
-                 launch, packed into one buffer that crosses in one copy.
-                 It counts its launches as "lane_masks".
-
-NaN (unvisited) thresholds to False. Seeds are float32 or bfloat16
-(FFN_TPU_SEED_DTYPE=bf16); with bfloat16 seeds both thresholds are rounded
-to bfloat16 before the comparison, as the JAX programs' `thr.astype(
-seed.dtype)` does (hop_engine.py:1232-1235, engine.py:475-478, :533-536),
-and the launches count under the kernel's name plus "_bf16". On CUDA
-tensors they launch the kernels; on CPU tensors the plain PyTorch versions
-beside them run.
+finalization makes (`csrc/lane.cu`): `lane_verdicts` (hop_engine.py
+:1209-1245: per lane the unclaimed voxels at or above the segment
+threshold and the origin's move verdict), `lane_mask` (engine.py:446-487:
+one box's uint8 mask and verdict), `lane_masks` (engine.py:489-552: N
+boxes packed into one buffer, launches "lane_masks"). NaN thresholds to
+False. With bfloat16 seeds both thresholds round to bfloat16 first, as
+`thr.astype(seed.dtype)` (hop_engine.py:1232-1235, engine.py:475-478,
+:533-536); launches "<name>_bf16". CUDA tensors launch the kernels, CPU
+tensors run the plain versions.
 """
 
 from __future__ import annotations

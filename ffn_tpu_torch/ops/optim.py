@@ -1,21 +1,14 @@
-"""K12 optim_update: the clipped optimizer step, finite gate and EMA.
-
-One launch updates every parameter tensor of the model in place (the
-kernel in `csrc/optim.cu` takes a table of tensor pointers by value): the
-finite test of all gradients, then, gated on `(active > 0) & finite`, the
-clip to +-max_gradient_entry_mag and the optax 0.2.6 step of sgd,
-momentum, adagrad, adam or rmsprop with the staircase exponential decay,
-and the EMA of the parameters whenever ema_decay > 0
-(ffn_tpu/training/train_lib.py:370-388, optimizer.py:45-69). Without the
-update, parameters, state and counts keep their values, as the JAX
-package's `where`/`select_tree` leave them. `gated=False` updates
-whatever the gradients hold (the host-loop trainer's legacy step,
-train_lib.py:445-458, applies the optax update with no finite test).
-`active` and the finite flag stay on the device; nothing here reads them
-on the host.
-
-`optim_update_plain` is the same function in torch ops; CPU tensors take
-it.
+"""K12 optim_update: the clipped optimizer step, finite gate, EMA and the
+loss scale, in one launch over a table of the model's parameter tensors
+(`csrc/optim.cu`), in place: with a DynamicLossScale (f16) the gradients
+unscaled, g * (1 / scale); the finite test; gated on `(active > 0) &
+finite` the clip and the optax 0.2.6 step (sgd, momentum, adagrad, adam,
+rmsprop, staircase decay); the EMA whenever ema_decay > 0
+(train_lib.py:368-388, optimizer.py:45-69); the scale's adjust(finite).
+Without the update everything keeps its value (`where`/`select_tree`);
+`gated=False` updates whatever the gradients hold (the legacy host-loop
+step, train_lib.py:445-458). Nothing is read on the host.
+`optim_update_plain`, the same in torch ops, runs for CPU tensors.
 """
 
 from __future__ import annotations
@@ -78,8 +71,11 @@ def _safe_increment(c: torch.Tensor) -> torch.Tensor:
 
 
 def optim_update_plain(params, grads, s1, s2, ema, h: Hyper, adam_count,
-                       sched_count, active, finite_out, *, gated=True):
+                       sched_count, active, finite_out, *, gated=True,
+                       loss_scale=None):
     dev = params[0].device
+    if loss_scale is not None:
+        grads = loss_scale.unscale(grads)
     finite = precision.all_finite(grads)
     do_update = finite & (active > 0) if gated else torch.ones(
         (), dtype=torch.bool, device=dev)
@@ -123,6 +119,10 @@ def optim_update_plain(params, grads, s1, s2, ema, h: Hyper, adam_count,
         if count is not None:
             count.copy_(torch.where(do_update, _safe_increment(count), count))
     finite_out.copy_(finite)
+    if loss_scale is not None:
+        new = loss_scale.adjust(finite)
+        loss_scale.scale.copy_(new.scale)
+        loss_scale.counter.copy_(new.counter)
 
 
 def ctrl_buffer(device) -> torch.Tensor:
@@ -138,12 +138,15 @@ def optim_update(params: List[torch.Tensor], grads: List[torch.Tensor],
                  adam_count: Optional[torch.Tensor],
                  sched_count: Optional[torch.Tensor], active: torch.Tensor,
                  finite_out: torch.Tensor,
-                 ctrl: Optional[torch.Tensor] = None, *, gated: bool = True):
+                 ctrl: Optional[torch.Tensor] = None, *, gated: bool = True,
+                 loss_scale: Optional[precision.DynamicLossScale] = None):
     """K12, in place. `s1`/`s2`: the optimizer's per-parameter state
     (momentum/adagrad: s1; adam: mu, nu; rmsprop: nu, trace); `active` a
     0-d float32 tensor (the offset's valid lanes), `finite_out` a 0-d bool
     tensor for the grads_finite metric; `ctrl` from ctrl_buffer (CUDA);
-    `gated=False` drops the `(active > 0) & finite` gate."""
+    `gated=False` drops the `(active > 0) & finite` gate; `loss_scale` a
+    DynamicLossScale on the parameters' device (its tensors adjusted in
+    place), or None."""
     if h.opt not in OPTIMIZERS:
         raise ValueError(f"Unknown optimizer: {h.opt}")
     n = len(params)
@@ -168,13 +171,19 @@ def optim_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     if h.opt == "adam" and adam_count is None:
         raise ValueError(f"{NAME}: adam needs its count")
     dev = params[0].device
-    for t in tensors + [active, finite_out]:
+    scale_ts = ([loss_scale.scale, loss_scale.counter]
+                if loss_scale is not None else [])
+    if scale_ts and (scale_ts[0].dtype != torch.float32
+                     or scale_ts[1].dtype != torch.int32):
+        raise ValueError(f"{NAME}: the loss scale must be float32, its "
+                         f"counter int32")
+    for t in tensors + [active, finite_out] + scale_ts:
         if t.device != dev:
             raise ValueError(f"{NAME}: tensors on {t.device} and {dev}")
     if dev.type == "cpu":
         return optim_update_plain(params, grads, s1, s2, ema, h, adam_count,
                                   sched_count, active, finite_out,
-                                  gated=gated)
+                                  gated=gated, loss_scale=loss_scale)
     if dev.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {dev}")
     if n > MAX_TENSORS:
@@ -210,7 +219,10 @@ def optim_update(params: List[torch.Tensor], grads: List[torch.Tensor],
         adam_count.data_ptr() if adam_count is not None else None,
         sched_count.data_ptr() if sched_count is not None else None,
         active.data_ptr(), finite_out.data_ptr(), ctrl.data_ptr(),
-        ctrl.numel(), torch.cuda.current_stream(dev).cuda_stream)
+        ctrl.numel(), *([t.data_ptr() for t in scale_ts] or [None, None]),
+        loss_scale.growth_interval if loss_scale is not None else 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     del keep
     _build.check(err, NAME)
-    _build.launches[NAME] += 1
+    # Launches with a loss scale count as optim_update_scaled.
+    _build.launches[NAME + ("_scaled" if scale_ts else "")] += 1

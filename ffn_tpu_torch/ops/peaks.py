@@ -1,17 +1,10 @@
-"""Local-maximum peak detection (skimage.feature.peak_local_max semantics).
-
-Replaces the reference's skimage dependency for seed policies (seed.py).
-Semantics matched:
-  - candidates are voxels equal to the maximum over a
-    (2*min_distance+1)^ndim window (or a custom footprint);
-  - peaks must be strictly greater than max(threshold_abs,
-    threshold_rel * image.max());
-  - exclude_border=True excludes peaks within min_distance of any border;
-  - for p_norm < inf, candidates are greedily thinned in descending
-    intensity order so surviving peaks are > min_distance apart.
-
-Ties on plateaus mark every plateau voxel, as in skimage; the seed
-policies break ties with deterministic noise before calling this.
+"""Local-maximum peak detection with skimage.feature.peak_local_max's
+semantics, for the seed policies: candidates equal the maximum over a
+(2*min_distance+1)^ndim window (or a footprint); peaks strictly above
+max(threshold_abs, threshold_rel * image.max()); exclude_border drops
+peaks within min_distance of a border; for p_norm < inf candidates are
+thinned greedily in descending intensity to be > min_distance apart.
+Plateaus mark every voxel, as skimage's; the policies break ties first.
 """
 
 from __future__ import annotations

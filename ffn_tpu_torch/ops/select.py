@@ -1,41 +1,23 @@
 """K13 `select_gather` and K14 `select_update`: one round of the round-based
 batched flood fill.
 
-They are the non-model parts of the JAX package's candidate-selecting
-batched step (`FloodFillEngine._select_step_impl` with its packed jit
-wrapper, ffn_tpu/inference/engine.py:211-293 and :387-403):
+The non-model parts of `FloodFillEngine._select_step_impl` and its packed
+jit (ffn_tpu/inference/engine.py:211-293, :387-403): K13, per lane, the
+start's and K candidates' seed values against the move threshold, the
+first valid pick and its image and seed patches (NaN -> pad); K14, the
+crop and disco mask of `_apply_model` (:100-119), the masked write-back,
+the face maxima (`_face_scores`, :177-209) and the packed (B, 30) row.
+`_step_batch_impl` (:138-175) is the same round with K = 1 and `ignore`
+set. CUDA tensors launch `csrc/select.cu`, CPU tensors the plain versions
+(the oracles); seeds update in place. Seed reads follow jnp's traced
+indexing, patch starts `lax.dynamic_slice` (wrap once, then clamp).
 
-  K13 select_gather  per lane, the start's and the K candidates' seed values
-                     against the move threshold, the first valid pick, and
-                     the image and seed patches (NaN -> pad) at it;
-  K14 select_update  the crop and disco mask of `_apply_model` (:100-119),
-                     the masked write-back at the clamped write start, the
-                     six face maxima of the written patch (`_face_scores`,
-                     :177-209) and the packed (B, 30) row.
-
-`_step_batch_impl` (:138-175) is the same round with K = 1, the start at the
-position and `ignore` set on every lane; K14 always leaves every lane's
-masked crop in its second output, which is what that program returns.
-
-On CUDA tensors they launch the kernels in `csrc/select.cu`; on CPU tensors
-they run the plain PyTorch versions beside them, which are also the kernels'
-oracles on the card. The seed buffers are updated in place where the JAX
-program donates and returns new ones.
-
-A read of one seed voxel follows jnp's indexing of a traced index (a
-negative index wraps once, then it clamps into the volume); patch starts
-follow `lax.dynamic_slice` (wrap once, then clamp into [0, shape - size]).
-
-Lane seeds are float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16. With
-bfloat16 seeds the JAX program rounds in some places and not in others, and
-the kernels and their plain versions copy it: K13 compares the stored start
-and candidate values with the unrounded float32 move threshold
-(engine.py:241, :249) and puts the pad value rounded to bfloat16 where a
-seed is NaN (:93); K14's disco mask compares the stored old seed with the
-float32 logits (:118), the write-back rounds to nearest even (:271) and the
-face maxima come from the rounded patch (:274), while the masked crops it
-returns, which step_batch returns (:170-173), stay unrounded. The kernels
-count their bfloat16 launches under their name plus "_bf16".
+With bfloat16 seeds both copy the JAX program: K13 compares stored values
+with the unrounded float32 move threshold (engine.py:241, :249) and pads
+NaN with the pad rounded to bfloat16 (:93); K14's disco mask compares the
+stored seed with float32 logits (:118), the write-back rounds (:271), face
+maxima come from the rounded patch (:274), the returned masked crops stay
+unrounded (:170-173). Launches count as "<name>_bf16".
 """
 
 from __future__ import annotations

@@ -1,25 +1,15 @@
-"""K2 `step_gather` and K3 `step_update`: the two ends of one FFN step.
+"""K2 `step_gather` and K3 `step_update`: both ends of one FFN step, the
+non-model parts of `FloodFillEngine._step_impl`/`_apply_model`
+(ffn_tpu/inference/engine.py:88-136). CUDA tensors launch `csrc/step.cu`;
+CPU tensors the plain versions, the kernels' oracles. Starts follow
+`lax.dynamic_(update_)slice`: a negative start wraps once, then clamps
+into [0, shape - size].
 
-They are the non-model parts of the JAX package's serial step program
-(`FloodFillEngine._step_impl` and `_apply_model`,
-ffn_tpu/inference/engine.py:88-136). On CUDA tensors they launch the
-kernels in `csrc/step.cu`; on CPU tensors they run the plain PyTorch
-versions beside them, which are also the kernels' oracles on the card.
-
-Start indices follow `lax.dynamic_slice` and `lax.dynamic_update_slice`:
-a negative start first wraps once (start + shape, as numpy indexing
-does), then clamps into [0, shape - size]. So a FOV near a face reads and
-writes the same voxels as the JAX package.
-
-The seed is float32 or, with FFN_TPU_SEED_DTYPE=bf16, bfloat16. With
-bfloat16 seeds the JAX program rounds where ops/hop.py's K5 and K6 do: K2
-puts the pad value rounded to bfloat16 where a seed is NaN (engine.py:93),
-K3's disco mask compares the stored old seed with the float32 logits
-(:118) and its write-back rounds to nearest even (:135), but the patch K3
-returns is the unrounded float32 one (:136), which the serial canvas keeps
-in its host mirror. The kernels count their bfloat16 launches under their
-name plus "_bf16". They dispatch on the seed tensor's dtype: after a serial
-checkpoint restore the seed is float32, as in the JAX canvas.
+With bfloat16 seeds (FFN_TPU_SEED_DTYPE=bf16) K2 pads NaN with the pad
+rounded to bfloat16 (engine.py:93); K3's disco mask compares the stored
+seed with float32 logits (:118), its write-back rounds (:135), the patch
+it returns is unrounded (:136). Launches "<name>_bf16"; the dtype of the
+seed tensor picks the instantiation (a serial restore is float32).
 """
 
 from __future__ import annotations

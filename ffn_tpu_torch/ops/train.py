@@ -1,33 +1,20 @@
 """K11 train_step_ops and K16 fov_loss: the train steps' passes around
-the conv stack.
+the conv stack, each beside its plain PyTorch version.
 
-For the scan train step (K11), four wrappers, each beside its plain
-PyTorch version:
+K11 (the scan step, ffn_tpu/training/train_lib.py): `train_prep`, the
+packed prelude (:239-248: normalized image, soft labels, the seed canvas);
+`train_gather`, one offset's gate and crops (:341-355, fixed_window
+:326-335) with the model input's concatenation fused; `train_loss`, the
+masked sigmoid CE, dloss/dlogits (times the loss scale), the seed
+write-back and the counts (:357-366, :390-411); `train_eval`, the eval
+region's CE and tp/fp/fn/tn (:255-266). K16 `fov_loss` (make_fov_train_step,
+:425-505): mean(sigmoid_ce(x, z) w) over the batch, ungated, and w
+(sigmoid(x) - z) / N, with a deterministic reduction; at x = 0 exactly
+-w z / N, as jax.grad (max splits its tie, abs' derivative at 0 is 1).
 
-- `train_prep`: the packed prelude (ffn_tpu/training/train_lib.py:239-248),
-  uint8 image and mask -> normalized image, soft labels, and the seed
-  canvas at logit(pad) with its centre at logit(init);
-- `train_gather`: the gate and crops of one offset (:341-355; the
-  fixed_window test :326-335): `valid`, `wanted`, the model's (B, f^3, 2)
-  input with the concatenation fused, and the seed patch (the residual);
-- `train_loss`: the masked sigmoid cross entropy, its gradient with
-  respect to the logits (conv_lom's output gradient), the seed write-back
-  for valid lanes and the offset's counts (:357-366, :390-411);
-- `train_eval`: the eval region's mean cross entropy and tp/fp/fn/tn
-  (:255-266).
-
-For the host-loop trainer's step (make_fov_train_step, :425-505), K16
-`fov_loss`: the loss mean(sigmoid_ce(x, z) w) over every voxel of the
-batch, weights of zero included and no per-lane gate, and its gradient
-w (sigmoid(x) - z) / N, in one launch with a deterministic reduction. At
-x = 0 exactly the gradient is -w z / N, as jax.grad gives it there (max
-splits the tie 0.5/0.5 and abs' derivative at 0 is 1).
-
-Canvases are (B, z, y, x) float32 here (the JAX package's (B, z, y, x, 1)
-without the channel). Offsets are host integers, so every crop start is
-computed here with lax.dynamic_slice's rule (`clamp_start`: wrap once,
-then clamp) and handed to the kernel. No wrapper reads a device value on
-the host: `valid`, the loss and the counts stay on the device.
+Canvases are (B, z, y, x) float32 (JAX's without the channel). Crop starts
+are computed on the host with `clamp_start` (wrap once, then clamp); no
+wrapper reads a device value on the host.
 """
 
 from __future__ import annotations
@@ -59,6 +46,12 @@ def new_ticket(device) -> torch.Tensor:
     reductions: a
     zeroed int that each launch leaves at zero again."""
     return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    if t is not None and (t.dtype != torch.float32 or t.numel() != 1):
+        raise ValueError(f"the loss scale must be one float32, got {t}")
+    return t.data_ptr() if t is not None else None
 
 
 def _on_cpu(name: str, *tensors) -> bool:
@@ -234,7 +227,7 @@ def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def train_loss_plain(logits, seeds, labels, weights, valid, wanted, off,
-                     metrics):
+                     metrics, scale=None):
     b = logits.shape[0]
     fov = tuple(logits.shape[1:4])
     x = logits[..., 0]
@@ -254,6 +247,8 @@ def train_loss_plain(logits, seeds, labels, weights, valid, wanted, off,
     sig = torch.where(x == 0, torch.zeros((), device=x.device),
                       torch.sigmoid(x))
     dlogits = (coef.view(b, 1, 1, 1) * w) * (sig - z)
+    if scale is not None:
+        dlogits = dlogits * scale
     wbox = _box(_start(seeds.shape[1:], off, fov), fov)
     keep = valid.view(b, 1, 1, 1)
     seeds[wbox] = torch.where(keep, x, seeds[wbox])
@@ -268,10 +263,13 @@ def train_loss(logits: torch.Tensor, seeds: torch.Tensor,
                labels: torch.Tensor, weights: Optional[torch.Tensor],
                valid: torch.Tensor, wanted: torch.Tensor,
                off: Sequence[int], metrics: torch.Tensor,
-               ticket: torch.Tensor) -> torch.Tensor:
-    """dloss/dlogits (B, f^3, 1); writes the logits of valid lanes into
-    `seeds` (in place) and (loss, active, correct, missed, spurious) into
-    `metrics` (5 float32, on the device). `ticket`: from new_ticket."""
+               ticket: torch.Tensor, scale: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """dloss/dlogits (B, f^3, 1), times `scale` (a 0-d float32 device
+    tensor: the loss scale, a power of two) when given; writes the logits of
+    valid lanes into `seeds` (in place) and (loss, active, correct, missed,
+    spurious) into `metrics` (5 float32, on the device). `ticket`: from
+    new_ticket."""
     seeds, labels = _canvas(LOSS, seeds), _canvas(LOSS, labels)
     if weights is not None:
         weights = _canvas(LOSS, weights)
@@ -285,9 +283,9 @@ def train_loss(logits: torch.Tensor, seeds: torch.Tensor,
         raise ValueError(f"{LOSS}: metrics must be {len(METRICS)} float32")
     off = tuple(int(v) for v in off)
     if _on_cpu(LOSS, logits, seeds, labels, weights, valid, wanted,
-                  metrics):
+               metrics, scale):
         return train_loss_plain(logits, seeds, labels, weights, valid,
-                                wanted, off, metrics)
+                                wanted, off, metrics, scale)
     b = logits.shape[0]
     fov = tuple(logits.shape[1:4])
     vox = int(np.prod(fov))
@@ -302,8 +300,8 @@ def train_loss(logits: torch.Tensor, seeds: torch.Tensor,
         logits.data_ptr(), seeds.data_ptr(), labels.data_ptr(),
         weights.data_ptr() if weights is not None else None,
         valid.data_ptr(), wanted.data_ptr(), dlogits.data_ptr(),
-        partial.data_ptr(), ticket.data_ptr(), metrics.data_ptr(), b,
-        addr, LOSS_CHUNK, _stream(logits))
+        partial.data_ptr(), ticket.data_ptr(), metrics.data_ptr(),
+        _ptr(scale), b, addr, LOSS_CHUNK, _stream(logits))
     del arr
     _build.check(err, LOSS)
     _build.launches[LOSS] += 1
@@ -356,30 +354,32 @@ def train_eval(seeds: torch.Tensor, labels: torch.Tensor,
 
 # -- fov_loss (K16) ----------------------------------------------------------
 
-def fov_loss_plain(logits, labels, weights):
+def fov_loss_plain(logits, labels, weights, scale=None):
     # A tensor divisor: torch divides by a Python scalar as a product with
     # its reciprocal, the kernel and the JAX package truly divide.
     n = torch.tensor(float(logits.numel()), device=logits.device)
     loss = (sigmoid_ce(logits, labels) * weights).sum() / n
     sig = torch.where(logits == 0, torch.zeros((), device=logits.device),
                       torch.sigmoid(logits))
-    return (weights / n) * (sig - labels), loss
+    dlogits = (weights / n) * (sig - labels)
+    return (dlogits * scale if scale is not None else dlogits), loss
 
 
 def fov_loss(logits: torch.Tensor, labels: torch.Tensor,
-             weights: torch.Tensor, ticket: torch.Tensor):
+             weights: torch.Tensor, ticket: torch.Tensor,
+             scale: Optional[torch.Tensor] = None):
     """(dloss/dlogits, loss) of loss = mean(sigmoid_ce(logits, labels) *
     weights) over all voxels: (B, z, y, x, 1) float32 tensors of one shape
-    in; the gradient of that shape and a 0-d loss, on the device, out.
-    `ticket`: from new_ticket."""
+    in; the gradient of that shape (times `scale`, as train_loss's) and a
+    0-d loss, on the device, out. `ticket`: from new_ticket."""
     for t in (logits, labels, weights):
         if t.dim() != 5 or t.shape[-1] != 1 or t.dtype != torch.float32 \
                 or t.shape != logits.shape:
             raise ValueError(f"{FOV_LOSS}: want (B, z, y, x, 1) float32 "
                              f"tensors of one shape, got {tuple(t.shape)} "
                              f"{t.dtype}")
-    if _on_cpu(FOV_LOSS, logits, labels, weights, ticket):
-        return fov_loss_plain(logits, labels, weights)
+    if _on_cpu(FOV_LOSS, logits, labels, weights, ticket, scale):
+        return fov_loss_plain(logits, labels, weights, scale)
     n = logits.numel()
     dev = logits.device
     dlogits = torch.empty_like(logits)
@@ -389,7 +389,7 @@ def fov_loss(logits: torch.Tensor, labels: torch.Tensor,
     err = _build.lib().ffn_fov_loss(
         logits.data_ptr(), labels.data_ptr(), weights.data_ptr(),
         dlogits.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
-        loss.data_ptr(), n, FOV_CHUNK, _stream(logits))
+        loss.data_ptr(), _ptr(scale), n, FOV_CHUNK, _stream(logits))
     _build.check(err, FOV_LOSS)
     _build.launches[FOV_LOSS] += 1
     return dlogits, loss

@@ -1,42 +1,25 @@
 """Cross-subvolume lane filling: one lane batch, many subvolumes.
 
-Counterpart of ffn_tpu/parallel/multi_canvas.py. A single subvolume holds
-only so many objects, so the lanes of one HopBatchCanvas starve on
-object-sparse volumes. The fused driver keeps K subvolumes loaded at once:
-the engine's image and blocked volumes become (K, Z, Y, X) stacks, each
-lane binds to a slot via LaneState.sv, and idle lanes refill from whichever
-subvolume still has seeds. A finished subvolume is saved and its slot
-reloads with the next pending one.
+Counterpart of ffn_tpu/parallel/multi_canvas.py. The fused driver keeps K
+subvolumes loaded: the engine's image and blocked volumes become (K, Z, Y,
+X) stacks, each lane binds to a slot (LaneState.sv), idle lanes refill
+from any subvolume with seeds left, and a finished subvolume is saved and
+its slot reloaded. Finalization runs on the device (K8, the default: claims
+into a per-slot segmentation, reseeds from a FIFO of banked seeds, a small
+log a round, one download at save) or on the host (`device_finalize=False`
+or with probability maps: seed screening, K7's verdicts and masks).
 
-Two finalize modes, as in the JAX driver:
-- device finalization (the default): K8 finalizes finished objects inside
-  the round, writing claims to a device segmentation per slot, and reseeds
-  freed lanes from a FIFO of banked seeds that the host loads each round;
-  the host applies a small log per round and downloads each slot's
-  segmentation once, at save;
-- host finalization (`device_finalize=False`, or with probability maps):
-  the host assigns seeds to idle lanes at the round boundary, screens seeds
-  for duds on the device, and finalizes finished lanes from K7's verdicts
-  and batched mask downloads.
-
-Semantics: objects in different subvolumes are independent; within one
-subvolume the behavior is HopBatchCanvas's. Subvolume outputs are
-idempotent (finished npz files are skipped on a rerun). Slot loads and
-saves run on thread pools: the next subvolume's image is read, normalized,
-padded and uploaded (on a copy stream, through pinned memory, on CUDA)
-while rounds run, and a finished slot's segmentation is copied out and
-written while the next rounds run. Loads are consumed in task order, and a
-reloaded slot's seed policy starts only after the saves in flight have
-landed (seed handoff reads the neighbors' files), so the task -> slot
-binding, and the output, do not depend on IO timing.
-
-Deviations: `mesh=` (the JAX driver's lane-axis sharding over several
-devices, multi_canvas.py:135-213) is not ported; the port runs on one card.
-A round runs to its end inside run_hops (its per-hop read, see
-inference/hop_engine.py), so seed draws and screens queued "behind" a round
-run after it. Slots are served in plain round-robin order, where the JAX
-driver serves slots with a materialized seed policy first (_slot_order):
-the port's output does not depend on thread timing.
+Objects in different subvolumes are independent; within one, the behavior
+is HopBatchCanvas's; finished npz files are skipped on a rerun. Loads
+(read, normalize, pad, upload on a copy stream through pinned memory) and
+saves run on thread pools beside the rounds; loads are consumed in task
+order, and a reloaded slot's seed policy starts only after the saves in
+flight have landed (seed handoff reads the neighbors' files), so the
+output does not depend on IO timing. Deviations: `mesh=` is not ported;
+a round runs to its end inside run_hops (hop_engine.py), so seed work
+queued behind it runs after it; slots are served round-robin where the
+JAX driver serves materialized ones first (_slot_order), so the output
+does not depend on thread timing.
 """
 
 from __future__ import annotations

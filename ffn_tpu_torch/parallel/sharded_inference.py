@@ -1,16 +1,10 @@
-"""Sharded inference: subvolume decomposition, seed handoff, stitching.
-
-Counterpart of ffn_tpu/parallel/sharded_inference.py:
-
-  - subvolumes from an OrderlyOverlappingCalculator, assigned to workers by
-    linear index (idempotent: finished subvolumes are skipped, so retries
-    and more workers are safe);
-  - optional seed handoff: the origins of finished neighboring subvolumes
-    are tried first (seed.PolicyNeighborOriginsThenPeaks);
-  - overlap stitching into a global ID space (parallel/stitching.py).
-
-A worker is one process on one device; `run_worker_fused` runs its
-subvolumes concurrently through one lane batch (parallel/multi_canvas.py).
+"""Sharded inference (ffn_tpu/parallel/sharded_inference.py): subvolumes of
+an OrderlyOverlappingCalculator assigned to workers by linear index
+(finished ones skipped, so retries are safe), optional seed handoff (the
+origins of finished neighbours first: PolicyNeighborOriginsThenPeaks),
+and overlap stitching into a global id space (parallel/stitching.py). A
+worker is one process on one device; `run_worker_fused` runs its
+subvolumes through one lane batch (parallel/multi_canvas.py).
 """
 
 from __future__ import annotations

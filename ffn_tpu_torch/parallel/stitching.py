@@ -1,9 +1,7 @@
-"""Global ID reconciliation across subvolume segmentations.
-
-A copy of ffn_tpu/parallel/stitching.py on the port's storage and label
-helpers (host numpy, stdlib logging): ids of neighboring subvolumes are
-matched in their overlap regions by mutual-majority voxel overlap, merged
-through a union-find, and the result is assembled into one global volume.
+"""Global id reconciliation of subvolume segmentations, a copy of
+ffn_tpu/parallel/stitching.py on the port's helpers: neighbours' ids
+matched in their overlaps by mutual-majority voxel overlap, merged
+(union-find) into one volume.
 """
 
 from __future__ import annotations

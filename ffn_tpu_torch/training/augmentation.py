@@ -1,13 +1,8 @@
-"""Training-time data augmentations (numpy; host side).
-
-Core parity with the reference's ffn/training/augmentation.py:
-PermuteAndReflect (:390), contrast/brightness perturbations (:353-387),
-random rotation via grid resampling (:62-281; here scipy map_coordinates
-replaces the google-internal multidim_image_augmentation dependency).
-The ssEM "section" augmentations (training/section_augment.py of the JAX
-package) are not ported yet (ROADMAP.md).
-
-All arrays are (b, z, y, x, c); axis ids below follow that layout.
+"""Training-time data augmentations (numpy, host side), at parity with the
+reference's ffn/training/augmentation.py: PermuteAndReflect (:390),
+contrast/brightness (:353-387), rotation by grid resampling (:62-281,
+scipy map_coordinates). The ssEM section augmentations are not ported
+yet (ROADMAP.md). Arrays are (b, z, y, x, c).
 """
 
 from __future__ import annotations

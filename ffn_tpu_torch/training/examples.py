@@ -1,14 +1,8 @@
-"""Moving-FOV training examples for the host-loop trainer (numpy only).
-
-A copy of ffn_tpu/training/examples.py, itself at parity with the
-reference's ffn/training/examples.py: get_example (:35), BatchExampleIter
-(:107), and the four offset policies fixed_offsets (:181),
-fixed_offsets_window (:201), no_offsets (:279), max_pred_offsets (:286).
-
-train_loop.run_training_host_loop drives it: each batch slot walks its own
-example's FOV moves, the card runs one forward and backward pass per batch
-(train_lib.make_fov_train_step), and update_seeds writes the predictions
-back into the slots' seed canvases before the next move is chosen.
+"""Moving-FOV training examples for the host-loop trainer (numpy only): a
+copy of ffn_tpu/training/examples.py (get_example :35, BatchExampleIter
+:107, the policies fixed_offsets :181, fixed_offsets_window :201,
+no_offsets :279, max_pred_offsets :286). Each batch slot walks its own
+example; update_seeds writes the step's logits back before the next move.
 """
 
 from __future__ import annotations

@@ -1,11 +1,8 @@
-"""Training input pipeline: coordinates -> volume patches -> examples.
-
-TF-free equivalent of the reference's ffn/training/inputs.py + the data
-assembly in train.py:202-286: shard-expanded coordinate files (TFRecord
-GZIP of tf.train.Example, read via ffn_tpu_torch.utils.tfrecord, or .npy),
-h5/numpy random patch reads, center-label -> LOM -> soften_labels, and
-per-volume offset/scale normalization. Host-side numpy with a background
-prefetch thread; the device never sees this code.
+"""Training input pipeline: coordinates -> volume patches -> examples, the
+reference's ffn/training/inputs.py and train.py:202-286 without TF:
+coordinate files (GZIP TFRecords via utils/tfrecord.py, or .npy), h5/numpy
+patch reads, centre label -> LOM -> soft labels, per-volume
+normalization; host numpy with a prefetch thread.
 """
 
 from __future__ import annotations

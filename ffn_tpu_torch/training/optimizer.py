@@ -1,28 +1,19 @@
 """The training optimizer: the JAX package's optax chain on the port.
 
-Counterpart of ffn_tpu/training/optimizer.py: the same OptimizerConfig, the
-same five optimizers {momentum, sgd, adagrad, adam, rmsprop}, the staircase
-exponential decay and the per-entry gradient clip of +/-0.7, with optax
-0.2.6's arithmetic (adagrad's initial accumulator 0.1 and eps 1e-7 inside
-the rsqrt; adam's bias correction with eps outside the square root;
-rmsprop's eps inside the rsqrt, nu from 0, then the learning rate, then the
-momentum trace). The step itself is one K12 launch (ffn_tpu_torch.ops.optim)
-over every parameter tensor; no torch.optim.
+Counterpart of ffn_tpu/training/optimizer.py: the same OptimizerConfig,
+the five optimizers, the staircase exponential decay and the +/-0.7
+per-entry clip, with optax 0.2.6's arithmetic (adagrad's accumulator 0.1
+and eps 1e-7 inside the rsqrt; adam's eps outside the square root;
+rmsprop's eps inside the rsqrt, then the rate, then the momentum trace).
+A step is one K12 launch (ops/optim.py) over every parameter tensor.
 
-State layout. optax keeps `chain(clip, core)`'s state as a tuple whose
-leaves JAX lists in a fixed order: per optimizer, the groups below, each
-group's tensors in JAX's parameter-leaf order (params_io.jax_leaf_order),
-a count as one int32 scalar. The schedule's count sits where
-`scale_by_schedule` sits in the chain (before rmsprop's trace).
-
-  sgd       [sched_count]
-  momentum  trace, [sched_count]
-  adagrad   sum_of_squares, [sched_count]
-  adam      count, mu, nu, [sched_count]
-  rmsprop   nu, [sched_count], trace
-
-`leaves`/`load_leaves` map the port's state to that list and back, which is
-what the JAX package's `opt.ckpt-N.npz` stores (leaf0, leaf1, ...).
+State layout: optax's `chain(clip, core)` state leaves in JAX's order, per
+optimizer the groups below, each in JAX's parameter-leaf order
+(params_io.jax_leaf_order), a count as one int32 scalar where
+`scale_by_schedule` sits: sgd [sched_count]; momentum trace,
+[sched_count]; adagrad sum_of_squares, [sched_count]; adam count, mu, nu,
+[sched_count]; rmsprop nu, [sched_count], trace. `leaves`/`load_leaves`
+map the state to that list (the JAX package's opt.ckpt-N.npz) and back.
 """
 
 from __future__ import annotations
@@ -168,11 +159,12 @@ class Optimizer:
                grads: List[torch.Tensor], state: dict,
                ema: Optional[Dict[str, torch.Tensor]],
                active: torch.Tensor, finite_out: torch.Tensor,
-               gated: bool = True) -> None:
+               gated: bool = True, loss_scale=None) -> None:
         """One step in place (K12): `grads` in `params`' order; `active`
         and `finite_out` are 0-d device tensors (the offset's valid lanes
         and its grads_finite metric); gated on `(active > 0) & finite`
-        unless `gated` is False."""
+        unless `gated` is False; `loss_scale`: a DynamicLossScale to
+        unscale with and adjust in place, or None."""
         names = list(params)
         slots = [[state[g][n] for n in names] for g in _SLOTS[self.name]]
         slots += [[None] * len(names)] * (2 - len(slots))
@@ -188,7 +180,7 @@ class Optimizer:
                 slots[0], slots[1],
                 [ema[n] for n in names] if ema is not None else None,
                 self.hyper, state.get("count"), state.get("sched_count"),
-                active, finite_out, ctrl, gated=gated)
+                active, finite_out, ctrl, gated=gated, loss_scale=loss_scale)
 
 
 def optimizer_from_config(config: OptimizerConfig,

@@ -1,12 +1,14 @@
-"""Training precision policy and loss scaling: the float32 policy only.
+"""Training precision policies and dynamic loss scaling.
 
-Counterpart of ffn_tpu/training/precision.py. The port trains in float32
-(parameters, convolutions and logits), so `get_policy` knows "f32" and
-raises NotImplementedError for "bf16" and "f16" (reduced-precision
-training and its DynamicLossScale are still to port, ROADMAP.md). The
-loss scale of the f32 policy is `NoOpLossScale`; `all_finite` and
-`select_tree` keep the JAX semantics on tensors, on the device (no host
-read), and are what K12's plain version does.
+Counterpart of ffn_tpu/training/precision.py: policies "f32", "bf16" and
+"f16" (float32 parameters, convolutions in the compute dtype), the f16
+policy's `DynamicLossScale` and the others' `NoOpLossScale`, with the JAX
+semantics. The port's DynamicLossScale holds device tensors (float32
+`scale`, int32 `counter`), which K12 (ops/optim.py) unscales with and
+adjusts in place with no host read; `adjust` returns the adjusted state as
+JAX's does. The scale starts at a power of two and only doubles or halves
+(>= 1), so scaling and unscaling in float32 are exact. `all_finite` and
+`select_tree` are K12's plain version's.
 """
 
 from __future__ import annotations
@@ -19,34 +21,77 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
-    """Dtype policy (float32 everywhere in the port)."""
+    """Dtype policy: float32 parameters, convolutions in compute_dtype,
+    float32 logits."""
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     output_dtype: torch.dtype = torch.float32
 
     @property
     def use_loss_scale(self) -> bool:
-        return False
+        # bf16 shares f32's exponent range; scaling only matters for fp16.
+        return self.compute_dtype == torch.float16
 
 
-_NOT_PORTED = ("bf16", "f16")
+_POLICIES = {
+    "f32": Policy(),
+    "bf16": Policy(compute_dtype=torch.bfloat16),
+    "f16": Policy(compute_dtype=torch.float16),
+}
 
 
 def get_policy(name: str) -> Policy:
-    """Parses a policy name; only "f32" is ported."""
-    if name == "f32":
-        return Policy()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"precision {name!r}: ffn_tpu_torch trains in float32 only; "
-            f"bf16/f16 training and DynamicLossScale are still to port "
-            f"(ROADMAP.md)")
-    raise ValueError(f"unknown precision policy {name!r}; one of "
-                     f"{sorted(('f32',) + _NOT_PORTED)}")
+    """Parses a policy name ("f32" | "bf16" | "f16")."""
+    try:
+        return _POLICIES[name]
+    except KeyError:
+        raise ValueError(f"unknown precision policy {name!r}; one of "
+                         f"{sorted(_POLICIES)}") from None
+
+
+class DynamicLossScale:
+    """Grows the scale 2x after `growth_interval` consecutive finite steps;
+    halves it (>= 1) on any non-finite gradient. `scale` (float32) and
+    `counter` (int32) are 0-d tensors on the training device."""
+
+    def __init__(self, scale: torch.Tensor, counter: torch.Tensor,
+                 growth_interval: int = 2000):
+        self.scale = scale
+        self.counter = counter
+        self.growth_interval = growth_interval
+
+    @classmethod
+    def init(cls, initial_scale: float = 2.0 ** 15,
+             growth_interval: int = 2000, device=None) -> "DynamicLossScale":
+        return cls(torch.tensor(initial_scale, dtype=torch.float32,
+                                device=device),
+                   torch.zeros((), dtype=torch.int32, device=device),
+                   growth_interval)
+
+    def leaves(self) -> list:
+        """The state as the JAX pytree's leaves: [scale, counter]."""
+        return [self.scale, self.counter]
+
+    def scale_loss(self, loss):
+        return loss * self.scale.to(loss.dtype)
+
+    def unscale(self, tensors) -> list:
+        inv = 1.0 / self.scale
+        return [g * inv.to(g.dtype) for g in tensors]
+
+    def adjust(self, grads_finite) -> "DynamicLossScale":
+        grow = self.counter + 1 >= self.growth_interval
+        new_scale = torch.where(
+            grads_finite, torch.where(grow, self.scale * 2.0, self.scale),
+            torch.clamp(self.scale * 0.5, min=1.0))
+        new_counter = torch.where(grads_finite & ~grow, self.counter + 1,
+                                  torch.zeros_like(self.counter))
+        return DynamicLossScale(new_scale, new_counter, self.growth_interval)
 
 
 class NoOpLossScale:
-    """Identity loss scale of the f32 policy; the JAX class's interface."""
+    """Identity loss scale of the f32 and bf16 policies; the same
+    interface, no state."""
 
     scale = 1.0
 
@@ -54,20 +99,23 @@ class NoOpLossScale:
     def init(cls, *a, **k) -> "NoOpLossScale":
         return cls()
 
+    def leaves(self) -> list:
+        return []
+
     def scale_loss(self, loss):
         return loss
 
-    def unscale(self, tree):
-        return tree
+    def unscale(self, tensors):
+        return tensors
 
     def adjust(self, grads_finite) -> "NoOpLossScale":
         del grads_finite
         return self
 
 
-def loss_scale_for(policy: Policy) -> NoOpLossScale:
-    del policy
-    return NoOpLossScale.init()
+def loss_scale_for(policy: Policy, device=None):
+    return (DynamicLossScale.init(device=device) if policy.use_loss_scale
+            else NoOpLossScale.init())
 
 
 def all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -1,12 +1,8 @@
-"""Training eval metrics tracker (numpy, framework-free).
-
-Parity with the reference's ffn/training/tracker.py EvalTracker metric
-definitions (:63-440): FOV-move accuracy {correct, missed, spurious} in
-total and per move radius, patch eval loss, voxel confusion counts and the
-derived precision/recall/F1/specificity/accuracy, plus ortho-slice
-summary images. (The reference file does not even compile at HEAD —
-tracker.py:235 — and is TF1-coupled; this is a clean numpy redesign with
-the same outputs.)
+"""Training eval metrics tracker (numpy): the reference's EvalTracker
+definitions (ffn/training/tracker.py:63-440): FOV-move accuracy in total
+and per move radius, patch loss, voxel confusion counts with
+precision/recall/F1/specificity/accuracy, and ortho-slice images, as a
+numpy redesign (the reference's file is TF1-coupled and does not compile).
 """
 
 from __future__ import annotations

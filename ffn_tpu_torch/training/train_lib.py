@@ -1,41 +1,24 @@
-"""FFN training on one card: the scan and host-loop train steps of the JAX
-package.
+"""FFN training on one card: the scan and host-loop train steps.
 
-Counterpart of ffn_tpu/training/train_lib.py's scan trainer
-(`make_scan_train_step`, `make_scan_train_step_packed` and their shared
-body, :158-422) and of its host-loop step (`make_fov_train_step`,
-:425-505). A step function is a plain function on tensors that loops
-over the fixed offsets in Python; for each offset, in the JAX body's order:
+Counterpart of ffn_tpu/training/train_lib.py's scan trainer (the explicit
+and packed steps and their shared body, :158-422) and host-loop step
+(`make_fov_train_step`, :425-505). A scan step loops over the fixed
+offsets in Python; per offset, in the JAX body's order: K11 train_gather
+(gate and crops) -> the ConvStack3D forward under autograd (K1, or K15 in
+16 bits) -> K11 train_loss (loss, dloss/dlogits times the loss scale, the
+seed write-back, counts) -> the backward (K9/K10, or K17/K18) -> K12
+(unscale, finite gate, clipped update, EMA, the loss scale's adjust); then
+K11 train_eval (packed). Nothing is read on the host inside the loop; the
+forward at offset k uses offset k - 1's parameters, updated in place. The
+host-loop step is one pass over one FOV batch: the forward, K16 fov_loss,
+the backward, K12 (ungated in the legacy form, gated with the EMA with a
+config).
 
-  K11 train_gather   the gate (valid, wanted) and the model's input crop
-  K1 (x 2*depth+1)   ConvStack3D forward, under autograd (Conv3dFunction,
-                     ResidualBlockFunction)
-  K11 train_loss     masked sigmoid CE, dloss/dlogits, the seed write-back
-                     and the counts
-  K9, K10            the backward (torch.autograd.grad from the logits)
-  K12 optim_update   the finite gate, the clipped optimizer step, the EMA
-
-and after the offsets (packed) K11 train_eval for the eval-region metrics.
-Inside the loop nothing is read on the host: `valid`, the loss, the finite
-flag and the update gate stay on the device, and the metrics come back as
-device tensors. The forward at offset k uses the parameters that offset
-k - 1 updated, and the schedule's count advances only on a real update,
-as in the JAX scan. Parameters, optimizer state and EMA are updated in
-place (the JAX step donates and returns them).
-
-The host-loop step is one pass over one FOV batch, for the examples'
-moves that the host chooses (any of the four policies):
-
-  K1 (x 2*depth+1)   ConvStack3D forward on (image, seed), under autograd
-  K16 fov_loss       the ungated mean sigmoid CE and dloss/dlogits
-  K9, K10            the backward
-  K12 optim_update   the optimizer step: ungated in the legacy form (no
-                     config), gated on finite gradients with the EMA in
-                     the config form
-
-The scan steps refuse max_pred_moves and no_step as the JAX package does
-(they need the host loop). bf16/f16 training, remat and meshes are not
-ported (ROADMAP.md); each raises NotImplementedError.
+The precision policy (`config.precision`, precision.py) sets the loss
+scale (f16: DynamicLossScale, device tensors); the model's dtype sets the
+convolutions' (train_loop sets it from the policy). The scan steps refuse
+max_pred_moves and no_step as the JAX package does; remat and meshes raise
+NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -73,7 +56,7 @@ class TrainConfig:
     image_stddev: float = 33.0
     shuffle_fov_moves: bool = False
     ema_decay: float = 0.0      # 0 disables EMA params
-    precision: str = "f32"      # only f32 is ported
+    precision: str = "f32"      # f32 | bf16 | f16 (precision.py)
     packed_transfers: bool = True
     label_softness: float = 0.05
     remat: bool = False         # not ported
@@ -179,10 +162,19 @@ def create_train_state(model, config: TrainConfig
     ema = ({n: p.detach().clone() for n, p in params.items()}
            if config.ema_decay > 0 else None)
     policy = precision_lib.get_policy(config.precision)
+    dev = next(iter(params.values())).device
     return ScanTrainState(params=params, opt_state=opt.init(params),
                           ema_params=ema, step=0,
-                          scale_state=precision_lib.loss_scale_for(policy)
-                          ), opt
+                          scale_state=precision_lib.loss_scale_for(
+                              policy, device=dev)), opt
+
+
+def _dynamic(scale_state):
+    """(the scale tensor, the DynamicLossScale) or (None, None) for a
+    NoOpLossScale."""
+    if isinstance(scale_state, precision_lib.DynamicLossScale):
+        return scale_state.scale, scale_state
+    return None, None
 
 
 class _Body:
@@ -211,6 +203,8 @@ class _Body:
         table = torch.empty((s, len(train_ops.METRICS)), dtype=torch.float32,
                             device=dev)
         finite = torch.empty((s,), dtype=torch.bool, device=dev)
+        scales = torch.ones((s,), dtype=torch.float32, device=dev)
+        scale, dynamic = _dynamic(state.scale_state)
         names = list(state.params)
         params = [state.params[n] for n in names]
         for i, off in enumerate(offsets):
@@ -221,17 +215,19 @@ class _Body:
             logits = self.model.train_apply(x_in, seed_patch)
             dlogits = train_ops.train_loss(
                 logits.detach(), seeds, labels, weights, valid, wanted, off,
-                table[i], self.ticket)
+                table[i], self.ticket, scale=scale)
             grads = torch.autograd.grad(logits, params, dlogits)
             del logits, x_in
             self.opt.update(state.params, list(grads), state.opt_state,
-                            state.ema_params, table[i, 1], finite[i])
+                            state.ema_params, table[i, 1], finite[i],
+                            loss_scale=dynamic)
+            if dynamic is not None:
+                scales[i].copy_(dynamic.scale)
         metrics = {k: table[:, j] for j, k in enumerate(train_ops.METRICS)}
         for k in ("correct", "missed", "spurious"):
             metrics[k] = metrics[k].to(torch.int32)
         metrics["grads_finite"] = finite
-        metrics["loss_scale"] = torch.ones((s,), dtype=torch.float32,
-                                           device=dev)
+        metrics["loss_scale"] = scales
         return metrics
 
 
@@ -293,25 +289,18 @@ def make_scan_train_step_packed(model, opt, config: TrainConfig, mesh=None):
 
 
 def make_fov_train_step(model, opt, mesh=None, config=None):
-    """The host-loop trainer's single-FOV step (one forward and backward
-    pass of the batch, with the seed stop-gradient-ed).
-
-    Without config (legacy), the optimizer's update applied whatever the
-    gradients hold (a NaN reaches the parameters, as in the JAX step):
+    """The host-loop trainer's single-FOV step (one forward and backward pass,
+    the seed stop-gradient-ed). Without config (legacy) the update applies
+    whatever the gradients hold (a NaN reaches the parameters, as in JAX):
       (params, opt_state, seed, image, labels, weights) ->
           (params, opt_state, logits, loss)
-    With config, the update skipped unless every gradient is finite, and
-    the EMA (config.ema_decay > 0) updated at every step, skipped or not:
+    With config it is skipped unless every gradient is finite, the EMA
+    (ema_decay > 0) updates every step, and f16's loss scale applies:
       (params, opt_state, ema_params, scale_state, seed, image, labels,
-       weights) -> (params, opt_state, ema_params, scale_state, logits,
-                    loss)
-
-    `params`, `opt_state`, `ema_params`, `scale_state`: create_train_state's
-    (the parameters are the model's own tensors), updated in place and
-    returned. seed/image/labels/weights: (B, z, y, x, 1) float32 on the
-    model's device; logits (the updated seed, that shape) and loss (0-d)
-    stay on the device.
-    """
+       weights) -> (params, opt_state, ema_params, scale_state, logits, loss)
+    The state is create_train_state's (the model's own parameters), updated
+    in place; inputs (B, z, y, x, 1) float32 on the model's device; logits
+    and the 0-d loss stay there."""
     if mesh is not None:
         raise NotImplementedError(f"mesh= {NOT_PORTED}: the port trains on "
                                   f"one card")
@@ -322,8 +311,8 @@ def make_fov_train_step(model, opt, mesh=None, config=None):
     names = list(own)
     scratch = {}
 
-    def run(params, opt_state, ema_params, seed, image, labels, weights,
-            gated):
+    def run(params, opt_state, ema_params, scale_state, seed, image, labels,
+            weights, gated):
         if len(params) != len(own) or any(params.get(n) is not own[n]
                                           for n in names):
             raise ValueError("make_fov_train_step: params must be the "
@@ -336,24 +325,26 @@ def make_fov_train_step(model, opt, mesh=None, config=None):
                                               device=dev))
         net = torch.cat([image, seed], dim=-1)
         logits = model.train_apply(net, seed.detach())
+        scale, dynamic = _dynamic(scale_state)
         dlogits, loss = train_ops.fov_loss(logits.detach(), labels, weights,
-                                           scratch["ticket"])
+                                           scratch["ticket"], scale=scale)
         grads = torch.autograd.grad(logits, [params[n] for n in names],
                                     dlogits)
         opt.update(params, list(grads), opt_state, ema_params,
-                   scratch["active"], scratch["finite"], gated=gated)
+                   scratch["active"], scratch["finite"], gated=gated,
+                   loss_scale=dynamic)
         return logits.detach(), loss
 
     if config is None:
         def train_step(params, opt_state, seed, image, labels, weights):
-            logits, loss = run(params, opt_state, None, seed, image, labels,
-                               weights, gated=False)
+            logits, loss = run(params, opt_state, None, None, seed, image,
+                               labels, weights, gated=False)
             return params, opt_state, logits, loss
     else:
         def train_step(params, opt_state, ema_params, scale_state, seed,
                        image, labels, weights):
-            logits, loss = run(params, opt_state, ema_params, seed, image,
-                               labels, weights, gated=True)
+            logits, loss = run(params, opt_state, ema_params, scale_state,
+                               seed, image, labels, weights, gated=True)
             return (params, opt_state, ema_params, scale_state, logits,
                     loss)
     return train_step

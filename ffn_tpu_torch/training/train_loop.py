@@ -1,34 +1,20 @@
 """The training loops: data pipeline + train step + checkpoints, one card.
 
-Counterpart of ffn_tpu/training/train_loop.py's `run_training` (the scan
-trainer) and `run_training_host_loop`. `run_training`: an
-ExampleBatcher (raw uint8 patches, augmentation, a prefetch thread with a
-resumable cursor) feeds the packed scan train step (train_lib), whose
-per-offset metrics reach the host one step behind through a pinned copy
-and an event, as the JAX loop ingests step N while step N+1 runs; the
-tracker writes `summaries.jsonl`; checkpoints use the JAX package's
-`<train_dir>/ckpt/` layout and names, so either package resumes the
-other's train dir:
-
-  model.ckpt-N.npz  the weights, flat `params/<layer>/kernel|bias` keys
-  opt.ckpt-N.npz    step, leaf0..: the optimizer state in JAX leaf order
-  extra.ckpt-N.npz  consumed (the data cursor), rng_keys/rng_meta (the
-                    offset-shuffle RNG), ema0..: the EMA in JAX leaf order
-
-`run_training_host_loop`: the reference FFN's own stepping, for any of
-the four FOV policies. Each batch slot walks its own example's moves
-(examples.BatchExampleIter on a prefetching loader); each step is one
-copy of the batch to the card, one make_fov_train_step (a forward and
-backward pass of the FOV batch and the optimizer step) and one copy of
-the logits back, which the host writes into the slots' seed canvases
-before it chooses the next moves. Its checkpoints have the same layout,
-with a data cursor of 0: the examples in flight span steps, so the data
-position is not saved (as in the JAX package); the augmentation RNG is.
-
-Weights start from torch's generator seeded with `random_seed` (the JAX
-package draws them from PRNGKey(0)), or from `init_params`. Not ported
-(ROADMAP.md; each raises NotImplementedError): multi-process training and
-meshes.
+Counterpart of ffn_tpu/training/train_loop.py. `run_training`: an
+ExampleBatcher (uint8 patches, augmentation, a prefetch thread with a
+resumable cursor) feeds the packed scan step, whose metrics reach the host
+one step behind (a pinned copy and an event); checkpoints use the JAX
+package's `<train_dir>/ckpt/` layout, so either package resumes the
+other's: model.ckpt-N.npz (flat `params/<layer>/kernel|bias`),
+opt.ckpt-N.npz (step, leaf0..: optimizer state in JAX leaf order),
+extra.ckpt-N.npz (consumed, the offset-shuffle RNG, ema0.., and
+scale0/scale1: the f16 policy's loss scale and counter).
+`run_training_host_loop`: the reference FFN's stepping for the four FOV
+policies (examples.BatchExampleIter; a batch up, make_fov_train_step, the
+logits back into the slots' seed canvases); its checkpoints carry a data
+cursor of 0 and the augmentation RNG. Weights start from torch's
+generator seeded with `random_seed`, or `init_params`. Multi-process
+training and meshes raise NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,6 +39,7 @@ from ffn_tpu_torch.models import registry
 from ffn_tpu_torch.training import augmentation
 from ffn_tpu_torch.training import examples as examples_lib
 from ffn_tpu_torch.training import inputs as inputs_lib
+from ffn_tpu_torch.training import precision as precision_lib
 from ffn_tpu_torch.training import tracker as tracker_lib
 from ffn_tpu_torch.training import train_lib
 
@@ -207,13 +194,19 @@ class ExampleBatcher:
 
 def build_model(model_name: str, model_args: str,
                 config: train_lib.TrainConfig):
-    """The model of `run_training` (weights as the constructor draws them)."""
+    """The model of `run_training` (weights as the constructor draws them);
+    the precision policy's compute dtype unless `model_args` names one, as
+    ffn_tpu/training/train_loop.py:238-244."""
     model_cls = registry.import_symbol(model_name)
     kwargs = json.loads(model_args) if model_args else {}
     kwargs.setdefault("fov_size", list(config.fov_size))
     kwargs.setdefault("deltas", list(config.deltas))
     kwargs.setdefault("depth", config.depth)
     kwargs.setdefault("features", config.features)
+    if config.precision != "f32":
+        policy = precision_lib.get_policy(config.precision)
+        kwargs.setdefault("dtype", policy.compute_dtype)
+        kwargs.setdefault("precision", None)
     return model_cls(**kwargs)
 
 
@@ -280,7 +273,7 @@ def run_training(model_name: str, model_args: str,
         start_step = latest
         _restore(ckpt_dir, latest, model, opt, state.opt_state)
         consumed_base = _restore_extra(ckpt_dir, latest, state.ema_params,
-                                       shuffle_rng)
+                                       shuffle_rng, state.scale_state)
         if consumed_base is None:
             # Old-format checkpoint without a data cursor: assume the
             # scan trainer's fixed consumption rate.
@@ -296,7 +289,7 @@ def run_training(model_name: str, model_args: str,
     def save(step):
         _save(ckpt_dir, step, model, opt, state.opt_state)
         _save_extra(ckpt_dir, step, state.ema_params, shuffle_rng,
-                    consumed_base + next_batch.consumed)
+                    consumed_base + next_batch.consumed, state.scale_state)
         _apply_keep_policy(ckpt_dir, loop)
 
     t_last = time.time()
@@ -472,7 +465,7 @@ def run_training_host_loop(model_name: str, model_args: str,
     if latest is not None:
         start_step = latest
         _restore(ckpt_dir, latest, model, opt, opt_state)
-        _restore_extra(ckpt_dir, latest, ema_params, rng)
+        _restore_extra(ckpt_dir, latest, ema_params, rng, scale_state)
         logging.info("Resumed from step %d", start_step)
 
     # The prefetch thread starts after the restore, so that every
@@ -515,7 +508,8 @@ def run_training_host_loop(model_name: str, model_args: str,
             if (step + 1) % loop.checkpoint_every_steps == 0 or \
                     step + 1 == loop.max_steps or stop.requested:
                 _save(ckpt_dir, step + 1, model, opt, opt_state)
-                _save_extra(ckpt_dir, step + 1, ema_params, rng, 0)
+                _save_extra(ckpt_dir, step + 1, ema_params, rng, 0,
+                            scale_state)
                 _apply_keep_policy(ckpt_dir, loop)
             if stop.requested:
                 logging.info("Preemption requested; checkpointed at step %d "
@@ -636,10 +630,11 @@ def _savez(path, **arrays):
         np.savez_compressed(fd, **arrays)
 
 
-def _save_extra(ckpt_dir, step, ema, shuffle_rng, consumed):
+def _save_extra(ckpt_dir, step, ema, shuffle_rng, consumed,
+                scale_state=None):
     """Persists the EMA params (JAX leaf order), the offset-shuffle RNG
-    state and the data-iterator cursor. (The f32 policy's loss scale has
-    no leaves.)"""
+    state, the data-iterator cursor and the loss scale's leaves (none for
+    the f32 and bf16 policies)."""
     arrays = {"consumed": np.int64(consumed)}
     _, s1, s2, s3, s4 = shuffle_rng.get_state()
     arrays["rng_keys"] = np.asarray(s1)
@@ -647,12 +642,15 @@ def _save_extra(ckpt_dir, step, ema, shuffle_rng, consumed):
     if ema is not None:
         for i, name in enumerate(params_io.jax_leaf_order(ema)):
             arrays[f"ema{i}"] = ema[name].detach().cpu().numpy()
+    for i, leaf in enumerate(scale_state.leaves() if scale_state else []):
+        arrays[f"scale{i}"] = leaf.cpu().numpy()
     _savez(os.path.join(ckpt_dir, f"extra.ckpt-{step}.npz"), **arrays)
 
 
-def _restore_extra(ckpt_dir, step, ema, shuffle_rng) -> Optional[int]:
-    """Restores what _save_extra wrote (the EMA in place); returns the data
-    cursor, None for old-format checkpoints."""
+def _restore_extra(ckpt_dir, step, ema, shuffle_rng,
+                   scale_state=None) -> Optional[int]:
+    """Restores what _save_extra wrote (the EMA and the loss scale in
+    place); returns the data cursor, None for old-format checkpoints."""
     path = os.path.join(ckpt_dir, f"extra.ckpt-{step}.npz")
     if not os.path.exists(path):
         return None
@@ -666,7 +664,15 @@ def _restore_extra(ckpt_dir, step, ema, shuffle_rng) -> Optional[int]:
                 t = ema[name]
                 t.copy_(torch.as_tensor(np.asarray(
                     data[f"ema{i}"], np.float32).reshape(tuple(t.shape))))
+        leaves = scale_state.leaves() if scale_state else []
+        if leaves and "scale0" in data:
+            for i, t in enumerate(leaves):
+                t.copy_(torch.as_tensor(np.asarray(
+                    data[f"scale{i}"], _NP[t.dtype]).reshape(())))
     return consumed
+
+
+_NP = {torch.float32: np.float32, torch.int32: np.int32}
 
 
 def _save(ckpt_dir, step, model, opt, opt_state):

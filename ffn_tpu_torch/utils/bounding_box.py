@@ -1,10 +1,7 @@
-"""Axis-aligned bounding boxes and overlapping subvolume decomposition.
-
-Functional parity with the reference's ffn/utils/bounding_box.py
-(BoundingBox: ffn/utils/bounding_box.py:29;
-OrderlyOverlappingCalculator: :250) — the subvolume-decomposition engine
-used for pod-scale inference. Coordinates are XYZ throughout this module
-(`to_slice` flips to ZYX for array indexing, as in the reference).
+"""Axis-aligned bounding boxes and overlapping subvolume decomposition, at
+parity with the reference's ffn/utils/bounding_box.py (BoundingBox :29,
+OrderlyOverlappingCalculator :250). Coordinates are XYZ (`to_slice`
+flips to ZYX for indexing).
 """
 
 from __future__ import annotations

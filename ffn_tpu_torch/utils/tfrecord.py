@@ -1,14 +1,7 @@
-"""Pure-python TFRecord reading/writing (GZIP-capable), TF-free.
-
-The reference stores training coordinates as GZIP TFRecords of
-tf.train.Example (build_coordinates.py:100-112; inputs.py:66-91). This
-module reads and writes that format without TensorFlow:
-
-  record := uint64 length | uint32 masked_crc32c(length) |
-            bytes data    | uint32 masked_crc32c(data)
-
-CRC32C (Castagnoli) is implemented with an 8-KiB slicing-by-8 table in
-numpy for throughput.
+"""Pure-python TFRecord reading and writing (GZIP too), without TensorFlow,
+for the reference's coordinate files (build_coordinates.py:100-112,
+inputs.py:66-91): record := uint64 length | uint32 masked_crc32c(length)
+| data | uint32 masked_crc32c(data); CRC32C by a slicing-by-8 numpy table.
 """
 
 from __future__ import annotations

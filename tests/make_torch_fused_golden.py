@@ -1,42 +1,26 @@
 #!/usr/bin/env python3
-"""Writes the fused-driver goldens: the JAX package's fused
-multi-subvolume driver (run_worker_fused + stitching), float32, on the
-CPU. chip_smoke.py holds ffn_tpu_torch on the card to them.
+"""Writes the fused-driver goldens: the JAX package's fused multi-subvolume
+driver (run_worker_fused + stitching), float32, on the CPU; chip_smoke.py
+holds the port to them on the card.
 
-  python tests/make_torch_fused_golden.py            # --model ci: a few
-                                                     # minutes on 8 cores
-  python tests/make_torch_fused_golden.py --model r2  # ~30 min
+  python tests/make_torch_fused_golden.py [--model ci|r2]  # ci: minutes;
+                                                           # r2: ~30 min
 
-Each phantom is reflect-padded by 16 and cut into 8 subvolumes, run with
-max_iters_per_segment 4000 and seed handoff:
+Phantoms reflect-padded by 16, 8 subvolumes, max_iters 4000, seed handoff.
+--model ci (fused_ci_golden.npz): the 48^3 phantom of test_torch_runner.py
+(seed 3, 6 cells) in 48^3 subvolumes (overlap 16), the CI checkpoint, 16
+lanes, 4 slots, 8 hops, both finalize modes, each run twice (held voxel,
+origin and counter for counter). --model r2 (fused_r2_golden.npz): a 64^3
+phantom (seed 0, 4 cells) in 64^3 subvolumes (overlap 32), model-r2, 64
+lanes, 4 slots, 16 hops, device finalization, once: the JAX package's own
+stitched agreement (the packages' convolutions round differently).
 
---model ci (tests/golden/fused_ci_golden.npz): the 48^3 phantom of
-tests/test_torch_runner.py (seed 3, 6 cells; 80^3 padded) in subvolumes
-of 48^3 with an overlap of 16; the shipped CI checkpoint (depth 2, 16
-features, 17^3 FOV, min_segment_size 300), 16 lanes, 4 slots, 8 hops,
-both finalize modes, each run twice. chip_smoke.py holds the port to it
-voxel for voxel, origin for origin, counter for counter.
-
---model r2 (tests/golden/fused_r2_golden.npz): a 64^3 phantom (seed 0, 4
-cells; 96^3 padded) in subvolumes of 64^3 with an overlap of 32; model-r2
-at full width (depth 12, 32 features, 33^3 FOV, min_segment_size 1000)
-with the fused slice's 64 lanes, 4 slots and 16 hops, device
-finalization, run once. It is the JAX package's own stitched agreement
-with model-r2 at 64 lanes, which chip_smoke.py compares with the port's
-on the card (the two packages' depth-12 convolutions round differently).
-
-The driver's thread pools run synchronously here: the JAX driver serves
-slots whose seed policy has materialized first (multi_canvas.py:555-568),
-so with real pools its seed schedule, and its output, depend on thread
-timing; with every policy ready at once it follows the order ffn_tpu_torch
-always follows. Keys: `image` (the padded phantom: another numpy or scipy
-may draw it a voxel differently) and `gt`; per mode M in (devfin, host):
-M_seg (8 subvolumes), the saved segmentations in subvolume index order;
-M_origins, rows (subvolume, id, z, y, x, iterations); M_counters, a JSON
-string of each subvolume's count counters; M_stitched, the assembled
-global volume; M_agreement, its ground-truth agreement
-(synthetic_em.object_level_agreement, min_size 1000); M_deterministic,
-whether two runs agreed (--model ci only).
+The driver's pools run synchronously: with real pools the JAX driver's
+slot order depends on thread timing (multi_canvas.py:555-568); with every
+policy ready it follows the port's order. Keys: image, gt; per mode M
+(devfin, host): M_seg (8 subvolumes in index order), M_origins (rows:
+subvolume, id, z, y, x, iterations), M_counters (JSON), M_stitched,
+M_agreement (object_level_agreement, min_size 1000), M_deterministic (ci).
 """
 
 import argparse

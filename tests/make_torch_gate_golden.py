@@ -1,20 +1,14 @@
 #!/usr/bin/env python3
-"""Writes tests/golden/gate_ci_lanes_golden.npz, the JAX package's
-quality-gate pair (tools/quality_eval.py's check 2) with the shipped CI
-checkpoint (depth 2, 16 features, 17^3 FOV), float32, on the CPU: the
-held-out seed-11 100^3 phantom with 8 cells, reflect-padded by 16,
-segmented serially, at 64 lanes on the hop path (16 hops) and at 64 lanes
-on the round-based path (hops 0: BatchCanvas and select_step).
-chip_smoke.py holds ffn_tpu_torch on the card to it voxel for voxel.
+"""Writes tests/golden/gate_ci_lanes_golden.npz: the JAX package's
+quality-gate pair (tools/quality_eval.py's check 2) with the CI checkpoint,
+float32, on the CPU (~24 min): the seed-11 100^3 phantom (8 cells,
+reflect-padded by 16) serially, at 64 lanes on the hop path (16 hops) and
+at 64 lanes round-based (hops 0). chip_smoke.py holds the port to it.
 
-  python tests/make_torch_gate_golden.py     # ~24 min on 8 CPU cores
+  python tests/make_torch_gate_golden.py
 
-The golden holds the padded image and the ground truth (another numpy or
-scipy may draw the phantom a voxel differently), and per run R in (1, 64,
-64_round): seg{R}, the padded box's segmentation; origins{R}, rows (id,
-z, y, x, iterations); moves{R}, the FOV moves (update_at-calls serially,
-fov-moves batched); and rounds64_round, the round-based run's
-select_step calls.
+Keys: the padded image and ground truth; per run R in (1, 64, 64_round)
+seg{R}, origins{R} (id, z, y, x, iterations), moves{R}; rounds64_round.
 """
 
 import os

@@ -1,27 +1,17 @@
 #!/usr/bin/env python3
 """Writes tests/golden/train_ci_golden.npz: two packed scan train steps of
-the JAX package on the CPU, for chip_smoke.py to hold ffn_tpu_torch's
-training on the card to.
+the JAX package on the CPU (~1 min), which chip_smoke.py holds the port's
+training to on the card.
 
-  python tests/make_torch_train_golden.py     # ~1 min on the CPU
+  python tests/make_torch_train_golden.py
 
-The model is the CI checkpoint's ConvStack (models/phantom/
-model-ci-tiny.npz: depth 2, 16 features, 17^3 FOV), trained from its
-weights with deltas 4 (a 25^3 canvas, 27 offsets), batch 4, float32, with
-sgd and with adam at the CLI's learning rate 0.001 (adam's epsilon 1e-3,
-so that an entry whose gradient is a near-cancellation, and so differs in
-relative terms between two summation orders, is not scaled up to a full
-step). The examples are 25^3 crops of a
-64^3 synthetic phantom (tools/synthetic_em, seed 0, 6 cells) centred on
-foreground voxels drawn with a seeded RandomState, with their centre
-object's mask, so lanes pass the move gate where the weights say they
-should.
-
-Keys: image_u8, lom_u8 (2 steps, 4, 25, 25, 25, 1) uint8; offsets (27, 3)
-zyx; init/<name> the initial weights (the JAX package's flat names); and
-per optimizer <opt>: <opt>/<metric> (2, 27) per-offset loss, active,
-correct, missed, spurious and (2,) patch_loss, tp, fp, fn, tn of each step;
-<opt>/final/<name> the weights after the two steps.
+The CI checkpoint's ConvStack (model-ci-tiny.npz: depth 2, 16 features,
+17^3) from its weights, deltas 4 (25^3 canvas, 27 offsets), batch 4,
+float32, sgd and adam at lr 0.001 (adam's epsilon 1e-3, so a
+near-cancelling gradient entry is not scaled to a full step), on 25^3
+crops of a 64^3 phantom (seed 0, 6 cells) centred on foreground. Keys:
+image_u8, lom_u8 (2, 4, 25, 25, 25, 1); offsets; init/<name>; per
+optimizer <opt>/<metric> (2, 27) or (2,) and <opt>/final/<name>.
 """
 
 import os

@@ -1,19 +1,10 @@
 """ffn_tpu_torch's round-based BatchCanvas (hops 0) against the JAX
-package's.
-
-The cases of tests/test_batch_canvas.py and test_batch_canvas_resume.py,
-each run through both packages: the canvases segment test_canvas_e2e.py's
-synthetic volume with the rule-based oracle model and the same grid seeds;
-the oracle makes every round exact, so the segmentations, the origins
-(position and iterations) and every count counter must be identical (timers
-are not compared); one lane equals the serial Canvas, four lanes find its
-objects. Also: a run killed after a checkpoint resumes to the
-uninterrupted result; a round-based checkpoint written by either package
-restores in the other and into both packages' HopBatchCanvas, with the
-same result, a lane at or above the hop canvas's lane count going back to
-the deferred pool; the Runner and the CLI take hops 0 through
-`canvas_defaults` and FFN_TPU_HOPS=0, and the Runner then equals the JAX
-runner (the CI checkpoint and the oracle model).
+package's: the cases of tests/test_batch_canvas{,_resume}.py through both
+packages with the rule-based oracle (every round exact): segmentations,
+origins and count counters identical; one lane equals the serial Canvas;
+a killed run resumes; checkpoints restore across the packages and into
+HopBatchCanvas; the Runner and the CLI take hops 0 and equal the JAX
+Runner (CI checkpoint and oracle).
 """
 
 import functools

@@ -1,19 +1,13 @@
-"""ffn_tpu_torch with bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) on the
-device-finalize, fused, round-based and serial paths against the JAX
-package with seed_dtype=bfloat16 (the hop path with host finalization:
-test_torch_bf16_seeds.py, whose helpers this file shares).
-
-Crafted states hold seeds on the thresholds' bfloat16 rounding edges and
-NaN, and a model that reads its seed (2 image + seed / 2, exact in
-float32) shows every rounding: K8 kills a RUNNING lane whose origin is
-bf16(move_t) < move_t as weak and finalizes a DONE_EMPTY lane with the
-same origin; K13 counts a start or candidate at bf16(move_t) as below the
-threshold; step and step_batch return the unrounded logits. Every field
-must match bit for bit. With the rule-based oracle the serial Canvas,
-the round-based BatchCanvas, HopBatchCanvas with device finalization and
-the fused driver (both modes) must give the JAX package's segmentations,
-origins and counters, and their checkpoints restore across the packages;
-a serial restore rebuilds a float32 device seed in both packages.
+"""ffn_tpu_torch with bfloat16 lane seeds on the device-finalize, fused,
+round-based and serial paths against the JAX package with
+seed_dtype=bfloat16 (the hop path: test_torch_bf16_seeds.py, whose
+helpers this file shares). Crafted states on the thresholds' rounding
+edges and a model reading its seed make every rounding show (K8's two
+views of one origin, K13 at bf16(move_t), unrounded step returns): every
+field bit for bit. With the oracle, the serial, round-based, device-
+finalize and fused canvases give the JAX package's segmentations, origins
+and counters, and checkpoints restore across the packages (a serial
+restore rebuilds a float32 seed in both).
 """
 
 import functools

@@ -1,22 +1,12 @@
-"""ffn_tpu_torch with bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) against
-the JAX package's HopEngine(seed_dtype=bfloat16), on the hop path with host
-finalization: K4-K7's plain versions, HopBatchCanvas, its checkpoints and
-the Runner.
-
-With bfloat16 seeds the JAX program rounds in some places and not in
-others (ffn_tpu_torch/ops/hop.py says where). The crafted states hold seeds
-at bf16(move_t) below a move threshold that rounds down, NaN, and seeds at
-a segment threshold's rounding edge: K4 counts a seed v with bf16(move_t)
-<= v < move_t as weak, K7 as strong, in both packages. A test model whose
-output reads the seed (2 image + seed / 2, exact in float32 in both
-packages) makes the pad value's rounding, the rounded write-back and the
-face maxima of the rounded patch show; with it and with the rule-based
-oracle every field must match bit for bit. With the shipped CI checkpoint
-(a float32 ConvStack) the logits differ from the JAX package's in the last
-float32 digits, which can move a rounded seed by one bfloat16 step; on
-this phantom every decision still agrees (measured: the Runner pair's
-segmentations, origins and counters are equal), so the pair is held to
-equality.
+"""ffn_tpu_torch with bfloat16 lane seeds against the JAX package's
+HopEngine(seed_dtype=bfloat16) on the hop path with host finalization:
+K4-K7's plain versions, HopBatchCanvas, checkpoints and the Runner. The
+crafted states hold seeds on the thresholds' rounding edges and NaN (K4
+counts bf16(move_t) <= v < move_t weak, K7 strong, in both packages); a
+test model reading its seed (exact in both) and the rule-based oracle
+make the rounding show: every field bit for bit. With the CI checkpoint
+(float32 logits off in the last digits) every decision still agrees on
+this phantom, so the Runner pair is held to equality.
 """
 
 import dataclasses

@@ -1,10 +1,7 @@
-"""A bfloat16 request through both packages' serial Runners.
-
-The serial Canvas (concurrent_requests unset) with the CI checkpoint in
-bfloat16 on the 48^3 phantom of test_torch_runner.py, held as
-test_torch_bf16.py's 8-lane case is (check_bf16_runner). A file of its
-own: under parallel test workers, which take a file each, the JAX
-package's step-by-step serial run is the slowest case of the two.
+"""A bfloat16 request through both packages' serial Runners (the CI
+checkpoint on test_torch_runner.py's 48^3 phantom), held as
+test_torch_bf16.py's 8-lane case; a file of its own because the JAX
+package's serial run is the slowest case.
 """
 
 import torch

@@ -1,10 +1,7 @@
-"""ffn_tpu_torch's ConvStack3D and its conv (K1) against the JAX package.
-
-The port runs its plain PyTorch versions here on the CPU; JAX runs on the
-CPU as the other tests run it (conftest.py). Inputs come from numpy with a
-fixed seed and pass between the two as numpy arrays. Tolerances: 1e-5 on
-small random stacks (float32 sums in another order), 2e-4 on the 12-layer
-fib25 golden, the bound of test_reference_contracts.py.
+"""ffn_tpu_torch's ConvStack3D and K1's plain version against the JAX
+package on the CPU, from numpy inputs: 1e-5 on small random stacks
+(another float32 order), 2e-4 on the 12-layer fib25 golden (the bound of
+test_reference_contracts.py).
 """
 
 import os

@@ -1,12 +1,7 @@
-"""ffn_tpu_torch's FloodFillEngine.step (K2, model, K3) against the JAX one.
-
-Both engines run the same sequence of steps from the same numpy inputs;
-after every step the returned patch and the whole seed buffer are compared.
-With the rule-based oracle model nothing but the step's own logic is
-involved, so the match is bit for bit. With the tiny CI checkpoint the
-logits differ in the last float32 digits (sums in another order), so the
-bound is 1e-5, and the NaN pattern, i.e. the set of visited voxels, must
-agree exactly.
+"""ffn_tpu_torch's FloodFillEngine.step (K2, model, K3) against the JAX one:
+the same steps from the same numpy inputs, the patch and the whole seed
+compared after each; the oracle bit for bit; the CI checkpoint within 1e-5
+(logits off in the last digits) with the NaN pattern exact.
 """
 
 import os

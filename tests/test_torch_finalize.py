@@ -1,15 +1,9 @@
-"""ffn_tpu_torch's device finalization (plain path) against the JAX package's.
-
-The crafted state of test_torch_kernels.crafted_finalize (every branch of
-K8: overlapping same-pass finishers, claimed and dry FIFOs, both blanks, a
-wrapped blank corner, hold, NaN origins, caps, too-small objects) goes
-through both engines' run_hops(fstate=...) for 1-3 hops. With the
-rule-based oracle model the packed round array (aux rows, header, log) and
-every field of both states must match bit for bit; with the tiny CI
-ConvStack the seeds are held to 1e-5 with the same NaN pattern and
-everything else must match exactly. Also: the FIFO load, the slot
-segmentation reset and download, the slot stacks and unpack_round, each
-against its JAX counterpart.
+"""ffn_tpu_torch's device finalization (plain path) against the JAX
+package's: test_torch_kernels.crafted_finalize's state (every K8 branch)
+through both engines' run_hops(fstate=...) for 1-3 hops; with the oracle
+every field bit for bit, with the CI ConvStack seeds within 1e-5 (same
+NaN pattern) and the rest exact. Also the FIFO load, the slot
+segmentation reset and download, the slot stacks and unpack_round.
 """
 
 import os

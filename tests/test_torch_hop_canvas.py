@@ -1,15 +1,10 @@
-"""ffn_tpu_torch's HopBatchCanvas (plain path) against the JAX package's.
-
-Both canvases segment test_canvas_e2e.py's synthetic volume with the
-rule-based oracle model and the same grid seeds; the oracle makes every
-step exact, so the segmentations, the origins (position and iterations)
-and every count counter must be identical (timers are not compared), up to
-64 lanes, where lanes outnumber the seeds and speculative floods are
-dropped as already claimed. The same with device finalization is in
-test_torch_hop_canvas_devfin.py; lanes=1 against the serial Canvas and
-kill-and-resume in test_torch_hop_canvas_resume.py (the files are split so
-that parallel test workers, which take a file each, share the load). The
-helpers here build both packages' canvases for those files too.
+"""ffn_tpu_torch's HopBatchCanvas (plain path) against the JAX package's:
+test_canvas_e2e.py's volume with the rule-based oracle (every step exact)
+and the same grid seeds; segmentations, origins and count counters
+identical up to 64 lanes (speculative floods dropped as claimed). Device
+finalization: test_torch_hop_canvas_devfin.py; lanes=1 and resume:
+test_torch_hop_canvas_resume.py (split so test workers share the load);
+the helpers here build both packages' canvases for them.
 """
 
 import numpy as np

@@ -1,10 +1,7 @@
-"""ffn_tpu_torch's HopBatchCanvas with device finalization against the JAX
-package's.
-
-As test_torch_hop_canvas.py's canvas comparison, with finalization in kernel
-(K8's plain version here and the round's finalization log), chosen through
-the `device_finalize` argument or FFN_TPU_DEVFIN=1: the segmentations, the
-origins and every count counter must be identical, stalls included.
+"""ffn_tpu_torch's HopBatchCanvas with device finalization (K8's plain
+version and the round's log; `device_finalize` or FFN_TPU_DEVFIN=1)
+against the JAX package's, as test_torch_hop_canvas.py: segmentations,
+origins and every count counter identical, stalls included.
 """
 
 import numpy as np

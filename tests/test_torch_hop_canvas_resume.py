@@ -1,8 +1,7 @@
 """ffn_tpu_torch's HopBatchCanvas against the serial Canvas and across a
-kill: lanes=1 equals the port's serial Canvas, and a run killed after a
-checkpoint resumes to the uninterrupted result, also into fewer lanes,
-where the lanes it lacks go back to the deferred pool, and from the JAX
-package's checkpoint and into the JAX package's canvas.
+kill: lanes=1 equals the serial Canvas; a killed run resumes to the
+uninterrupted result (also into fewer lanes, the rest deferred), from
+the JAX package's checkpoint and into its canvas.
 """
 
 import numpy as np

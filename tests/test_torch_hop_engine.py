@@ -1,13 +1,9 @@
-"""ffn_tpu_torch's HopEngine (plain path) against the JAX HopEngine.
-
-The same numpy-made LaneState goes through both engines' run_hops for a few
-rounds; after each round the whole state and the aux arrays are compared.
-With the rule-based oracle model every field must match bit for bit. With
-the shipped tiny CI checkpoint (depth 2, 16 features, 17^3 FOV) the seeds
-differ from the JAX package's in the last float32 digits (sums in another
-order), so they are held to 1e-5 with the same NaN pattern, and the integer
-state must match exactly. Also: the face-move order, the finalize reads,
-the blocked-volume OR at a face, seed screening and lane compaction.
+"""ffn_tpu_torch's HopEngine (plain path) against the JAX HopEngine: the same
+numpy LaneState through both engines' run_hops for a few rounds, the whole
+state and aux compared each round; the oracle bit for bit; the CI
+checkpoint's seeds within 1e-5 (same NaN pattern), integer state exact.
+Also the face-move order, finalize reads, the blocked OR at a face, seed
+screening and lane compaction.
 """
 
 import dataclasses

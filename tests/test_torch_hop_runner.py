@@ -1,13 +1,9 @@
-"""ffn_tpu_torch's Runner and CLI on the batched hop path.
-
-A request with concurrent_requests: 4 builds HopBatchCanvas on both
-packages. On the 48^3 phantom of test_torch_runner.py with the shipped tiny
-CI checkpoint (depth 2, 16 features, 17^3 FOV) and device finalization
-every move, reject and finalize decision agrees, so the saved segmentations
-are identical, ids included, as are the origins and the count counters.
-The same with host finalization at 4 and 64 lanes is in
-test_torch_hop_runner_jax.py, a file of its own so that parallel test
-workers, which take a file each, share the load.
+"""ffn_tpu_torch's Runner and CLI on the batched hop path: concurrent_requests
+4 with device finalization on test_torch_runner.py's 48^3 phantom and the
+CI checkpoint; every decision agrees with the JAX package's, so
+segmentations (ids included), origins and counters are identical. Host
+finalization at 4 and 64 lanes: test_torch_hop_runner_jax.py (split so
+test workers share the load).
 """
 
 import os

@@ -1,10 +1,7 @@
-"""ffn_tpu_torch's Runner on the batched hop path against the JAX Runner.
-
-A request with concurrent_requests: 4 or 64 builds HopBatchCanvas on both
-packages. On the 48^3 phantom of test_torch_runner.py with the shipped tiny
-CI checkpoint (depth 2, 16 features, 17^3 FOV) every move, reject and
-finalize decision agrees, so the saved segmentations are identical, ids
-included, as are the origins and the count counters.
+"""ffn_tpu_torch's Runner on the hop path (4 and 64 lanes, host
+finalization) against the JAX Runner on test_torch_runner.py's 48^3
+phantom with the CI checkpoint: every decision agrees, so segmentations
+(ids included), origins and count counters are identical.
 """
 
 import numpy as np

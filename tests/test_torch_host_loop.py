@@ -1,30 +1,14 @@
-"""The port's host-loop trainer against the JAX package's, on the CPU.
-
-At the JAX CLI tests' size (9^3 FOV, deltas 2, depth 2, 4 features): the
-same inputs (numpy, from a seed) and the same initial parameters (the JAX
-init; for the training loops conv_lom's bias raised and its kernel
-scaled, as in test_torch_train.py, so that logits clear the move
-threshold and the data-dependent policies move) go through both
-packages.
-
-Tolerances, each with its reason:
-- K16's plain version against JAX's (sigmoid_ce(x, y) w).mean() and its
-  jax.grad: the loss within 1e-6 relative (float32 sums in another
-  order), the gradient within 1e-6 of its largest magnitude (jax.grad adds
-  the derivatives of the three terms of sigmoid_ce one by one, the port
-  takes sigmoid(x) - y, so where they nearly cancel the roundings
-  differ), NaN where JAX has NaN;
-- make_fov_train_step, 3 steps: parameters, EMA and logits within 1e-5
-  absolute, the loss within 1e-6 relative (float32 sums of XLA's and
-  torch's convolutions in another order);
-- the policies, BatchExampleIter's write-back and the tracker: numpy only
-  in both packages, so offsets, batches and summaries bit for bit;
-- run_training_host_loop at batch 1 (one example at a time, so the example
-  order does not depend on thread timing): the checkpoints' parameters,
-  optimizer state and EMA within 1e-5, the move counts equal. Both
-  packages' prefetching loaders are replaced by a synchronous one there:
-  how far the prefetch thread has drawn the augmentation RNG when a
-  checkpoint saves it depends on thread timing, in both packages.
+"""The port's host-loop trainer against the JAX package's, on the CPU, at
+the JAX CLI tests' size (9^3 FOV, deltas 2, depth 2, 4 features), the
+same numpy inputs and JAX initial parameters (conv_lom raised, as in
+test_torch_train.py, so the data-dependent policies move). Tolerances:
+K16's plain version against JAX's loss (1e-6 relative) and jax.grad (1e-6
+of its largest: JAX adds sigmoid_ce's three derivatives one by one);
+make_fov_train_step, 3 steps: parameters, EMA, logits 1e-5, loss 1e-6
+relative; the policies, write-back and tracker bit for bit (numpy in
+both); run_training_host_loop at batch 1 with synchronous loaders (the
+prefetch thread's RNG draw at a save depends on thread timing in both
+packages): checkpoints within 1e-5, move counts equal.
 """
 
 import json

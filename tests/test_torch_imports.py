@@ -1,11 +1,7 @@
-"""The port stands alone: no module of ffn_tpu_torch, and nothing in
-chip_smoke.py, imports jax, flax or any module of the JAX package ffn_tpu;
-nor does importing a port module bring in optax or h5py (the card's
-machine has neither; h5 volumes open through a deferred import).
-
-Each port module is imported in a fresh interpreter (this test process has
-JAX loaded by conftest.py), and the sources are searched for import
-statements of ffn_tpu.
+"""The port stands alone: no ffn_tpu_torch module, and nothing in
+chip_smoke.py, imports jax, flax or ffn_tpu, and no port module brings in
+optax or h5py (the card's machine has neither). Each module is imported
+in a fresh interpreter; the sources are searched for ffn_tpu imports.
 """
 
 import glob

@@ -1,17 +1,12 @@
-"""ffn_tpu_torch's CUDA kernels against their plain PyTorch versions.
-
-The `cuda` tests need an NVIDIA card (a CUDA kernel has no CPU mode) and
-skip without one; on the card, run
+"""ffn_tpu_torch's CUDA kernels against their plain PyTorch versions. The
+`cuda` tests need an NVIDIA card and skip without one; on the card:
 
   python -m pytest tests/test_torch_kernels.py -q
 
-This file imports torch and the port only, so it runs where JAX's model
-libraries are not installed. K1 is held to 1e-4 of max|plain| (float32
-sums in another order than cuDNN's, TF32 off on both sides); K15, in
-bfloat16, to one bfloat16 ulp per rounding its layer makes
-(k15_tolerance) with at most DIFFER_SHARE of its outputs differing
-(ffn_tpu_torch/ops/conv3d_bf16_check.py); K2 and K3 move and compare
-values without arithmetic and must match bit for bit.
+Imports torch and the port only. K1 within 1e-4 of max|plain| (another
+float32 order, TF32 off); K15 within one ulp of its type per rounding
+(k15_tolerance), at most DIFFER_SHARE differing; the data-moving kernels
+bit for bit.
 """
 
 import numpy as np
@@ -1447,3 +1442,136 @@ def test_bf16_crafted_states_hit_their_edges():
     assert (seeds == bf16_edges(MOVE_T_LO)[0]).any()
     np.testing.assert_array_equal(seeds[~np.isnan(seeds)],
                                   bf16_round_array(seeds[~np.isnan(seeds)]))
+
+
+# -- reduced-precision training: K15 in float16, K17, K18, K12's scale ------
+
+HALF = [torch.bfloat16, torch.float16]
+
+
+def test_16bit_backward_rejects_bad_inputs():
+    w = torch.zeros(3, 3, 3, 4, 4)
+    with pytest.raises(TypeError):
+        conv3d.conv3d_dgrad_16(torch.zeros(1, 5, 5, 5, 4), w)
+    with pytest.raises(TypeError):
+        conv3d.conv3d_wgrad_16(torch.zeros(1, 5, 5, 5, 4),
+                               torch.zeros(1, 5, 5, 5, 4), 3)
+    with pytest.raises(TypeError):
+        conv3d.conv3d_wgrad_16(torch.zeros(1, 5, 5, 5, 4).bfloat16(),
+                               torch.zeros(1, 5, 5, 5, 4).half(), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["conv0_a", "block_a", "block_b",
+                                  "conv_lom"])
+def test_k15_float16_matches_plain_and_exact(card, case):
+    gen = torch.Generator(device=card).manual_seed(151)
+    k, _, _, pre, post, _, _ = K15_CASES[case]
+    x, w, b, r = k15_inputs(gen, 3, (33, 33, 33), case, torch.float16)
+    kw = dict(pre_relu=pre, post_relu=post, residual=r)
+    got = conv3d.conv3d_ndhwc_bf16(x, w, b, **kw)
+    want = conv3d.conv3d_ndhwc_bf16_plain(x, w, b, **kw)
+    err = (got.float() - want.float()).abs() / k15_tolerance(x, w, b, **kw)
+    assert float(err.max()) <= 1.0 and differ_share(got, want) <= \
+        DIFFER_SHARE
+    assert torch.equal(got, conv3d_ndhwc_bf16_exact(x, w, b, **kw))
+
+
+def _k17_inputs(card, dtype, case, n=2):
+    gen = torch.Generator(device=card).manual_seed(17)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device=card) * scale).to(dtype)
+    x, a, dy, acc = (randn(n, 33, 33, 33, 32, scale=sc)
+                     for sc in (1.0, 1.0, 0.01, 0.01))
+    if case == "conv_lom":
+        return (randn(n, 33, 33, 33, 1, scale=0.01).float(),
+                randn(1, 1, 1, 32, 1, scale=0.2), dict(x=x))
+    w = randn(3, 3, 3, 32, 32, scale=(2 / 864) ** 0.5)
+    return dy, w, dict(x=x, y=a, accum=acc) if case == "block_a" else {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("case", ["block_a", "block_b", "conv_lom"])
+def test_k17_matches_plain(card, dtype, case):
+    from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp
+    dy, w, kw = _k17_inputs(card, dtype, case)
+    got = conv3d.conv3d_dgrad_16(dy, w, **kw)
+    want = conv3d.conv3d_dgrad_16_plain(dy, w, **kw)
+    assert got.dtype == dtype and torch.equal(
+        got, conv3d.conv3d_dgrad_16(dy, w, **kw))
+    if case == "conv_lom":   # one product per output: exact
+        assert torch.equal(got, want)
+        return
+    s = conv3d.conv3d_dgrad_16_plain(dy, w, x=kw.get("x"),
+                                     y=kw.get("y")).float().abs()
+    # One ulp per rounding, and 2^-20 of the sum of |w||g| where the float32
+    # sum cancels (chip_smoke.py phase_lowp_kernels).
+    mag = conv3d.conv3d_dgrad_plain(dy.float().abs(), w.float().abs(),
+                                    y=kw["y"].float() if kw else None)
+    tol = bf16_ulp(s, dtype) * (2 if kw else 1) + mag * 2.0 ** -20
+    assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
+    # float16's finer ulp meets more rounding points (chip_smoke.py's
+    # K17_DIFFER_SHARE).
+    assert differ_share(got, want) <= {torch.bfloat16: 1e-3,
+                                       torch.float16: 5e-3}[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("case", ["block_a", "block_b", "conv0_a",
+                                  "conv_lom"])
+def test_k18_matches_plain(card, dtype, case):
+    from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp
+    dy, w, kw = _k17_inputs(card, dtype, "block_a")
+    x, a = kw["x"], kw["y"]
+    args, kw = {"block_a": ((x, dy, 3), dict(pre_relu=True, y=a)),
+                "block_b": ((a, dy, 3), {}),
+                "conv0_a": ((x[..., :2].float().contiguous(), dy, 3),
+                            dict(y=a)),
+                "conv_lom": ((x, dy[..., :1].float().contiguous(), 1),
+                             dict(pre_relu=True))}[case]
+    gw, gb = conv3d.conv3d_wgrad_16(*args, **kw)
+    pw, pb = conv3d.conv3d_wgrad_16_plain(*args, **kw)
+    mw, mb = conv3d.conv3d_wgrad_plain(
+        *(t.to(dtype).float().abs() for t in args[:2]), args[2],
+        y=kw["y"].float() if "y" in kw else None)
+    for g, p, m in ((gw, pw, mw), (gb, pb, mb)):
+        assert g.dtype == torch.float32
+        assert bool(((g - p).abs() <= bf16_ulp(p, dtype)
+                     + m * 2.0 ** -16).all())
+    again = conv3d.conv3d_wgrad_16(*args, **kw)
+    assert torch.equal(again[0], gw) and torch.equal(again[1], gb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [None, float("inf"), float("nan")])
+def test_k12_with_the_loss_scale_matches_plain(card, bad):
+    from ffn_tpu_torch.training import precision
+    rng = np.random.RandomState(121)
+    shapes = [(3, 3, 3, 4, 8), (8,), (1, 1, 1, 8, 1), (1,)]
+    h = optim_ops.Hyper("sgd", 0.05)
+    kp = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(card)
+          for s in shapes]
+    pp = [t.clone() for t in kp]
+    scales = [precision.DynamicLossScale.init(2.0 ** 15, growth_interval=2,
+                                              device=card) for _ in "kp"]
+    flags = [torch.zeros((), dtype=torch.bool, device=card) for _ in "kp"]
+    none, one = [None] * len(kp), torch.tensor(1.0, device=card)
+    for step in range(4):
+        grads = [torch.from_numpy(rng.randn(*s).astype(np.float32)
+                                  * 2 ** 15).to(card) for s in shapes]
+        if bad is not None and step == 2:
+            grads[0].view(-1)[9] = bad
+        optim_ops.optim_update(kp, grads, none, none, None, h, None, None,
+                               one, flags[0], optim_ops.ctrl_buffer(card),
+                               loss_scale=scales[0])
+        optim_ops.optim_update_plain(pp, grads, none, none, None, h, None,
+                                     None, one, flags[1],
+                                     loss_scale=scales[1])
+        assert torch.equal(flags[0], flags[1])
+        assert torch.equal(scales[0].scale, scales[1].scale)
+        assert torch.equal(scales[0].counter, scales[1].counter)
+        assert all(torch.equal(a, b) for a, b in zip(kp, pp))
+    assert float(scales[0].scale) == 2.0 ** (15 if bad is not None else 17)

@@ -1,15 +1,9 @@
-"""ffn_tpu_torch's fused multi-subvolume driver (plain path) against the JAX
-package's MultiSubvolumeHopDriver.
-
-Both drivers segment test_sharded_inference.make_setup's volume (a bar
-across the subvolume split and two cubes) with the rule-based oracle model:
-8 lanes, 2 slots, 4 hops, in both finalize modes, once with two
-subvolumes and once with four (slots reload). Every saved segmentation, its
-ids and origins (position and iterations), every count counter and the
-driver's round statistics must be identical. The JAX driver's thread pools
-run synchronously: it serves slots whose seed policy has materialized
-first, so its schedule would otherwise depend on thread timing (the port
-keeps the order it has when every policy is ready).
+"""ffn_tpu_torch's fused driver (plain path) against the JAX package's
+MultiSubvolumeHopDriver on make_setup's volume with the oracle: 8 lanes,
+2 slots, 4 hops, both finalize modes, two and four subvolumes (slots
+reload); every segmentation, id, origin, count counter and the round
+statistics identical. The JAX driver's pools run synchronously (its slot
+order otherwise depends on thread timing).
 """
 
 from concurrent.futures import Future

@@ -1,11 +1,7 @@
-"""ffn_tpu_torch's Runner against the JAX package's Runner, both serial.
-
-Both segment the 48^3 reflect-padded phantom of test_ci_quality_floor.py
-with the shipped tiny CI checkpoint, from the same InferenceRequest proto
-(concurrent_requests unset: the serial Canvas). On this input every move,
-reject and finalize decision of the two runs agrees, so the segmentations
-are identical, ids included; the logits themselves differ from the JAX
-package's in the last float32 digits.
+"""ffn_tpu_torch's serial Runner against the JAX package's on
+test_ci_quality_floor.py's 48^3 phantom with the CI checkpoint, from the
+same request: every decision agrees, so the segmentations are identical,
+ids included (the logits differ in the last float32 digits).
 """
 
 import os

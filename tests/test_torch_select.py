@@ -1,21 +1,13 @@
 """ffn_tpu_torch's round-based batched step (K13, model, K14) against the JAX
-FloodFillEngine's select_step, step_batch and lane resets.
-
-Both engines take the same crafted states, made from a numpy seed: seeds
-with NaN (unvisited) voxels, candidates on NaN voxels and below the move
-threshold, lanes with `ignore`, a weak start, inactive lanes, candidates
-near every face (where lax.dynamic_slice wraps a negative start, then
-clamps) and out of the volume (where jnp's indexing wraps, then clamps),
-the disco-seed mask on and off. Three models: the rule-based oracle (+-10
-logits: every face maximum is tied), an "identity" model whose update is its
-image patch, with pred 7 inside seed 9 and a zero-delta axis (crafted ties
-and NaN logits), and the tiny CI checkpoint. With the first two nothing but
-the step's own logic is involved, so packed rows and seeds match bit for
-bit. With the CI checkpoint the logits differ in the last float32 digits
-(sums in another order): the integer fields (executed, chosen, start_ok,
-offsets, pos) must still be equal, scores and seeds within 1e-5 of
-max|logit|, the NaN pattern exact; and K14's plain version fed the JAX
-model's own logits must give its packed rows and seeds bit for bit.
+FloodFillEngine's select_step, step_batch and lane resets, on the same
+crafted numpy states (NaN seeds and candidates, `ignore`, weak starts,
+inactive lanes, faces where starts wrap then clamp, out-of-volume
+candidates, the disco mask on and off). With the rule-based oracle and an
+"identity" model (crafted ties and NaN logits) everything matches bit for
+bit; with the CI checkpoint (logits differ in the last digits) the
+integer fields are equal, scores and seeds within 1e-5 of max|logit|, the
+NaN pattern exact, and K14's plain version fed JAX's own logits bit for
+bit.
 """
 
 import jax.numpy as jnp

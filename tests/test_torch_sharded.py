@@ -1,15 +1,8 @@
-"""ffn_tpu_torch's sharded inference (plain path) against the JAX package's.
-
-On test_sharded_inference.make_setup's volume (a bar across the subvolume
-split and two cubes, the rule-based oracle model), with seed handoff:
-run_worker_fused and run_worker give the same per-subvolume segmentations
-and origins as the JAX driver's (its thread pools synchronous, see
-test_torch_multi_canvas.py), and the stitched global volume is the same
-(the bar one object across the split); the sharded CLI does the same on the
-CPU in worker and stitch mode. With one slot and a wider overlap the
-second subvolume reloads the slot and starts from the bar's origin in the
-first one (seed handoff through the saved file): the port's saves are
-slowed down, and it must still wait for them.
+"""ffn_tpu_torch's sharded inference (plain path) against the JAX package's
+on make_setup's volume with seed handoff: run_worker_fused, run_worker
+and the CLI (worker and stitch mode) give the JAX driver's subvolumes,
+origins and stitched volume; with one slot the reloaded slot's seed
+handoff waits for the (slowed) saves of its neighbour.
 """
 
 import time

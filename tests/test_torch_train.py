@@ -1,31 +1,16 @@
 """The port's scan train steps against the JAX package's, on the CPU.
 
-The same inputs (numpy, from a seed) and the same initial parameters (the
-JAX init, carried into the port; conv_lom's bias raised so that lanes pass
-the move gate at offsets other than the centre) go through
-ffn_tpu.training.train_lib's jitted steps and ffn_tpu_torch's, at a small
-size: a 9^3 FOV, deltas 2 (a 13^3 canvas, 27 offsets), depth 2 (one
-residual block), 4 features, batch 2.
-
-Tolerances: the gate counts (active, correct, missed, spurious) and the
-eval confusion counts must be equal; the per-offset loss within 1e-5
-relative; `patch_loss` within 1e-4 relative (a float32 mean over the
-eval region, which XLA and torch sum in different orders; 1.4e-5
-measured); parameters, optimizer state and EMA within
-1e-5 absolute (measured: weights 9.5e-7, optimizer state 4.3e-6 in the
-momentum trace and adagrad's accumulator, which sum gradients; per-offset
-loss 9.1e-7 relative; all from sums taken in another order by XLA's and
-torch's convolutions and reductions); the explicit
-step's seed canvases, logits up to ~10 that the updated weights write,
-within 1e-5 absolute plus 1e-5 relative (1.05e-5 at a logit of 4.1
-measured, 2.6e-6 relative).
-
-Also: each kernel's plain version against the JAX function it replaces
-(K9/K10 against jax.vjp of one flax nn.Conv layer, K11 against the scan
-body's pieces, K12 against optax for all five optimizers with and without
-a schedule), the optimizer-state leaf order both ways, and the options
-the port refuses (the scan steps refuse max_pred_moves and no_step with
-the JAX package's own error).
+The same numpy inputs and JAX initial parameters (conv_lom raised so
+lanes pass the move gate off the centre) through both packages' steps: 9^3
+FOV, deltas 2 (13^3 canvas, 27 offsets), depth 2, 4 features, batch 2.
+Counts equal; per-offset loss within 1e-5 relative, `patch_loss` 1e-4
+(an eval-region mean summed in another order: 1.4e-5 measured);
+parameters, optimizer state, EMA within 1e-5 (measured 9.5e-7 weights,
+4.3e-6 in sums of gradients); the explicit step's seeds within 1e-5
+absolute plus 1e-5 relative (1.05e-5 at a logit of 4.1). Also each
+kernel's plain version against the JAX function it replaces (K9/K10 vs
+jax.vjp, K11 vs the scan body, K12 vs optax), the optimizer leaf order,
+and the options the port refuses.
 """
 
 import jax
@@ -537,11 +522,19 @@ def test_optimizer_leaves_round_trip_both_ways():
 
 def test_refused_options_raise_not_implemented():
     model = convstack_3d.ConvStack3DFFNModel(**MODEL)
-    for kw in (dict(precision="bf16"), dict(precision="f16"),
-               dict(remat=True)):
-        _, cfg = configs(**kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_lib.create_train_state(model, cfg)
+    # bf16 and f16 train (test_torch_train_lowp.py): the state carries the
+    # JAX policy's loss scale (none for bf16, DynamicLossScale for f16).
+    for name in ("bf16", "f16"):
+        jcfg, cfg = configs(precision=name)
+        state, _ = train_lib.create_train_state(model, cfg)
+        want = jax_precision.loss_scale_for(jax_precision.get_policy(
+            jcfg.precision))
+        assert type(state.scale_state).__name__ == type(want).__name__
+        assert [t.numpy() for t in state.scale_state.leaves()] == [
+            np.asarray(x) for x in jax.tree.leaves(want)]
+    _, cfg = configs(remat=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_lib.create_train_state(model, cfg)
     # The data-dependent policies train on the host loop; the scan steps
     # refuse them with the JAX package's own error, as JAX's run_training
     # does.

@@ -1,19 +1,12 @@
-"""The port's training loop against the JAX package's, on the CPU.
-
-Both packages' `run_training` train the same small model (9^3 FOV, deltas
-2, depth 2, 4 features, batch 2, adam with EMA) from the same initial
-parameters on the same coordinate file; the JAX package reads h5 volumes,
-the port the same data as `.npy` (image) and h5 (labels). Checkpoints
-after 3 and 4 steps agree within 1e-5 absolute (weights, optimizer
-leaves, EMA; the largest difference measured here is below 1e-6), the
-data cursors and `summaries.jsonl` keys are equal. A port run killed after
-2 steps and resumed to 4 equals the uninterrupted run exactly; the port
-resumes the JAX package's step-2 checkpoint and lands within 1e-5 of its
-own step 4, and the JAX package restores the port's checkpoints. Also:
-the keep policy, the signal handlers put back after a run, the CLI on the
-CPU, `--device cuda` without a card, and the options the CLI refuses
-(the scan trainer's refusal of max_pred_moves and no_step with the JAX
-package's own error; the host-loop trainer is in test_torch_host_loop.py).
+"""The port's training loop against the JAX package's, on the CPU: both
+`run_training`s train the same model (9^3 FOV, deltas 2, depth 2, 4
+features, batch 2, adam with EMA) from the same parameters on the same
+data (JAX h5, the port `.npy` images). Checkpoints after 3 and 4 steps
+within 1e-5 (measured below 1e-6), cursors and summary keys equal; a
+killed-and-resumed run equals the uninterrupted one exactly; either
+package resumes the other's checkpoints. Also the keep policy, signal
+handlers, the CLI (with --precision bf16/f16 against the JAX CLI), and the
+options it refuses.
 """
 
 import json
@@ -31,6 +24,7 @@ import torch
 from ffn_tpu.models import convstack_3d as jax_convstack
 from ffn_tpu.models import params_io as jax_params_io
 from ffn_tpu.training import optimizer as jax_optimizer
+from ffn_tpu.training import precision as jax_precision
 from ffn_tpu.training import train_lib as jax_train_lib
 from ffn_tpu.training import train_loop as jax_train_loop
 from ffn_tpu_torch.cli import train as train_cli
@@ -265,14 +259,90 @@ def test_cli_refuses_cuda_without_a_card(dataset, tmp_path):
     ["--coordinator_address", "localhost:1234", "--num_processes", "2",
      "--process_id", "0"]])
 def test_cli_refuses_unported_options(dataset, tmp_path, flags):
-    # The scan trainer refuses the data-dependent policies as the JAX
-    # package does (they run on --trainer host_loop); the rest is not
-    # ported to either trainer.
+    # --precision bf16 and f16 train on both trainers: a 2-step run of the
+    # port's CLI against the JAX CLI's. The scan trainer refuses the
+    # data-dependent policies as the JAX package does (they run on
+    # --trainer host_loop); the rest is not ported to either trainer.
+    if "--precision" in flags:
+        return _cli_matches_jax_cli(dataset, tmp_path, flags)
     match = ("Use run_training_host_loop" if "--fov_policy" in flags
              else "ROADMAP")
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(cli_args(dataset, tmp_path, "--device", "cpu",
                                 *flags))
+
+
+# The port resumed from the JAX CLI's step-1 checkpoint against the JAX
+# CLI's step 2 (for the host loop, the JAX CLI resumed from the same
+# checkpoint, at batch 1: the examples in flight are not saved): weights
+# within LOWP_ATOL of the step's largest parameter change and biases within
+# LOWP_BIAS_ATOL (measured: weights equal; biases 0.20 bf16, 0.019 f16,
+# 1.5e-6 host loop: XLA's CPU backend sums a bias gradient in 16 bits,
+# test_torch_precision.py), the data cursor, the shuffle RNG (scan) and the
+# f16 loss scale (scale0, scale1) equal. The JAX CLI runs in a subprocess
+# with --xla_allow_excess_precision=false.
+LOWP_ATOL, LOWP_BIAS_ATOL = 2.0 ** -10, 0.4
+
+
+def _jax_cli(dataset, train_dir, flags, steps):
+    args = ["--train_coords", str(dataset / "coords.npz"),
+            "--data_volumes", f"v:{dataset}/data.h5:img",
+            "--label_volumes", f"v:{dataset}/data.h5:seg",
+            "--model_args", ARGS, "--batch_size", "2", "--image_mean", "128",
+            "--image_stddev", "33", "--train_dir", str(train_dir),
+            "--max_steps", str(steps), "--checkpoint_every_steps", "1",
+            "--summary_every_steps", "2", *flags]
+    proc = subprocess.run(
+        [sys.executable, "-m", "ffn_tpu.cli.train", *args], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+                 XLA_FLAGS="--xla_allow_excess_precision=false"),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def _copy_ckpt(src, dst, step):
+    os.makedirs(dst / "ckpt")
+    for prefix in ("model", "opt", "extra"):
+        shutil.copy(src / "ckpt" / f"{prefix}.ckpt-{step}.npz", dst / "ckpt")
+
+
+def _cli_matches_jax_cli(dataset, tmp_path, flags):
+    host = "--trainer" in flags
+    flags = flags + (["--batch_size", "1"] if host else [])
+    _jax_cli(dataset, tmp_path / "jax", flags, 1 if host else 2)
+    want = tmp_path / "jax"
+    if host:
+        want = tmp_path / "jax_resumed"
+        _copy_ckpt(tmp_path / "jax", want, 1)
+        _jax_cli(dataset, want, flags, 2)
+    port = tmp_path / "port"
+    _copy_ckpt(tmp_path / "jax", port, 1)
+    train_cli.main(cli_args(dataset, port, "--device", "cpu", *flags,
+                            "--max_steps", "2", "--checkpoint_every_steps",
+                            "1"))
+    before, got, ref = (load(d, "model", s) for d, s in (
+        (tmp_path / "jax", 1), (port, 2), (want, 2)))
+    moved = max(np.abs(ref[k] - before[k]).max() for k in ref)
+    assert sorted(got) == sorted(ref) and moved > 0
+    for k in ref:
+        tol = LOWP_BIAS_ATOL if k.endswith("bias") else LOWP_ATOL
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=tol * moved,
+                                   err_msg=k)
+    x, y = load(port, "extra", 2), load(want, "extra", 2)
+    assert sorted(x) == sorted(y)
+    assert ("scale0" in y) == ("f16" in flags)
+    if "f16" in flags:   # and the JAX package restores the port's scale
+        _, scale, _ = jax_train_loop._restore_extra(
+            str(port / "ckpt"), 2, None,
+            jax_precision.DynamicLossScale.init(), np.random.RandomState(0))
+        assert [np.asarray(v) for v in jax.tree.leaves(scale)] == [
+            x["scale0"], x["scale1"]]
+    for k in x:
+        # The host loop's saved augmentation RNG depends on how far its
+        # prefetch thread had drawn (ROADMAP Queue 3).
+        if not (host and k.startswith("rng")):
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+        assert x[k].dtype == y[k].dtype, k
 
 
 def test_training_restores_signal_handlers(dataset, init_params, tmp_path):

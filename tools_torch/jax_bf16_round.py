@@ -1,23 +1,17 @@
 #!/usr/bin/env python3
-"""The JAX package's own bfloat16 round slice on the CPU: chip_smoke.py's
-phase-14 configuration (model-r2 with model_args dtype "bfloat16", 8
-lanes, hops 0, max_iters_per_segment 4000, configs/inference_phantom.pbtxt's
-options) on the padded 100^3 phantom of seed 0, through ffn_tpu's Runner.
-~50 minutes on 8 CPU cores:
+"""The JAX package's own bfloat16 round slice on the CPU (~50 min on 8
+cores): chip_smoke.py's phase-14 configuration (model-r2 in bfloat16, 8
+lanes, hops 0, max_iters 4000) on the padded 100^3 phantom of seed 0,
+through ffn_tpu's Runner; prints moves, objects and agreement.
 
-  python tools_torch/jax_bf16_round.py
+  python tools_torch/jax_bf16_round.py [--port] [--ci]
 
-Prints the moves, objects and ground-truth agreement, to set beside the
-port's run of the same slice on K15 and on K15's plain version. With
-FFN_TPU_SEED_DTYPE=bf16 both packages keep bf16 lane seeds. With
-`--port` it runs ffn_tpu_torch's Runner instead, on the CPU, with the JAX
-model's own bf16 convolutions in place of the port's: everything else of
-the round path is the port's. `--ci` takes the CI checkpoint (depth 2, 16
-features, 17^3) in bf16 instead of model-r2 (minutes). XLA's CPU backend
-may keep a bf16 model's intermediates in float32 where it fuses them
-(`xla_allow_excess_precision`, on by default), so the JAX model's outputs
-depend on the program it is compiled into: with XLA_FLAGS=
---xla_allow_excess_precision=false the two runs should be equal.
+FFN_TPU_SEED_DTYPE=bf16 keeps bf16 lane seeds in both packages. `--port`
+runs ffn_tpu_torch's Runner with the JAX model's bf16 convolutions; `--ci`
+the CI checkpoint in bf16 (minutes). XLA's CPU backend keeps fused bf16
+intermediates in float32 (`xla_allow_excess_precision`), so JAX's outputs
+depend on the program; with XLA_FLAGS=--xla_allow_excess_precision=false
+they agree.
 """
 
 import json

@@ -1,17 +1,13 @@
 #!/usr/bin/env python3
-"""Lanes-vs-serial agreement of the round-based path (hops 0) in the JAX
-package and in ffn_tpu_torch, with the shipped CI checkpoint (depth 2, 16
-features, 17^3) in float32 on the CPU, on the quality gate's held-out
-seed-11 phantom of tests/golden/gate_ci_lanes_golden.npz.
+"""Lanes-vs-serial agreement of the round-based path (hops 0) in both
+packages, the CI checkpoint in float32 on the CPU, on the gate's seed-11
+phantom of tests/golden/gate_ci_lanes_golden.npz (~10 min):
 
-  JAX_PLATFORMS=cpu python tools_torch/round_vs_serial.py   # ~10 min
+  JAX_PLATFORMS=cpu python tools_torch/round_vs_serial.py
 
-The golden holds the JAX package's serial run and its 64-lane round run
-(ffn_tpu_torch reproduces both voxel for voxel on the card: chip_smoke.py
-phases 7 and 13); this script adds both packages' 8-lane round runs and
-the port's serial run, and prints chip_smoke.py's measure for each pair: the
-object-level agreement with both segmentations masked to the ground-truth
-cells, and the raw one.
+Adds both packages' 8-lane round runs and the port's serial run to the
+golden's JAX runs and prints chip_smoke.py's measure for each pair
+(agreement masked to the ground-truth cells, and raw).
 """
 
 import os
