@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives ffn_tpu_torch's inference paths (serial, hop, round-based, fused
-multi-subvolume; float32 and bfloat16; bfloat16 lane seeds) and its two
-trainers on one NVIDIA card.
+multi-subvolume; float32, bfloat16 and int8; bfloat16 lane seeds) and its
+two trainers on one NVIDIA card.
 
   python3 chip_smoke.py
 
@@ -9,13 +9,14 @@ Phases (a failure ends the run with a non-zero exit; each function says
 what it holds):
   1. device: the card's name and power limit, torch/CUDA versions, which
      of protobuf/absl/h5py/jax this machine has;
-  2. build: K1-K18 from ffn_tpu_torch/csrc, one nvcc per source;
+  2. build: K1-K20 from ffn_tpu_torch/csrc, one nvcc per source;
   3. every kernel against its plain version at the main paths' shapes,
      with CUDA-event times (kernel, plain, library), bounds: K1 per layer
      and as the stack; K2-K8, K13, K14 bit for bit with float32 and bf16
      seeds on crafted states; K9-K12, K16 at batch 4; K15 per layer and
      as the stack against plain and the float64 sums; the 16-bit training
-     kernels (K15 in float16, K17, K18, K12's scale);
+     kernels (K15 in float16, K17, K18, K12's scale); K19 and K20 (int8)
+     bit for bit per layer and as the stack;
   4. the fib25 model against the JAX package's stored logits;
   5. the serial slice (Runner -> Canvas) on the padded 100^3 phantom,
      kernels and plain, then model-r2 held to 0.95;
@@ -38,7 +39,10 @@ what it holds):
      plain versions, identical; against float32 seeds;
  17. the train CLI with --precision bf16 and f16 (K15, K17, K18; f16's
      loss scale in K11, K12), against plain, f16 resumed exactly; the
-     host loop in bf16.
+     host loop in bf16;
+ 18. int8 inference (FFN_TPU_PRECISION=int8, K19, K20): serial, 64-lane hop
+     and fused slices on kernels, each against its plain versions on a
+     64^3 corner, identical.
 The line before the last, {"kernels": [...]}, gives each kernel its
 launches by path and in sum, its error against plain, its median time,
 its plain version's, a library call's where one exists, and its bound.
@@ -47,6 +51,7 @@ The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -102,12 +107,27 @@ K15_NS = (1, 8, 64, 256)
 K15_STACK_TOL = 2.0 ** -6
 
 
-# Published H100 SXM peaks (NVIDIA's datasheet): HBM, float32 and dense
-# 16-bit tensor cores. A bound is the larger of bytes (each input read and
-# output written once) over the first and operations over their peak.
+# Published H100 SXM peaks (NVIDIA's datasheet): HBM, float32, dense
+# 16-bit and int8 tensor cores. A bound is the larger of bytes (each input
+# read and output written once) over the first and operations over their
+# peak.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+# int8 (K19, K20): model-r2's layer kinds (k, Cin, Cout, relu_in, relu_out,
+# residual); the int8 slices' agreement floors, under their measured values
+# (H100, 700 W): serial 1.0 (held to the gate's 0.95), hop at 64 lanes
+# 0.875 and fused 0.625 (lanes split cells, as in float32 and in the JAX
+# package: floors 0.85 and 0.6, float32's fused floor).
+Q_LAYERS = {"conv0_a": (3, 2, 32, False, True, False),
+            "block_a": (3, 32, 32, True, True, False),
+            "block_b": (3, 32, 32, False, False, True),
+            "conv_lom": (1, 32, 1, True, False, True)}
+INT8_FLOORS = {"serial_int8": 0.95, "hop_int8": 0.85, "fused_int8": 0.6}
+# (path, precision) -> (rate, objects, agreement) of the slices that phase
+# 18 compares with.
+SLICE_RATES = {}
 
 
 def require(cond, msg):
@@ -949,6 +969,7 @@ def phase_fused_slice(dev, tmp):
         stitch_s, stitched = _stitch(run["argv"], os.path.join(
             tmp, f"{path}.npz"), as_process=path == "fused")
         agree = _stitched_agreement(f"{path} slice", stitch_s, stitched, gt)
+        _note(path, "float32", dict(run, agree=agree), stitched)
         require(agree >= floor, f"{path} slice agreement {agree} below its "
                                 f"floor {floor}")
         _pair(f"the {path} slice on one subvolume", lambda label, sfx: _fused(
@@ -1227,12 +1248,11 @@ def _pair(path, run, plain, keys=("seg", "moves", "origins", "counts")):
     """run(label, suffix) on the kernels, then with the `plain` patches
     (kernels on their plain versions): the two must agree on `keys`.
     Returns the kernel run's result and its launches."""
-    from contextlib import ExitStack
     from ffn_tpu_torch import _build
     _build.launches.clear()
     got = run("on kernels", "")
     launches = dict(_build.launches)
-    with ExitStack() as stack:
+    with contextlib.ExitStack() as stack:
         for p in plain:
             stack.enter_context(p)
         want = run("on plain versions", "_plain")
@@ -1291,7 +1311,16 @@ def phase_slice(dev, tmp):
                      **phantom)
     require(run["agree"] >= 0.95, f"model-r2 agreement {run['agree']} below "
                                   f"the quality gate's 0.95")
+    _note("serial", "float32", run)
     return launches, phantom, r2, run["seg"]
+
+
+def _note(path, precision, run, seg=None):
+    """Keeps a slice's rate, objects and agreement for phase 18."""
+    seg = run["seg"] if seg is None else seg
+    SLICE_RATES[path, precision] = (run["moves"] / run["wall"],
+                                    len(np.unique(seg[seg > 0])),
+                                    run["agree"])
 
 
 def _require_launched(launches, path, names, absent=()):
@@ -1400,6 +1429,7 @@ def phase_hop_slice(dev, phantom, r2, seg_serial, tmp):
           f"lane-evaluations {lane_evals} ({run['moves'] / lane_evals:.3f} "
           f"executed moves per lane-evaluation)")
     probe.report("hop slice", run["wall"], "hop_pop")
+    _note("hop", "float32", run)
     require(run["agree"] >= 0.95, f"hop slice model-r2 agreement "
                                   f"{run['agree']} below the quality gate's "
                                   f"0.95")
@@ -1763,11 +1793,11 @@ def _bf16_pair(path, seg_k, seg_p, what="K15 vs its plain version"):
 def phase_bf16_slices(dev, phantom, r2, tmp):
     """bfloat16 inference at full width (model-r2, "dtype": "bfloat16", the
     benches' default) on phase 5's phantom: serial, 8-lane hop, 8-lane round
-    and fused slices, each on K15 and on K15's plain version (the pair's
-    agreement printed). Serial and round held to 0.95, hop and fused to
-    floors under their measured values. Returns the K15 runs' launches
-    (serial_bf16, hop_bf16, round_bf16, fused_bf16) and the fused run, which
-    phase 16 compares with."""
+    and fused slices on K15, the fused one also on K15's plain version on
+    one subvolume (the pair's agreement printed). Serial and round held to
+    0.95, hop and fused to floors under their measured values. Returns the
+    K15 runs' launches (serial_bf16, hop_bf16, round_bf16, fused_bf16) and
+    the fused run, which phase 16 compares with."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
@@ -1777,12 +1807,9 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
     bf16 = dataclasses.replace(r2, model_args=json.dumps(model_args))
     launches = {}
 
-    k15_plain = mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
-                                  conv3d.conv3d_ndhwc_bf16_plain)
-
     def runs(path, run, floor, seg="seg", plain=None):
-        """run(label, out_dir) on K15, then `plain` (by default the same
-        run) on K15's plain version."""
+        """run(label, out_dir) on K15; then `plain`, if given, with K15's
+        plain version patched in."""
         _build.launches.clear()
         got = run("bf16 on K15", os.path.join(tmp, path))
         launches[path] = dict(_build.launches)
@@ -1790,11 +1817,13 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
         require(launches[path].get("conv3d_ndhwc_bf16", 0) > 0 and
                 "conv3d_ndhwc_f32" not in launches[path],
                 f"the {path} path did not run its convolutions on K15")
-        with k15_plain:
-            want = (plain or run)("bf16 on K15's plain version",
-                                  os.path.join(tmp, path + "_plain"))
-        if plain is None:
-            _bf16_pair(path, got[seg], want[seg])
+        if plain is not None:
+            with mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
+                                   conv3d.conv3d_ndhwc_bf16_plain):
+                plain("bf16 on K15's plain version",
+                      os.path.join(tmp, path + "_plain"))
+        _note(path.split("_")[0], "bfloat16", got, got.get("stitched",
+                                                            got.get(seg)))
         require(got["agree"] >= floor, f"{path} slice agreement "
                                        f"{got['agree']} below {floor}")
         return got
@@ -1837,8 +1866,8 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
     """bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) with model-r2 in bfloat16
     on every path, each on the *_bf16 seed kernels and their plain versions,
     identical, with no float32 instantiation launched: hop at the JAX e2e
-    bench's configuration (48 lanes, hops 16, max_iters 2000; K4-K7), also
-    with float32 seeds; fused (K4, K8; against phase 14's float32 seeds) and
+    bench's configuration (48 lanes, hops 16, max_iters 2000; K4-K7); fused
+    (K4, K8; against phase 14's float32 seeds) and
     fused with host finalization on FUSED_PAIR_BOX (K4, K7);
     FFN_TPU_DEVFIN=1 at 8 lanes (K4-K6, K8); round (K13, K14); serial (K2,
     K3). Floors: BF16_SEED_*_FLOOR, 0.95. Returns the launches by path."""
@@ -1859,19 +1888,17 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
     launches = {}
 
     def slice_run(path, lanes, hops, floor, plain, needed, env=(),
-                  max_iters=MAX_ITERS, seeds="bf16"):
+                  max_iters=MAX_ITERS):
         def run(label, sfx):
-            with mock.patch.dict(os.environ, dict(env)):
-                os.environ.pop("FFN_TPU_SEED_DTYPE", None)
-                if seeds == "bf16":
-                    os.environ["FFN_TPU_SEED_DTYPE"] = "bf16"
+            with mock.patch.dict(os.environ, dict(
+                    env, FFN_TPU_SEED_DTYPE="bf16")):
                 torch.cuda.reset_peak_memory_stats()
                 out = _run_slice(
-                    f"{path}, {lanes} lanes, model-r2 in bf16, {seeds} "
-                    f"seeds, {label}", dataclasses.replace(
+                    f"{path}, {lanes} lanes, model-r2 in bf16, bf16 seeds, "
+                    f"{label}", dataclasses.replace(
                         settings, concurrent_requests=lanes,
                         segmentation_output_dir=os.path.join(
-                            tmp, f"seeds_{path}_{seeds}{sfx}")), dev,
+                            tmp, f"seeds_{path}{sfx}")), dev,
                     **phantom, hops=hops, max_iters=max_iters)
             out["peak"] = torch.cuda.max_memory_allocated()
             out["seed_bytes"] = (lanes * lane_bytes
@@ -1883,8 +1910,6 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
             torch.cuda.empty_cache()
             return out
 
-        if plain is None:   # the float32-seed comparison alone
-            return run("on kernels", "")
         got, launches[path] = _pair(f"the bf16-seed {path} slice", run,
                                     plain)
         _check_bf16_launches(path, launches[path], needed)
@@ -1893,20 +1918,9 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
                 f"agreement {got['agree']} below {floor}")
         return got
 
-    f32 = slice_run("hop", SEED_LANES, HOPS, 0, None, (),
-                    max_iters=SEED_MAX_ITERS, seeds="f32")
-    got = slice_run("hop", SEED_LANES, HOPS, BF16_SEED_AGREE_FLOOR,
-                    hop_plain, ("hop_pop", "hop_gather", "hop_update",
-                                "lane_threshold"), max_iters=SEED_MAX_ITERS)
-    require(f32["seed_dtype"] == torch.float32,
-            f"the float32-seed hop slice ran {f32['seed_dtype']} seeds")
-    _bf16_pair("hop_bf16_seeds", got["seg"], f32["seg"],
-               what="bf16 seeds vs float32 seeds")
-    print(f"bf16-seed hop slice: {got['moves'] / got['wall']:.2f} moves/s "
-          f"against {f32['moves'] / f32['wall']:.2f} with float32 seeds; "
-          f"seed bytes {got['seed_bytes'] / 1e6:.1f} MB against "
-          f"{f32['seed_bytes'] / 1e6:.1f} MB; peak device memory "
-          f"{got['peak'] / 1e6:.1f} MB against {f32['peak'] / 1e6:.1f} MB")
+    slice_run("hop", SEED_LANES, HOPS, BF16_SEED_AGREE_FLOOR, hop_plain,
+              ("hop_pop", "hop_gather", "hop_update", "lane_threshold"),
+              max_iters=SEED_MAX_ITERS)
     slice_run("devfin", GATE_LANES, HOPS, 0.95,
               hop_plain + _plain(fin_ops, "finalize_pass"),
               ("hop_pop", "hop_gather", "hop_update", "finalize_pass"),
@@ -3197,6 +3211,175 @@ def _train_inference(dev, tmp, kdir):
             "inference with the trained checkpoint did not run")
 
 
+def _q_layer(rng, dev, n, k, cin, cout, res):
+    """A folded random int8 layer and inputs on N 33^3 lanes of magnitudes
+    1e-2 to 1e2, lane N // 2 all zero (N > 1)."""
+    from ffn_tpu_torch.ops import quantized as q
+    layer = q.fold_convstack_params({"c": {
+        "kernel": rng.randn(k, k, k, cin, cout).astype(np.float32) * 0.05,
+        "bias": rng.randn(cout).astype(np.float32)}})["c"].to(dev)
+    mag = 10.0 ** rng.randint(-2, 3, (n, 1, 1, 1, 1))
+    x = torch.from_numpy((rng.randn(n, 33, 33, 33, cin) * mag).astype(
+        np.float32)).to(dev)
+    if n > 1:
+        x[n // 2] = 0
+    r = torch.randn(n, 33, 33, 33, cout, device=dev) if res else None
+    return layer, x, r
+
+
+def phase_int8_kernels(dev):
+    """K19 qconv3d_s8 and K20 act_absmax against their plain versions bit
+    for bit on model-r2's int8 layer kinds at N = 1 and 64 (a lane alone
+    equal to the batch's), timed at N = 1 (block_a) and 64, there beside
+    one library call (K19:
+    torch._int_mm on the int8 im2col, the GEMM alone, 32->32 layers; K20:
+    torch.linalg.vector_norm(ord=inf), max|x| per lane); the int8 model-r2
+    stack at N = 8 on kernels equal to its plain versions."""
+    from ffn_tpu_torch.models import convstack_3d, params_io
+    from ffn_tpu_torch.ops import quantized as q
+    rng = np.random.RandomState(19)
+    out = {}
+    for n in (1, LANES):
+        for name, (k, cin, cout, ri, ro, res) in Q_LAYERS.items():
+            layer, x, r = _q_layer(rng, dev, n, k, cin, cout, res)
+            kw = dict(relu_in=ri, relu_out=ro, residual=r)
+            am, am_p = q.act_absmax(x, ri), q.act_absmax_plain(x, ri)
+            got = q.qconv3d(x, layer, am, **kw)
+            same = (torch.equal(am, am_p), torch.equal(
+                got, q.qconv3d_plain(x, layer, am_p, **kw)),
+                torch.equal(q.qconv3d(x[-1:], layer, am[-1:], **dict(
+                    kw, residual=None if r is None else r[-1:])), got[-1:]))
+            print(f"K19/K20 int8 N={n} {name}: K20 equal {same[0]}, K19 "
+                  f"equal {same[1]}, last lane alone equal {same[2]}")
+            require(all(same) and bool(got.isfinite().all()),
+                    f"K19/K20 N={n} {name} against plain: {same}")
+            if n != LANES:
+                if name == "block_a":   # the serial path's shape
+                    ms = time_many(lambda: q.qconv3d(x, layer, am, **kw),
+                                   lambda: q.qconv3d_plain(x, layer, am, **kw),
+                                   lambda: q.act_absmax(x, ri),
+                                   lambda: q.act_absmax_plain(x, ri), reps=5)
+                    print(f"K19/K20 N={n} {name}: K19 {ms[0]:.4f} ms plain "
+                          f"{ms[1]:.4f}; K20 {ms[2]:.4f} plain {ms[3]:.4f}")
+                continue
+            lib = [lambda: torch.linalg.vector_norm(x, float("inf"),
+                                                    dim=(1, 2, 3, 4))]
+            if cin == 32 and k == 3:
+                xq = torch.nn.functional.pad(torch.clamp(torch.round(
+                    x / (am * q.C127).view(-1, 1, 1, 1, 1)), -127, 127).to(
+                    torch.int8), (0, 0, 1, 1, 1, 1, 1, 1))
+                cols = torch.cat([xq[:, t // 9:t // 9 + 33,
+                                     t // 3 % 3:t // 3 % 3 + 33,
+                                     t % 3:t % 3 + 33] for t in range(27)],
+                                 dim=-1).reshape(-1, 27 * cin)
+                del xq
+                lib.append(lambda: torch._int_mm(cols, layer.w_q))
+            ms = time_many(lambda: q.qconv3d(x, layer, am, **kw),
+                           lambda: q.qconv3d_plain(x, layer, am, **kw),
+                           lambda: q.act_absmax(x, ri),
+                           lambda: q.act_absmax_plain(x, ri), *lib,
+                           reps=REPS if name == "block_a" else 5, inner=3)
+            vox = n * 33 ** 3
+            k19 = entry(0.0, ms[0], ms[1], 4 * vox * (
+                cin + cout * (2 if res else 1)) + k ** 3 * cin * cout
+                + 8 * cout, 2 * vox * k ** 3 * cin * cout,
+                library_ms=ms[5] if len(ms) > 5 else None, peak=INT8_OPS)
+            k20 = entry(0.0, ms[2], ms[3], 4 * vox * cin + 4 * n,
+                        library_ms=ms[4])
+            print(f"K19 qconv3d_s8 N={n} {name}: kernel {ms[0]:.4f} ms plain "
+                  f"{ms[1]:.4f} library (_int_mm) {k19['library_ms']} bound "
+                  f"{k19['bound_ms']:.4f} ({k19['bound_by']}); K20 "
+                  f"act_absmax {ms[2]:.4f} plain {ms[3]:.4f} library "
+                  f"(vector_norm) {ms[4]:.4f} bound {k20['bound_ms']:.4f}")
+            if name == "block_a":
+                out["qconv3d_s8"], out["act_absmax"] = k19, k20
+            del x, r, got, lib, layer
+            cols = None
+        torch.cuda.empty_cache()
+    base = convstack_3d.ConvStack3DFFNModel(fov_size=[33] * 3,
+                                            deltas=[8] * 3, depth=12)
+    base.load_params(params_io.load_params_npz(
+        os.path.join(REPO, "models", "phantom", "model-r2.npz")))
+    model = q.QuantizedConvStack3DModel(base)
+    model.prepare()
+    model.to(dev)
+    img = torch.randn(8, 33, 33, 33, 1, device=dev)
+    sd = torch.randn(8, 33, 33, 33, 1, device=dev) * 3
+    got = model.apply(img, sd)
+    with contextlib.ExitStack() as stack:
+        for patch in _plain(q, "qconv3d", "act_absmax"):
+            stack.enter_context(patch)
+        want = model.apply(img, sd)
+    one = model.apply(img[5:6], sd[5:6])
+    require(torch.equal(got, want) and torch.equal(one[0], got[5]),
+            "the int8 model-r2 stack on kernels differs from plain")
+    print("int8 model-r2 stack (depth 12, N=8): kernels = plain versions, "
+          "lane 5 alone = in the batch, bit for bit")
+    return out
+
+
+def phase_int8_slices(dev, phantom, r2, tmp):
+    """int8 inference at full width (model-r2 through FFN_TPU_PRECISION=int8,
+    the JAX CLIs' switch) on phase 5's phantom: the serial slice, the
+    64-lane hop slice and the sharded CLI's fused slice on K19/K20, with no
+    other conv launched; rates, objects and agreement beside the float32
+    and bf16 slices'. Each also on K19/K20's plain versions on one 64^3
+    corner of the phantom (FUSED_PAIR_BOX; the whole hop slice's plain run
+    took 256-271 s), equal in voxels, origins, counters and moves. Returns
+    the kernel runs' launches (serial_int8, hop_int8, fused_int8)."""
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.ops import quantized as q
+    int8 = mock.patch.dict(os.environ, {"FFN_TPU_PRECISION": "int8"})
+    edge = FUSED_PAIR_BOX[0]
+    corner = dict(box=FUSED_PAIR_BOX, inner=(slice(PHANTOM_PAD, edge),) * 3,
+                  gt=phantom["gt"][(slice(0, edge - PHANTOM_PAD),) * 3])
+    launches, runs = {}, {}
+    with int8:
+        for path, lanes, hops in (("serial_int8", 1, None),
+                                  ("hop_int8", LANES, HOPS)):
+            settings = dataclasses.replace(r2, concurrent_requests=lanes)
+            _build.launches.clear()
+            runs[path] = _run_slice(
+                f"{lanes} lanes, int8, model-r2, on kernels",
+                dataclasses.replace(settings, segmentation_output_dir=(
+                    os.path.join(tmp, path))), dev, **phantom, hops=hops)
+            launches[path] = dict(_build.launches)
+            _pair(f"the {path} slice on {edge}^3", lambda label, sfx: (
+                _run_slice(f"{lanes} lanes, int8, model-r2, {edge}^3, {label}",
+                           dataclasses.replace(
+                               settings, segmentation_output_dir=os.path.join(
+                                   tmp, f"{path}_pair{sfx}")), dev, **corner,
+                           hops=hops)), _plain(q, "qconv3d", "act_absmax"))
+        model_args = {"depth": 12, "fov_size": [33] * 3, "deltas": [8] * 3}
+        run = _fused("fused_int8 slice on kernels", "fused_int8", tmp,
+                     model_args)
+        launches["fused_int8"] = run["launches"]
+        stitch_s, stitched = _stitch(run["argv"], os.path.join(
+            tmp, "fused_int8.npz"), as_process=False)
+        run["agree"] = _stitched_agreement("fused_int8 slice", stitch_s,
+                                           stitched, phantom["gt"])
+        runs["fused_int8"] = dict(run, seg=stitched)
+        _pair("the fused_int8 slice on one subvolume", lambda label, sfx:
+              _fused(f"fused_int8 slice on one subvolume {label}",
+                     f"fused_int8_pair{sfx}", tmp, model_args,
+                     size=FUSED_PAIR_BOX), _plain(q, "qconv3d", "act_absmax"),
+              keys=("subs", "moves"))
+    for path, got in runs.items():
+        _require_launched(launches[path], f"the {path} path",
+                          ("qconv3d_s8", "act_absmax"),
+                          absent=("conv3d_ndhwc_f32", "conv3d_ndhwc_bf16"))
+        kind = path.split("_")[0]
+        _note(kind, "int8", got)
+        print(f"{path}: " + "; ".join(
+            f"{prec} {rate:.2f} {'steps' if kind == 'serial' else 'moves'}"
+            f"/s, {objects} objects, agreement {agree:.4f}"
+            for (p, prec), (rate, objects, agree) in SLICE_RATES.items()
+            if p == kind) + " (bf16 hop: 8 lanes)")
+        require(got["agree"] >= INT8_FLOORS[path], f"{path} agreement "
+                f"{got['agree']} below its floor {INT8_FLOORS[path]}")
+    return launches
+
+
 def _lanes_vs_serial(lanes, label, phantom, seg_serial, seg_lanes):
     """Cell-restricted agreement (both masked to the ground-truth cells) and
     raw agreement of a serial and a batched segmentation."""
@@ -3229,7 +3412,7 @@ def main():
     results = {}
     for phase in (phase_kernels, phase_hop_kernels, phase_fused_kernels,
                   phase_train_kernels, phase_select_kernels,
-                  phase_bf16_kernels, phase_lowp_kernels):
+                  phase_bf16_kernels, phase_lowp_kernels, phase_int8_kernels):
         results.update(phase(dev))
         _clock(t0, phase.__name__)
     phase_golden(dev)
@@ -3259,6 +3442,8 @@ def main():
         launches.update(phase_bf16_seed_slice(dev, phantom, r2,
                                               fused_f32_seeds, tmp))
         _clock(t0, "phase_bf16_seed_slice")
+        launches.update(phase_int8_slices(dev, phantom, r2, tmp))
+        _clock(t0, "phase_int8_slices")
     # K1 runs on every path: its error is the largest of all phases', its
     # time the 32->32 layer's at N=1 (the serial path's shape).
     results["conv3d_ndhwc_f32"]["max_abs_err"] = max(
@@ -3305,7 +3490,9 @@ def main():
         ("select_gather", "select.cu", "inference/engine.py:211"),
         ("select_update", "select.cu", "inference/engine.py:266"),
         ("select_gather_bf16", "select.cu", "inference/engine.py:211"),
-        ("select_update_bf16", "select.cu", "inference/engine.py:266")]}
+        ("select_update_bf16", "select.cu", "inference/engine.py:266"),
+        ("qconv3d_s8", "qconv3d.cu", "ops/quantized.py:81"),
+        ("act_absmax", "qconv3d.cu", "ops/quantized.py:73")]}
     # `launches` sums the main paths' runs; `launches_by_path` splits them
     # (fused and fused_host: the full-width fused slice with device and
     # with host finalization; train: the full-width training run;

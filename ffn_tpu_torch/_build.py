@@ -65,6 +65,8 @@ _SIGNATURES = {
     "ffn_optim_update": [_P] * 6 + [_I] + [_P] * 7 + [_I, _P, _P, _I, _P],
     "ffn_select_gather": [_P] * 6 + [_I] * 11 + [_F, _F, _I, _P],
     "ffn_select_update": [_P] * 5 + [_I] * 13 + [_F, _F, _I, _P],
+    "ffn_qconv3d_s8": [_P] * 7 + [_I] * 9 + [_P],
+    "ffn_act_absmax": [_P, _I, _P, _P, _I, _L, _P],
 }
 
 _lib = None

@@ -2,7 +2,8 @@
 .run): concurrent_requests <= 1 builds the serial Canvas, more the
 HopBatchCanvas (HopEngine.run_hops) or with hops 0 the round-based
 BatchCanvas; settings or a parsed InferenceRequest; weights from the JAX
-package's flat npz checkpoints.
+package's flat npz checkpoints; precision "int8" (or FFN_TPU_PRECISION=int8)
+wraps the model in ops/quantized.py's QuantizedConvStack3DModel.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ffn_tpu_torch.inference.counters import Counters, timer_counter
 from ffn_tpu_torch.inference.settings import InferenceSettings
 from ffn_tpu_torch.models import params_io
 from ffn_tpu_torch.models import registry
+from ffn_tpu_torch.ops import quantized
 
 Tuple3i = Tuple[int, int, int]
 
@@ -60,7 +62,9 @@ class Runner:
         """Opens the image volume and builds the model + engine.
 
         request: InferenceSettings or a parsed InferenceRequest proto.
-        precision: None, or FFN_TPU_PRECISION; "int8" is not ported.
+        precision: None (the model's own) or "int8", the quantized stack
+        (ops/quantized.py: K19, K20); None reads FFN_TPU_PRECISION. As in
+        the JAX Runner, any other value runs the model's own precision.
         """
         # A saved segmentation carries the request as the proto it came in
         # as, with the settings changed since written over it.
@@ -70,10 +74,6 @@ class Runner:
             request = InferenceSettings.from_proto(request)
         if precision is None:
             precision = os.environ.get("FFN_TPU_PRECISION") or None
-        if precision == "int8":
-            raise NotImplementedError(
-                "precision='int8' is not ported to ffn_tpu_torch "
-                "(ROADMAP.md, Queue 1 item 10)")
         self.request = request
         os.makedirs(request.segmentation_output_dir, exist_ok=True)
 
@@ -83,7 +83,8 @@ class Runner:
                 if request.model_args else {}
             self.model = model_class(**model_args)
             self._model_info = self.model.info
-        if getattr(self.model, "dtype", None) == torch.float16:
+        if getattr(self.model, "dtype", None) == torch.float16 and \
+                precision != "int8":
             raise NotImplementedError(
                 "float16 inference is not ported to ffn_tpu_torch "
                 "(ROADMAP.md): no JAX bench or config runs it; float16 "
@@ -95,6 +96,9 @@ class Runner:
                     load_model_params(request.model_checkpoint_path))
             # Without a checkpoint the model keeps its random init
             # (oracle and smoke runs).
+            if precision == "int8":
+                self.model = quantized.QuantizedConvStack3DModel(self.model)
+                self.model.prepare()
             self.model.to(self.device)
 
         opts = request.inference_options

@@ -11,7 +11,9 @@ round the float32 parameters at every call as flax does. Layout is JAX's
 (NDHWC activations, DHWIO weights). float32 runs at the JAX model's
 Precision.HIGHEST (no TF32); 16 bits are flax's `dtype`: 16-bit
 activations, weights and biases, float32 sums and logits. The Runner
-refuses float16 models (ROADMAP.md); --precision f16 trains them.
+refuses float16 models (ROADMAP.md); --precision f16 trains them. int8
+inference (Runner precision "int8") wraps this model in
+ops/quantized.py's QuantizedConvStack3DModel (K19, K20).
 """
 
 from __future__ import annotations

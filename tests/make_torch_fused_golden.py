@@ -47,6 +47,7 @@ from ffn_tpu.parallel import sharded_inference  # noqa: E402
 from ffn_tpu.proto import inference_pb2  # noqa: E402
 from ffn_tpu.utils import bounding_box  # noqa: E402
 from test_torch_runner import _request  # noqa: E402
+from make_torch_gate_golden import save_golden  # noqa: E402
 from tools import synthetic_em  # noqa: E402
 
 PAD, MAX_ITERS = 16, 4000
@@ -163,7 +164,7 @@ def main():
                   f"{len(np.unique(stitched)) - 1} stitched objects, "
                   f"ground-truth agreement {agree:.4f}; {repeats} runs "
                   f"identical: {same}", flush=True)
-    np.savez_compressed(out, **golden)
+    save_golden(out, golden)
     print(f"wrote {out} ({os.path.getsize(out)} bytes)")
 
 

@@ -32,6 +32,7 @@ from ffn_tpu.training import inputs  # noqa: E402
 from ffn_tpu.training import optimizer as optimizer_lib  # noqa: E402
 from ffn_tpu.training import precision  # noqa: E402
 from ffn_tpu.training import train_lib  # noqa: E402
+from make_torch_gate_golden import save_golden  # noqa: E402
 from tools import synthetic_em  # noqa: E402
 
 CKPT = os.path.join(REPO, "models", "phantom", "model-ci-tiny.npz")
@@ -95,7 +96,7 @@ def main():
         print(opt, "active per step", out[f"{opt}/active"].sum(axis=1),
               "loss", out[f"{opt}/loss"][:, 0],
               "patch_loss", out[f"{opt}/patch_loss"])
-    np.savez_compressed(OUT, **out)
+    save_golden(OUT, out)
     print(f"wrote {OUT} ({os.path.getsize(OUT)} bytes)")
 
 

@@ -62,7 +62,9 @@ def test_the_package_lists_the_slice_modules():
                  "ffn_tpu_torch.inference.counters",
                  "ffn_tpu_torch.inference.settings",
                  # the host-loop trainer
-                 "ffn_tpu_torch.training.examples"):
+                 "ffn_tpu_torch.training.examples",
+                 # int8 inference (K19, K20)
+                 "ffn_tpu_torch.ops.quantized"):
         assert name in PORT_MODULES
 
 

@@ -6,7 +6,7 @@
 Imports torch and the port only. K1 within 1e-4 of max|plain| (another
 float32 order, TF32 off); K15 within one ulp of its type per rounding
 (k15_tolerance), at most DIFFER_SHARE differing; the data-moving kernels
-bit for bit.
+and the int8 ones (K19, K20) bit for bit.
 """
 
 import numpy as np
@@ -1575,3 +1575,64 @@ def test_k12_with_the_loss_scale_matches_plain(card, bad):
         assert torch.equal(scales[0].counter, scales[1].counter)
         assert all(torch.equal(a, b) for a, b in zip(kp, pp))
     assert float(scales[0].scale) == 2.0 ** (15 if bad is not None else 17)
+
+
+# -- int8 inference: K19 qconv3d_s8, K20 act_absmax ------------------------
+
+# Every int8 layer kind of model-r2 and of the CI checkpoint: (k, Cin,
+# Cout, relu_in, relu_out, residual).
+K19_CASES = {"conv0_a": (3, 2, 32, False, True, False),
+             "block_a": (3, 32, 32, True, True, False),
+             "block_b": (3, 32, 32, False, False, True),
+             "conv_lom": (1, 32, 1, True, False, True),
+             "ci_conv0_a": (3, 2, 16, False, True, False),
+             "ci_block_b": (3, 16, 16, True, False, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K19_CASES))
+@pytest.mark.parametrize("n", [1, 7, 64])
+def test_k19_k20_match_plain_bit_for_bit(card, case, n):
+    # Lanes of magnitudes 1e-2 to 1e2 on the 33^3 FOV, lane 3 all zero.
+    from ffn_tpu_torch.ops import quantized
+    k, cin, cout, relu_in, relu_out, res = K19_CASES[case]
+    rng = np.random.RandomState(n)
+    layer = quantized.fold_convstack_params({"c": {
+        "kernel": rng.randn(k, k, k, cin, cout).astype(np.float32) * 0.05,
+        "bias": rng.randn(cout).astype(np.float32)}})["c"].to(card)
+    mag = 10.0 ** rng.randint(-2, 3, (n, 1, 1, 1, 1))
+    x = torch.from_numpy((rng.randn(n, 33, 33, 33, cin) * mag).astype(
+        np.float32)).to(card)
+    if n > 3:
+        x[3] = 0
+    r = torch.randn(n, 33, 33, 33, cout, device=card) if res else None
+    am = quantized.act_absmax(x, relu_in)
+    assert torch.equal(am, quantized.act_absmax_plain(x, relu_in))
+    kw = dict(relu_in=relu_in, relu_out=relu_out, residual=r)
+    got = quantized.qconv3d(x, layer, am, **kw)
+    assert torch.equal(got, quantized.qconv3d_plain(x, layer, am, **kw))
+    assert torch.equal(quantized.qconv3d(x[:1], layer, am[:1], **dict(
+        kw, residual=r[:1] if res else None)), got[:1])
+
+
+@pytest.mark.cuda
+def test_int8_cuda_tensors_never_reach_the_plain_versions(card, monkeypatch):
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.ops import quantized
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(quantized, "qconv3d_plain", refuse)
+    monkeypatch.setattr(quantized, "act_absmax_plain", refuse)
+    model = quantized.QuantizedConvStack3DModel(
+        convstack_3d.ConvStack3DFFNModel(fov_size=[9] * 3, deltas=[2] * 3,
+                                         depth=2, features=16))
+    model.prepare()
+    model.to(card)
+    _build.launches.clear()
+    out = model.apply(torch.randn(2, 9, 9, 9, 1, device=card),
+                      torch.randn(2, 9, 9, 9, 1, device=card))
+    torch.cuda.synchronize()
+    assert out.shape == (2, 9, 9, 9, 1) and bool(out.isfinite().all())
+    assert _build.launches["qconv3d_s8"] == _build.launches["act_absmax"] == 5
