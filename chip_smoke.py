@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drives ffn_tpu_torch's inference paths (serial, hop, round-based, fused
-multi-subvolume; float32, bfloat16 and int8; bfloat16 lane seeds) and its
-two trainers on one NVIDIA card.
+multi-subvolume; float32, bfloat16 and int8; bfloat16 lane seeds), its
+two trainers, ResConvStack and the device edge mask on one NVIDIA card.
 
   python3 chip_smoke.py
 
@@ -9,7 +9,7 @@ Phases (a failure ends the run with a non-zero exit; each function says
 what it holds):
   1. device: the card's name and power limit, torch/CUDA versions, which
      of protobuf/absl/h5py/jax this machine has;
-  2. build: K1-K20 from ffn_tpu_torch/csrc, one nvcc per source;
+  2. build: K1-K23 from ffn_tpu_torch/csrc, one nvcc per source;
   3. every kernel against its plain version at the main paths' shapes,
      with CUDA-event times (kernel, plain, library), bounds: K1 per layer
      and as the stack; K2-K8, K13, K14 bit for bit with float32 and bf16
@@ -21,7 +21,7 @@ what it holds):
   5. the serial slice (Runner -> Canvas) on the padded 100^3 phantom,
      kernels and plain, then model-r2 held to 0.95;
   6. the 64-lane hop slice (HopBatchCanvas -> run_hops); the gate's
-     8-lane pair, also with K4-K7 plain, identical;
+     8-lane pair, and on a 64^3 corner also with K4-K7 plain, identical;
   7. the gate pair at 64 lanes with the CI checkpoint against the JAX
      package's run (tests/golden/gate_ci_lanes_golden.npz);
   8. the fused slice (sharded CLI, 8 x 82^3, 4 slots, 64 lanes), device
@@ -30,19 +30,25 @@ what it holds):
      tests/golden/fused_{ci,r2}_golden;
  11. the scan trainer at full width, 8 steps: kernels against plain, an
      exact resume, a profiled step, train_ci_golden, the Runner;
- 12. the round-based slice (hops 0) at 8 lanes, kernels and plain; 64;
+ 12. the round-based slice (hops 0) at 8 lanes on kernels, kernels and
+     plain on a 64^3 corner; 64 lanes;
  13. the CI checkpoint at 64 lanes, hops 0, against the JAX package's run;
  14. bfloat16 inference on K15 and its plain version: serial, hop, round
      and fused slices;
  15. the host-loop trainer at full width, 40 steps (K16);
- 16. bf16 lane seeds on every inference path, on the *_bf16 kernels and
-     plain versions, identical; against float32 seeds;
+ 16. bf16 lane seeds on every inference path on the *_bf16 kernels, each
+     against its plain versions, identical (hop and round on the whole
+     phantom, the others on a 64^3 corner); against float32 seeds;
  17. the train CLI with --precision bf16 and f16 (K15, K17, K18; f16's
      loss scale in K11, K12), against plain, f16 resumed exactly; the
      host loop in bf16;
  18. int8 inference (FFN_TPU_PRECISION=int8, K19, K20): serial, 64-lane hop
      and fused slices on kernels, each against its plain versions on a
-     64^3 corner, identical.
+     64^3 corner, identical;
+ 19. the remaining TPU programs, which no path calls: K21 (LayerNorm) bit
+     for bit; ResConvStack (depth 20, 32 features) on K21 + K1/K15
+     against its plain layers; edges() on K22/K23 bit for bit at 132^3
+     and 250^3.
 The line before the last, {"kernels": [...]}, gives each kernel its
 launches by path and in sum, its error against plain, its median time,
 its plain version's, a library call's where one exists, and its bound.
@@ -929,6 +935,14 @@ def _fused_plain():
 FUSED_PAIR_BOX = (64, 64, 64)
 
 
+def _corner(phantom):
+    """_run_slice's box, gt and inner for the phantom's FUSED_PAIR_BOX
+    corner: the kernel-vs-plain pairs of phases 16 and 18."""
+    edge = FUSED_PAIR_BOX[0]
+    return dict(box=FUSED_PAIR_BOX, inner=(slice(PHANTOM_PAD, edge),) * 3,
+                gt=phantom["gt"][(slice(0, edge - PHANTOM_PAD),) * 3])
+
+
 def phase_fused_slice(dev, tmp):
     """The fused path at full width in both finalize modes: the padded 100^3
     phantom (seed 0, 132^3) through the sharded CLI's worker mode (in this
@@ -1402,7 +1416,8 @@ class _HopProbe:
 
 def phase_hop_slice(dev, phantom, r2, seg_serial, tmp):
     """64 lanes, hops 16, model-r2, probed; the gate's pair on its seed-11
-    phantom at 8 lanes, also with K4-K7 plain, identical. Returns launches."""
+    phantom at 8 lanes, and on its 64^3 corner with K4-K7 on kernels and
+    plain, identical. Returns launches."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
@@ -1451,14 +1466,20 @@ def phase_hop_slice(dev, phantom, r2, seg_serial, tmp):
         "gate phantom (seed 11), serial, model-r2", dataclasses.replace(
             gate_r2, segmentation_output_dir=os.path.join(tmp, "gate_1")),
         dev, **gate)["seg"]
-    gate_n, _ = _pair("the gate's 8-lane hop slice", lambda label, sfx: (
-        _run_slice(f"gate phantom (seed 11), {GATE_LANES} lanes, model-r2, "
-                   f"{label}", dataclasses.replace(
-                       gate_r2, concurrent_requests=GATE_LANES,
-                       segmentation_output_dir=os.path.join(
-                           tmp, "gate_n" + sfx)), dev, **gate, hops=HOPS)),
-        _plain(hop_ops, "hop_pop", "hop_gather", "hop_update", "hop_screen")
-        + _plain(lane_ops, "lane_verdicts", "lane_mask"))
+    def gate_run(label, sfx, where):
+        return _run_slice(
+            f"gate phantom (seed 11), {GATE_LANES} lanes, model-r2, {label}",
+            dataclasses.replace(gate_r2, concurrent_requests=GATE_LANES,
+                                segmentation_output_dir=os.path.join(
+                                    tmp, "gate_n" + sfx)), dev, **where,
+            hops=HOPS)
+
+    gate_n = gate_run("on kernels", "", gate)
+    edge = FUSED_PAIR_BOX[0]
+    _pair(f"the gate's 8-lane hop slice on {edge}^3", lambda label, sfx:
+          gate_run(f"{edge}^3, {label}", "_pair" + sfx, _corner(gate)),
+          _plain(hop_ops, "hop_pop", "hop_gather", "hop_update", "hop_screen")
+          + _plain(lane_ops, "lane_verdicts", "lane_mask"))
     cells = _lanes_vs_serial(GATE_LANES, "model-r2, the gate's phantom",
                              gate, seg_1, gate_n["seg"])
     require(gate_n["agree"] >= 0.95 and cells >= 0.99,
@@ -1734,17 +1755,28 @@ def phase_bf16_kernels(dev):
 
 def phase_round_slice(dev, phantom, r2, seg_serial, tmp):
     """The round-based slice (model-r2, float32, hops 0, 8 lanes: K13 -> K1 ->
-    K14) on kernels, probed, and with K13/K14 plain, identical; then 64
-    lanes. Returns the 8-lane run's launches."""
+    K14) on kernels, probed, and on a 64^3 corner on kernels and with
+    K13/K14 plain, identical; then 64 lanes. Returns the 8-lane run's
+    launches."""
     from ffn_tpu_torch.ops import select as select_ops
+
+    from ffn_tpu_torch import _build
 
     settings = dataclasses.replace(r2, concurrent_requests=ROUND_LANES)
     probe = _HopProbe()
-    run, launches = _pair("the round slice", lambda label, sfx: _run_slice(
-        f"{ROUND_LANES} lanes, model-r2, {label}", dataclasses.replace(
-            settings, segmentation_output_dir=os.path.join(
-                tmp, "round" + sfx)), dev, **phantom, hops=0,
-        probe=None if sfx else probe),
+
+    def run_round(label, sfx, where, probe=None):
+        return _run_slice(
+            f"{ROUND_LANES} lanes, model-r2, {label}", dataclasses.replace(
+                settings, segmentation_output_dir=os.path.join(
+                    tmp, "round" + sfx)), dev, **where, hops=0, probe=probe)
+
+    _build.launches.clear()
+    run = run_round("on kernels", "", phantom, probe)
+    launches = dict(_build.launches)
+    edge = FUSED_PAIR_BOX[0]
+    _pair(f"the round slice on {edge}^3", lambda label, sfx: run_round(
+        f"{edge}^3, {label}", "_pair" + sfx, _corner(phantom)),
         _plain(select_ops, "select_gather", "select_update"))
     _require_launched(launches, "the round path", (
         "conv3d_ndhwc_f32", "select_gather", "select_update",
@@ -1864,13 +1896,16 @@ def phase_bf16_slices(dev, phantom, r2, tmp):
 
 def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
     """bfloat16 lane seeds (FFN_TPU_SEED_DTYPE=bf16) with model-r2 in bfloat16
-    on every path, each on the *_bf16 seed kernels and their plain versions,
-    identical, with no float32 instantiation launched: hop at the JAX e2e
-    bench's configuration (48 lanes, hops 16, max_iters 2000; K4-K7); fused
+    on every path on the *_bf16 seed kernels, with no float32 instantiation
+    launched, each against its plain versions, identical: the hop and round
+    slices on the whole phantom, the others on a 64^3 corner
+    (FUSED_PAIR_BOX). Hop at the JAX e2e bench's configuration (48 lanes,
+    hops 16, max_iters 2000; K4-K7); fused
     (K4, K8; against phase 14's float32 seeds) and
-    fused with host finalization on FUSED_PAIR_BOX (K4, K7);
+    fused with host finalization on the corner alone (K4, K7);
     FFN_TPU_DEVFIN=1 at 8 lanes (K4-K6, K8); round (K13, K14); serial (K2,
     K3). Floors: BF16_SEED_*_FLOOR, 0.95. Returns the launches by path."""
+    from ffn_tpu_torch import _build
     from ffn_tpu_torch.ops import finalize as fin_ops
     from ffn_tpu_torch.ops import hop as hop_ops
     from ffn_tpu_torch.ops import lane as lane_ops
@@ -1884,12 +1919,12 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
                         "hop_screen")
                  + _plain(lane_ops, "lane_verdicts", "lane_mask"))
     seed_bytes = {torch.float32: 4, torch.bfloat16: 2}
-    lane_bytes = int(np.prod(phantom["box"]))   # one lane's seed voxels
+    corner, edge = _corner(phantom), FUSED_PAIR_BOX[0]
     launches = {}
 
     def slice_run(path, lanes, hops, floor, plain, needed, env=(),
-                  max_iters=MAX_ITERS):
-        def run(label, sfx):
+                  max_iters=MAX_ITERS, whole=False):
+        def run(label, sfx, where):
             with mock.patch.dict(os.environ, dict(
                     env, FFN_TPU_SEED_DTYPE="bf16")):
                 torch.cuda.reset_peak_memory_stats()
@@ -1899,19 +1934,28 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
                         settings, concurrent_requests=lanes,
                         segmentation_output_dir=os.path.join(
                             tmp, f"seeds_{path}{sfx}")), dev,
-                    **phantom, hops=hops, max_iters=max_iters)
+                    **where, hops=hops, max_iters=max_iters)
             out["peak"] = torch.cuda.max_memory_allocated()
-            out["seed_bytes"] = (lanes * lane_bytes
+            out["seed_bytes"] = (lanes * int(np.prod(where["box"]))
                                  * seed_bytes[out["seed_dtype"]])
             print(f"  seeds {out['seed_dtype']}: {lanes} lanes x "
-                  f"{phantom['box']} = {out['seed_bytes'] / 1e6:.1f} MB; "
+                  f"{where['box']} = {out['seed_bytes'] / 1e6:.1f} MB; "
                   f"peak device memory {out['peak'] / 1e6:.1f} MB; "
                   f"{out['moves'] / out['wall']:.2f} moves/s")
             torch.cuda.empty_cache()
             return out
 
-        got, launches[path] = _pair(f"the bf16-seed {path} slice", run,
-                                    plain)
+        if whole:
+            got, launches[path] = _pair(
+                f"the bf16-seed {path} slice", lambda label, sfx:
+                run(label, sfx, phantom), plain)
+        else:
+            _build.launches.clear()
+            got = run("on kernels", "", phantom)
+            launches[path] = dict(_build.launches)
+            _pair(f"the bf16-seed {path} slice on {edge}^3",
+                  lambda label, sfx: run(f"{edge}^3, {label}", "_pair" + sfx,
+                                         corner), plain)
         _check_bf16_launches(path, launches[path], needed)
         require(got["seed_dtype"] == torch.bfloat16 and got["agree"] >= floor,
                 f"the bf16-seed {path} slice: seeds {got['seed_dtype']}, "
@@ -1920,31 +1964,39 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
 
     slice_run("hop", SEED_LANES, HOPS, BF16_SEED_AGREE_FLOOR, hop_plain,
               ("hop_pop", "hop_gather", "hop_update", "lane_threshold"),
-              max_iters=SEED_MAX_ITERS)
+              max_iters=SEED_MAX_ITERS, whole=True)
     slice_run("devfin", GATE_LANES, HOPS, 0.95,
               hop_plain + _plain(fin_ops, "finalize_pass"),
               ("hop_pop", "hop_gather", "hop_update", "finalize_pass"),
               env={"FFN_TPU_DEVFIN": "1"})
     slice_run("round", ROUND_LANES, 0, BF16_SEED_ROUND_AGREE_FLOOR,
               _plain(select_ops, "select_gather", "select_update"),
-              ("select_gather", "select_update", "lane_threshold"))
+              ("select_gather", "select_update", "lane_threshold"),
+              whole=True)
     slice_run("serial", 1, None, 0.95,
               _plain(step_ops, "step_gather", "step_update"),
               ("step_gather", "step_update"))
 
     fused = {}
     with mock.patch.dict(os.environ, {"FFN_TPU_SEED_DTYPE": "bf16"}):
-        for path, flags, size, needed in (
-                ("fused", [], None, ("hop_pop", "hop_gather", "hop_update",
-                                     "finalize_pass")),
-                ("fused_host", ["--no-device_finalize"], FUSED_PAIR_BOX,
+        for path, flags, needed in (
+                ("fused", [], ("hop_pop", "hop_gather", "hop_update",
+                               "finalize_pass")),
+                ("fused_host", ["--no-device_finalize"],
                  ("hop_pop", "hop_gather", "hop_update", "lane_threshold",
                   "lane_masks"))):
-            fused[path], launches[path] = _pair(
-                f"the bf16-seed {path} slice", lambda label, sfx: _fused(
-                    f"bf16-seed {path} slice {label}", f"seeds_{path}{sfx}",
-                    tmp, model_args, flags, size), _fused_plain(),
+            if not flags:   # the whole phantom on kernels
+                fused[path] = _fused(f"bf16-seed {path} slice on kernels",
+                                     f"seeds_{path}", tmp, model_args)
+                launches[path] = fused[path]["launches"]
+            got, pair_launches = _pair(
+                f"the bf16-seed {path} slice on {edge}^3", lambda label, sfx:
+                _fused(f"bf16-seed {path} slice {label}",
+                       f"seeds_{path}_pair{sfx}", tmp, model_args, flags,
+                       FUSED_PAIR_BOX), _fused_plain(),
                 keys=("subs", "moves"))
+            fused.setdefault(path, got)
+            launches.setdefault(path, pair_launches)
             _check_bf16_launches(path, launches[path], needed)
     run, f32 = fused["fused"], fused_f32_seeds   # f32: phase 14's run
     stitch_s, stitched = _stitch(run["argv"], os.path.join(
@@ -3331,8 +3383,7 @@ def phase_int8_slices(dev, phantom, r2, tmp):
     from ffn_tpu_torch.ops import quantized as q
     int8 = mock.patch.dict(os.environ, {"FFN_TPU_PRECISION": "int8"})
     edge = FUSED_PAIR_BOX[0]
-    corner = dict(box=FUSED_PAIR_BOX, inner=(slice(PHANTOM_PAD, edge),) * 3,
-                  gt=phantom["gt"][(slice(0, edge - PHANTOM_PAD),) * 3])
+    corner = _corner(phantom)
     launches, runs = {}, {}
     with int8:
         for path, lanes, hops in (("serial_int8", 1, None),
@@ -3378,6 +3429,230 @@ def phase_int8_slices(dev, phantom, r2, tmp):
         require(got["agree"] >= INT8_FLOORS[path], f"{path} agreement "
                 f"{got['agree']} below its floor {INT8_FLOORS[path]}")
     return launches
+
+
+# Phase 19: ResConvStack (K21 with K1/K15) and edges (K22, K23).
+RES_DEPTH = 20       # the LICONN notebook's ResConvStack
+# Of max|plain logit|: K1's stack tolerance in float32. In bfloat16 the
+# kernels equal the stack with float64 sums (K15's function) bit for bit;
+# against the plain layers' float32 sums (cuDNN's order) the 19 residual
+# adds, each rounded to bfloat16 (ulp 2^-4 at the stream's 8-16), drift by
+# a few ulps: 2.25% of max|logit| measured (NVIDIA H100 80GB HBM3, 700 W),
+# above K15_STACK_TOL's 2^-6 for the depth-12 stack.
+RES_STACK_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -4}
+EDGE_SIZES = (PHANTOM_SIZE + 2 * PHANTOM_PAD, 250)   # padded phantom, demo
+
+
+def _res_model(dev, dt):
+    """A depth-20, 32-feature ResConvStack with random weights from a seed:
+    He-scaled kernels, biases 0.1 N(0, 1), LayerNorm scale 1 + 0.2 N(0, 1)
+    and bias 0.1 N(0, 1)."""
+    from ffn_tpu_torch.models import convstack_3d
+    gen = torch.Generator().manual_seed(21)
+    model = convstack_3d.ResConvStack(depth=RES_DEPTH, features=32,
+                                      compute_dtype=dt)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if name.endswith("weight"):
+                p.copy_(r * (2.0 / p[..., 0].numel()) ** 0.5)
+            else:
+                p.copy_(r * (0.2 if name.endswith("scale") else 0.1)
+                        + (1.0 if name.endswith("scale") else 0.0))
+    model.round_params()
+    return model.to(dev)
+
+
+def _res_plain(convstack_3d):
+    """ResConvStack's layers on their plain versions."""
+    from ffn_tpu_torch.ops import conv3d, layernorm
+    return [mock.patch.object(convstack_3d, "layernorm_channels",
+                              layernorm.layernorm_channels_plain),
+            mock.patch.object(convstack_3d, "conv3d_ndhwc_f32",
+                              conv3d.conv3d_ndhwc_plain),
+            mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
+                              conv3d.conv3d_ndhwc_bf16_plain)]
+
+
+def phase_remaining_programs(dev):
+    """The last two TPU programs, which no path of either package calls:
+    K21 layernorm_channels against its plain version bit for bit at N = 1
+    and 64 (33^3 x 32) in float32, bfloat16 and float16, timed at N=64
+    (float32) beside F.layer_norm; ResConvStack (depth 20, 32 features, 2
+    inputs, 33^3, random weights) at N = 1 and 64 in float32 and bfloat16
+    on K21 + K1/K15 against its plain layers (RES_STACK_TOL), in bfloat16
+    equal to the stack with float64 sums, N=1 equal to the batch's sample,
+    its N=64 forward timed; K22 edges_sobel and K23 edges_blur against
+    edges_plain bit for bit (the magnitude, each blur pass, the mask) on
+    the padded 132^3 phantom and the 250^3 demo volume, timed at 250^3;
+    edges() launching K22 once and K23 three times. Returns (results,
+    launches of the paths resconv (the N=64 forwards) and edges (edges()
+    on the 250^3 volume))."""
+    import torch.nn.functional as F
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.models import convstack_3d
+    from ffn_tpu_torch.ops import conv3d_bf16_check as check
+    from ffn_tpu_torch.ops import image, layernorm
+    sys.path.insert(0, REPO)
+    from tools import synthetic_em
+    results, launches = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k21_err = 0.0
+    for n in (1, LANES):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = torch.randn(n, 33, 33, 33, 32, generator=gen,
+                            device=dev).to(dt)
+            scale = 1.0 + 0.5 * torch.randn(32, generator=gen, device=dev)
+            bias = 0.3 * torch.randn(32, generator=gen, device=dev)
+            got = layernorm.layernorm_channels(x, scale, bias)
+            want = layernorm.layernorm_channels_plain(x, scale, bias)
+            same = torch.equal(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            k21_err = max(k21_err, err)
+            print(f"K21 layernorm_channels N={n} {dt}: bit for bit {same} "
+                  f"(max_abs_err {err:.3e})")
+            require(same and bool(torch.isfinite(got).all()),
+                    f"K21 N={n} {dt} differs from its plain version")
+            if n == LANES and dt == torch.float32:
+                ms = time_many(
+                    lambda: layernorm.layernorm_channels(x, scale, bias),
+                    lambda: layernorm.layernorm_channels_plain(x, scale,
+                                                               bias),
+                    lambda: F.layer_norm(x, (32,), scale, bias, eps=1e-6))
+                vox = n * 33 ** 3
+                results[layernorm.NAME] = entry(
+                    err, ms[0], ms[1], 2 * 4 * vox * 32 + 2 * 4 * 32,
+                    7 * vox * 32, library_ms=ms[2])
+                e = results[layernorm.NAME]
+                print(f"K21 N={n} float32: kernel {ms[0]:.4f} ms plain "
+                      f"{ms[1]:.4f} ms library (F.layer_norm) {ms[2]:.4f} "
+                      f"ms bound {e['bound_ms']:.4f} ms ({e['bound_by']})")
+            del x, got, want
+    results[layernorm.NAME]["max_abs_err"] = k21_err
+    torch.cuda.empty_cache()
+
+    launches["resconv"] = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = _res_model(dev, dt)
+        x = torch.randn(LANES, 33, 33, 33, 2, generator=gen, device=dev)
+        with torch.no_grad():
+            _build.launches.clear()
+            got = model(x)
+            for name, count in _build.launches.items():
+                launches["resconv"][name] = launches["resconv"].get(
+                    name, 0) + count
+            one = model(x[:1].contiguous())
+            with contextlib.ExitStack() as stack:
+                for patch in _res_plain(convstack_3d):
+                    stack.enter_context(patch)
+                want = model(x)
+                want_one = model(x[:1].contiguous())
+                plain_ms = time_many(lambda: model(x), reps=3, inner=1)[0]
+                if dt != torch.float32:
+                    # K15's function: the plain layers with float64 sums.
+                    stack.enter_context(mock.patch.object(
+                        convstack_3d, "conv3d_ndhwc_bf16",
+                        check.conv3d_ndhwc_bf16_exact))
+                    exact = (torch.equal(got, model(x)) and
+                             torch.equal(one, model(x[:1].contiguous())))
+            ms = time_many(lambda: model(x), reps=3, inner=1)[0]
+        tol = RES_STACK_TOL[dt]
+        err = float((got - want).abs().max())
+        err_one = float((one - want_one).abs().max())
+        print(f"ResConvStack depth {RES_DEPTH} {dt} N={LANES}: max_abs_err "
+              f"{err:.4e} against its plain layers (bound "
+              f"{tol * float(want.abs().max()):.4e}, max|plain logit| "
+              f"{float(want.abs().max()):.4f}); N=1 {err_one:.4e}; N=1 = "
+              f"the batch's sample 0: {torch.equal(one[0], got[0])}"
+              + ("" if dt == torch.float32 else
+                 f"; N=64 and N=1 equal to the stack with float64 sums: "
+                 f"{exact}") + f"; forward {ms:.2f} ms on kernels, "
+              f"{plain_ms:.2f} ms plain")
+        require(got.dtype == torch.float32 and got.shape == (
+            LANES, 33, 33, 33, 1) and bool(torch.isfinite(got).all())
+            and err <= tol * float(want.abs().max()) and err_one <= tol
+            * float(want_one.abs().max()) and torch.equal(one[0], got[0])
+            and (dt == torch.float32 or exact),
+            f"ResConvStack {dt} on kernels against its plain layers")
+        del model, x, got, want, one, want_one
+        torch.cuda.empty_cache()
+    print(f"resconv launches: {launches['resconv']}")
+    _require_launched(launches["resconv"], "the ResConvStack forwards",
+                      (layernorm.NAME, "conv3d_ndhwc_f32",
+                       "conv3d_ndhwc_bf16"))
+
+    img_small, _ = synthetic_em.make_volume(size=PHANTOM_SIZE, seed=0,
+                                            num_cells=PHANTOM_CELLS)
+    vols = {EDGE_SIZES[0]: np.pad(img_small, PHANTOM_PAD, mode="reflect")}
+    t0 = time.perf_counter()
+    vols[EDGE_SIZES[1]] = synthetic_em.make_volume(size=EDGE_SIZES[1],
+                                                   seed=0)[0]
+    print(f"the {EDGE_SIZES[1]}^3 demo volume made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for size, vol in vols.items():
+        img = torch.from_numpy(vol).to(dev).float()
+        taps = image.gaussian_taps(device=dev)
+        mag = image.edges_sobel(img)
+        want = image.edges_sobel_plain(img)
+        same = [torch.equal(mag, want)]
+        sobel_err = float((mag - want).abs().max())
+        blur, blur_err = mag, 0.0
+        for axis in range(3):
+            nxt = image.edges_blur(blur, taps, axis)
+            want = image.edges_blur_plain(blur, taps, axis)
+            same.append(torch.equal(nxt, want))
+            blur_err = max(blur_err, float((nxt - want).abs().max()))
+            blur = nxt
+        del want
+        if size == EDGE_SIZES[1]:
+            _build.launches.clear()
+        mask = image.edges(vol)   # a numpy array goes to the card
+        if size == EDGE_SIZES[1]:
+            launches["edges"] = dict(_build.launches)
+        mask_plain = image.edges_plain(img)
+        same += [torch.equal(mask, mag > blur),
+                 torch.equal(mask, mask_plain)]
+        # K23's function ends in the mask: a differing voxel counts 1.
+        blur_err = max(blur_err, float((mask != mask_plain).any()))
+        del mask_plain
+        print(f"K22/K23 edges on {size}^3: magnitude, three blur passes, "
+              f"mask, edges_plain's mask bit for bit: {same}; "
+              f"{float(mask.float().mean()):.4f} of voxels are edges")
+        require(all(same), f"K22/K23 on {size}^3 differ from plain")
+        if size != EDGE_SIZES[1]:
+            continue
+
+        def k23():
+            image.edges_blur(image.edges_blur(image.edges_blur(
+                mag, taps, 0), taps, 1), taps, 2, edges=mag)
+
+        def k23_plain():
+            image.edges_blur_plain(image.edges_blur_plain(
+                image.edges_blur_plain(mag, taps, 0), taps, 1), taps, 2,
+                edges=mag)
+        ms = time_many(lambda: image.edges_sobel(img),
+                       lambda: image.edges_sobel_plain(img), k23, k23_plain,
+                       lambda: image.edges(img), reps=5, inner=3)
+        vox = size ** 3
+        ntaps = taps.shape[0]
+        results[image.SOBEL] = entry(sobel_err, ms[0], ms[1], 8 * vox,
+                                     61 * vox)
+        # K23's function: mask = edges > the three passes' blur of edges.
+        results[image.BLUR] = entry(blur_err, ms[2], ms[3],
+                                    5 * vox + 4 * ntaps,
+                                    (3 * 2 * ntaps + 1) * vox)
+        whole = bound_of(5 * vox, (61 + 3 * 2 * ntaps + 1) * vox)
+        print(f"K22 edges_sobel {size}^3: kernel {ms[0]:.4f} ms plain "
+              f"{ms[1]:.4f} ms bound {results[image.SOBEL]['bound_ms']:.4f}"
+              f" ms ({results[image.SOBEL]['bound_by']}); K23 edges_blur x3 "
+              f"(mask): kernel {ms[2]:.4f} ms plain {ms[3]:.4f} ms bound "
+              f"{results[image.BLUR]['bound_ms']:.4f} ms "
+              f"({results[image.BLUR]['bound_by']}); edges() {ms[4]:.4f} "
+              f"ms, bound {whole[0]:.4f} ms ({whole[1]})")
+    print(f"edges launches: {launches['edges']}")
+    require(launches["edges"] == {image.SOBEL: 1, image.BLUR: 3},
+            f"edges() launched {launches['edges']}")
+    return results, launches
 
 
 def _lanes_vs_serial(lanes, label, phantom, seg_serial, seg_lanes):
@@ -3444,6 +3719,10 @@ def main():
         _clock(t0, "phase_bf16_seed_slice")
         launches.update(phase_int8_slices(dev, phantom, r2, tmp))
         _clock(t0, "phase_int8_slices")
+        remaining, remaining_launches = phase_remaining_programs(dev)
+        results.update(remaining)
+        launches.update(remaining_launches)
+        _clock(t0, "phase_remaining_programs")
     # K1 runs on every path: its error is the largest of all phases', its
     # time the 32->32 layer's at N=1 (the serial path's shape).
     results["conv3d_ndhwc_f32"]["max_abs_err"] = max(
@@ -3492,14 +3771,19 @@ def main():
         ("select_gather_bf16", "select.cu", "inference/engine.py:211"),
         ("select_update_bf16", "select.cu", "inference/engine.py:266"),
         ("qconv3d_s8", "qconv3d.cu", "ops/quantized.py:81"),
-        ("act_absmax", "qconv3d.cu", "ops/quantized.py:73")]}
+        ("act_absmax", "qconv3d.cu", "ops/quantized.py:73"),
+        ("layernorm_channels", "layernorm.cu", "models/convstack_3d.py:105"),
+        ("edges_sobel", "edges.cu", "ops/image.py:81"),
+        ("edges_blur", "edges.cu", "ops/image.py:90")]}
     # `launches` sums the main paths' runs; `launches_by_path` splits them
     # (fused and fused_host: the full-width fused slice with device and
     # with host finalization; train: the full-width training run;
     # train_host: the host-loop trainer's run; round: the round-based slice
     # at 8 lanes; *_bf16: the serial, hop, round and fused slices in
     # bfloat16; *_bf16_seeds: phase 16's bf16-seed slices on kernels;
-    # train_bf16, train_f16, train_host_bf16: phase 17's training runs).
+    # train_bf16, train_f16, train_host_bf16: phase 17's training runs;
+    # resconv: phase 19's ResConvStack forwards at N=64 in float32 and
+    # bfloat16; edges: edges() on the 250^3 demo volume).
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(p.get(name, 0) for p in launches.values()),
                     launches_by_path={path: p.get(name, 0)

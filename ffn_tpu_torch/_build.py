@@ -67,6 +67,9 @@ _SIGNATURES = {
     "ffn_select_update": [_P] * 5 + [_I] * 13 + [_F, _F, _I, _P],
     "ffn_qconv3d_s8": [_P] * 7 + [_I] * 9 + [_P],
     "ffn_act_absmax": [_P, _I, _P, _P, _I, _L, _P],
+    "ffn_layernorm_channels": [_P, _I, _P, _P, _P, _L, _I, _P],
+    "ffn_edges_sobel": [_P, _P, _I, _I, _I, _P],
+    "ffn_edges_blur": [_P, _P, _I, _P, _P, _P, _L, _I, _L, _P],
 }
 
 _lib = None

@@ -1,19 +1,24 @@
-"""The residual 3D conv-stack FFN model in PyTorch.
+"""The residual 3D conv-stack FFN models in PyTorch.
 
-Counterpart of ffn_tpu/models/convstack_3d.py: conv0_a (+relu) -> conv0_b
--> depth-1 pre-activation residual blocks -> relu -> 1x1x1 conv_lom, added
-to the input seed. Each layer is one conv kernel call with its relus and
-residual fused (ops/conv3d.py): K1 in float32, K15 in bfloat16/float16.
-With grad enabled (`train_apply`) float32 layers and blocks run
-`Conv3dFunction`/`ResidualBlockFunction` (K1; K9, K10 backward), 16-bit
-ones `Conv16Function`/`ResidualBlock16Function` (K15; K17, K18), which
-round the float32 parameters at every call as flax does. Layout is JAX's
-(NDHWC activations, DHWIO weights). float32 runs at the JAX model's
+Counterpart of ffn_tpu/models/convstack_3d.py. ConvStack3D: conv0_a (+relu)
+-> conv0_b -> depth-1 pre-activation residual blocks -> relu -> 1x1x1
+conv_lom, added to the input seed. Each layer is one conv kernel call with
+its relus and residual fused (ops/conv3d.py): K1 in float32, K15 in
+bfloat16/float16. With grad enabled (`train_apply`) float32 layers and
+blocks run `Conv3dFunction`/`ResidualBlockFunction` (K1; K9, K10 backward),
+16-bit ones `Conv16Function`/`ResidualBlock16Function` (K15; K17, K18),
+which round the float32 parameters at every call as flax does. Layout is
+JAX's (NDHWC activations, DHWIO weights). float32 runs at the JAX model's
 Precision.HIGHEST (no TF32); 16 bits are flax's `dtype`: 16-bit
 activations, weights and biases, float32 sums and logits. The Runner
 refuses float16 models (ROADMAP.md); --precision f16 trains them. int8
-inference (Runner precision "int8") wraps this model in
-ops/quantized.py's QuantizedConvStack3DModel (K19, K20).
+inference (Runner precision "int8") wraps this model in ops/quantized.py's
+QuantizedConvStack3DModel (K19, K20).
+
+ResConvStack: the deeper pre-activation stack (depth 20) with a LayerNorm
+over channels (K21, ops/layernorm.py) before each block's relu, on the
+same layers. Forward only; as in the JAX package no FFN wrapper, Runner
+or CLI builds it.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ffn_tpu_torch.ops.conv3d import (conv16_train, conv3d_ndhwc_bf16,
                                       conv3d_ndhwc_f32, conv3d_train,
                                       residual_block16_train,
                                       residual_block_train)
+from ffn_tpu_torch.ops.layernorm import layernorm_channels
 
 _DTYPES = {"float32": torch.float32, torch.float32: torch.float32,
            "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16,
@@ -124,6 +130,75 @@ class ConvStack3D(nn.Module):
             net = conv_a(net, pre_relu=True, post_relu=True)
             net = conv_b(net, residual=block_in)
         return self.conv_lom(net, pre_relu=True, residual=residual)
+
+
+class LayerNorm(nn.Module):
+    """flax's nn.LayerNorm over the channel axis (eps 1e-6): float32
+    `scale` and `bias`, output in the input's type (K21)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm_channels(x, self.scale, self.bias)
+
+
+class ResConvStack(nn.Module):
+    """The JAX package's ResConvStack: conv0_a (+relu) -> conv0_b ->
+    depth-1 blocks [ln{i} (with use_layernorm) -> relu -> conv{i}_a ->
+    relu -> conv{i}_b -> + block input] -> relu -> 1x1x1 conv_lom; float32
+    logits. Input (N, z, y, x, in_features), output (N, z, y, x, 1)."""
+
+    def __init__(self, depth: int = 20, features: int = 32,
+                 use_layernorm: bool = True, in_features: int = 2,
+                 compute_dtype="float32"):
+        super().__init__()
+        if compute_dtype not in _DTYPES:
+            raise NotImplementedError(
+                f"dtype {compute_dtype!r}: ResConvStack runs in float32, "
+                f"bfloat16 or float16")
+        self.depth = depth
+        self.use_layernorm = use_layernorm
+        self.compute_dtype = _DTYPES[compute_dtype]
+        conv = functools.partial(Conv3d, compute_dtype=self.compute_dtype)
+        self.conv0_a = conv(in_features, features)
+        self.conv0_b = conv(features, features)
+        for i in range(1, depth):
+            if use_layernorm:
+                self.add_module(f"ln{i}", LayerNorm(features))
+            self.add_module(f"conv{i}_a", conv(features, features))
+            self.add_module(f"conv{i}_b", conv(features, features))
+        self.conv_lom = conv(features, 1, kernel=1)
+
+    def load_params(self, params):
+        """Loads JAX parameters (flat npz dict or flax tree) and rounds the
+        16-bit layers' copies."""
+        self.load_state_dict(params_io.convert_params(params))
+        self.round_params()
+
+    def round_params(self):
+        if self.compute_dtype != torch.float32:
+            for layer in self.children():
+                if isinstance(layer, Conv3d):
+                    layer.round_params()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "ResConvStack is forward only: no trainer of either package "
+                "builds it (run it under torch.no_grad())")
+        net = self.conv0_a(x.float(), post_relu=True)
+        net = self.conv0_b(net)
+        for i in range(1, self.depth):
+            block_in = net
+            if self.use_layernorm:
+                net = getattr(self, f"ln{i}")(net)
+            net = getattr(self, f"conv{i}_a")(net, pre_relu=True,
+                                              post_relu=True)
+            net = getattr(self, f"conv{i}_b")(net, residual=block_in)
+        return self.conv_lom(net, pre_relu=True).float()
 
 
 class ConvStack3DFFNModel(nn.Module):

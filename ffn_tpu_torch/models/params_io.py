@@ -1,8 +1,9 @@
 """Model weights in the JAX package's flat npz checkpoints (`params/conv0_a/
-kernel` keys), read with numpy and mapped onto the port's modules, and
-written back under the same names (`save_params_npz`). `jax_leaf_order`
-is JAX's leaf order (sorted keys: `conv10_a` before `conv1_a`, `bias`
-before `kernel`), in which the optimizer and EMA files store leaves.
+kernel` keys; a LayerNorm's `params/ln1/scale` and `bias`), read with numpy
+and mapped onto the port's modules, and written back under the same names
+(`save_params_npz`). `jax_leaf_order` is JAX's leaf order (sorted keys:
+`conv10_a` before `conv1_a`, `bias` before `kernel`), in which the
+optimizer and EMA files store leaves.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_LEAVES = {"kernel": "weight", "bias": "bias"}
+_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "scale"}
 _JAX_LEAF = {v: k for k, v in _LEAVES.items()}
 
 
@@ -36,8 +37,9 @@ def load_params_npz(path: str) -> dict:
 def convert_params(flat_or_tree: Mapping) -> dict:
     """JAX parameters (flat npz dict or nested flax tree) -> state_dict.
 
-    `params/conv0_a/kernel` becomes `conv0_a.weight` and
-    `params/conv0_a/bias` becomes `conv0_a.bias`. Kernels stay in the DHWIO
+    `params/conv0_a/kernel` becomes `conv0_a.weight`,
+    `params/conv0_a/bias` becomes `conv0_a.bias` and a LayerNorm's
+    `params/ln1/scale` becomes `ln1.scale`. Kernels stay in the DHWIO
     layout (k, k, k, Cin, Cout), which is the layout the port's conv kernel
     reads, so the conversion transposes nothing.
     """
@@ -54,8 +56,8 @@ def convert_params(flat_or_tree: Mapping) -> dict:
 
 
 def jax_name(name: str) -> str:
-    """`conv0_a.weight` -> `params/conv0_a/kernel` (the inverse of
-    convert_params' naming)."""
+    """`conv0_a.weight` -> `params/conv0_a/kernel`, `ln1.scale` ->
+    `params/ln1/scale` (the inverse of convert_params' naming)."""
     layer, leaf = name.split(".")
     return f"params/{layer}/{_JAX_LEAF[leaf]}"
 
@@ -67,7 +69,7 @@ def jax_leaf_order(names) -> list:
 
 def save_params_npz(module: torch.nn.Module, path: str):
     """Writes `module`'s parameters as the JAX package's flat npz: keys
-    `params/<layer>/kernel|bias`, DHWIO kernels, float32. Loads with
+    `params/<layer>/kernel|bias|scale`, DHWIO kernels, float32. Loads with
     `load_params_npz` here and `ffn_tpu.models.params_io.load_params_npz`."""
     from ffn_tpu_torch.inference import storage
     flat = {jax_name(name): p.detach().cpu().numpy()

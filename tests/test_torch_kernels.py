@@ -1636,3 +1636,134 @@ def test_int8_cuda_tensors_never_reach_the_plain_versions(card, monkeypatch):
     torch.cuda.synchronize()
     assert out.shape == (2, 9, 9, 9, 1) and bool(out.isfinite().all())
     assert _build.launches["qconv3d_s8"] == _build.launches["act_absmax"] == 5
+
+
+# -- K21 layernorm_channels, K22 edges_sobel, K23 edges_blur ------------------
+
+from ffn_tpu_torch.ops import image as image_ops  # noqa: E402
+from ffn_tpu_torch.ops import layernorm as ln_ops  # noqa: E402
+
+HALF_AND_F32 = (torch.float32, torch.bfloat16, torch.float16)
+# Volumes for K22/K23: an axis shorter than the Gaussian's 33-voxel pad
+# (reflected more than once), a single-voxel axis, ragged tiles.
+EDGE_SHAPES = [(20, 40, 70), (1, 9, 11), (33, 35, 37)]
+
+
+def test_k21_rejects_bad_inputs():
+    # On the CPU too: the wrapper refuses what the kernel does not take
+    # before it dispatches (a `meta` tensor stands in for another device).
+    x = torch.zeros(1, 4, 4, 4, 8)
+    s, b = torch.ones(8), torch.zeros(8)
+    with pytest.raises(TypeError):      # float64 storage
+        ln_ops.layernorm_channels(x.double(), s, b)
+    with pytest.raises(TypeError):      # a 16-bit scale
+        ln_ops.layernorm_channels(x, s.bfloat16(), b)
+    with pytest.raises(ValueError):     # channel mismatch
+        ln_ops.layernorm_channels(x, torch.ones(4), torch.zeros(4))
+    with pytest.raises(ValueError):     # not contiguous
+        ln_ops.layernorm_channels(x.transpose(1, 2), s, b)
+    with pytest.raises(ValueError):     # parameters on another device
+        ln_ops.layernorm_channels(x, s.to("meta"), b)
+    assert ln_ops.layernorm_channels(x.half(), s, b).dtype == torch.float16
+
+
+def test_k22_k23_reject_bad_inputs():
+    vol, taps = torch.zeros(4, 5, 6), image_ops.gaussian_taps()
+    with pytest.raises(TypeError):      # float64
+        image_ops.edges_sobel(vol.double())
+    with pytest.raises(ValueError):     # not 3-d
+        image_ops.edges_sobel(torch.zeros(4, 5))
+    with pytest.raises(ValueError):     # not contiguous
+        image_ops.edges_sobel(vol.transpose(0, 2))
+    with pytest.raises(TypeError):      # float64 taps
+        image_ops.edges_blur(vol, taps.double(), 0)
+    with pytest.raises(ValueError):     # an even number of taps
+        image_ops.edges_blur(vol, taps[:-1], 0)
+    with pytest.raises(ValueError):     # more taps than K23's tile holds
+        image_ops.edges_blur(vol, torch.ones(313), 0)
+    with pytest.raises(ValueError):     # no such axis
+        image_ops.edges_blur(vol, taps, 3)
+    with pytest.raises(ValueError):     # edges of another shape
+        image_ops.edges_blur(vol, taps, 2, edges=torch.zeros(4, 5, 7))
+    with pytest.raises(ValueError):     # not contiguous
+        image_ops.edges_blur(vol.transpose(0, 1), taps, 0)
+    with pytest.raises(ValueError):     # taps on another device
+        image_ops.edges_blur(vol, taps.to("meta"), 0)
+
+
+def _ln_inputs(gen, dev, dtype, c, shape=(2, 9, 10, 11)):
+    x = torch.randn(*shape, c, generator=gen, device=dev)
+    # Voxels far from 0 with a small spread, where E[x^2] - mean^2 cancels
+    # (and may fall below 0, clamped), and constant voxels.
+    x[0, :3] = x[0, :3] * 1e-3 + 100.0
+    x[1, :2] = 2.5
+    scale = 1.0 + 0.5 * torch.randn(c, generator=gen, device=dev)
+    bias = 0.3 * torch.randn(c, generator=gen, device=dev)
+    return x.to(dtype), scale, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF_AND_F32)
+@pytest.mark.parametrize("c", [8, 32, 64])
+def test_k21_matches_plain(card, dtype, c):
+    gen = torch.Generator(device=card).manual_seed(c)
+    x, scale, bias = _ln_inputs(gen, card, dtype, c)
+    got = ln_ops.layernorm_channels(x, scale, bias)
+    want = ln_ops.layernorm_channels_plain(x, scale, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_k22_k23_match_plain_bit_for_bit(card, shape):
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    img = torch.randn(*shape, generator=gen, device=card) * 40 + 128
+    taps = image_ops.gaussian_taps(device=card)
+    mag = image_ops.edges_sobel(img)
+    assert torch.equal(mag, image_ops.edges_sobel_plain(img))
+    x = mag
+    for axis in range(3):
+        got = image_ops.edges_blur(x, taps, axis)
+        assert torch.equal(got, image_ops.edges_blur_plain(x, taps, axis))
+        x = got
+    mask = image_ops.edges(img)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, mag > x)
+    assert torch.equal(mask, image_ops.edges_plain(img))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2.0 ** -6)])
+def test_resconvstack_kernels_match_plain(card, dtype, tol):
+    from unittest import mock
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.models import convstack_3d
+    torch.manual_seed(0)
+    model = convstack_3d.ResConvStack(depth=3, features=16,
+                                      compute_dtype=dtype)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("weight"):
+                p.copy_(torch.randn_like(p) * (2.0 / p[..., 0].numel()) ** .5)
+            elif name.startswith("ln"):
+                p.copy_(torch.randn_like(p) * 0.3 + (name.endswith("scale")))
+    model.round_params()
+    model.to(card)
+    x = torch.randn(2, 12, 12, 12, 2, device=card)
+    _build.launches.clear()
+    with torch.no_grad():
+        got = model(x)
+        assert _build.launches[ln_ops.NAME] == 2
+        with mock.patch.object(convstack_3d, "layernorm_channels",
+                               ln_ops.layernorm_channels_plain), \
+                mock.patch.object(convstack_3d, "conv3d_ndhwc_f32",
+                                  conv3d.conv3d_ndhwc_plain), \
+                mock.patch.object(convstack_3d, "conv3d_ndhwc_bf16",
+                                  conv3d.conv3d_ndhwc_bf16_plain):
+            want = model(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (2, 12, 12, 12, 1)
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
