@@ -15,7 +15,8 @@ what it holds):
      and as the stack; K2-K8, K13, K14 bit for bit with float32 and bf16
      seeds on crafted states; K9-K12, K16 at batch 4; K15 per layer and
      as the stack against plain and the float64 sums; the 16-bit training
-     kernels (K15 in float16, K17, K18, K12's scale); K19 and K20 (int8)
+     kernels (K15 in float16, K17, K18 on both bodies, K12's scale); K19
+     and K20 (int8)
      bit for bit per layer and as the stack;
   4. the fib25 model against the JAX package's stored logits;
   5. the serial slice (Runner -> Canvas) on the padded 100^3 phantom,
@@ -39,9 +40,9 @@ what it holds):
  16. bf16 lane seeds on every inference path on the *_bf16 kernels, each
      against its plain versions, identical (hop and round on the whole
      phantom, the others on a 64^3 corner); against float32 seeds;
- 17. the train CLI with --precision bf16 and f16 (K15, K17, K18; f16's
-     loss scale in K11, K12), against plain, f16 resumed exactly; the
-     host loop in bf16;
+ 17. the train CLI with --precision bf16 and f16 (K15, K17, K18: 648
+     tensor-core and 27 CUDA-core K18 launches a step; f16's loss scale in
+     K11, K12), against plain, f16 resumed exactly; the host loop in bf16;
  18. int8 inference (FFN_TPU_PRECISION=int8, K19, K20): serial, 64-lane hop
      and fused slices on kernels, each against its plain versions on a
      64^3 corner, identical;
@@ -2645,6 +2646,12 @@ LOWP_HOST_STEPS = 12
 # the other way moves an output by one ulp of its type); measured on the
 # H100: losses equal, weights 1.5e-8 (bf16) and 3.8e-9 (f16).
 LOWP_LOSS_RTOL, LOWP_PARAM_ATOL = 1e-4, 1e-6
+# K18 launches a 16-bit step (27 offsets): the 24 3^3 layers on the
+# tensor-core body, conv_lom on the CUDA-core one; the device ms a step K18
+# took with every layer on K10's CUDA-core body (PERF.md §5; NVIDIA H100
+# 80GB HBM3, 700 W).
+LOWP_K18_TC, LOWP_K18_CORE = 27 * 24, 27
+LOWP_K18_CORE_MS = {"bf16": 925.3, "f16": 906.4}
 # Largest share of K17's outputs that may differ from its plain version:
 # its float32 order is not the plain one's, and float16's finer ulp meets
 # more rounding points (measured on the H100: 1.8e-4 bf16, 1.8e-3 f16).
@@ -2668,9 +2675,13 @@ def phase_lowp_kernels(dev):
     masks and the residual's cotangent, 32->32) within one ulp per rounding
     plus 2^-20 of the sum of |w||g|, at most K17_DIFFER_SHARE differing,
     conv_lom bit for bit; K18 (32->32 with and without masks, 2->32 float32
-    x, 32->1 float32 dy) within one ulp plus 2^-16 of the sum of |x||g|; K12
-    with a DynamicLossScale (50 tensors, gradients x2^15: finite, inf, NaN)
-    and K16 with the scale bit for bit. Times beside cuDNN's and bounds."""
+    x and 32->32 at N=1 on the tensor cores, 32->1 float32 dy on the CUDA
+    cores) within one ulp plus 2^-16 of the sum of |x||g|, each on the body
+    wgrad16_route names; K12 with a DynamicLossScale (50 tensors, gradients
+    x2^15: finite, inf, NaN) and K16 with the scale bit for bit. Times
+    beside cuDNN's and bounds (K18 at each layer kind a step launches, and
+    launches x time a step)."""
+    from ffn_tpu_torch import _build
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
     from ffn_tpu_torch.ops import conv3d_bf16_check as check
@@ -2725,54 +2736,90 @@ def phase_lowp_kernels(dev):
                             conv3d.conv3d_dgrad_16_plain(lom_dy, lom_w,
                                                          x=x)),
                 f"K17 {sfx} conv_lom differs from plain")
+        x0 = randn(n, *fov, 2)
+        werr = {"conv3d_wgrad_" + sfx: 0.0, "conv3d_wgrad1_" + sfx: 0.0}
         for case, args, kw in (
                 ("32->32 pre_relu, mask", (x, dy, 3), dict(pre_relu=True,
                                                             y=a)),
                 ("32->32", (a, dy, 3), {}),
-                ("2->32 float32 x, mask", (randn(n, *fov, 2), dy, 3),
-                 dict(y=a)),
+                ("2->32 float32 x, mask", (x0, dy, 3), dict(y=a)),
                 ("32->1 k=1 float32 dy", (x, lom_dy, 1),
-                 dict(pre_relu=True))):
+                 dict(pre_relu=True)),
+                ("32->32 pre_relu, mask, N=1", (x[:1], dy[:1], 3),
+                 dict(pre_relu=True, y=a[:1]))):
+            _build.launches.clear()
             got = conv3d.conv3d_wgrad_16(*args, **kw)
+            body = next(iter(_build.launches))
             want = conv3d.conv3d_wgrad_16_plain(*args, **kw)
             mag = conv3d.conv3d_wgrad_plain(
                 *(t.to(dt).float().abs() for t in args[:2]), args[2],
                 y=kw["y"].float() if "y" in kw else None)
             worst = max(float(((g - p).abs() / (ulp(p) + m * 2.0 ** -16))
                               .max()) for g, p, m in zip(got, want, mag))
-            werr = max([werr] + [float((g - p).abs().max())
-                                 for g, p in zip(got, want)])
+            werr[body] = max([werr[body]] + [float((g - p).abs().max())
+                                             for g, p in zip(got, want)])
             again = conv3d.conv3d_wgrad_16(*args, **kw)
-            print(f"K18 conv3d_wgrad_{sfx} B={n} {case}: max {worst:.3f} of "
-                  f"the tolerance")
+            print(f"K18 {body} B={args[0].shape[0]} {case}: max "
+                  f"{worst:.3f} of the tolerance")
             require(worst <= 1.0 and all(torch.equal(g, h) for g, h in zip(
-                again, got)), f"K18 {sfx} {case}")
-        xc, gc, wc = (t.permute(*p).contiguous() for t, p in (
+                again, got)) and body == ("conv3d_wgrad1_" if args[2] == 1
+                                          else "conv3d_wgrad_") + sfx,
+                    f"K18 {sfx} {case}")
+        xc, gc, wc, x0c, lomc = (t.permute(*p).contiguous() for t, p in (
             (x, (0, 4, 1, 2, 3)), (dy, (0, 4, 1, 2, 3)),
-            (w, (4, 3, 0, 1, 2))))
+            (w, (4, 3, 0, 1, 2)), (x0.to(dt), (0, 4, 1, 2, 3)),
+            (lom_dy.to(dt), (0, 4, 1, 2, 3))))
         kw = dict(x=x, y=a, accum=acc)
-        for name, e, fns, nbytes in (
-                ("conv3d_dgrad_" + sfx, derr, (
+        lom_bytes = 2 * vox * 32 + 4 * vox + 4 * 33
+        k18 = {}
+        for name, what, e, fns, nbytes, ops in (
+                ("conv3d_dgrad_" + sfx, "32->32", derr, (
                     lambda: conv3d.conv3d_dgrad_16(dy, w, **kw),
                     lambda: conv3d.conv3d_dgrad_16_plain(dy, w, **kw),
                     lambda: torch.nn.grad.conv3d_input(xc.shape, wc, gc,
                                                        padding=1)),
-                 2 * (5 * vox * 32 + 27 * 1024)),
-                ("conv3d_wgrad_" + sfx, werr, (
-                    lambda: conv3d.conv3d_wgrad_16(x, dy, 3, pre_relu=True,
-                                                   y=a),
-                    lambda: conv3d.conv3d_wgrad_16_plain(
-                        x, dy, 3, pre_relu=True, y=a),
-                    lambda: torch.nn.grad.conv3d_weight(xc, wc.shape, gc,
-                                                        padding=1)),
-                 2 * 3 * vox * 32 + 4 * (27 * 1024 + 32))):
+                 2 * (5 * vox * 32 + 27 * 1024), flops),
+                ("conv3d_wgrad_" + sfx, "32->32 pre_relu, mask",
+                 werr["conv3d_wgrad_" + sfx], (
+                     lambda: conv3d.conv3d_wgrad_16(x, dy, 3, pre_relu=True,
+                                                    y=a),
+                     lambda: conv3d.conv3d_wgrad_16_plain(
+                         x, dy, 3, pre_relu=True, y=a),
+                     lambda: torch.nn.grad.conv3d_weight(xc, wc.shape, gc,
+                                                         padding=1)),
+                 2 * 3 * vox * 32 + 4 * (27 * 1024 + 32), flops),
+                ("conv3d_wgrad_" + sfx + "@conv0_a", "2->32 float32 x, mask",
+                 werr["conv3d_wgrad_" + sfx], (
+                     lambda: conv3d.conv3d_wgrad_16(x0, dy, 3, y=a),
+                     lambda: conv3d.conv3d_wgrad_16_plain(x0, dy, 3, y=a),
+                     lambda: torch.nn.grad.conv3d_weight(
+                         x0c, (32, 2, 3, 3, 3), gc, padding=1)),
+                 4 * vox * 2 + 2 * 2 * vox * 32 + 4 * (27 * 64 + 32),
+                 flops / 16),
+                ("conv3d_wgrad1_" + sfx, "32->1 k=1 float32 dy",
+                 werr["conv3d_wgrad1_" + sfx], (
+                     lambda: conv3d.conv3d_wgrad_16(x, lom_dy, 1,
+                                                    pre_relu=True),
+                     lambda: conv3d.conv3d_wgrad_16_plain(x, lom_dy, 1,
+                                                          pre_relu=True),
+                     lambda: torch.nn.grad.conv3d_weight(
+                         xc, (1, 32, 1, 1, 1), lomc)),
+                 lom_bytes, 2 * vox * 32)):
             ms, plain_ms, lib_ms = time_many(*fns, reps=10)
-            r = results[name] = entry(e, ms, plain_ms, nbytes, flops,
+            r = results[name] = entry(e, ms, plain_ms, nbytes, ops,
                                       library_ms=lib_ms, peak=BF16_FLOPS)
-            print(f"{name} (32->32, B={n}): kernel {ms:.4f} ms plain "
+            k18[name] = ms
+            print(f"{name} ({what}, B={n}): kernel {ms:.4f} ms plain "
                   f"{plain_ms:.4f} ms library (cuDNN {sfx}) {lib_ms:.4f} ms "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        del x, a, dy, acc, xc, gc, wc
+        results.pop("conv3d_wgrad_" + sfx + "@conv0_a")
+        # A step: 27 offsets, each conv0_a, 23 32->32 layers and conv_lom.
+        step = 27 * (k18["conv3d_wgrad_" + sfx + "@conv0_a"]
+                     + 23 * k18["conv3d_wgrad_" + sfx]
+                     + k18["conv3d_wgrad1_" + sfx])
+        print(f"K18 {sfx}: launches x time = {step:.1f} ms a step "
+              f"predicted (27 x (conv0_a + 23 x 32->32 + conv_lom))")
+        del x, a, dy, acc, xc, gc, wc, x0, x0c, lomc
         torch.cuda.empty_cache()
 
     # K12 with the loss scale; the scale in K16.
@@ -2862,11 +2909,20 @@ def phase_train_lowp(dev, tmp):
         launches[f"train_{prec}"] = got = dict(_build.launches)
         print(f"kernel launches on the {prec} training path: {got}")
         need = [f"conv3d_ndhwc_{sfx}", f"conv3d_dgrad_{sfx}",
-                f"conv3d_wgrad_{sfx}", "optim_update_scaled" if prec == "f16"
+                f"conv3d_wgrad_{sfx}", f"conv3d_wgrad1_{sfx}",
+                "optim_update_scaled" if prec == "f16"
                 else "optim_update"] + list(TRAIN_K11)
+        steps = len(krec.metrics)
         require(all(got.get(k, 0) > 0 for k in need) and not any(
             k.endswith("f32") for k in got), f"{prec} training launches "
                                              f"{got}")
+        # Each step's 27 offsets: the 24 3^3 layers on the tensor-core K18,
+        # conv_lom on its CUDA-core body.
+        require(got[f"conv3d_wgrad_{sfx}"] == LOWP_K18_TC * steps and
+                got[f"conv3d_wgrad1_{sfx}"] == LOWP_K18_CORE * steps,
+                f"{prec}: K18 launches {got[f'conv3d_wgrad_{sfx}']} and "
+                f"{got[f'conv3d_wgrad1_{sfx}']} in {steps} steps, want "
+                f"{LOWP_K18_TC} and {LOWP_K18_CORE} a step")
         patches = _train_plain_patches() + _lowp_plain_patches()
         for p in patches:
             p.start()
@@ -2896,6 +2952,10 @@ def phase_train_lowp(dev, tmp):
                   f"{len(krec.metrics)} steps): " + ", ".join(
                       f"{k} {v / len(krec.metrics):.1f}" for k, v in
                       ms.items()))
+            print(f"K18 conv3d_wgrad_16, {prec}: "
+                  f"{ms['conv3d_wgrad_16'] / steps:.1f} device ms a step "
+                  f"(all layers on K10's CUDA-core body: "
+                  f"{LOWP_K18_CORE_MS[prec]})")
         if prec != "f16":
             continue
         rdir = os.path.join(tmp, "train_f16_resumed")
@@ -2911,12 +2971,17 @@ def phase_train_lowp(dev, tmp):
                                                                    rdir))
         same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
                                               for k in a)
+        rms = probe.ms()
         print(f"f16 resume from step {TRAIN_CKPT_EVERY} to {LOWP_STEPS}: "
               f"weights, optimizer state, scale {a['scale0']} and counter "
               f"{a['scale1']} bit for bit {same}; device ms a step by "
               f"kernel (CUDA events): " + ", ".join(
                   f"{k} {v / len(rrec.metrics):.1f}"
-                  for k, v in probe.ms().items()))
+                  for k, v in rms.items()))
+        print(f"K18 conv3d_wgrad_16, f16: "
+              f"{rms['conv3d_wgrad_16'] / len(rrec.metrics):.1f} device ms a "
+              f"step (all layers on K10's CUDA-core body: "
+              f"{LOWP_K18_CORE_MS[prec]})")
         require(same and "scale0" in a, "the f16 resume differs")
 
     hdir = os.path.join(tmp, "train_host_bf16")
@@ -2940,7 +3005,8 @@ def phase_train_lowp(dev, tmp):
     require(len(rec.events) == LOWP_HOST_STEPS and all(bool(torch.isfinite(
         v)) for v in rec.losses) and all(got.get(k, 0) > 0 for k in (
             "conv3d_ndhwc_bf16", "conv3d_dgrad_bf16", "conv3d_wgrad_bf16",
-            "fov_loss", "optim_update")), "host loop bf16")
+            "conv3d_wgrad1_bf16", "fov_loss", "optim_update")),
+            "host loop bf16")
     return launches
 
 
@@ -3759,6 +3825,8 @@ def main():
         ("conv3d_dgrad_f16", "conv3d_bwd16.cu", "training/train_lib.py:368"),
         ("conv3d_wgrad_bf16", "conv3d_bwd16.cu", "training/train_lib.py:368"),
         ("conv3d_wgrad_f16", "conv3d_bwd16.cu", "training/train_lib.py:368"),
+        ("conv3d_wgrad1_bf16", "wgrad.cuh", "training/train_lib.py:368"),
+        ("conv3d_wgrad1_f16", "wgrad.cuh", "training/train_lib.py:368"),
         ("optim_update_scaled", "optim.cu", "training/precision.py:74"),
         ("train_prep", "train.cu", "training/train_lib.py:239"),
         ("train_gather", "train.cu", "training/train_lib.py:341"),

@@ -22,9 +22,31 @@
 // convolution of g with W'[tap][co][ci] = W[26 - tap][ci][co]); the
 // post_relu mask as g is staged, pre_relu, rounding and `accum` in the
 // epilogue; no exact-sum correction. 1^3 layers (conv_lom: dx = r(r(dy) w))
-// on the CUDA cores, dy read as float32. K18: K10's two-stage body
-// (wgrad.cuh) on the CUDA cores. Left for later: K18 on the tensor cores,
-// wgmma and TMA.
+// on the CUDA cores, dy read as float32.
+//
+// K18's 3^3 layers (Cout 16 or 32, Cin <= 32, dy of the type) on the tensor
+// cores, two stages. Stage 1: a CTA owns a fixed set of chunks (chunk c,
+// c + ctas, ...; a chunk is a box of cz x cy rows (n, z, y) with all of x)
+// and the taps of ndz dz planes (3: all 27), TPW taps a warp, plus a warp
+// for the bias. Per chunk it stages once, in shared memory, by cp.async
+// where the source is 16-bit: x's halo (zero outside the volume, channels
+// zero-padded to CIP; a float32 x rounded to r in registers), g = dy and
+// the mask ym at the chunk's positions in order; then, on the thread's own
+// copies, relu on x (fmaxf: NaN to 0) and the mask on g. Tap t's dW is a
+// (CIP x positions) by (positions x Cout) product: A from the halo at the
+// tap's fixed offset, B from g, both by ldmatrix.trans on NDHWC rows (a
+// table gives each position's voxel, so the tap loop has no bounds branch),
+// mma.sync m16n8k16 with float32 sums kept in registers across the CTA's
+// chunks; a warp's TPW = 3 taps (dx = 0..2) share g's fragments. The bias
+// warp sums g's columns in a fixed order. Each CTA writes one row of
+// float32 partials; stage 2 (wgrad.cuh) sums the rows in order and rounds
+// once. Deterministic, no atomics. The 1^3 layer (conv_lom: 9 MFLOP, a
+// float32 dy) stays on K10's CUDA-core body (wgrad.cuh), counted as
+// conv3d_wgrad1_*. Bytes and operations nearly tie at B=4 (8.2 us for x,
+// dy and the mask, 8.0 us of operations); the staging, not overlapped with
+// the MMAs, and mma.sync's rate bound this design
+// (tools_torch/k18_variants.py --split). Left for later: overlapping a
+// chunk's staging with the last one's MMAs, wgmma with A in registers, TMA.
 
 #include "wgrad.cuh"
 
@@ -182,6 +204,348 @@ int dgrad16(const void* dy, int dy_f32, const void* ym, const void* w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// -- K18's 3^3 layers on the tensor cores -----------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Eight channels as four words of r, relu'd when asked (fmaxf: NaN to 0, as
+// K10's body does).
+template <typename T>
+__device__ __forceinline__ uint4 pack8(const float (&f)[8], int relu) {
+  float v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = relu ? fmaxf(f[j], 0.f) : f[j];
+  return make_uint4(pack16<T>(v[0], v[1]), pack16<T>(v[2], v[3]),
+                    pack16<T>(v[4], v[5]), pack16<T>(v[6], v[7]));
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 relu8(uint4 u) {
+  float f[8];
+  unpack16<T>(u.x, f[0], f[1]);
+  unpack16<T>(u.y, f[2], f[3]);
+  unpack16<T>(u.z, f[4], f[5]);
+  unpack16<T>(u.w, f[6], f[7]);
+  return pack8<T>(f, 1);
+}
+
+// Threads of a stage-1 CTA: 9 * ndz / TPW tap warps (TPW taps a warp: 1,
+// or 3, dx = 0..2, sharing g's fragments) and the bias warp; at most all 27
+// taps (ndz = 3).
+template <int TPW>
+constexpr int kW16MaxThreads = (27 / TPW + 1) * 32;
+
+constexpr int kW16MaxSmem = 232448;  // shared memory a CTA may use (H100)
+
+// Shared memory of a stage-1 CTA: x's halo and a zero voxel, CIP + 8
+// values a voxel; g and the mask (ym), Cout + 8 values a position; the
+// position table. The +8 puts the 8 rows of an ldmatrix on distinct banks.
+__host__ __device__ inline size_t wgrad16_smem(int cz, int cy, int W,
+                                               int cip, int co, int ndz) {
+  const size_t hvox = (size_t)(cz + ndz - 1) * (cy + 2) * (W + 2) + 1;
+  const size_t ppad = ((size_t)cz * cy * W + 15) / 16 * 16;
+  return hvox * (cip + 8) * 2 + 2 * ppad * (co + 8) * 2 + ppad * 4;
+}
+
+// Stage 1. x (N,D,H,W,Cin) of type T or float32 (XF); dy, ym (N,D,H,W,CO);
+// partial[blockIdx.x][27 * Cin * CO + CO]; blockIdx.y picks the taps' dz
+// planes [ndz * blockIdx.y, + ndz).
+template <typename T, int CIP, int CO, int XF, int TPW>
+__global__ void __launch_bounds__(kW16MaxThreads<TPW>, 1)
+wgrad16_tc_kernel(const void* __restrict__ x, const T* __restrict__ dy,
+                  const T* __restrict__ ym, float* __restrict__ partial,
+                  int D, int H, int W, int Cin, int pre_relu, int cz, int cy,
+                  int ndz, int nzc, int nyc, int chunks) {
+  constexpr int CS = CIP + 8, GS = CO + 8, MT = CIP / 16, NT = CO / 8;
+  constexpr int XC = CIP / 8, GC = CO / 8;
+  static_assert(CIP % 16 == 0 && CO % 16 == 0 && 27 % TPW == 0, "K18");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hvox = (cz + ndz - 1) * (cy + 2) * (W + 2);  // the zero voxel
+  const int ppad = (cz * cy * W + 15) / 16 * 16;
+  T* s_x = reinterpret_cast<T*>(smem);
+  T* s_g = s_x + (size_t)(hvox + 1) * CS;
+  T* s_m = s_g + (size_t)ppad * GS;
+  int* s_tab = reinterpret_cast<int*>(s_m + (size_t)ppad * GS);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nthr = blockDim.x, nwarp = nthr / 32, taps = 9 * ndz;
+  const int dz0 = blockIdx.y * ndz;
+  const bool tap_warp = warp < taps / TPW;
+  const bool bias_warp = warp == taps / TPW && blockIdx.y == 0;
+  const int t0 = warp * TPW;  // the warp's first tap in the CTA
+  const int tz = t0 / 9, ty = t0 / 3 % 3, tx = t0 % 3;
+  const bool copy_x = !XF && Cin == CIP;  // x rows go by cp.async
+  for (int i = threadIdx.x; i < XC; i += nthr)
+    *reinterpret_cast<uint4*>(s_x + (size_t)hvox * CS + 8 * i) =
+        make_uint4(0u, 0u, 0u, 0u);
+
+  float acc[TPW][MT][NT][4];
+#pragma unroll
+  for (int u = 0; u < TPW; ++u)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[u][mt][nt][j] = 0.f;
+  float bsum[2] = {0.f, 0.f};
+
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const int n = c / (nzc * nyc);
+    const int z0 = c / nyc % nzc * cz, y0 = c % nyc * cy;
+    const int czc = min(cz, D - z0), cyc = min(cy, H - y0);
+    const int hz = czc + ndz - 1, hy = cyc + 2, hx = W + 2;
+    const int zb = z0 + dz0 - 1, P = czc * cyc * W, pp = (P + 15) / 16 * 16;
+    __syncthreads();  // the last chunk's tiles are read
+
+    // A warp a row: x's halo rows (sz, sy) (voxel (sz, sy, sx) is x at
+    // (zb + sz, y0 - 1 + sy, sx - 1)), then g's rows (rz, ry) (position k =
+    // (rz * cyc + ry) * W + rx), lanes along the row's 16-byte pieces. The
+    // second pass, after the copies land, touches the thread's own copies:
+    // relu on x where pre_relu, the mask on g.
+    for (int pass = 0; pass < 2; ++pass) {
+      if (pass == 1) {
+        cp_async_wait_all();
+        if (!(copy_x && pre_relu) && ym == nullptr) break;
+      }
+      for (int r = warp; r < hz * hy + czc * cyc; r += nwarp) {
+        if (r < hz * hy) {
+          const int gz = zb + r / hy, gy = y0 - 1 + r % hy;
+          const bool live = gz >= 0 && gz < D && gy >= 0 && gy < H;
+          if (pass == 1 && !(live && copy_x && pre_relu)) continue;
+          const size_t at0 =
+              ((((size_t)n * D + gz) * H + gy) * W - 1) * Cin;
+          for (int j = lane; j < hx * XC; j += 32) {
+            const int sx = j / XC, c8 = j % XC * 8;
+            T* dst = s_x + ((size_t)r * hx + sx) * CS + c8;
+            const bool in = live && sx > 0 && sx <= W;
+            if (pass == 1) {
+              if (in)
+                *reinterpret_cast<uint4*>(dst) =
+                    relu8<T>(*reinterpret_cast<const uint4*>(dst));
+            } else if (!in) {
+              *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+            } else if (copy_x) {
+              cp_async16(dst, static_cast<const T*>(x) + at0 +
+                                  (size_t)sx * Cin + c8);
+            } else {
+              float f[8];
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+                f[i] = c8 + i < Cin ? load16<T>(x, XF, at0 + (size_t)sx * Cin
+                                                           + c8 + i)
+                                    : 0.f;
+              *reinterpret_cast<uint4*>(dst) = pack8<T>(f, pre_relu);
+            }
+          }
+          continue;
+        }
+        if (pass == 1 && ym == nullptr) continue;
+        const int q = r - hz * hy;
+        const size_t at0 =
+            (((size_t)n * D + z0 + q / cyc) * H + y0 + q % cyc) * W * CO;
+        for (int j = lane; j < W * GC; j += 32) {
+          const int rx = j / GC, c8 = j % GC * 8;
+          const size_t o = ((size_t)q * W + rx) * GS + c8;
+          if (pass == 0) {
+            cp_async16(s_g + o, dy + at0 + (size_t)rx * CO + c8);
+            if (ym != nullptr)
+              cp_async16(s_m + o, ym + at0 + (size_t)rx * CO + c8);
+            continue;
+          }
+          uint4* gp = reinterpret_cast<uint4*>(s_g + o);
+          const uint4 m = *reinterpret_cast<const uint4*>(s_m + o);
+          uint4 u = *gp;
+          uint32_t* uw = reinterpret_cast<uint32_t*>(&u);
+          const uint32_t mw[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float lo, hi;
+            unpack16<T>(mw[i], lo, hi);
+            if (!(lo > 0.f)) uw[i] &= 0xffff0000u;
+            if (!(hi > 0.f)) uw[i] &= 0x0000ffffu;
+          }
+          *gp = u;
+        }
+      }
+      if (pass == 1) continue;
+      for (int i = threadIdx.x; i < (pp - P) * GC; i += nthr)  // 0 past P
+        *reinterpret_cast<uint4*>(s_g + (size_t)(P + i / GC) * GS +
+                                  i % GC * 8) = make_uint4(0u, 0u, 0u, 0u);
+      // Each position's halo voxel at tap (dz0, 0, 0); -1 past P.
+      for (int k = threadIdx.x; k < pp; k += nthr) {
+        const int rx = k % W, ry = k / W % cyc, rz = k / (W * cyc);
+        s_tab[k] = k < P ? (rz * hy + ry) * hx + rx : -1;
+      }
+    }
+    __syncthreads();
+
+    if (tap_warp) {
+      // ldmatrix.x4.trans: lane supplies row (lane & 7) of matrix lane / 8.
+      // A (ci x positions): matrices (ci 0-7, 8-15) x (positions 0-7, 8-15);
+      // B (positions x co): (positions 0-7, 8-15) x (co 0-7, 8-15). Tap
+      // t0 + u reads the halo u voxels on.
+      const int ra = (lane & 7) + 8 * (lane >> 4), ca = 8 * (lane >> 3 & 1);
+      const int rb = (lane & 7) + 8 * (lane >> 3 & 1), cb = 8 * (lane >> 4);
+      const int off = (tz * hy + ty) * hx + tx;
+      const uint32_t xs = static_cast<uint32_t>(__cvta_generic_to_shared(s_x));
+      const uint32_t zero = xs + (uint32_t)(hvox * CS + ca) * 2;
+      const uint32_t gs = static_cast<uint32_t>(__cvta_generic_to_shared(
+          s_g + (size_t)rb * GS + cb));
+#pragma unroll 2
+      for (int k0 = 0; k0 < pp; k0 += 16) {
+        const int v = s_tab[k0 + ra];
+        const uint32_t xa =
+            v >= 0 ? xs + (uint32_t)((v + off) * CS + ca) * 2 : zero;
+        const uint32_t step = v >= 0 ? CS * 2 : 0;
+        uint32_t b[NT][2];
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, gs + (uint32_t)(k0 * GS + 16 * p) * 2);
+          b[2 * p][0] = r[0];
+          b[2 * p][1] = r[1];
+          b[2 * p + 1][0] = r[2];
+          b[2 * p + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int u = 0; u < TPW; ++u) {
+          uint32_t a[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            ldmatrix_x4_trans(a[mt], xa + u * step + mt * 32);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma16<T, true>(acc[u][mt][nt], a[mt], b[nt][0], b[nt][1]);
+        }
+      }
+    } else if (bias_warp) {
+      // Lane: columns 2p, 2p + 1 and positions k = f (mod 2 KP), f + KP
+      // (mod 2 KP); the KP phases added by shuffles in a fixed order.
+      constexpr int NP = CO / 2, KP = 32 / NP;
+      const int p = lane % NP, f = lane / NP;
+      float s4[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      for (int k = f; k < pp; k += 2 * KP)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float lo, hi;
+          unpack16<T>(*reinterpret_cast<const uint32_t*>(
+                          s_g + (size_t)(k + h * KP) * GS + 2 * p),
+                      lo, hi);
+          s4[h][0] += lo;
+          s4[h][1] += hi;
+        }
+      float b0 = s4[0][0] + s4[1][0], b1 = s4[0][1] + s4[1][1];
+#pragma unroll
+      for (int o = NP; o < 32; o <<= 1) {
+        b0 += __shfl_xor_sync(0xffffffffu, b0, o);
+        b1 += __shfl_xor_sync(0xffffffffu, b1, o);
+      }
+      bsum[0] += b0;
+      bsum[1] += b1;
+    }
+  }
+
+  // C fragment: rows (ci) g and g + 8, columns (co) 2t and 2t + 1.
+  float* out = partial + (size_t)blockIdx.x * (27 * Cin * CO + CO);
+  if (tap_warp) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int u = 0; u < TPW; ++u) {
+      const int tap = dz0 * 9 + t0 + u;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ci = mt * 16 + g + 8 * h;
+          if (ci >= Cin) continue;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            *reinterpret_cast<float2*>(
+                out + ((size_t)tap * Cin + ci) * CO + nt * 8 + 2 * t) =
+                make_float2(acc[u][mt][nt][2 * h], acc[u][mt][nt][2 * h + 1]);
+        }
+    }
+  } else if (bias_warp && lane < CO / 2) {
+    *reinterpret_cast<float2*>(out + 27 * Cin * CO + 2 * lane) =
+        make_float2(bsum[0], bsum[1]);
+  }
+}
+
+template <typename T, int CIP, int CO, int XF, int TPW>
+cudaError_t launch_wgrad_tc(const void* x, const T* dy, const T* ym,
+                            float* partial, float* dw, float* db, int N,
+                            int D, int H, int W, int Cin, int pre_relu,
+                            int cz, int cy, int ctas, int ndz,
+                            cudaStream_t s) {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      wgrad16_tc_kernel<T, CIP, CO, XF, TPW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kW16MaxSmem);
+  if (err != cudaSuccess) return err;
+  const size_t smem = wgrad16_smem(cz, cy, W, CIP, CO, ndz);
+  const int nzc = (D + cz - 1) / cz, nyc = (H + cy - 1) / cy;
+  wgrad16_tc_kernel<T, CIP, CO, XF, TPW>
+      <<<dim3(ctas, 3 / ndz), (9 * ndz / TPW + 1) * 32, smem, s>>>(
+          x, dy, ym, partial, D, H, W, Cin, pre_relu, cz, cy, ndz, nzc, nyc,
+          N * nzc * nyc);
+  const cudaError_t e1 = cudaGetLastError();
+  if (e1 != cudaSuccess) return e1;
+  const int nw = 27 * Cin * CO, total = nw + CO;
+  wgrad_sum_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(partial, dw, db,
+                                                           ctas, nw, CO);
+  return cudaGetLastError();
+}
+
+template <typename T, int CIP, int CO>
+cudaError_t wgrad_tc_xf(const void* x, int x_f32, const T* dy, const T* ym,
+                        float* partial, float* dw, float* db, int N, int D,
+                        int H, int W, int Cin, int pre_relu, int cz, int cy,
+                        int ctas, int ndz, int tpw, cudaStream_t s) {
+#define FFN_WGRAD_TC(XF, TPW)                                               \
+  return launch_wgrad_tc<T, CIP, CO, XF, TPW>(x, dy, ym, partial, dw, db, N, \
+                                              D, H, W, Cin, pre_relu, cz,    \
+                                              cy, ctas, ndz, s)
+  if (x_f32) {
+    if (tpw == 3) FFN_WGRAD_TC(1, 3);
+    FFN_WGRAD_TC(1, 1);
+  }
+  if (tpw == 3) FFN_WGRAD_TC(0, 3);
+  FFN_WGRAD_TC(0, 1);
+#undef FFN_WGRAD_TC
+}
+
+template <typename T>
+int wgrad16_tc(const void* x, int x_f32, const void* dy, const void* ym,
+               float* partial, float* dw, float* db, int N, int D, int H,
+               int W, int Cin, int Cout, int pre_relu, int cz, int cy,
+               int ctas, int ndz, int tpw, cudaStream_t s) {
+  const int cip = Cin <= 16 ? 16 : 32;
+  if (Cin < 1 || Cin > 32 || (Cout != 16 && Cout != 32) || cz < 1 ||
+      cy < 1 || ctas < 1 || (ndz != 1 && ndz != 3) ||
+      (tpw != 1 && tpw != 3) ||
+      wgrad16_smem(cz, cy, W, cip, Cout, ndz) > kW16MaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T *g = static_cast<const T*>(dy), *m = static_cast<const T*>(ym);
+#define FFN_WGRAD_TC_W(CIP, CO)                                            \
+  return static_cast<int>(wgrad_tc_xf<T, CIP, CO>(                         \
+      x, x_f32, g, m, partial, dw, db, N, D, H, W, Cin, pre_relu, cz, cy,  \
+      ctas, ndz, tpw, s))
+  if (cip == 16 && Cout == 16) FFN_WGRAD_TC_W(16, 16);
+  if (cip == 16) FFN_WGRAD_TC_W(16, 32);
+  if (Cout == 16) FFN_WGRAD_TC_W(32, 16);
+  FFN_WGRAD_TC_W(32, 32);
+#undef FFN_WGRAD_TC_W
+}
+
 }  // namespace
 
 // K17. dy (N,D,H,W,Cout) of the type (float32 when dy_f32, 1^3 only); ym
@@ -201,11 +565,12 @@ extern "C" int ffn_conv3d_dgrad_16(const void* dy, int dy_f32, const void* ym,
                                       H, W, Cin, Cout, k, s);
 }
 
-// K18. x (N,D,H,W,Cin), the forward input, of the type or float32 (x_f32,
-// rounded here; relu here when pre_relu); dy (N,D,H,W,Cout) of the type or
-// float32 (dy_f32); ym, the forward output, or null without post_relu;
-// partial (chunks, k^3*Cin*Cout + Cout) float32 scratch; dw (k,k,k,Cin,Cout)
-// and db (Cout) float32. `rows` output rows (n, z, y) per chunk; chunks =
+// K18 on K10's CUDA-core body (the wrapper sends it the 1^3 layers). x
+// (N,D,H,W,Cin), the forward input, of the type or float32 (x_f32, rounded
+// here; relu here when pre_relu); dy (N,D,H,W,Cout) of the type or float32
+// (dy_f32); ym, the forward output, or null without post_relu; partial
+// (chunks, k^3*Cin*Cout + Cout) float32 scratch; dw (k,k,k,Cin,Cout) and db
+// (Cout) float32. `rows` output rows (n, z, y) per chunk; chunks =
 // ceil(N*D*H/rows). Needs ceil(Cin/4)*ceil(Cout/4) <= 256, Cout <= 256.
 extern "C" int ffn_conv3d_wgrad_16(const void* x, int x_f32, const void* dy,
                                    int dy_f32, const void* ym, float* partial,
@@ -220,4 +585,27 @@ extern "C" int ffn_conv3d_wgrad_16(const void* x, int x_f32, const void* dy,
              : wgrad_launch<__nv_bfloat16>(x, x_f32, dy, dy_f32, ym, partial,
                                            dw, db, N, D, H, W, Cin, Cout, k,
                                            pre_relu, rows, s);
+}
+
+// K18 on the tensor cores, 3^3 layers. x, ym, dw, db as above, dy of the
+// type; Cin <= 32, Cout 16 or 32; chunks of cz x cy rows (z, y) with all
+// of x, ceil(D/cz) * ceil(H/cy) a sample, chunk c = (n, z-chunk, y-chunk)
+// in that order; `ctas` stage-1 CTAs (for each of the 3 / ndz dz sets),
+// CTA b summing chunks b, b + ctas, ...; partial (ctas, 27*Cin*Cout + Cout)
+// float32 scratch; ndz 3 (a CTA owns all 27 taps) or 1 (one dz plane);
+// tpw 1 or 3 taps a warp.
+extern "C" int ffn_conv3d_wgrad16_tc(const void* x, int x_f32, const void* dy,
+                                     const void* ym, float* partial,
+                                     float* dw, float* db, int N, int D,
+                                     int H, int W, int Cin, int Cout,
+                                     int pre_relu, int cz, int cy, int ctas,
+                                     int ndz, int tpw, int f16,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f16 ? wgrad16_tc<__half>(x, x_f32, dy, ym, partial, dw, db, N, D,
+                                  H, W, Cin, Cout, pre_relu, cz, cy, ctas,
+                                  ndz, tpw, s)
+             : wgrad16_tc<__nv_bfloat16>(x, x_f32, dy, ym, partial, dw, db,
+                                         N, D, H, W, Cin, Cout, pre_relu, cz,
+                                         cy, ctas, ndz, tpw, s);
 }

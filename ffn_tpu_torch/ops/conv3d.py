@@ -11,6 +11,8 @@ Weights keep the JAX package's DHWIO layout (k, k, k, Cin, Cout), read as
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -533,9 +535,106 @@ def conv3d_dgrad_16(dy, weight, *, x=None, y=None, accum=None):
     return dx
 
 
+# K18's bodies: 3^3 layers with Cout 16 or 32, Cin <= 32 and a 16-bit dy on
+# the tensor cores (conv3d_wgrad_*), 1^3 layers on K10's CUDA-core body
+# (conv3d_wgrad1_*). Stage 1 of the tensor-core body: chunks of WGRAD16_CHUNK
+# rows (z, y) with all of x, summed by WGRAD16_CTAS CTAs (one per H100 SM)
+# in a fixed order; WGRAD16_NDZ taps' dz planes a CTA (3: all 27 taps),
+# WGRAD16_TPW taps a warp (tools_torch/k18_variants.py times the options).
+WGRAD16_CHUNK = (3, 3)
+WGRAD16_CTAS = 132
+WGRAD16_NDZ = 3
+WGRAD16_TPW = 3
+WGRAD16_SMEM = 232448   # shared memory a CTA may use on an H100
+
+
+def wgrad16_route(k, cin, cout, dy_dtype):
+    """The K18 body that takes a layer: "conv3d_wgrad" (3^3, the tensor
+    cores) or "conv3d_wgrad1" (1^3, the CUDA cores); ValueError for any other
+    layer. By shape and type alone."""
+    if k == 3 and cout in (16, 32) and 1 <= cin <= 32 and dy_dtype in HALF:
+        return "conv3d_wgrad"
+    if k == 1 and cin >= 1 and 1 <= cout <= 256 and (
+            (cin + 3) // 4) * ((cout + 3) // 4) <= 256:
+        return "conv3d_wgrad1"
+    raise ValueError(f"conv3d_wgrad_16: no kernel takes k={k} {cin}->{cout} "
+                     f"with dy {dy_dtype} (3^3: Cin <= 32, Cout 16 or 32, a "
+                     f"16-bit dy; 1^3: at most 64x64 channels)")
+
+
+def wgrad16_smem(cz, cy, w, cin, cout, ndz):
+    """Bytes of shared memory of a stage-1 CTA (conv3d_bwd16.cu's
+    wgrad16_smem): x's halo and a zero voxel, g and the mask, the position
+    table."""
+    cip = 16 if cin <= 16 else 32
+    hvox = (cz + ndz - 1) * (cy + 2) * (w + 2) + 1
+    ppad = -(-(cz * cy * w) // 16) * 16
+    return hvox * (cip + 8) * 2 + 2 * ppad * (cout + 8) * 2 + ppad * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Wgrad16Chunks:
+    """Stage 1's geometry: chunks of cz x cy rows (z, y), ny a z-chunk and
+    nz a sample, chunk c = (c // (nz ny), c // ny % nz, c % ny); CTA b sums
+    chunks b, b + ctas, ...; ndz dz planes and tpw taps a warp; `smem`
+    bytes a CTA."""
+    d: int
+    h: int
+    cz: int
+    cy: int
+    nz: int
+    ny: int
+    chunks: int
+    ctas: int
+    ndz: int
+    tpw: int
+    smem: int
+
+    def box(self, c):
+        """(n, z0, z1, y0, y1): chunk c's rows."""
+        n, iz, iy = c // (self.nz * self.ny), c // self.ny % self.nz, \
+            c % self.ny
+        z0, y0 = iz * self.cz, iy * self.cy
+        return (n, z0, min(z0 + self.cz, self.d), y0,
+                min(y0 + self.cy, self.h))
+
+
+def wgrad16_chunks(n, d, h, w, cin, cout, chunk=None, ctas=None, ndz=None,
+                   tpw=None):
+    """The tensor-core K18's chunks for x (n, d, h, w, cin): WGRAD16_CHUNK
+    rows cut to the volume, fewer while a CTA's tiles overflow shared
+    memory (ValueError if one row does); WGRAD16_CTAS, WGRAD16_NDZ and
+    WGRAD16_TPW unless given."""
+    return _wgrad16_chunks(n, d, h, w, cin, cout,
+                           tuple(chunk or WGRAD16_CHUNK),
+                           ctas or WGRAD16_CTAS, ndz or WGRAD16_NDZ,
+                           tpw or WGRAD16_TPW)
+
+
+@functools.lru_cache(maxsize=256)
+def _wgrad16_chunks(n, d, h, w, cin, cout, chunk, ctas, ndz, tpw):
+    cz, cy = min(chunk[0], d), min(chunk[1], h)
+    while wgrad16_smem(cz, cy, w, cin, cout, ndz) > WGRAD16_SMEM and (
+            cz > 1 or cy > 1):
+        if cy >= cz:
+            cy -= 1
+        else:
+            cz -= 1
+    smem = wgrad16_smem(cz, cy, w, cin, cout, ndz)
+    if smem > WGRAD16_SMEM:
+        raise ValueError(f"conv3d_wgrad_16: rows of {w} voxels do not fit "
+                         f"in shared memory")
+    nz, ny = -(-d // cz), -(-h // cy)
+    chunks = n * nz * ny
+    return Wgrad16Chunks(d, h, cz, cy, nz, ny, chunks, min(ctas, chunks), ndz,
+                         tpw, smem)
+
+
 def conv3d_wgrad_16(x, dy, k, *, pre_relu=False, y=None):
-    """K18 (launches conv3d_wgrad_bf16 or _f16): (dW, db) float32, as
-    conv3d_wgrad_16_plain's. Deterministic on the card (no atomics)."""
+    """K18 (launches conv3d_wgrad_bf16 or _f16 for a 3^3 layer,
+    conv3d_wgrad1_bf16 or _f16 for a 1^3 one; wgrad16_route): (dW, db)
+    float32, as conv3d_wgrad_16_plain's. Deterministic on the card (no
+    atomics)."""
     dt = _dtype16(x, dy, *(() if y is None else (y,)))
     if y is not None and y.dtype != dt:
         raise TypeError(f"conv3d_wgrad_16: y must be {dt}")
@@ -548,23 +647,30 @@ def conv3d_wgrad_16(x, dy, k, *, pre_relu=False, y=None):
         return conv3d_wgrad_16_plain(x, dy, k, pre_relu=pre_relu, y=y)
     n, d, h, w, cin = x.shape
     cout = dy.shape[-1]
-    if ((cin + 3) // 4) * ((cout + 3) // 4) > 256 or cout > 256:
-        raise ValueError(f"conv3d_wgrad_16: at most 64x64 channels, got "
-                         f"{cin}x{cout}")
-    chunks = -(-(n * d * h) // WGRAD_ROWS)
-    partial = torch.empty((chunks, k ** 3 * cin * cout + cout),
-                          device=x.device, dtype=torch.float32)
+    route = wgrad16_route(k, cin, cout, dy.dtype)
     dw = torch.empty((k, k, k, cin, cout), device=x.device,
                      dtype=torch.float32)
     db = torch.empty((cout,), device=x.device, dtype=torch.float32)
-    name = "conv3d_wgrad_" + SUFFIX[dt]
-    err = _build.lib().ffn_conv3d_wgrad_16(
-        x.data_ptr(), int(x.dtype == torch.float32), dy.data_ptr(),
-        int(dy.dtype == torch.float32),
-        y.data_ptr() if y is not None else None, partial.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), n, d, h, w, cin, cout, k,
-        int(pre_relu), WGRAD_ROWS, int(dt == torch.float16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), int(x.dtype == torch.float32), dy.data_ptr())
+    ym = y.data_ptr() if y is not None else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    f16 = int(dt == torch.float16)
+    if route == "conv3d_wgrad":
+        geo = wgrad16_chunks(n, d, h, w, cin, cout)
+        partial = torch.empty((geo.ctas, 27 * cin * cout + cout),
+                              device=x.device, dtype=torch.float32)
+        err = _build.lib().ffn_conv3d_wgrad16_tc(
+            *ptrs, ym, partial.data_ptr(), dw.data_ptr(), db.data_ptr(), n,
+            d, h, w, cin, cout, int(pre_relu), geo.cz, geo.cy, geo.ctas,
+            geo.ndz, geo.tpw, f16, stream)
+    else:
+        partial = torch.empty((-(-(n * d * h) // WGRAD_ROWS), cin * cout
+                               + cout), device=x.device, dtype=torch.float32)
+        err = _build.lib().ffn_conv3d_wgrad_16(
+            *ptrs, int(dy.dtype == torch.float32), ym, partial.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), n, d, h, w, cin, cout, k,
+            int(pre_relu), WGRAD_ROWS, f16, stream)
+    name = f"{route}_{SUFFIX[dt]}"
     _build.check(err, name)
     _build.launches[name] += 1
     return dw, db

@@ -1518,20 +1518,107 @@ def test_k17_matches_plain(card, dtype, case):
                                        torch.float16: 5e-3}[dtype]
 
 
-@pytest.mark.cuda
+# Which K18 body takes each layer of the stack (wgrad16_route): (k, Cin,
+# Cout, x's type, dy's type, masked) -> the launch name's stem.
+K18_ROUTES = {
+    "conv0_a 2->32 float32 x": (3, 2, 32, torch.float32, "16", True,
+                                "conv3d_wgrad"),
+    "32->32": (3, 32, 32, "16", "16", False, "conv3d_wgrad"),
+    "32->32 masked": (3, 32, 32, "16", "16", True, "conv3d_wgrad"),
+    "16->16": (3, 16, 16, "16", "16", True, "conv3d_wgrad"),
+    "ci conv0_a 2->16": (3, 2, 16, torch.float32, "16", True,
+                         "conv3d_wgrad"),
+    "conv_lom 1^3 float32 dy": (1, 32, 1, "16", torch.float32, False,
+                                "conv3d_wgrad1"),
+}
+
+
 @pytest.mark.parametrize("dtype", HALF)
-@pytest.mark.parametrize("case", ["block_a", "block_b", "conv0_a",
-                                  "conv_lom"])
-def test_k18_matches_plain(card, dtype, case):
-    from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp
-    dy, w, kw = _k17_inputs(card, dtype, "block_a")
-    x, a = kw["x"], kw["y"]
-    args, kw = {"block_a": ((x, dy, 3), dict(pre_relu=True, y=a)),
+@pytest.mark.parametrize("case", list(K18_ROUTES))
+def test_k18_routes_by_shape_and_type(dtype, case):
+    k, cin, cout, _, dyt, _, want = K18_ROUTES[case]
+    dyt = dtype if dyt == "16" else dyt
+    assert conv3d.wgrad16_route(k, cin, cout, dyt) == want
+
+
+@pytest.mark.parametrize("layer", [(3, 32, 64, torch.bfloat16),
+                                   (3, 40, 32, torch.bfloat16),
+                                   (3, 32, 8, torch.float16),
+                                   (3, 32, 32, torch.float32),
+                                   (5, 32, 32, torch.bfloat16),
+                                   (1, 80, 80, torch.bfloat16)])
+def test_k18_route_refuses_other_layers(layer):
+    with pytest.raises(ValueError):
+        conv3d.wgrad16_route(*layer)
+
+
+# The train CLI's batch, small and odd volumes, and the host loop's FOV
+# batch (TrainConfig's batch_size 8), at the stack's widths.
+@pytest.mark.parametrize("shape", [(4, 33, 33, 33), (1, 5, 7, 9),
+                                   (3, 17, 33, 11), (8, 33, 33, 33)])
+@pytest.mark.parametrize("widths", [(32, 32), (2, 32), (16, 16)])
+def test_k18_chunks_cover_every_row_once(shape, widths):
+    n, d, h, w = shape
+    geo = conv3d.wgrad16_chunks(n, d, h, w, *widths)
+    seen = np.zeros((n, d, h), np.int64)
+    for c in range(geo.chunks):
+        b, z0, z1, y0, y1 = geo.box(c)
+        assert z0 < z1 <= z0 + geo.cz and y0 < y1 <= y0 + geo.cy
+        seen[b, z0:z1, y0:y1] += 1
+    assert (seen == 1).all()
+    assert 1 <= geo.ctas <= min(geo.chunks, conv3d.WGRAD16_CTAS)
+    assert geo.smem == conv3d.wgrad16_smem(geo.cz, geo.cy, w, *widths,
+                                           geo.ndz)
+    assert geo.smem <= conv3d.WGRAD16_SMEM
+
+
+def test_k18_chunks_shrink_to_fit_and_refuse_wide_rows():
+    geo = conv3d.wgrad16_chunks(1, 8, 8, 160, 32, 32)
+    assert (geo.cz, geo.cy) < conv3d.WGRAD16_CHUNK and \
+        geo.smem <= conv3d.WGRAD16_SMEM
+    with pytest.raises(ValueError):
+        conv3d.wgrad16_chunks(1, 8, 8, 4000, 32, 32)
+
+
+K18_CASES = ["block_a", "block_b", "conv0_a", "conv_lom", "n1",
+             "odd_small", "16->16", "all_masked", "cancelling"]
+
+
+def _k18_args(card, dtype, case):
+    """((x, dy, k), kwargs) of a test_k18_matches_plain case."""
+    if case in ("block_a", "block_b", "conv0_a", "conv_lom"):
+        dy, w, kw = _k17_inputs(card, dtype, "block_a")
+        x, a = kw["x"], kw["y"]
+        return {"block_a": ((x, dy, 3), dict(pre_relu=True, y=a)),
                 "block_b": ((a, dy, 3), {}),
                 "conv0_a": ((x[..., :2].float().contiguous(), dy, 3),
                             dict(y=a)),
                 "conv_lom": ((x, dy[..., :1].float().contiguous(), 1),
                              dict(pre_relu=True))}[case]
+    gen = torch.Generator(device=card).manual_seed(18)
+    shape, c = {"n1": ((1, 33, 33, 33), 32), "odd_small": ((2, 2, 1, 5), 32),
+                "16->16": ((1, 5, 7, 9), 16), "all_masked": ((1, 6, 5, 7),
+                                                             32),
+                "cancelling": ((1, 9, 8, 7), 32)}[case]
+
+    def randn(scale=1.0):
+        return (torch.randn(*shape, c, generator=gen, device=card)
+                * scale).to(dtype)
+    x, a, dy = randn(), randn(), randn(0.01)
+    if case == "all_masked":   # no y > 0 (NaN counts as not): g is 0
+        a = -a.abs()
+        a.view(-1)[::7] = float("nan")
+    if case == "cancelling":   # sample 1 = sample 0 with dy negated
+        return ((torch.cat([x, x]), torch.cat([dy, -dy]), 3), {})
+    return (x, dy, 3), dict(pre_relu=True, y=a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("case", K18_CASES)
+def test_k18_matches_plain(card, dtype, case):
+    from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp
+    args, kw = _k18_args(card, dtype, case)
     gw, gb = conv3d.conv3d_wgrad_16(*args, **kw)
     pw, pb = conv3d.conv3d_wgrad_16_plain(*args, **kw)
     mw, mb = conv3d.conv3d_wgrad_plain(
@@ -1541,6 +1628,8 @@ def test_k18_matches_plain(card, dtype, case):
         assert g.dtype == torch.float32
         assert bool(((g - p).abs() <= bf16_ulp(p, dtype)
                      + m * 2.0 ** -16).all())
+    if case == "all_masked":
+        assert not gw.any() and not gb.any()
     again = conv3d.conv3d_wgrad_16(*args, **kw)
     assert torch.equal(again[0], gw) and torch.equal(again[1], gb)
 
