@@ -42,7 +42,8 @@ what it holds):
      phantom, the others on a 64^3 corner); against float32 seeds;
  17. the train CLI with --precision bf16 and f16 (K15, K17, K18: 648
      tensor-core and 27 CUDA-core K18 launches a step; f16's loss scale in
-     K11, K12), against plain, f16 resumed exactly; the host loop in bf16;
+     K11, K12), against plain, f16 resumed exactly; one steady step of each
+     under torch.profiler (device against wall); the host loop in bf16;
  18. int8 inference (FFN_TPU_PRECISION=int8, K19, K20): serial, 64-lane hop
      and fused slices on kernels, each against its plain versions on a
      64^3 corner, identical;
@@ -2397,9 +2398,11 @@ class _StepRecorder:
 
 
 class _KernelProbe:
-    """Device time of each training kernel: CUDA events around every
-    launch of each wrapper (used on the resumed run only, whose numbers are
-    held bit for bit against the unprobed run's)."""
+    """Time of each training kernel: CUDA events around every launch of
+    each wrapper (device time only while the queue stays full: where it
+    runs dry, a pair also spans the host's gap), and the host's time inside
+    each wrapper (perf_counter). Used on runs whose numbers are held bit
+    for bit against an unprobed run's, or not held at all."""
 
     def __init__(self, train_kernels=TRAIN_K11, extra=False):
         from ffn_tpu_torch.ops import conv3d
@@ -2412,16 +2415,19 @@ class _KernelProbe:
         self.targets += [(train_ops, n) for n in train_kernels]
         self.targets += [(optim_ops, "optim_update")]
         self.pairs = {n: [] for _, n in self.targets}
+        self.host = {n: 0.0 for _, n in self.targets}
         self.patches = []
 
     def _wrap(self, name, fn):
         def probed(*args, **kwargs):
+            t0 = time.perf_counter()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kwargs)
             end.record()
             self.pairs[name].append((start, end))
+            self.host[name] += time.perf_counter() - t0
             return out
         return probed
 
@@ -2652,10 +2658,81 @@ LOWP_LOSS_RTOL, LOWP_PARAM_ATOL = 1e-4, 1e-6
 # 80GB HBM3, 700 W).
 LOWP_K18_TC, LOWP_K18_CORE = 27 * 24, 27
 LOWP_K18_CORE_MS = {"bf16": 925.3, "f16": 906.4}
+LOWP_PROFILE_STEPS = 3
 # Largest share of K17's outputs that may differ from its plain version:
 # its float32 order is not the plain one's, and float16's finer ulp meets
 # more rounding points (measured on the H100: 1.8e-4 bf16, 1.8e-3 f16).
 K17_DIFFER_SHARE = {torch.bfloat16: 1e-3, torch.float16: 5e-3}
+
+
+def _lowp_profile(dev, prec):
+    """One steady step of the 16-bit trainer at the train CLI's defaults
+    (after two warm-up steps): the wall of LOWP_PROFILE_STEPS steps between
+    two synchronizations, with the host's ms inside each wrapper
+    (_KernelProbe), then one step under torch.profiler for each kernel's
+    device ms. Prints ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from ffn_tpu_torch.training import train_lib, train_loop
+    torch.manual_seed(0)
+    config = train_lib.TrainConfig(batch_size=TRAIN_B, precision=prec)
+    model = train_loop.build_model("convstack_3d.ConvStack3DFFNModel", "",
+                                   config)
+    model.module.to(dev)
+    state, opt = train_lib.create_train_state(model, config)
+    step = train_lib.make_scan_train_step_packed(model, opt, config)
+    rng = np.random.RandomState(0)
+    shape = (TRAIN_B,) + (TRAIN_CANVAS,) * 3 + (1,)
+    image = torch.from_numpy(rng.randint(0, 256, shape).astype(
+        np.uint8)).to(dev)
+    lom = torch.from_numpy((rng.rand(*shape) > 0.5).astype(np.uint8)).to(dev)
+    offsets = train_lib.fixed_offsets_zyx(model.info)
+    for _ in range(2):
+        state, _ = step(state, image, lom, offsets)
+    torch.cuda.synchronize()
+    with _KernelProbe(extra=True) as probe:
+        t0 = time.perf_counter()
+        for _ in range(LOWP_PROFILE_STEPS):
+            state, _ = step(state, image, lom, offsets)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / LOWP_PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, image, lom, offsets)
+        torch.cuda.synchronize()
+    by = {}   # device activity by kernel name, template arguments cut
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.device_time_total > 0:
+            name = e.key[len("void "):] if e.key.startswith("void ") \
+                else e.key
+            name = name.replace("(anonymous namespace)::", "").split(
+                "(")[0].split("<")[0]
+            count, us = by.get(name, (0, 0.0))
+            by[name] = (count + e.count, us + e.device_time_total)
+    kernels = sorted(((n, c, us) for n, (c, us) in by.items()),
+                     key=lambda r: -r[2])
+    device = sum(us for _, _, us in kernels) / 1e3
+    k18 = sum(us for name, _, us in kernels if "wgrad" in name) / 1e3
+    host = {k: 1e3 * v / LOWP_PROFILE_STEPS for k, v in probe.host.items()}
+    print(f"train {prec}, one steady step: {wall:.1f} ms wall (steps 3-"
+          f"{2 + LOWP_PROFILE_STEPS}, synchronized), {device:.1f} device ms "
+          f"(torch.profiler, step {3 + LOWP_PROFILE_STEPS}): busy "
+          f"{device / wall:.4f}; host ms inside the wrappers: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in host.items())
+          + f"; the rest of the host (autograd, torch ops, the step's "
+          f"Python) {wall - sum(host.values()):.1f}")
+    for name, count, us in kernels[:8]:
+        print(f"  {us / 1e3:10.4f} ms {count:5d}x {name}")
+    calls = sorted(((e.key, e.count, e.self_cpu_time_total)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CPU),
+                   key=lambda r: -r[2])
+    print(f"train {prec}, the host's largest self times in that step "
+          f"(torch.profiler, which adds its own): " + ", ".join(
+              f"{k} {us / 1e3:.1f} ms {n}x" for k, n, us in calls[:8]))
+    print(f"K18 conv3d_wgrad_16, {prec}: {k18:.1f} device ms a steady step "
+          f"(torch.profiler; all layers on K10's CUDA-core body: "
+          f"{LOWP_K18_CORE_MS[prec]})")
 
 
 def _lowp_plain_patches():
@@ -2889,7 +2966,9 @@ def _lowp_run(prec, tmp, out, steps, probe=None):
 def phase_train_lowp(dev, tmp):
     """The train CLI at full width (phase 11's run) with --precision bf16 and
     f16, 8 steps each on K15/K17/K18, K11 and K12 (f16: optim_update_scaled),
-    kernels timed by CUDA events; 2 steps on plain versions (step 1 within
+    kernels timed by CUDA events, then one steady step of each profiled
+    (_lowp_profile: wall, device ms by kernel, host ms); 2 steps on plain
+    versions (step 1 within
     LOWP_LOSS_RTOL and LOWP_PARAM_ATOL, the scale equal); f16 resumed from
     step 4 (step 8 with its scale bit for bit); the host-loop trainer in bf16
     for LOWP_HOST_STEPS. Returns the launches (train_bf16, train_f16,
@@ -2948,14 +3027,12 @@ def phase_train_lowp(dev, tmp):
                 f"train {prec} step 1: kernels against plain")
         if probe is not None:
             ms = probe.ms()
-            print(f"train {prec}, device ms a step by kernel (CUDA events, "
-                  f"{len(krec.metrics)} steps): " + ", ".join(
-                      f"{k} {v / len(krec.metrics):.1f}" for k, v in
-                      ms.items()))
-            print(f"K18 conv3d_wgrad_16, {prec}: "
-                  f"{ms['conv3d_wgrad_16'] / steps:.1f} device ms a step "
-                  f"(all layers on K10's CUDA-core body: "
-                  f"{LOWP_K18_CORE_MS[prec]})")
+            print(f"train {prec}, CUDA-event ms a step by kernel (events "
+                  f"around each call, {len(krec.metrics)} steps from the "
+                  f"first; they span host gaps where the queue runs dry): "
+                  + ", ".join(f"{k} {v / len(krec.metrics):.1f}"
+                              for k, v in ms.items()))
+        _lowp_profile(dev, prec)
         if prec != "f16":
             continue
         rdir = os.path.join(tmp, "train_f16_resumed")
@@ -2974,14 +3051,10 @@ def phase_train_lowp(dev, tmp):
         rms = probe.ms()
         print(f"f16 resume from step {TRAIN_CKPT_EVERY} to {LOWP_STEPS}: "
               f"weights, optimizer state, scale {a['scale0']} and counter "
-              f"{a['scale1']} bit for bit {same}; device ms a step by "
-              f"kernel (CUDA events): " + ", ".join(
+              f"{a['scale1']} bit for bit {same}; CUDA-event ms a step by "
+              f"kernel: " + ", ".join(
                   f"{k} {v / len(rrec.metrics):.1f}"
                   for k, v in rms.items()))
-        print(f"K18 conv3d_wgrad_16, f16: "
-              f"{rms['conv3d_wgrad_16'] / len(rrec.metrics):.1f} device ms a "
-              f"step (all layers on K10's CUDA-core body: "
-              f"{LOWP_K18_CORE_MS[prec]})")
         require(same and "scale0" in a, "the f16 resume differs")
 
     hdir = os.path.join(tmp, "train_host_bf16")

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "ffn_conv3d_ndhwc_f16": [_P, _I, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "ffn_conv3d_dgrad_16": [_P, _I] + [_P] * 5 + [_I] * 8 + [_P],
     "ffn_conv3d_wgrad_16": [_P, _I, _P, _I] + [_P] * 4 + [_I] * 10 + [_P],
-    "ffn_conv3d_wgrad16_tc": [_P, _I] + [_P] * 5 + [_I] * 13 + [_P],
+    "ffn_conv3d_wgrad16_tc": [_P, _I] + [_P] * 5 + [_I] * 11 + [_P],
     "ffn_step_gather": [_P, _P, _P, _P] + [_I] * 12 + [_F, _I, _P],
     "ffn_step_update": [_P, _P, _P] + [_I] * 12 + [_F, _F, _I, _P],
     "ffn_hop_pop": [_P] * 22 + [_I] * 18 + [_F, _I, _P],

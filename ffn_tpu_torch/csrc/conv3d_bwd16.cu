@@ -25,28 +25,27 @@
 // on the CUDA cores, dy read as float32.
 //
 // K18's 3^3 layers (Cout 16 or 32, Cin <= 32, dy of the type) on the tensor
-// cores, two stages. Stage 1: a CTA owns a fixed set of chunks (chunk c,
-// c + ctas, ...; a chunk is a box of cz x cy rows (n, z, y) with all of x)
-// and the taps of ndz dz planes (3: all 27), TPW taps a warp, plus a warp
-// for the bias. Per chunk it stages once, in shared memory, by cp.async
-// where the source is 16-bit: x's halo (zero outside the volume, channels
-// zero-padded to CIP; a float32 x rounded to r in registers), g = dy and
-// the mask ym at the chunk's positions in order; then, on the thread's own
-// copies, relu on x (fmaxf: NaN to 0) and the mask on g. Tap t's dW is a
-// (CIP x positions) by (positions x Cout) product: A from the halo at the
-// tap's fixed offset, B from g, both by ldmatrix.trans on NDHWC rows (a
-// table gives each position's voxel, so the tap loop has no bounds branch),
-// mma.sync m16n8k16 with float32 sums kept in registers across the CTA's
-// chunks; a warp's TPW = 3 taps (dx = 0..2) share g's fragments. The bias
-// warp sums g's columns in a fixed order. Each CTA writes one row of
-// float32 partials; stage 2 (wgrad.cuh) sums the rows in order and rounds
+// cores, two stages. Stage 1: a CTA owns a fixed set of chunks (chunk c, c +
+// ctas, ...; a chunk is a box of cz x cy rows (n, z, y) with all of x) and
+// all 27 taps, 3 a warp, plus a warp for the bias. Per chunk it stages once,
+// in shared memory, by cp.async where the source is 16-bit: x's halo (zero
+// outside the volume, channels zero-padded to CIP; a float32 x rounded to r
+// in registers), g = dy and the mask ym at the chunk's positions in order;
+// then, on the thread's own copies, relu on x (fmaxf: NaN to 0) and the mask
+// on g. Tap t's dW is a (CIP x positions) by (positions x Cout) product: A
+// from the halo at the tap's fixed offset, B from g, both by ldmatrix.trans
+// on NDHWC rows (a table gives each position's voxel, so the tap loop has no
+// bounds branch), mma.sync m16n8k16 with float32 sums kept in registers
+// across the CTA's chunks; a warp's 3 taps (dx = 0..2) share g's fragments.
+// The bias warp sums g's columns in a fixed order. Each CTA writes one row
+// of float32 partials; stage 2 (wgrad.cuh) sums the rows in order and rounds
 // once. Deterministic, no atomics. The 1^3 layer (conv_lom: 9 MFLOP, a
 // float32 dy) stays on K10's CUDA-core body (wgrad.cuh), counted as
-// conv3d_wgrad1_*. Bytes and operations nearly tie at B=4 (8.2 us for x,
-// dy and the mask, 8.0 us of operations); the staging, not overlapped with
-// the MMAs, and mma.sync's rate bound this design
-// (tools_torch/k18_variants.py --split). Left for later: overlapping a
-// chunk's staging with the last one's MMAs, wgmma with A in registers, TMA.
+// conv3d_wgrad1_*. Bytes and operations nearly tie at B=4 (8.2 us for x, dy
+// and the mask, 8.0 us of operations); the staging, not overlapped with the
+// MMAs, and mma.sync's rate bound this design (tools_torch/k18_variants.py
+// --split). Left for later: overlapping a chunk's staging with the last
+// one's MMAs, wgmma with A in registers, TMA.
 
 #include "wgrad.cuh"
 
@@ -237,11 +236,10 @@ __device__ __forceinline__ uint4 relu8(uint4 u) {
   return pack8<T>(f, 1);
 }
 
-// Threads of a stage-1 CTA: 9 * ndz / TPW tap warps (TPW taps a warp: 1,
-// or 3, dx = 0..2, sharing g's fragments) and the bias warp; at most all 27
-// taps (ndz = 3).
-template <int TPW>
-constexpr int kW16MaxThreads = (27 / TPW + 1) * 32;
+// A stage-1 CTA: 9 tap warps of kW16Tpw taps (dx = 0..2, sharing g's
+// fragments) and the bias warp.
+constexpr int kW16Tpw = 3;
+constexpr int kW16Threads = (27 / kW16Tpw + 1) * 32;
 
 constexpr int kW16MaxSmem = 232448;  // shared memory a CTA may use (H100)
 
@@ -249,38 +247,36 @@ constexpr int kW16MaxSmem = 232448;  // shared memory a CTA may use (H100)
 // values a voxel; g and the mask (ym), Cout + 8 values a position; the
 // position table. The +8 puts the 8 rows of an ldmatrix on distinct banks.
 __host__ __device__ inline size_t wgrad16_smem(int cz, int cy, int W,
-                                               int cip, int co, int ndz) {
-  const size_t hvox = (size_t)(cz + ndz - 1) * (cy + 2) * (W + 2) + 1;
+                                               int cip, int co) {
+  const size_t hvox = (size_t)(cz + 2) * (cy + 2) * (W + 2) + 1;
   const size_t ppad = ((size_t)cz * cy * W + 15) / 16 * 16;
   return hvox * (cip + 8) * 2 + 2 * ppad * (co + 8) * 2 + ppad * 4;
 }
 
 // Stage 1. x (N,D,H,W,Cin) of type T or float32 (XF); dy, ym (N,D,H,W,CO);
-// partial[blockIdx.x][27 * Cin * CO + CO]; blockIdx.y picks the taps' dz
-// planes [ndz * blockIdx.y, + ndz).
-template <typename T, int CIP, int CO, int XF, int TPW>
-__global__ void __launch_bounds__(kW16MaxThreads<TPW>, 1)
+// partial[blockIdx.x][27 * Cin * CO + CO].
+template <typename T, int CIP, int CO, int XF>
+__global__ void __launch_bounds__(kW16Threads, 1)
 wgrad16_tc_kernel(const void* __restrict__ x, const T* __restrict__ dy,
                   const T* __restrict__ ym, float* __restrict__ partial,
                   int D, int H, int W, int Cin, int pre_relu, int cz, int cy,
-                  int ndz, int nzc, int nyc, int chunks) {
+                  int nzc, int nyc, int chunks) {
   constexpr int CS = CIP + 8, GS = CO + 8, MT = CIP / 16, NT = CO / 8;
   constexpr int XC = CIP / 8, GC = CO / 8;
-  static_assert(CIP % 16 == 0 && CO % 16 == 0 && 27 % TPW == 0, "K18");
+  constexpr int TPW = kW16Tpw;
+  static_assert(CIP % 16 == 0 && CO % 16 == 0, "K18");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hvox = (cz + ndz - 1) * (cy + 2) * (W + 2);  // the zero voxel
+  const int hvox = (cz + 2) * (cy + 2) * (W + 2);  // the zero voxel
   const int ppad = (cz * cy * W + 15) / 16 * 16;
   T* s_x = reinterpret_cast<T*>(smem);
   T* s_g = s_x + (size_t)(hvox + 1) * CS;
   T* s_m = s_g + (size_t)ppad * GS;
   int* s_tab = reinterpret_cast<int*>(s_m + (size_t)ppad * GS);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nthr = blockDim.x, nwarp = nthr / 32, taps = 9 * ndz;
-  const int dz0 = blockIdx.y * ndz;
-  const bool tap_warp = warp < taps / TPW;
-  const bool bias_warp = warp == taps / TPW && blockIdx.y == 0;
-  const int t0 = warp * TPW;  // the warp's first tap in the CTA
-  const int tz = t0 / 9, ty = t0 / 3 % 3, tx = t0 % 3;
+  const int nthr = blockDim.x, nwarp = nthr / 32;
+  const bool tap_warp = warp < 27 / TPW, bias_warp = warp == 27 / TPW;
+  const int t0 = warp * TPW;  // the warp's first tap (dx = 0)
+  const int tz = t0 / 9, ty = t0 / 3 % 3;
   const bool copy_x = !XF && Cin == CIP;  // x rows go by cp.async
   for (int i = threadIdx.x; i < XC; i += nthr)
     *reinterpret_cast<uint4*>(s_x + (size_t)hvox * CS + 8 * i) =
@@ -301,8 +297,8 @@ wgrad16_tc_kernel(const void* __restrict__ x, const T* __restrict__ dy,
     const int n = c / (nzc * nyc);
     const int z0 = c / nyc % nzc * cz, y0 = c % nyc * cy;
     const int czc = min(cz, D - z0), cyc = min(cy, H - y0);
-    const int hz = czc + ndz - 1, hy = cyc + 2, hx = W + 2;
-    const int zb = z0 + dz0 - 1, P = czc * cyc * W, pp = (P + 15) / 16 * 16;
+    const int hz = czc + 2, hy = cyc + 2, hx = W + 2;
+    const int zb = z0 - 1, P = czc * cyc * W, pp = (P + 15) / 16 * 16;
     __syncthreads();  // the last chunk's tiles are read
 
     // A warp a row: x's halo rows (sz, sy) (voxel (sz, sy, sx) is x at
@@ -379,7 +375,7 @@ wgrad16_tc_kernel(const void* __restrict__ x, const T* __restrict__ dy,
       for (int i = threadIdx.x; i < (pp - P) * GC; i += nthr)  // 0 past P
         *reinterpret_cast<uint4*>(s_g + (size_t)(P + i / GC) * GS +
                                   i % GC * 8) = make_uint4(0u, 0u, 0u, 0u);
-      // Each position's halo voxel at tap (dz0, 0, 0); -1 past P.
+      // Each position's halo voxel at tap (0, 0, 0); -1 past P.
       for (int k = threadIdx.x; k < pp; k += nthr) {
         const int rx = k % W, ry = k / W % cyc, rz = k / (W * cyc);
         s_tab[k] = k < P ? (rz * hy + ry) * hx + rx : -1;
@@ -394,7 +390,7 @@ wgrad16_tc_kernel(const void* __restrict__ x, const T* __restrict__ dy,
       // t0 + u reads the halo u voxels on.
       const int ra = (lane & 7) + 8 * (lane >> 4), ca = 8 * (lane >> 3 & 1);
       const int rb = (lane & 7) + 8 * (lane >> 3 & 1), cb = 8 * (lane >> 4);
-      const int off = (tz * hy + ty) * hx + tx;
+      const int off = (tz * hy + ty) * hx;
       const uint32_t xs = static_cast<uint32_t>(__cvta_generic_to_shared(s_x));
       const uint32_t zero = xs + (uint32_t)(hvox * CS + ca) * 2;
       const uint32_t gs = static_cast<uint32_t>(__cvta_generic_to_shared(
@@ -461,7 +457,7 @@ wgrad16_tc_kernel(const void* __restrict__ x, const T* __restrict__ dy,
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int u = 0; u < TPW; ++u) {
-      const int tap = dz0 * 9 + t0 + u;
+      const int tap = t0 + u;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -481,22 +477,20 @@ wgrad16_tc_kernel(const void* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-template <typename T, int CIP, int CO, int XF, int TPW>
+template <typename T, int CIP, int CO, int XF>
 cudaError_t launch_wgrad_tc(const void* x, const T* dy, const T* ym,
                             float* partial, float* dw, float* db, int N,
                             int D, int H, int W, int Cin, int pre_relu,
-                            int cz, int cy, int ctas, int ndz,
-                            cudaStream_t s) {
+                            int cz, int cy, int ctas, cudaStream_t s) {
   static const cudaError_t err = cudaFuncSetAttribute(
-      wgrad16_tc_kernel<T, CIP, CO, XF, TPW>,
+      wgrad16_tc_kernel<T, CIP, CO, XF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kW16MaxSmem);
   if (err != cudaSuccess) return err;
-  const size_t smem = wgrad16_smem(cz, cy, W, CIP, CO, ndz);
+  const size_t smem = wgrad16_smem(cz, cy, W, CIP, CO);
   const int nzc = (D + cz - 1) / cz, nyc = (H + cy - 1) / cy;
-  wgrad16_tc_kernel<T, CIP, CO, XF, TPW>
-      <<<dim3(ctas, 3 / ndz), (9 * ndz / TPW + 1) * 32, smem, s>>>(
-          x, dy, ym, partial, D, H, W, Cin, pre_relu, cz, cy, ndz, nzc, nyc,
-          N * nzc * nyc);
+  wgrad16_tc_kernel<T, CIP, CO, XF><<<ctas, kW16Threads, smem, s>>>(
+      x, dy, ym, partial, D, H, W, Cin, pre_relu, cz, cy, nzc, nyc,
+      N * nzc * nyc);
   const cudaError_t e1 = cudaGetLastError();
   if (e1 != cudaSuccess) return e1;
   const int nw = 27 * Cin * CO, total = nw + CO;
@@ -509,36 +503,29 @@ template <typename T, int CIP, int CO>
 cudaError_t wgrad_tc_xf(const void* x, int x_f32, const T* dy, const T* ym,
                         float* partial, float* dw, float* db, int N, int D,
                         int H, int W, int Cin, int pre_relu, int cz, int cy,
-                        int ctas, int ndz, int tpw, cudaStream_t s) {
-#define FFN_WGRAD_TC(XF, TPW)                                               \
-  return launch_wgrad_tc<T, CIP, CO, XF, TPW>(x, dy, ym, partial, dw, db, N, \
-                                              D, H, W, Cin, pre_relu, cz,    \
-                                              cy, ctas, ndz, s)
-  if (x_f32) {
-    if (tpw == 3) FFN_WGRAD_TC(1, 3);
-    FFN_WGRAD_TC(1, 1);
-  }
-  if (tpw == 3) FFN_WGRAD_TC(0, 3);
-  FFN_WGRAD_TC(0, 1);
-#undef FFN_WGRAD_TC
+                        int ctas, cudaStream_t s) {
+  return x_f32 ? launch_wgrad_tc<T, CIP, CO, 1>(x, dy, ym, partial, dw, db,
+                                                N, D, H, W, Cin, pre_relu,
+                                                cz, cy, ctas, s)
+               : launch_wgrad_tc<T, CIP, CO, 0>(x, dy, ym, partial, dw, db,
+                                                N, D, H, W, Cin, pre_relu,
+                                                cz, cy, ctas, s);
 }
 
 template <typename T>
 int wgrad16_tc(const void* x, int x_f32, const void* dy, const void* ym,
                float* partial, float* dw, float* db, int N, int D, int H,
                int W, int Cin, int Cout, int pre_relu, int cz, int cy,
-               int ctas, int ndz, int tpw, cudaStream_t s) {
+               int ctas, cudaStream_t s) {
   const int cip = Cin <= 16 ? 16 : 32;
   if (Cin < 1 || Cin > 32 || (Cout != 16 && Cout != 32) || cz < 1 ||
-      cy < 1 || ctas < 1 || (ndz != 1 && ndz != 3) ||
-      (tpw != 1 && tpw != 3) ||
-      wgrad16_smem(cz, cy, W, cip, Cout, ndz) > kW16MaxSmem)
+      cy < 1 || ctas < 1 || wgrad16_smem(cz, cy, W, cip, Cout) > kW16MaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const T *g = static_cast<const T*>(dy), *m = static_cast<const T*>(ym);
 #define FFN_WGRAD_TC_W(CIP, CO)                                            \
   return static_cast<int>(wgrad_tc_xf<T, CIP, CO>(                         \
       x, x_f32, g, m, partial, dw, db, N, D, H, W, Cin, pre_relu, cz, cy,  \
-      ctas, ndz, tpw, s))
+      ctas, s))
   if (cip == 16 && Cout == 16) FFN_WGRAD_TC_W(16, 16);
   if (cip == 16) FFN_WGRAD_TC_W(16, 32);
   if (Cout == 16) FFN_WGRAD_TC_W(32, 16);
@@ -565,7 +552,7 @@ extern "C" int ffn_conv3d_dgrad_16(const void* dy, int dy_f32, const void* ym,
                                       H, W, Cin, Cout, k, s);
 }
 
-// K18 on K10's CUDA-core body (the wrapper sends it the 1^3 layers). x
+// K18 on K10's CUDA-core body, 1^3 layers only (k must be 1). x
 // (N,D,H,W,Cin), the forward input, of the type or float32 (x_f32, rounded
 // here; relu here when pre_relu); dy (N,D,H,W,Cout) of the type or float32
 // (dy_f32); ym, the forward output, or null without post_relu; partial
@@ -578,6 +565,7 @@ extern "C" int ffn_conv3d_wgrad_16(const void* x, int x_f32, const void* dy,
                                    int W, int Cin, int Cout, int k,
                                    int pre_relu, int rows, int f16,
                                    void* stream) {
+  if (k != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f16 ? wgrad_launch<__half>(x, x_f32, dy, dy_f32, ym, partial, dw,
                                     db, N, D, H, W, Cin, Cout, k, pre_relu,
@@ -590,22 +578,18 @@ extern "C" int ffn_conv3d_wgrad_16(const void* x, int x_f32, const void* dy,
 // K18 on the tensor cores, 3^3 layers. x, ym, dw, db as above, dy of the
 // type; Cin <= 32, Cout 16 or 32; chunks of cz x cy rows (z, y) with all
 // of x, ceil(D/cz) * ceil(H/cy) a sample, chunk c = (n, z-chunk, y-chunk)
-// in that order; `ctas` stage-1 CTAs (for each of the 3 / ndz dz sets),
-// CTA b summing chunks b, b + ctas, ...; partial (ctas, 27*Cin*Cout + Cout)
-// float32 scratch; ndz 3 (a CTA owns all 27 taps) or 1 (one dz plane);
-// tpw 1 or 3 taps a warp.
+// in that order; `ctas` stage-1 CTAs, CTA b summing chunks b, b + ctas,
+// ...; partial (ctas, 27*Cin*Cout + Cout) float32 scratch.
 extern "C" int ffn_conv3d_wgrad16_tc(const void* x, int x_f32, const void* dy,
                                      const void* ym, float* partial,
                                      float* dw, float* db, int N, int D,
                                      int H, int W, int Cin, int Cout,
                                      int pre_relu, int cz, int cy, int ctas,
-                                     int ndz, int tpw, int f16,
-                                     void* stream) {
+                                     int f16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f16 ? wgrad16_tc<__half>(x, x_f32, dy, ym, partial, dw, db, N, D,
-                                  H, W, Cin, Cout, pre_relu, cz, cy, ctas,
-                                  ndz, tpw, s)
+                                  H, W, Cin, Cout, pre_relu, cz, cy, ctas, s)
              : wgrad16_tc<__nv_bfloat16>(x, x_f32, dy, ym, partial, dw, db,
                                          N, D, H, W, Cin, Cout, pre_relu, cz,
-                                         cy, ctas, ndz, tpw, s);
+                                         cy, ctas, s);
 }

@@ -1,13 +1,14 @@
-// K10 conv3d_wgrad_f32 (conv3d_bwd.cu) and K18 conv3d_wgrad_16
-// (conv3d_bwd16.cu): the weight and bias gradients of a layer, one body
-// templated on its type T (float, bfloat16 or float16), deterministic with
-// no float atomics. Stage 1: a CTA takes one tap (or the bias) and a chunk
-// of rows (n, z, y) of the output; each thread owns a 4 (ci) x 4 (co)
-// register tile and a strided share of the chunk's x positions (a position
-// costs two 4-channel loads for 16 FMAs), the CTA's thread groups summed in
-// shared memory in a fixed order; stage 2 sums the chunks' partials in
-// chunk order and rounds to T. Inputs of type T, or float32 ones rounded
-// to T as they load (the f32 flags).
+// K10 conv3d_wgrad_f32 (conv3d_bwd.cu) and K18's 1^3 layers,
+// conv3d_wgrad1_16 (conv3d_bwd16.cu; its 3^3 layers run on the tensor
+// cores there): the weight and bias gradients of a layer, one body
+// templated on its type T (float, bfloat16 or float16; 3^3 in float only),
+// deterministic with no float atomics. Stage 1: a CTA takes one tap (or
+// the bias) and a chunk of rows (n, z, y) of the output; each thread owns
+// a 4 (ci) x 4 (co) register tile and a strided share of the chunk's x
+// positions (a position costs two 4-channel loads for 16 FMAs), the CTA's
+// thread groups summed in shared memory in a fixed order; stage 2 sums the
+// chunks' partials in chunk order and rounds to T. Inputs of type T, or
+// float32 ones rounded to T as they load (the f32 flags).
 
 #pragma once
 
@@ -189,7 +190,8 @@ int wgrad_launch(const void* x, int x_f32, const void* dy, int dy_f32,
   else if (dy_f32) FFN_WGRAD(KS, 0, 1);                                   \
   else FFN_WGRAD(KS, 0, 0);
   if (k == 3) {
-    FFN_WGRAD_K(3)
+    if constexpr (kF32<T>) FFN_WGRAD(3, 1, 1);
+    else return static_cast<int>(cudaErrorInvalidValue);
   } else {
     FFN_WGRAD_K(1)
   }

@@ -539,12 +539,10 @@ def conv3d_dgrad_16(dy, weight, *, x=None, y=None, accum=None):
 # the tensor cores (conv3d_wgrad_*), 1^3 layers on K10's CUDA-core body
 # (conv3d_wgrad1_*). Stage 1 of the tensor-core body: chunks of WGRAD16_CHUNK
 # rows (z, y) with all of x, summed by WGRAD16_CTAS CTAs (one per H100 SM)
-# in a fixed order; WGRAD16_NDZ taps' dz planes a CTA (3: all 27 taps),
-# WGRAD16_TPW taps a warp (tools_torch/k18_variants.py times the options).
+# in a fixed order, each CTA owning all 27 taps
+# (tools_torch/k18_variants.py times other chunks and CTA counts).
 WGRAD16_CHUNK = (3, 3)
 WGRAD16_CTAS = 132
-WGRAD16_NDZ = 3
-WGRAD16_TPW = 3
 WGRAD16_SMEM = 232448   # shared memory a CTA may use on an H100
 
 
@@ -562,12 +560,12 @@ def wgrad16_route(k, cin, cout, dy_dtype):
                      f"16-bit dy; 1^3: at most 64x64 channels)")
 
 
-def wgrad16_smem(cz, cy, w, cin, cout, ndz):
+def wgrad16_smem(cz, cy, w, cin, cout):
     """Bytes of shared memory of a stage-1 CTA (conv3d_bwd16.cu's
     wgrad16_smem): x's halo and a zero voxel, g and the mask, the position
     table."""
     cip = 16 if cin <= 16 else 32
-    hvox = (cz + ndz - 1) * (cy + 2) * (w + 2) + 1
+    hvox = (cz + 2) * (cy + 2) * (w + 2) + 1
     ppad = -(-(cz * cy * w) // 16) * 16
     return hvox * (cip + 8) * 2 + 2 * ppad * (cout + 8) * 2 + ppad * 4
 
@@ -576,8 +574,7 @@ def wgrad16_smem(cz, cy, w, cin, cout, ndz):
 class Wgrad16Chunks:
     """Stage 1's geometry: chunks of cz x cy rows (z, y), ny a z-chunk and
     nz a sample, chunk c = (c // (nz ny), c // ny % nz, c % ny); CTA b sums
-    chunks b, b + ctas, ...; ndz dz planes and tpw taps a warp; `smem`
-    bytes a CTA."""
+    chunks b, b + ctas, ...; `smem` bytes a CTA."""
     d: int
     h: int
     cz: int
@@ -586,8 +583,6 @@ class Wgrad16Chunks:
     ny: int
     chunks: int
     ctas: int
-    ndz: int
-    tpw: int
     smem: int
 
     def box(self, c):
@@ -599,35 +594,26 @@ class Wgrad16Chunks:
                 min(y0 + self.cy, self.h))
 
 
-def wgrad16_chunks(n, d, h, w, cin, cout, chunk=None, ctas=None, ndz=None,
-                   tpw=None):
+@functools.lru_cache(maxsize=256)
+def wgrad16_chunks(n, d, h, w, cin, cout):
     """The tensor-core K18's chunks for x (n, d, h, w, cin): WGRAD16_CHUNK
     rows cut to the volume, fewer while a CTA's tiles overflow shared
-    memory (ValueError if one row does); WGRAD16_CTAS, WGRAD16_NDZ and
-    WGRAD16_TPW unless given."""
-    return _wgrad16_chunks(n, d, h, w, cin, cout,
-                           tuple(chunk or WGRAD16_CHUNK),
-                           ctas or WGRAD16_CTAS, ndz or WGRAD16_NDZ,
-                           tpw or WGRAD16_TPW)
-
-
-@functools.lru_cache(maxsize=256)
-def _wgrad16_chunks(n, d, h, w, cin, cout, chunk, ctas, ndz, tpw):
-    cz, cy = min(chunk[0], d), min(chunk[1], h)
-    while wgrad16_smem(cz, cy, w, cin, cout, ndz) > WGRAD16_SMEM and (
+    memory (ValueError if one row does); at most WGRAD16_CTAS CTAs."""
+    cz, cy = min(WGRAD16_CHUNK[0], d), min(WGRAD16_CHUNK[1], h)
+    while wgrad16_smem(cz, cy, w, cin, cout) > WGRAD16_SMEM and (
             cz > 1 or cy > 1):
         if cy >= cz:
             cy -= 1
         else:
             cz -= 1
-    smem = wgrad16_smem(cz, cy, w, cin, cout, ndz)
+    smem = wgrad16_smem(cz, cy, w, cin, cout)
     if smem > WGRAD16_SMEM:
         raise ValueError(f"conv3d_wgrad_16: rows of {w} voxels do not fit "
                          f"in shared memory")
     nz, ny = -(-d // cz), -(-h // cy)
     chunks = n * nz * ny
-    return Wgrad16Chunks(d, h, cz, cy, nz, ny, chunks, min(ctas, chunks), ndz,
-                         tpw, smem)
+    return Wgrad16Chunks(d, h, cz, cy, nz, ny, chunks,
+                         min(WGRAD16_CTAS, chunks), smem)
 
 
 def conv3d_wgrad_16(x, dy, k, *, pre_relu=False, y=None):
@@ -662,7 +648,7 @@ def conv3d_wgrad_16(x, dy, k, *, pre_relu=False, y=None):
         err = _build.lib().ffn_conv3d_wgrad16_tc(
             *ptrs, ym, partial.data_ptr(), dw.data_ptr(), db.data_ptr(), n,
             d, h, w, cin, cout, int(pre_relu), geo.cz, geo.cy, geo.ctas,
-            geo.ndz, geo.tpw, f16, stream)
+            f16, stream)
     else:
         partial = torch.empty((-(-(n * d * h) // WGRAD_ROWS), cin * cout
                                + cout), device=x.device, dtype=torch.float32)

@@ -1567,8 +1567,7 @@ def test_k18_chunks_cover_every_row_once(shape, widths):
         seen[b, z0:z1, y0:y1] += 1
     assert (seen == 1).all()
     assert 1 <= geo.ctas <= min(geo.chunks, conv3d.WGRAD16_CTAS)
-    assert geo.smem == conv3d.wgrad16_smem(geo.cz, geo.cy, w, *widths,
-                                           geo.ndz)
+    assert geo.smem == conv3d.wgrad16_smem(geo.cz, geo.cy, w, *widths)
     assert geo.smem <= conv3d.WGRAD16_SMEM
 
 

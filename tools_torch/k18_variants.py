@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Measures K18's design options on the card: the tensor-core body of the
-3^3 layers (`conv3d_wgrad_16`) with each stage-1 geometry (taps a CTA: all
-27, or one dz plane of 9; chunk rows; CTAs), K10's CUDA-core body on the
-same layer (what K18 ran before), and cuDNN's `conv3d_weight`, in bfloat16
-and float16, at the 16-bit trainers' shapes (B=4, 33^3: 32->32 with
-pre_relu and the mask, conv0_a's 2->32 with a float32 x). Each option is
-first held to its plain version (one ulp of the type plus 2^-16 of the sum
-of |x||g|, a repeat bit for bit); times are medians of CUDA events, taken
-in turns. Each result is one JSON line on stdout and in --out.
+3^3 layers (`conv3d_wgrad_16`) through its wrapper and, called directly,
+with other stage-1 geometries (chunk rows (z, y), CTAs), and cuDNN's
+`conv3d_weight`, in bfloat16 and float16, at the 16-bit trainers' shapes
+(B=4, 33^3: 32->32 with pre_relu and the mask, conv0_a's 2->32 with a
+float32 x). Each option is first held to its plain version (one ulp of the
+type plus 2^-16 of the sum of |x||g|, a repeat bit for bit); times are
+medians of CUDA events, taken in turns. Each result is one JSON line on
+stdout and in --out.
 
   python tools_torch/k18_variants.py [--ptxas] [--split] [--out FILE]
 
@@ -37,11 +37,9 @@ from ffn_tpu_torch import _build  # noqa: E402
 from ffn_tpu_torch.ops import conv3d  # noqa: E402
 from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp  # noqa: E402
 
-# (taps' dz planes a CTA, taps a warp, chunk rows (z, y), stage-1 CTAs a
-# dz set)
-OPTIONS = [(3, 3, (3, 3), 132), (3, 1, (3, 3), 132), (3, 3, (4, 4), 132),
-           (3, 3, (2, 3), 132), (3, 3, (3, 3), 66), (1, 1, (3, 3), 132),
-           (1, 3, (3, 3), 132)]
+# Stage 1's geometry: (chunk rows (z, y), CTAs); the first is the
+# wrapper's (conv3d.WGRAD16_CHUNK, WGRAD16_CTAS).
+OPTIONS = [((3, 3), 132), ((4, 4), 132), ((2, 3), 132), ((3, 3), 66)]
 CASES = {"32->32 pre_relu, mask": (32, True, True),
          "2->32 float32 x, mask": (2, False, True)}
 
@@ -120,29 +118,30 @@ def split(emit, dev, gen):
                         x.data_ptr(), int(xdt == torch.float32),
                         dy.data_ptr(), ym.data_ptr(), out.data_ptr(),
                         dw.data_ptr(), db.data_ptr(), n, *fov, cin, 32,
-                        int(cin == 32), geo.cz, geo.cy, geo.ctas, geo.ndz,
-                        geo.tpw, 0, torch.cuda.current_stream().cuda_stream),
+                        int(cin == 32), geo.cz, geo.cy, geo.ctas, 0,
+                        torch.cuda.current_stream().cuda_stream),
                         name)
                 emit(dict(dtype="torch.bfloat16", case=f"{cin}->32 split",
                           option=name, **device_split(run)))
 
 
-def old_body(x, dy, y, pre_relu):
-    """K10's CUDA-core body on a 3^3 16-bit layer, as K18 ran it before."""
+def tc_body(x, dy, y, pre_relu, chunk, ctas):
+    """The tensor-core K18 on a 3^3 layer with chunks of `chunk` rows (z,
+    y) and `ctas` stage-1 CTAs, called past the wrapper."""
     n, d, h, w, cin = x.shape
     cout = dy.shape[-1]
-    dt = dy.dtype
-    partial = torch.empty((-(-(n * d * h) // conv3d.WGRAD_ROWS),
-                           27 * cin * cout + cout), device=x.device)
+    cz, cy = min(chunk[0], d), min(chunk[1], h)
+    ctas = min(ctas, n * -(-d // cz) * -(-h // cy))
+    partial = torch.empty((ctas, 27 * cin * cout + cout), device=x.device)
     dw = torch.empty((3, 3, 3, cin, cout), device=x.device)
     db = torch.empty((cout,), device=x.device)
-    err = _build.lib().ffn_conv3d_wgrad_16(
-        x.data_ptr(), int(x.dtype == torch.float32), dy.data_ptr(), 0,
+    err = _build.lib().ffn_conv3d_wgrad16_tc(
+        x.data_ptr(), int(x.dtype == torch.float32), dy.data_ptr(),
         y.data_ptr() if y is not None else None, partial.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), n, d, h, w, cin, cout, 3,
-        int(pre_relu), conv3d.WGRAD_ROWS, int(dt == torch.float16),
+        dw.data_ptr(), db.data_ptr(), n, d, h, w, cin, cout, int(pre_relu),
+        cz, cy, ctas, int(dy.dtype == torch.float16),
         torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "K10's body at 16 bits")
+    _build.check(err, f"K18 chunk {chunk} ctas {ctas}")
     return dw, db
 
 
@@ -205,8 +204,6 @@ def main():
     if args.split:
         split(emit, dev, gen)
     n, fov = cs.TRAIN_B, (33, 33, 33)
-    default = (conv3d.WGRAD16_NDZ, conv3d.WGRAD16_TPW, conv3d.WGRAD16_CHUNK,
-               conv3d.WGRAD16_CTAS)
     for dt in (torch.bfloat16, torch.float16):
         a = torch.randn(n, *fov, 32, generator=gen, device=dev).to(dt)
         dy = (torch.randn(n, *fov, 32, generator=gen, device=dev)
@@ -220,36 +217,23 @@ def main():
             mag = conv3d.conv3d_wgrad_plain(
                 x.to(dt).float().abs(), dy.float().abs(), 3,
                 y=y.float() if y is not None else None)
-            fns, names = [], []
-            for option in OPTIONS:
-                def run(option=option):
-                    (conv3d.WGRAD16_NDZ, conv3d.WGRAD16_TPW,
-                     conv3d.WGRAD16_CHUNK, conv3d.WGRAD16_CTAS) = option
-                    return conv3d.conv3d_wgrad_16(x, dy, 3, pre_relu=relu,
-                                                  y=y)
-                ndz, tpw, chunk, ctas = option
-                geo = conv3d.wgrad16_chunks(n, *fov, cin, 32, chunk, ctas,
-                                            ndz, tpw)
-                chunk = (geo.cz, geo.cy)
+            fns = [lambda: conv3d.conv3d_wgrad_16(x, dy, 3, pre_relu=relu,
+                                                  y=y)]
+            names = ["the wrapper"]
+            fns += [lambda o=o: tc_body(x, dy, y, relu, *o) for o in OPTIONS]
+            names += [f"tc chunk={c[0]}x{c[1]} ctas={k}" for c, k in OPTIONS]
+            for name, run in zip(names, fns):
                 got = run()
                 worst = worst_of(got, want, mag, dt)
                 same = all(torch.equal(g, h) for g, h in zip(got, run()))
-                name = f"tc ndz={ndz} tpw={tpw} chunk={chunk[0]}x" \
-                       f"{chunk[1]} ctas={ctas}"
                 emit(dict(dtype=str(dt), case=case, option=name,
                           worst=worst, repeat_equal=same))
                 cs.require(worst <= 1.0 and same, f"{name} against plain")
-                fns.append(run)
-                names.append(name)
-            got = old_body(x, dy, y, relu)
-            emit(dict(dtype=str(dt), case=case, option="K10's body",
-                      worst=worst_of(got, want, mag, dt)))
             xc = x.to(dt).permute(0, 4, 1, 2, 3).contiguous()
             gc = dy.permute(0, 4, 1, 2, 3).contiguous()
-            fns += [lambda: old_body(x, dy, y, relu),
-                    lambda: torch.nn.grad.conv3d_weight(
-                        xc, (32, cin, 3, 3, 3), gc, padding=1)]
-            names += ["K10's body", "cuDNN conv3d_weight"]
+            fns.append(lambda: torch.nn.grad.conv3d_weight(
+                xc, (32, cin, 3, 3, 3), gc, padding=1))
+            names.append("cuDNN conv3d_weight")
             times = cs.time_many(*fns, reps=10)
             for name, ms in zip(names, times):
                 emit(dict(dtype=str(dt), case=case, option=name, ms=ms))
@@ -259,8 +243,6 @@ def main():
             del x, xc, gc
         del a, dy
         torch.cuda.empty_cache()
-    (conv3d.WGRAD16_NDZ, conv3d.WGRAD16_TPW, conv3d.WGRAD16_CHUNK,
-     conv3d.WGRAD16_CTAS) = default
     if out:
         out.close()
 
