@@ -2747,17 +2747,17 @@ def _lowp_plain_patches():
 def phase_lowp_kernels(dev):
     """K15 in float16 per layer kind at N = 1, 4, 64 against plain
     (k15_tolerance, DIFFER_SHARE) and the float64 sums (bit for bit), a
-    repeat, sample 17 alone; K17 and K18 in bfloat16 and float16 at batch 4
-    against plain, each repeat bit for bit: K17 (a block's first layer with
-    masks and the residual's cotangent, 32->32) within one ulp per rounding
-    plus 2^-20 of the sum of |w||g|, at most K17_DIFFER_SHARE differing,
-    conv_lom bit for bit; K18 (32->32 with and without masks, 2->32 float32
-    x and 32->32 at N=1 on the tensor cores, 32->1 float32 dy on the CUDA
-    cores) within one ulp plus 2^-16 of the sum of |x||g|, each on the body
-    wgrad16_route names; K12 with a DynamicLossScale (50 tensors, gradients
-    x2^15: finite, inf, NaN) and K16 with the scale bit for bit. Times
-    beside cuDNN's and bounds (K18 at each layer kind a step launches, and
-    launches x time a step)."""
+    repeat, sample 17 alone, block_a timed at N = 4 and 64; K17 and K18 in
+    bfloat16 and float16 at batch 4 against plain, each repeat bit for bit:
+    K17 (a block's first layer with masks and the residual's cotangent,
+    32->32) within one ulp per rounding plus 2^-20 of the sum of |w||g|, at
+    most K17_DIFFER_SHARE differing, conv_lom bit for bit; K18 (32->32 with
+    and without masks, 2->32 float32 x and 32->32 at N=1 on the tensor
+    cores, 32->1 float32 dy on the CUDA cores) within one ulp plus 2^-16 of
+    the sum of |x||g|, each on the body wgrad16_route names; K12 with a
+    DynamicLossScale (50 tensors, gradients x2^15: finite, inf, NaN) and
+    K16 with the scale bit for bit. Times beside cuDNN's and bounds (K18 at
+    each layer kind a step launches, and launches x time a step)."""
     from ffn_tpu_torch import _build
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
@@ -2773,7 +2773,8 @@ def phase_lowp_kernels(dev):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     results = _k15_layers(gen, torch.float16, (1, TRAIN_B, LANES),
-                          {TRAIN_B: ("block_a",)}, TRAIN_B)
+                          {TRAIN_B: ("block_a",), LANES: ("block_a",)},
+                          TRAIN_B)
 
     n, fov = TRAIN_B, (33, 33, 33)
     vox, flops = n * 33 ** 3, 2 * TRAIN_B * 33 ** 3 * 27 * 32 * 32

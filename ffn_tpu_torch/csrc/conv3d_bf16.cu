@@ -7,44 +7,69 @@
 // y = r(r(acc) + bias), then relu (post_relu) and a residual: 16-bit,
 // y = r(y + res); float32 (conv_lom's seed), out = float32(y) + res. r
 // rounds to nearest even (float16 overflows to inf, as XLA's convert);
-// float32 inputs (conv0_a) round as staged, pre_relu applies as staged.
+// float32 inputs (conv0_a) round as staged, pre_relu applies as read.
 //
 // Which float32 sum: flax leaves the order to XLA, and two orders round
 // ~2e-5 of a layer's sums to neighbouring bfloat16 values, which through 12
-// layers decide moves (K15's own orders split a round-slice cell). So K15 gives
-// r(f32(S)) for the exact S: a second MMA on the fragments with signs
-// cleared sums |x||w| (mag), and |acc - S| <= 2^-ERR_BITS mag with
-// ERR_BITS = 20, measured, not proven (largest of 5.0e8 bfloat16 outputs
-// 2^-20.7, tools_torch/k15_variants.py; the products are exact
-// in both types, and float16 layers equal the float64 sums bit for bit on
-// the card, chip_smoke.py phase 3). Where r(acc - e) and r(acc + e) agree
-// (e the bound plus two float32 ulps) r(acc) is exact; elsewhere (0.3-1% of
-// model-r2's bfloat16 outputs, ~8x more in float16's finer ulp) the warp
-// sums that output in float64 from shared memory (lanes split K, a fixed
-// butterfly) and rounds it: exact when the products' magnitudes span at
-// most 2^28 (bfloat16) or 2^22 (float16, 22-bit products), else off by
-// less than 2^-43 mag.
+// layers decide moves. So K15 gives r(f32(S)) for the exact S: each k16
+// step of the implicit GEMM is summed by the tensor core from zero, a tap
+// row's (dz, dy) 3 Cin / 16 steps are added in float32 and the nine row
+// sums are added to acc in order (Cin = 2: its four steps in order); a
+// second MMA on the fragments with signs cleared sums |x||w| (mag), and
+// |acc - S| <= 2^-ERR_BITS mag with ERR_BITS = 21, measured, not proven
+// (largest of 5.0e8 outputs 2^-21.59 in bfloat16, 2^-21.62 in float16:
+// tools_torch/k15_variants.py; the products are exact in both types).
+// Where r(acc - e) and r(acc + e) agree (e the bound plus two float32 ulps)
+// r(acc) is exact; the other outputs are flagged (0.37% of the
+// calibration's bfloat16 outputs, 1.7% of its float16 ones; more in random
+// layers: PERF.md) and summed in float64 from float32 products (exact in
+// float16; in bfloat16 while mag is in [2^-74, 2^110], else multiplied in
+// float64): exact when the products' magnitudes span at most 2^28
+// (bfloat16) or 2^22 (float16), else off by less than 2^-43 mag.
 //
 // Bound on the H100: a 3^3 32->32 layer is 1.99 GFLOP a 33^3 sample and
-// 4.6-6.9 MB: 2.0 us at 989 TFLOP/s against 1.4-2.1 us at 3.35 TB/s.
-// Design: implicit GEMM on mma.sync m16n8k16 (M voxels, N output channels,
-// K = 27 Cin in (tap, channel) order; conv16.cuh's tile: 4 warps, 4x4x8
-// voxels, the halo tile and all weights staged once, rows padded against
-// bank conflicts, ldmatrix.trans for B); Cin = 2 packs taps along K; 1^3
-// layers (conv_lom) are a float64 dot product per output on the CUDA cores.
-// A CTA never mixes samples and an output depends on its inputs only, so a
-// sample's result does not depend on N, and repeats bit for bit. Left for
-// later: wgmma, TMA, pipelining, weights shared across tiles.
+// 4.6-6.9 MB: 2.0 us at 989 TFLOP/s against 1.4-2.1 us at 3.35 TB/s. The
+// mag MMAs double the tensor-core work; a flagged output's 864 float32 to
+// float64 conversions take 54 clocks of an SM's 16 a clock.
+//
+// Design (tools_torch/k15_variants.py times the options):
+// - A tile is kTileRows voxels at consecutive positions q = y * P + x of one
+//   z-plane of one sample, P = W + 1: a zero column after each row stands
+//   for SAME padding on both sides, so a tap is one fixed row offset and a
+//   33^3 sample is 33 * 9 tiles of 128 (5.8% padded slots; an 8x4x4 box
+//   wasted 44%). The tile's halo is three planes of R = kTileRows + 2P + 2
+//   rows, zero outside the volume, staged by cp.async (zero-filled).
+// - Persistent CTAs of 8 warps, two an SM at 33^3 (one stage each: the
+//   other CTA's MMAs run while one loads its next tile or sums in float64;
+//   one CTA with a ring of two stages, or 4 warps of two m16 tiles, lost),
+//   stage the weights once as [co][k] (k = tap * Cin + ci, rows padded
+//   against bank conflicts: ldmatrix B fragments and contiguous float64
+//   reads) and walk tiles b, b + grid, ...
+// - Warp w owns tile rows [16 w, 16 w + 16) and every output channel:
+//   mma.sync m16n8k16, A and B by ldmatrix (Cin = 2 packs 8 taps in a k16
+//   step and reads A as 32-bit words).
+// - Flagged outputs queue in shared memory in the order warp, lane, bit;
+//   after the tile's MMAs the CTA sums them in rounds, each output on L
+//   lanes (L = 1, 2, 4 or 8: the most that leaves no output of the queue's
+//   rest for a later round; lanes split the nine (dz, dy) rows of taps,
+//   then a butterfly), an order the tile's own inputs decide.
+// An output depends on its tile's inputs only (the tile list and the grid
+// never enter a sum), so a sample's result does not depend on N, and
+// repeats bit for bit. ops/conv3d.py's k15_geometry mirrors the host-side
+// geometry. 1^3 layers (conv_lom) are a float64 dot product per output on
+// the CUDA cores.
 //
 // Measurement variants (never defined by the library;
 // tools_torch/k15_variants.py): FFN_K15_RAW_SUM outputs the unrounded
-// float32 sum in K15's order, FFN_K15_IN_MMA accumulates it in the tensor
-// core, FFN_K15_ERR_BITS sets the bound.
+// float32 sum in K15's order, FFN_K15_IN_MMA accumulates each tap row in
+// the tensor core, FFN_K15_ERR_BITS sets the bound, FFN_K15_NO_EXACT
+// stores flagged outputs from acc (the flags, no float64 sums),
+// FFN_K15_UNCORRECTED also drops the flags and the |x||w| MMAs.
 
 #include "conv16.cuh"
 
 #ifndef FFN_K15_ERR_BITS
-#define FFN_K15_ERR_BITS 20
+#define FFN_K15_ERR_BITS 21
 #endif
 #if defined(FFN_K15_RAW_SUM) && !defined(FFN_K15_UNCORRECTED)
 #define FFN_K15_UNCORRECTED
@@ -52,14 +77,49 @@
 
 namespace {
 
+constexpr int kTileRows = 128;
+constexpr int kWarps = kTileRows / 16;  // one m16 tile a warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSmemLimit = 232448;  // a CTA's shared memory on an H100
+
+// The implicit GEMM of a 3^3 layer with CIN input and COUT output channels:
+// K = 27 CIN in (tap, channel) order, padded to k16 steps. Strides in 16-bit
+// values: weights [co][WK], halo rows CS (+8: the 8 rows an ldmatrix reads
+// hit distinct banks; CIN = 2 reads 32-bit words and needs none).
+template <int CIN, int COUT>
+struct K15Geo {
+  static constexpr int K = 27 * CIN;
+  static constexpr int KPAD = (K + 15) / 16 * 16;
+  static constexpr int WK = KPAD + 8;
+  static constexpr int CS = CIN % 16 == 0 ? CIN + 8 : CIN;
+  static constexpr int NT = COUT / 8;
+  static constexpr int W_BYTES = COUT * WK * 2;
+  static constexpr int QUEUE_BYTES = kTileRows * COUT * 2;
+};
+
+// A stage's bytes (three planes of R rows), in 128s; a CTA's shared
+// memory: weights, the stage, the queue, the warps' counts of it and the
+// bias in float32.
+template <int CIN, int COUT>
+__host__ __device__ inline int stage_bytes(int R) {
+  return (3 * R * K15Geo<CIN, COUT>::CS * 2 + 127) / 128 * 128;
+}
+
+template <int CIN, int COUT>
+inline size_t k15_smem(int R) {
+  using G = K15Geo<CIN, COUT>;
+  return (size_t)G::W_BYTES + stage_bytes<CIN, COUT>(R) + G::QUEUE_BYTES +
+         kWarps * 4 + COUT * 4;
+}
+
 // The conv's float32 sum to its 16-bit output before the residual:
 // r(r(acc) + bias), then relu (post_relu).
 template <typename T>
-__device__ __forceinline__ float finish(float acc, T b, int post_relu) {
+__device__ __forceinline__ float finish(float acc, float b, int post_relu) {
 #if defined(FFN_K15_RAW_SUM)
   return acc;
 #else
-  float v = round16<T>(round16<T>(acc) + to_f<T>(b));
+  float v = round16<T>(round16<T>(acc) + b);
   if (post_relu && v < 0.f) v = 0.f;
   return v;
 #endif
@@ -84,181 +144,488 @@ __device__ __forceinline__ void store_y(void* y, const void* res, int out_f32,
   static_cast<T*>(y)[i] = from_f<T>(v);
 }
 
-// Loads CH consecutive input channels (16 or 8 bytes) as floats.
-template <typename T, int CH>
-__device__ __forceinline__ void load_chunk(const void* x, int x_f32,
-                                           size_t off, float (&f)[CH]) {
-  if (x_f32) {
-    const float* p = static_cast<const float*>(x) + off;
-    if constexpr (CH == 8) {
-      const float4 a = *reinterpret_cast<const float4*>(p);
-      const float4 b = *reinterpret_cast<const float4*>(p + 4);
-      f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-      f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-    } else {
-      const float2 a = *reinterpret_cast<const float2*>(p);
-      f[0] = a.x; f[1] = a.y;
+// Stores channels co, co + 1 (co even) of y at index i (of co) with the
+// residual's sums, as store_y does each.
+template <typename T>
+__device__ __forceinline__ void store_y2(void* y, const void* res,
+                                         int out_f32, size_t i, float v0,
+                                         float v1) {
+  if (out_f32) {
+    if (res != nullptr) {
+      const float2 r = *reinterpret_cast<const float2*>(
+          static_cast<const float*>(res) + i);
+      v0 += r.x;
+      v1 += r.y;
     }
-  } else {
-    const T* p = static_cast<const T*>(x) + off;
-    if constexpr (CH == 8) {
-      const uint4 u = *reinterpret_cast<const uint4*>(p);
-      unpack16<T>(u.x, f[0], f[1]);
-      unpack16<T>(u.y, f[2], f[3]);
-      unpack16<T>(u.z, f[4], f[5]);
-      unpack16<T>(u.w, f[6], f[7]);
-    } else {
-      unpack16<T>(*reinterpret_cast<const uint32_t*>(p), f[0], f[1]);
+    *reinterpret_cast<float2*>(static_cast<float*>(y) + i) =
+        make_float2(v0, v1);
+    return;
+  }
+  if (res != nullptr) {
+    float r0, r1;
+    unpack16<T>(*reinterpret_cast<const uint32_t*>(
+                    static_cast<const T*>(res) + i), r0, r1);
+    v0 += r0;
+    v1 += r1;
+  }
+  *reinterpret_cast<uint32_t*>(static_cast<T*>(y) + i) = pack16<T>(v0, v1);
+}
+
+// relu of both 16-bit halves of T.
+template <typename T>
+__device__ __forceinline__ uint32_t relu2(uint32_t v) {
+  uint32_t r;
+  if constexpr (kIsHalf<T>)
+    asm("max.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(v), "r"(0u));
+  else
+    asm("max.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(v), "r"(0u));
+  return r;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// cp.async of BYTES (16 or 4) from src to shared dst, zero-filled (and src
+// not read) unless `valid`.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         bool valid) {
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(dst), "l"(src), "n"(BYTES), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// The tile's place: sample n, plane z, first position q0.
+struct Tile {
+  int n, z, q0;
+};
+
+__device__ __forceinline__ Tile tile_at(long long t, int D, int per_plane) {
+  const long long plane = t / per_plane;
+  return Tile{(int)(plane / D), (int)(plane % D),
+              (int)(t - plane * per_plane) * kTileRows};
+}
+
+// Stages tile `tl`'s halo: plane dz (z + dz - 1) rows h = 0..R-1 hold the
+// voxel at q = q0 - P - 1 + h, zero outside the volume and in the zero
+// column. 16-bit x by cp.async (the caller commits), float32 x rounded
+// through registers.
+template <typename T, int CIN, int COUT>
+__device__ __forceinline__ void stage_tile(T* st, const void* x, int x_f32,
+                                           Tile tl, int D, int H, int W,
+                                           int P, int R) {
+  using G = K15Geo<CIN, COUT>;
+  constexpr int CH = CIN < 8 ? CIN : 8;  // values a copy
+  constexpr int CPR = CIN / CH;           // copies a row
+  const int hp = H * P;
+  for (int i = threadIdx.x; i < R * CPR; i += kThreads) {
+    const int h = i / CPR, c = (i - h * CPR) * CH;
+    const int q = tl.q0 - P - 1 + h;
+    const bool in_plane = q >= 0 && q < hp;
+    const int gy = in_plane ? q / P : 0, gx = q - gy * P;
+    const bool in_row = in_plane && gx < W;
+#pragma unroll
+    for (int dz = 0; dz < 3; ++dz) {
+      const int zz = tl.z + dz - 1;
+      const bool valid = in_row && zz >= 0 && zz < D;
+      const size_t src =
+          valid ? ((((size_t)tl.n * D + zz) * H + gy) * W + gx) * CIN + c
+                : 0;
+      T* dst = st + (dz * R + h) * G::CS + c;
+      if (!x_f32) {
+        cp_async<CH * 2>(
+            static_cast<uint32_t>(__cvta_generic_to_shared(dst)),
+            static_cast<const T*>(x) + src, valid);
+        continue;
+      }
+      const float* p = static_cast<const float*>(x) + src;
+      if constexpr (CH == 8) {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+        if (valid) {
+          a = *reinterpret_cast<const float4*>(p);
+          b = *reinterpret_cast<const float4*>(p + 4);
+        }
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack16<T>(a.x, a.y), pack16<T>(a.z, a.w),
+                       pack16<T>(b.x, b.y), pack16<T>(b.z, b.w));
+      } else {
+        float2 a = make_float2(0.f, 0.f);
+        if (valid) a = *reinterpret_cast<const float2*>(p);
+        *reinterpret_cast<uint32_t*>(dst) = pack16<T>(a.x, a.y);
+      }
     }
   }
 }
 
-#ifndef FFN_K15_UNCORRECTED
-// The exact sum of output channel `co` at staged voxel `vox` (tap 0), in
-// float64 from the staged tile and weights: the warp's lanes split K (at
-// Cin = 32 lane = channel, over the 27 taps) and a butterfly adds their
-// parts in one fixed order; every lane returns it.
-template <typename T, int CIN, int COUT>
-__device__ __forceinline__ double exact_sum(const T* s_x, const T* s_w,
-                                            int vox, int co, int lane) {
-  using G = Geo<CIN, COUT>;
-  double sum = 0.0;
-  if constexpr (CIN == 32) {
+// The implicit GEMM's sums of warp `warp`'s 16 rows of the staged tile st:
+// acc[nt] the float32 sums of n-tile nt in C fragment order; with MAG also
+// the sums of |x| * |w| (in the tensor core).
+template <typename T, int CIN, int COUT, bool MAG>
+__device__ __forceinline__ void tile_sums(const T* st, const T* s_w,
+                                          int warp, int lane, int P, int R,
+                                          int pre_relu,
+                                          float (&acc)[COUT / 8][4],
+                                          float (&mag)[COUT / 8][4]) {
+  using G = K15Geo<CIN, COUT>;
 #pragma unroll
-    for (int tap = 0; tap < 27; ++tap)
-      sum = fma((double)to_f<T>(s_x[(vox + tap_offset(tap)) * G::CS + lane]),
-                (double)to_f<T>(s_w[(tap * 32 + lane) * G::WS + co]), sum);
+  for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[nt][j] = mag[nt][j] = 0.f;
+  // ldmatrix B: lane supplies row (co) (lane & 7) + 8 (lane >> 4), k half
+  // (lane >> 3) & 1: matrices 0-1 are n-tile 2p's k 0-7 and 8-15, 2-3 those
+  // of 2p + 1.
+  const uint32_t b_lane = static_cast<uint32_t>(__cvta_generic_to_shared(
+      s_w + ((lane & 7) + (lane >> 4) * 8) * G::WK + ((lane >> 3) & 1) * 8));
+
+  // One k16 step: its sums from zero added to `into` (a tap row's partial
+  // sum, or acc at Cin = 2).
+  auto step = [&](const uint32_t (&a)[4], int k0, float (&into)[G::NT][4]) {
+    uint32_t b[G::NT][2], bm[G::NT][2], am[4];
+#pragma unroll
+    for (int p = 0; p < G::NT / 2; ++p) {
+      uint32_t r[4];
+      ldmatrix_x4(r, b_lane + (p * 16 * G::WK + k0) * 2);
+      b[2 * p][0] = r[0];
+      b[2 * p][1] = r[1];
+      b[2 * p + 1][0] = r[2];
+      b[2 * p + 1][1] = r[3];
+    }
+    if constexpr (MAG) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) am[j] = abs2(a[j]);
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) {
+        bm[nt][0] = abs2(b[nt][0]);
+        bm[nt][1] = abs2(b[nt][1]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt) {
+#ifdef FFN_K15_IN_MMA
+      mma16<T, true>(into[nt], a, b[nt][0], b[nt][1]);
+#else
+      float d[4];
+      mma16<T, false>(d, a, b[nt][0], b[nt][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) into[nt][j] += d[j];
+#endif
+      if constexpr (MAG) mma16<T, true>(mag[nt], am, bm[nt][0], bm[nt][1]);
+    }
+  };
+
+  if constexpr (CIN % 16 == 0) {
+    // A by ldmatrix: lane supplies row lane & 15, k half lane >> 4
+    // (matrices: rows 0-7 and 8-15 of k 0-7, then of k 8-15).
+    // Each tap row (dz, dy): its 3 CIN / 16 steps summed from zero, then
+    // added to acc.
+    const uint32_t a_lane = static_cast<uint32_t>(__cvta_generic_to_shared(
+        st + (warp * 16 + (lane & 15)) * G::CS + (lane >> 4) * 8));
+#pragma unroll 1
+    for (int zy = 0; zy < 9; ++zy) {
+      const int dz = zy / 3, dy = zy - dz * 3;
+      const int base = (dz * R + dy * P) * G::CS;
+      float row[G::NT][4] = {};
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+        for (int s = 0; s < CIN / 16; ++s) {
+          uint32_t a[4];
+          ldmatrix_x4(a, a_lane + (base + dx * G::CS + s * 16) * 2);
+          if (pre_relu) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) a[j] = relu2<T>(a[j]);
+          }
+          step(a, (zy * 3 + dx) * CIN + s * 16, row);
+        }
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[nt][j] += row[nt][j];
+    }
   } else {
-    for (int k = lane; k < G::K; k += 32) {
-      const int tap = k / CIN, ci = k % CIN;
-      sum = fma((double)to_f<T>(s_x[(vox + tap_offset(tap)) * G::CS + ci]),
-                (double)to_f<T>(s_w[k * G::WS + co]), sum);
+    // CIN = 2: the pairs k0 + 2t and k0 + 2t + 8 are taps (k0 + 2t) / 2 and
+    // that + 4, both channels one 32-bit word; a tap past 26 reads zero.
+    static_assert(CIN == 2, "K15's 3^3 kernel takes Cin 2, 16 or 32");
+    const int g = lane >> 2, t = lane & 3;
+    const uint32_t* st32 = reinterpret_cast<const uint32_t*>(st);
+#pragma unroll
+    for (int k0 = 0; k0 < G::KPAD; k0 += 16) {
+      uint32_t a[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int tap = (k0 + 2 * t + 8 * half) / 2;
+        const bool live = tap < 27;
+        const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
+        const int off = live ? dz * R + dy * P + dx : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t v = live ? st32[warp * 16 + g + 8 * h + off] : 0u;
+          a[2 * half + h] = pre_relu ? relu2<T>(v) : v;
+        }
+      }
+      step(a, k0, acc);
     }
   }
+}
+
+#if !defined(FFN_K15_UNCORRECTED) && !defined(FFN_K15_NO_EXACT)
+template <typename T, int V>
+__device__ __forceinline__ void load_v(const T* p, float (&f)[V]) {
+  if constexpr (V == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    unpack16<T>(u.x, f[0], f[1]);
+    unpack16<T>(u.y, f[2], f[3]);
+    unpack16<T>(u.z, f[4], f[5]);
+    unpack16<T>(u.w, f[6], f[7]);
+  } else {
+    unpack16<T>(*reinterpret_cast<const uint32_t*>(p), f[0], f[1]);
+  }
+}
+
+// Lane sub's part of the exact sum of output channel `co` at tile row r
+// (exact_sum): tap rows zy = sub, sub + L, ... of nine (dz, dy), K in
+// order into four partial sums (k mod 4). Products in float32 (exact)
+// added in float64, or with F64 multiplied in float64.
+template <typename T, int CIN, int COUT, bool F64>
+__device__ __forceinline__ void add_products(const T* st, const T* s_w,
+                                             int r, int co, int P, int R,
+                                             int pre_relu, int sub, int L,
+                                             double (&part)[4]) {
+  using G = K15Geo<CIN, COUT>;
+  constexpr int V = CIN < 8 ? CIN : 8;  // channels a load
+  const T* xr = st + r * G::CS;
+  const T* wr = s_w + co * G::WK;
+#pragma unroll 1
+  for (int zy = sub; zy < 9; zy += L) {
+    const int dz = zy / 3, dy = zy - 3 * dz;
+    const T* xz = xr + (dz * R + dy * P) * G::CS;
+    const T* wz = wr + zy * 3 * CIN;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+    for (int c = 0; c < 3 * CIN; c += V) {  // c = dx CIN + ci
+      float xv[V], wv[V];
+      load_v<T, V>(xz + (c / CIN) * G::CS + c % CIN, xv);
+      load_v<T, V>(wz + c, wv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xj = pre_relu ? fmaxf(xv[j], 0.f) : xv[j];
+        double& acc = part[(c + j) % 4];
+        if constexpr (F64)
+          acc = fma((double)xj, (double)wv[j], acc);
+        else
+          acc += (double)(xj * wv[j]);
+      }
+    }
+  }
+}
+
+// The exact sum of output channel `co` at tile row r in float64 from the
+// staged tile and weights, by the L lanes sub = 0..L-1 of an aligned group
+// (every lane of the warp calls it; lanes not `live` add nothing): each
+// lane's add_products, its partial sums added in one fixed order, then a
+// butterfly. With f64 (bfloat16 products that may leave float32's exact
+// range) the products are taken in float64.
+template <typename T, int CIN, int COUT>
+__device__ __forceinline__ double exact_sum(const T* st, const T* s_w, int r,
+                                            int co, int P, int R,
+                                            int pre_relu, int sub, int L,
+                                            bool live, bool f64) {
+  double part[4] = {0.0, 0.0, 0.0, 0.0};
+  if (live) {
+    if (!kIsHalf<T> && f64)
+      add_products<T, CIN, COUT, true>(st, s_w, r, co, P, R, pre_relu, sub,
+                                       L, part);
+    else
+      add_products<T, CIN, COUT, false>(st, s_w, r, co, P, R, pre_relu, sub,
+                                        L, part);
+  }
+  double sum = (part[0] + part[1]) + (part[2] + part[3]);
+  for (int o = 1; o < L; o <<= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, o);
   return sum;
 }
 #endif
 
 template <typename T, int CIN, int COUT>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 conv3d_16_tc_kernel(const void* __restrict__ x, int x_f32,
                     const T* __restrict__ wt, const T* __restrict__ bias,
                     const void* __restrict__ res, void* __restrict__ y,
-                    int D, int H, int W, int pre_relu, int post_relu,
-                    int out_f32, int tiles_x) {
-  using G = Geo<CIN, COUT>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_w = reinterpret_cast<T*>(smem);  // [KPAD][WS]
-  T* s_x = s_w + G::KPAD * G::WS;       // [SVOX][CS]
+                    int D, int H, int W, int P, int R, int per_plane,
+                    long long tiles, int pre_relu, int post_relu,
+                    int out_f32) {
+  using G = K15Geo<CIN, COUT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* s_w = reinterpret_cast<T*>(smem);             // [COUT][WK]
+  T* st = reinterpret_cast<T*>(smem + G::W_BYTES);  // [3][R][CS]
+  unsigned short* queue = reinterpret_cast<unsigned short*>(
+      smem + G::W_BYTES + stage_bytes<CIN, COUT>(R));
+  int* w_count = reinterpret_cast<int*>(  // flagged outputs a warp
+      reinterpret_cast<unsigned char*>(queue) + G::QUEUE_BYTES);
+  float* s_bias = reinterpret_cast<float*>(w_count + kWarps);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int x0 = (blockIdx.x % tiles_x) * TX;
-  const int y0 = (blockIdx.x / tiles_x) * TY;
-  const int z0 = blockIdx.y * TZ;
-  const size_t vox0 = (size_t)blockIdx.z * D * H * W;  // the CTA's sample
-
-  // Weights: row k = tap * Cin + ci of the DHWIO tensor, rows past K zero.
-  constexpr int WCH = COUT / 8;
-  for (int i = tid; i < G::KPAD * WCH; i += kTcThreads) {
-    const int r = i / WCH, c = (i % WCH) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < G::K) v = *reinterpret_cast<const uint4*>(wt + (size_t)r * COUT + c);
-    *reinterpret_cast<uint4*>(s_w + r * G::WS + c) = v;
-  }
-  // Input tile with its halo; SAME padding reads as zero.
-  constexpr int CH = CIN < 8 ? CIN : 8;
-  constexpr int XCH = CIN / CH;
-  for (int i = tid; i < SVOX * XCH; i += kTcThreads) {
-    const int v = i / XCH, c = (i % XCH) * CH;
-    const int sx = v % SX, sy = (v / SX) % SY, sz = v / (SX * SY);
-    const int gz = z0 + sz - 1, gy = y0 + sy - 1, gx = x0 + sx - 1;
-    float f[CH];
-#pragma unroll
-    for (int j = 0; j < CH; ++j) f[j] = 0.f;
-    if (gz >= 0 && gz < D && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      load_chunk<T, CH>(x, x_f32,
-                        (vox0 + ((size_t)gz * H + gy) * W + gx) * CIN + c, f);
-      if (pre_relu) {
-#pragma unroll
-        for (int j = 0; j < CH; ++j) f[j] = f[j] < 0.f ? 0.f : f[j];
-      }
-    }
-    T* dst = s_x + v * G::CS + c;
-    if constexpr (CH == 8) {
-      *reinterpret_cast<uint4*>(dst) =
-          make_uint4(pack16<T>(f[0], f[1]), pack16<T>(f[2], f[3]),
-                     pack16<T>(f[4], f[5]), pack16<T>(f[6], f[7]));
-    } else {
-      *reinterpret_cast<uint32_t*>(dst) = pack16<T>(f[0], f[1]);
-    }
-  }
-  __syncthreads();
-
-  float acc[2][G::NT][4], mag[2][G::NT][4];  // mag: sum of |x| * |w|
-#ifdef FFN_K15_UNCORRECTED
-  tc_sums<T, CIN, COUT, false>(s_x, s_w, warp, lane, acc, mag);
-#else
-  tc_sums<T, CIN, COUT, true>(s_x, s_w, warp, lane, acc, mag);
-#endif
   const int g = lane >> 2, t = lane & 3;
 
-  // Where acc's error bound straddles a point at which r(f32(.)) changes,
-  // the warp sums that output exactly (exact_sum) and its owner stores it;
-  // bit (mt * NT + nt) * 4 + q of `exact` marks those outputs.
-  uint32_t exact = 0;
-#ifndef FFN_K15_UNCORRECTED
-  constexpr float kErr = 1.0f / (float)(1u << FFN_K15_ERR_BITS);
+  // Weights: row co holds k = tap * Cin + ci of the DHWIO tensor, k past K
+  // zero.
+  for (int i = tid; i < G::KPAD * (COUT / 8); i += kThreads) {
+    const int k = i / (COUT / 8), c = (i - k * (COUT / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (k < G::K)
+      v = *reinterpret_cast<const uint4*>(wt + (size_t)k * COUT + c);
+    const T* h = reinterpret_cast<const T*>(&v);
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < G::NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float v = acc[mt][nt][q];
-        const float e = fmaf(mag[mt][nt][q], kErr, fabsf(v) * 0x1p-22f);
-        if (bits16<T>(v - e) != bits16<T>(v + e))
-          exact |= 1u << ((mt * G::NT + nt) * 4 + q);
-      }
-  for (uint32_t todo = exact;;) {
-    const unsigned lanes = __ballot_sync(0xffffffffu, todo != 0);
-    if (lanes == 0) break;
-    const int owner = __ffs(lanes) - 1;
-    const int i = __ffs(__shfl_sync(0xffffffffu, todo, owner)) - 1;
-    if (lane == owner) todo &= todo - 1;
-    const int mt = i / (4 * G::NT), nt = (i / 4) % G::NT, q = i % 4;
-    const int row = 2 * mt + (q >> 1), co = nt * 8 + 2 * (owner & 3) + (q & 1);
-    const double sum = exact_sum<T, CIN, COUT>(
-        s_x, s_w, (warp * SY + row) * SX + (owner >> 2), co, lane);
-    const int gz = z0 + warp, gy = y0 + row, gx = x0 + (owner >> 2);
-    if (lane == owner && gz < D && gy < H && gx < W)
-      store_y<T>(y, res, out_f32,
-                 (vox0 + ((size_t)gz * H + gy) * W + gx) * COUT + co,
-                 finish<T>((float)sum, bias[co], post_relu));
+    for (int j = 0; j < 8; ++j) s_w[(c + j) * G::WK + k] = h[j];
   }
+  if (tid < COUT) s_bias[tid] = to_f<T>(bias[tid]);
+  float bias2[G::NT][2];  // the bias of the thread's channels nt 8 + 2t + c
+#pragma unroll
+  for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      bias2[nt][c] = to_f<T>(bias[nt * 8 + 2 * t + c]);
+  long long tile = blockIdx.x;
+  stage_tile<T, CIN, COUT>(st, x, x_f32, tile_at(tile, D, per_plane), D, H,
+                           W, P, R);
+  cp_async_commit();
+
+  for (; tile < tiles; tile += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const Tile tl = tile_at(tile, D, per_plane);
+    const size_t plane0 = ((size_t)tl.n * D + tl.z) * H * W;
+
+    float acc[G::NT][4], mag[G::NT][4];  // mag: sum of |x| |w|
+#ifdef FFN_K15_UNCORRECTED
+    tile_sums<T, CIN, COUT, false>(st, s_w, warp, lane, P, R, pre_relu, acc,
+                                   mag);
+#else
+    tile_sums<T, CIN, COUT, true>(st, s_w, warp, lane, P, R, pre_relu, acc,
+                                  mag);
 #endif
 
-  const int gz = z0 + warp, gx = x0 + g;
-  if (gz >= D || gx >= W) return;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    // Where acc's error bound straddles a point at which r(f32(.)) changes,
+    // the output goes to the queue (bit nt 4 + j of `exact`; of `wide`
+    // where its products are summed in float64); the others are stored
+    // now, channel pairs together. Rows past the plane or in the zero
+    // column compute nothing.
+    uint32_t exact = 0, wide = 0;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gy = y0 + 2 * mt + h;
-      if (gy >= H) continue;
-      const size_t o = (vox0 + ((size_t)gz * H + gy) * W + gx) * COUT;
+      const int q = tl.q0 + warp * 16 + g + 8 * h;
+      const int gy = q / P, gx = q - gy * P;
+      if (gy >= H || gx >= W) continue;
+      const size_t v0 = plane0 + (size_t)gy * W + gx;
 #pragma unroll
-      for (int nt = 0; nt < G::NT; ++nt)
+      for (int nt = 0; nt < G::NT; ++nt) {
+        float v[2];
+        uint32_t flag = 0;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (exact >> ((mt * G::NT + nt) * 4 + 2 * h + j) & 1) continue;
-          const int co = nt * 8 + 2 * t + j;
-          store_y<T>(y, res, out_f32, o + co,
-                     finish<T>(acc[mt][nt][2 * h + j], bias[co], post_relu));
+        for (int c = 0; c < 2; ++c) {
+          const float a = acc[nt][2 * h + c];
+          v[c] = finish<T>(a, bias2[nt][c], post_relu);
+#ifndef FFN_K15_UNCORRECTED
+          constexpr float kErr = 1.0f / (float)(1u << FFN_K15_ERR_BITS);
+          const float e = fmaf(mag[nt][2 * h + c], kErr, fabsf(a) * 0x1p-22f);
+          if (bits16<T>(a - e) != bits16<T>(a + e)) {
+            flag |= 1u << c;
+            // A bfloat16 product is exact in float32 while in [2^-126,
+            // 2^127]: so while mag is in [2^-74, 2^110] and the products
+            // span at most 2^28 (and otherwise it loses less than 2^-149).
+            if (!kIsHalf<T> && !(mag[nt][2 * h + c] >= 0x1p-74f &&
+                                 mag[nt][2 * h + c] <= 0x1p110f))
+              wide |= 1u << (nt * 4 + 2 * h + c);
+          }
+#endif
         }
+        const size_t o = v0 * COUT + nt * 8 + 2 * t;
+        if (flag == 0) {
+          store_y2<T>(y, res, out_f32, o, v[0], v[1]);
+          continue;
+        }
+        exact |= flag << (nt * 4 + 2 * h);
+#ifdef FFN_K15_NO_EXACT
+        flag = 0;  // flagged outputs stored as they are, one by one
+#endif
+        if (!(flag & 1)) store_y<T>(y, res, out_f32, o, v[0]);
+        if (!(flag & 2)) store_y<T>(y, res, out_f32, o + 1, v[1]);
+      }
     }
+
+#if !defined(FFN_K15_UNCORRECTED) && !defined(FFN_K15_NO_EXACT)
+    // Queue the flagged outputs as row * COUT + co, bit 15 set where
+    // `wide`: warp w's from w * 16 COUT on, in the order lane, bit (a
+    // prefix of the lanes' counts); the queue runs warp by warp.
+    const int cnt = __popc(exact);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) w_count[warp] = incl;
+    int at = warp * 16 * COUT + incl - cnt;
+    for (uint32_t m = exact; m; m &= m - 1) {
+      const int b = __ffs(m) - 1, nt = b / 4, j = b % 4;
+      const int row = warp * 16 + g + 8 * (j >> 1);
+      queue[at++] = (unsigned short)(row * COUT + nt * 8 + 2 * t + (j & 1) +
+                                     (((wide >> b) & 1) << 15));
+    }
+    __syncthreads();
+    int nq = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) nq += w_count[w];
+    // The CTA sums the queue in rounds, each output on L lanes: a round
+    // takes the most lanes, up to 8, that leave no output of the rest for
+    // a later round (the queue's order, so L, is the tile's own).
+    for (int e0 = 0; e0 < nq;) {
+      int L = 1;
+      while (L < 8 && (nq - e0) * 2 * L <= kThreads) L *= 2;
+      const int e = e0 + tid / L, sub = tid % L;
+      const bool live = e < nq;
+      int ent = 0;
+      if (live) {  // the e-th entry, warp by warp
+        int w = 0, i = e;
+        while (i >= w_count[w]) i -= w_count[w++];
+        ent = queue[w * 16 * COUT + i];
+      }
+      const int row = (ent & 0x7fff) / COUT, co = (ent & 0x7fff) - row * COUT;
+      const double sum = exact_sum<T, CIN, COUT>(
+          st, s_w, row, co, P, R, pre_relu, sub, L, live, ent >> 15);
+      if (live && sub == 0) {
+        const int q = tl.q0 + row, gy = q / P, gx = q - gy * P;
+        store_y<T>(y, res, out_f32,
+                   (plane0 + (size_t)gy * W + gx) * COUT + co,
+                   finish<T>((float)sum, s_bias[co], post_relu));
+      }
+      e0 += kThreads / L;
+    }
+#endif
+    __syncthreads();  // the stage, the queue and the counts are free
+    if (tile + gridDim.x < tiles) {
+      stage_tile<T, CIN, COUT>(st, x, x_f32,
+                               tile_at(tile + gridDim.x, D, per_plane), D, H,
+                               W, P, R);
+      cp_async_commit();
+    }
+  }
 }
 
 // 1^3 layers: one thread per output, its input channels summed in order.
@@ -289,24 +656,40 @@ __global__ void conv1_16_kernel(const void* __restrict__ x, int x_f32,
 #endif
   }
   store_y<T>(y, res, out_f32, (size_t)i,
-             finish<T>((float)acc, bias[co], post_relu));
+             finish<T>((float)acc, to_f<T>(bias[co]), post_relu));
 }
 
+// The host side of the geometry (ops/conv3d.py's k15_geometry mirrors it):
+// pitch P, halo rows R, tiles a plane; the grid is the SMs times the CTAs
+// an SM that shared memory and registers allow.
 template <typename T, int CIN, int COUT>
 cudaError_t launch_tc(const void* x, int x_f32, const T* w, const T* bias,
                       const void* res, void* y, int N, int D, int H, int W,
                       int pre_relu, int post_relu, int out_f32,
                       cudaStream_t s) {
-  constexpr size_t smem = Geo<CIN, COUT>::SMEM;
-  const cudaError_t err = cudaFuncSetAttribute(
-      conv3d_16_tc_kernel<T, CIN, COUT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = conv3d_16_tc_kernel<T, CIN, COUT>;
+  const int P = W + 1, R = kTileRows + 2 * P + 2;
+  const int per_plane = (H * P - 1 + kTileRows - 1) / kTileRows;
+  const long long tiles = (long long)N * D * per_plane;
+  const size_t smem = k15_smem<CIN, COUT>(R);
+  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  if (tiles == 0) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int tiles_x = (W + TX - 1) / TX, tiles_y = (H + TY - 1) / TY;
-  const dim3 grid(tiles_x * tiles_y, (D + TZ - 1) / TZ, N);
-  conv3d_16_tc_kernel<T, CIN, COUT><<<grid, kTcThreads, smem, s>>>(
-      x, x_f32, w, bias, res, y, D, H, W, pre_relu, post_relu, out_f32,
-      tiles_x);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return err;
+  const long long ctas = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = (unsigned)(tiles < ctas ? tiles : ctas);
+  kernel<<<grid, kThreads, smem, s>>>(x, x_f32, w, bias, res, y, D, H, W, P,
+                                      R, per_plane, tiles, pre_relu,
+                                      post_relu, out_f32);
   return cudaGetLastError();
 }
 
@@ -347,8 +730,9 @@ int conv3d_16(const void* x, int x_f32, const void* w, const void* bias,
 // (k,k,k,Cin,Cout) and bias (Cout) of its type; res (N,D,H,W,Cout) or null,
 // float32 when out_f32 else of its type; y (N,D,H,W,Cout), float32 when
 // out_f32 else of its type. All contiguous; k = 3 takes (Cin, Cout) in
-// {(2,32), (32,32), (2,16), (16,16)} with x and w 16-byte aligned, k = 1
-// any widths. The _bf16 entry runs bfloat16 layers, the _f16 one float16.
+// {(2,32), (32,32), (2,16), (16,16)} with x 16-byte aligned and rows whose
+// halo fits in shared memory (k15_geometry), k = 1 any widths. The _bf16
+// entry runs bfloat16 layers, the _f16 one float16.
 #define FFN_K15_ENTRY(NAME, T)                                               \
   extern "C" int NAME(const void* x, int x_f32, const void* w,               \
                       const void* bias, const void* res, void* y, int N,     \

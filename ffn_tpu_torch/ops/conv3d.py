@@ -170,6 +170,69 @@ def _check_bf16(x, weight, bias, residual):
     return tensors
 
 
+# The 3^3 kernel's geometry (conv3d_bf16.cu's launch_tc): tiles of
+# K15_TILE_ROWS voxels at positions q = y * P + x of one z-plane, P = W + 1
+# (a zero column after each row), each staged with a halo of three planes
+# of R = K15_TILE_ROWS + 2P + 2 rows; a CTA holds the weights as
+# [Cout][k], one stage and a queue of flagged outputs. Two CTAs share an
+# SM while each fits K15_SMEM_TWO bytes (the 33^3 FOV does).
+K15_TILE_ROWS = 128
+K15_SMEM = 232448        # shared memory a CTA may use on an H100
+K15_SMEM_TWO = 115712    # ... and each of two on one SM (228 KB, 1 KB a CTA)
+
+
+@dataclasses.dataclass(frozen=True)
+class K15Geometry:
+    """Tile t of a layer on x (n, d, h, w, cin): sample t // (d per_plane),
+    plane t // per_plane % d, positions q0 = t % per_plane * rows onward;
+    `smem` bytes a CTA."""
+    d: int
+    h: int
+    w: int
+    pitch: int
+    halo_rows: int
+    per_plane: int
+    tiles: int
+    smem: int
+
+    def voxels(self, t):
+        """(n, z, ys, xs): tile t's voxels in the volume (its other rows,
+        past the plane or in the zero column, compute nothing)."""
+        n, z = t // (self.d * self.per_plane), t // self.per_plane % self.d
+        q = t % self.per_plane * K15_TILE_ROWS + torch.arange(K15_TILE_ROWS)
+        ys, xs = q // self.pitch, q % self.pitch
+        keep = (ys < self.h) & (xs < self.w)
+        return n, z, ys[keep], xs[keep]
+
+
+def k15_smem(halo_rows, cin, cout):
+    """Bytes of shared memory of a 3^3 K15 CTA (conv3d_bf16.cu's
+    k15_smem): weights [cout][kpad + 8], a stage of three planes of rows
+    of cin + 8 values (cin = 2 unpadded; in 128-byte multiples), the queue
+    (a 16-bit entry per output of a tile), its 8 warps' counts and the
+    bias in float32."""
+    kpad = -(-27 * cin // 16) * 16
+    cs = cin + 8 if cin % 16 == 0 else cin
+    stage = -(-3 * halo_rows * cs * 2 // 128) * 128
+    return (cout * (kpad + 8) * 2 + stage + K15_TILE_ROWS * cout * 2
+            + K15_TILE_ROWS // 16 * 4 + cout * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def k15_geometry(n, d, h, w, cin, cout):
+    """The 3^3 K15 kernel's tiles for x (n, d, h, w, cin); ValueError when
+    the halo of rows of w voxels overflows a CTA's shared memory."""
+    pitch = w + 1
+    halo_rows = K15_TILE_ROWS + 2 * pitch + 2
+    smem = k15_smem(halo_rows, cin, cout)
+    if smem > K15_SMEM:
+        raise ValueError(f"{BF16}: rows of {w} voxels do not fit the 3^3 "
+                         f"kernel's shared memory")
+    per_plane = -(-(h * pitch - 1) // K15_TILE_ROWS)
+    return K15Geometry(d, h, w, pitch, halo_rows, per_plane,
+                       n * d * per_plane, smem)
+
+
 def conv3d_ndhwc_bf16(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, *, pre_relu: bool = False,
                       post_relu: bool = False,
@@ -195,6 +258,8 @@ def conv3d_ndhwc_bf16(x: torch.Tensor, weight: torch.Tensor,
     if k == 3 and (x.data_ptr() % 16 or weight.data_ptr() % 16):
         raise ValueError(f"{BF16}: the 3^3 kernel stages x and weight in "
                          f"16-byte vectors; they must be 16-byte aligned")
+    if k == 3:
+        k15_geometry(n, d, h, w, cin, cout)   # raises where it cannot run
     out_f32 = residual is not None and residual.dtype == torch.float32
     y = torch.empty((n, d, h, w, cout), device=x.device,
                     dtype=torch.float32 if out_f32 else weight.dtype)

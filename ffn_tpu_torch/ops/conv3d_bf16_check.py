@@ -73,8 +73,9 @@ def k15_tolerance(x, w, b, *, pre_relu=False, post_relu=False,
     rounds again, and a step the sum took can meet a tie there and become
     two; a bfloat16 residual rounds a third time; a float32 residual
     (conv_lom plus the seed) adds one float32 rounding. In float16 a
-    float32 order's own error (up to ~2^-20 of the sum of |x||w|, K15's
-    bound) can exceed an ulp of a sum that cancels: that much is added."""
+    float32 order's own error (up to ~2^-20 of the sum of |x||w|, as
+    tools_torch/k15_variants.py measures tensor-core orders) can exceed
+    an ulp of a sum that cancels: that much is added."""
     plain, dt = conv3d_ndhwc_bf16_plain, w.dtype
     a = plain(x, w, torch.zeros_like(b), pre_relu=pre_relu).float().abs()
     t = torch.maximum(a, plain(x, w, b, pre_relu=pre_relu).float().abs())

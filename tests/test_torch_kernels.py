@@ -1477,6 +1477,154 @@ def test_k15_float16_matches_plain_and_exact(card, case):
     assert torch.equal(got, conv3d_ndhwc_bf16_exact(x, w, b, **kw))
 
 
+# K15's 3^3 geometry (conv3d.k15_geometry, mirrored from conv3d_bf16.cu's
+# launch_tc): tiles of K15_TILE_ROWS positions q = y P + x of one z-plane,
+# P = W + 1, each with a halo of three planes of R rows. The stack's FOV,
+# odd shapes that end mid-tile and the hop path's 64 lanes.
+K15_GEO_SHAPES = [(1, 33, 33, 33), (2, 5, 7, 9), (1, 1, 1, 1),
+                  (1, 33, 17, 40), (3, 17, 33, 11), (64, 33, 33, 33)]
+
+
+@pytest.mark.parametrize("shape", K15_GEO_SHAPES)
+@pytest.mark.parametrize("widths", conv3d.BF16_SHAPES)
+def test_k15_tiles_cover_every_voxel_once(shape, widths):
+    n, d, h, w = shape
+    geo = conv3d.k15_geometry(n, d, h, w, *widths)
+    assert geo.tiles == n * d * geo.per_plane
+    seen = np.zeros((n, d, h, w), np.int64)
+    for t in range(geo.tiles):
+        b, z, ys, xs = geo.voxels(t)
+        np.add.at(seen, (b, z, ys.numpy(), xs.numpy()), 1)
+    assert (seen == 1).all()
+    assert geo.smem == conv3d.k15_smem(geo.halo_rows, *widths)
+    assert geo.smem <= conv3d.K15_SMEM
+
+
+def test_k15_tiles_waste_little_at_33_and_two_ctas_share_an_sm():
+    # 33 * 34 - 1 positions in 9 tiles of 128: 5.8% padded slots (an 8x4x4
+    # box wasted 44%).
+    for widths in conv3d.BF16_SHAPES:
+        geo = conv3d.k15_geometry(1, 33, 33, 33, *widths)
+        assert geo.per_plane == 9
+        assert geo.per_plane * conv3d.K15_TILE_ROWS / 33 ** 2 < 1.06
+        assert geo.smem <= conv3d.K15_SMEM_TWO
+
+
+def test_k15_geometry_refuses_rows_too_wide():
+    geo = conv3d.k15_geometry(1, 4, 4, 200, 32, 32)
+    assert conv3d.K15_SMEM_TWO < geo.smem <= conv3d.K15_SMEM
+    with pytest.raises(ValueError):
+        conv3d.k15_geometry(1, 4, 4, 300, 32, 32)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 7, 9), (2, 3, 4, 33),
+                                   (1, 1, 1, 1), (1, 2, 40, 3)])
+def test_k15_halo_rows_and_tap_offsets_give_the_convolution(shape):
+    # The kernel's index arithmetic in numpy: each tile's halo (plane dz
+    # row h the voxel at q0 - P - 1 + h, zero outside the volume and in the
+    # zero column), each tap one row offset dz R + dy P + dx, the rows past
+    # the plane or in the zero column dropped; against F.conv3d.
+    n, d, h, w = shape
+    rng = np.random.default_rng(sum(shape))
+    cin, cout = 3, 2
+    x = rng.standard_normal((n, d, h, w, cin))
+    wt = rng.standard_normal((3, 3, 3, cin, cout))
+    geo = conv3d.k15_geometry(n, d, h, w, 2, 16)
+    p, r, rows = geo.pitch, geo.halo_rows, conv3d.K15_TILE_ROWS
+    y = np.full((n, d, h, w, cout), np.nan)
+    for t in range(geo.tiles):
+        b, z = t // (d * geo.per_plane), t // geo.per_plane % d
+        q0 = t % geo.per_plane * rows
+        stage = np.zeros((3, r, cin))
+        q = q0 - p - 1 + np.arange(r)
+        ok = (q >= 0) & (q < h * p) & (q % p < w)
+        for dz in range(3):
+            if 0 <= z + dz - 1 < d:
+                stage[dz, ok] = x[b, z + dz - 1, q[ok] // p, q[ok] % p]
+        acc = sum(stage[dz, np.arange(rows) + dy * p + dx] @ wt[dz, dy, dx]
+                  for dz in range(3) for dy in range(3) for dx in range(3))
+        _, _, ys, xs = geo.voxels(t)
+        keep = (ys * p + xs - q0).numpy()
+        y[b, z, ys.numpy(), xs.numpy()] = acc[keep]
+    want = torch.nn.functional.conv3d(
+        torch.from_numpy(x).permute(0, 4, 1, 2, 3),
+        torch.from_numpy(wt).permute(4, 3, 0, 1, 2),
+        padding=1).permute(0, 2, 3, 4, 1).numpy()
+    np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
+
+
+# Layer kinds of K15_CASES that cover the four (Cin, Cout) pairs with every
+# flag: float32 x, pre_relu and post_relu, a 16-bit residual.
+K15_3X3_CASES = ["conv0_a", "block_a", "block_b", "ci_conv0_a", "ci_block_b"]
+# Odd shapes ending mid-tile; N = 100 at 9^3 gives each persistent CTA
+# several tiles (900 tiles).
+K15_ODD_SHAPES = [(1, 1, 1, 1), (2, 5, 7, 9), (1, 33, 17, 40),
+                  (100, 9, 9, 9)]
+
+
+def _k15_exact_checks(got, x, w, b, kw):
+    """K15's result `got`: the float64 sums' rounding bit for bit, a repeat
+    bit for bit, the middle sample alone as in the batch."""
+    assert torch.equal(got, conv3d_ndhwc_bf16_exact(x, w, b, **kw))
+    assert torch.equal(got, conv3d.conv3d_ndhwc_bf16(x, w, b, **kw))
+    i, r = x.shape[0] // 2, kw.get("residual")
+    one = conv3d.conv3d_ndhwc_bf16(
+        x[i:i + 1].clone(), w, b, pre_relu=kw.get("pre_relu", False),
+        post_relu=kw.get("post_relu", False),
+        residual=None if r is None else r[i:i + 1].clone())
+    assert torch.equal(one[0], got[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", K15_3X3_CASES)
+@pytest.mark.parametrize("shape", K15_ODD_SHAPES)
+def test_k15_equals_float64_sums_on_odd_shapes(card, dtype, case, shape):
+    _, _, _, pre, post, _, _ = K15_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    x, w, b, r = k15_inputs(gen, shape[0], shape[1:], case, dtype)
+    kw = dict(pre_relu=pre, post_relu=post, residual=r)
+    _k15_exact_checks(conv3d.conv3d_ndhwc_bf16(x, w, b, **kw), x, w, b, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k15_float32_residual_on_a_3x3_layer(card, dtype):
+    gen = torch.Generator(device=card).manual_seed(15)
+    x, w, b, _ = k15_inputs(gen, 3, (6, 7, 34), "block_a", dtype)
+    r = torch.randn(3, 6, 7, 34, 32, generator=gen, device=card)
+    kw = dict(pre_relu=True, post_relu=True, residual=r)
+    got = conv3d.conv3d_ndhwc_bf16(x, w, b, **kw)
+    assert got.dtype == torch.float32
+    _k15_exact_checks(got, x, w, b, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k15_cancelling_sums_take_the_float64_path(card, dtype):
+    # Channel pairs of equal inputs against weights a and -a, one in eight
+    # of the latter nudged: the sums cancel to a small part of the sum of
+    # |x||w|, so most outputs straddle a rounding point of their bound and
+    # are summed in float64.
+    from ffn_tpu_torch.ops.conv3d_bf16_check import conv_sums_f64
+    gen = torch.Generator(device=card).manual_seed(16)
+    x = torch.randn(4, 9, 10, 11, 16, generator=gen, device=card)
+    x = x.repeat_interleave(2, dim=-1).to(dtype)
+    a = torch.randn(3, 3, 3, 16, 32, generator=gen, device=card) * 0.05
+    nudge = torch.rand(a.shape, generator=gen, device=card) < 0.125
+    odd = torch.where(nudge, -a * (1 + 2.0 ** -6), -a)
+    w = torch.stack([a, odd], dim=4).reshape(3, 3, 3, 32, 32).to(dtype)
+    b = torch.zeros(32, dtype=dtype, device=card)
+    s = conv_sums_f64(x, w)
+    mag = conv_sums_f64(x, w, absolute=True)
+    e = (mag * 2.0 ** -20 + s.abs() * 2.0 ** -22).float()
+    sf = s.float()
+    flagged = ((sf - e).to(dtype).view(torch.int16) !=
+               (sf + e).to(dtype).view(torch.int16)).float().mean()
+    assert float(flagged) > 0.3, float(flagged)
+    _k15_exact_checks(conv3d.conv3d_ndhwc_bf16(x, w, b), x, w, b, {})
+
+
 def _k17_inputs(card, dtype, case, n=2):
     gen = torch.Generator(device=card).manual_seed(17)
 
@@ -1506,11 +1654,13 @@ def test_k17_matches_plain(card, dtype, case):
         return
     s = conv3d.conv3d_dgrad_16_plain(dy, w, x=kw.get("x"),
                                      y=kw.get("y")).float().abs()
-    # One ulp per rounding, and 2^-20 of the sum of |w||g| where the float32
+    # One ulp per rounding: at the sum s, and with accum at the result's
+    # magnitude as well; and 2^-20 of the sum of |w||g| where the float32
     # sum cancels (chip_smoke.py phase_lowp_kernels).
     mag = conv3d.conv3d_dgrad_plain(dy.float().abs(), w.float().abs(),
                                     y=kw["y"].float() if kw else None)
-    tol = bf16_ulp(s, dtype) * (2 if kw else 1) + mag * 2.0 ** -20
+    tol = bf16_ulp(s, dtype) + mag * 2.0 ** -20 + (
+        bf16_ulp(torch.maximum(s, want.float().abs()), dtype) if kw else 0)
     assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
     # float16's finer ulp meets more rounding points (chip_smoke.py's
     # K17_DIFFER_SHARE).
