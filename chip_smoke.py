@@ -59,6 +59,7 @@ The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib.util
@@ -2098,8 +2099,8 @@ def _rel_err(got, want):
 def phase_train_kernels(dev):
     """K9-K12 against their plain versions at the training shapes (batch 4,
     33^3 at 32 features, a 49^3 canvas, the depth-12 model's 50 tensors):
-    K9, K10 within 1e-4 of max|plain| for every layer kind, K10 twice bit for
-    bit; K11's prep, gather, write-back and counts bit for bit, sums within
+    K9, K10 within 1e-4 of max|plain| for every layer kind, each twice bit
+    for bit; K11's prep, gather, write-back and counts bit for bit, sums within
     1e-5; K12 within 1e-6 (sgd, adam). Times of kernel, plain and library."""
     from ffn_tpu_torch.models import convstack_3d
     from ffn_tpu_torch.ops import conv3d
@@ -2131,6 +2132,9 @@ def phase_train_kernels(dev):
             dx_err = float((got - want).abs().max())
             require(dx_err <= 1e-4 * float(want.abs().max()),
                     f"K9 {name}: error {dx_err}")
+            require(torch.equal(conv3d.conv3d_dgrad_f32(
+                dy, w, x=xm, y=y, accum=acc), got),
+                f"K9 {name}: two runs differ (not deterministic)")
         gw, gb = conv3d.conv3d_wgrad_f32(x, dy, k, pre_relu=pre, y=y)
         ww, wb = conv3d.conv3d_wgrad_plain(x, dy, k, pre_relu=pre, y=y)
         dw_err = max(float((gw - ww).abs().max()),
@@ -2142,7 +2146,7 @@ def phase_train_kernels(dev):
         require(torch.equal(again[0], gw) and torch.equal(again[1], gb),
                 f"K10 {name}: two runs differ (not deterministic)")
         print(f"K9/K10 N={n} {name}: dgrad max_abs_err {dx_err} wgrad "
-              f"max_abs_err {dw_err:.3e}, wgrad deterministic")
+              f"max_abs_err {dw_err:.3e}, both deterministic")
         worst["conv3d_dgrad_f32"] = max(worst["conv3d_dgrad_f32"],
                                         dx_err or 0.0)
         worst["conv3d_wgrad_f32"] = max(worst["conv3d_wgrad_f32"], dw_err)
@@ -2397,6 +2401,15 @@ class _StepRecorder:
         return make_recorded
 
 
+def _dgrad_kind(dy, weight, x=None, y=None, accum=None):
+    """An input-gradient call's layer kind: its kernel size, widths and the
+    masks and cotangent it takes."""
+    k, cin, cout = weight.shape[0], weight.shape[3], weight.shape[4]
+    took = [f for f, t in (("x", x), ("y", y), ("accum", accum))
+            if t is not None]
+    return f"{k}^3 {cin}->{cout}" + (" " + "+".join(took) if took else "")
+
+
 class _KernelProbe:
     """Time of each training kernel: CUDA events around every launch of
     each wrapper (device time only while the queue stays full: where it
@@ -2416,10 +2429,13 @@ class _KernelProbe:
         self.targets += [(optim_ops, "optim_update")]
         self.pairs = {n: [] for _, n in self.targets}
         self.host = {n: 0.0 for _, n in self.targets}
+        self.dgrad_kinds = collections.Counter()
         self.patches = []
 
     def _wrap(self, name, fn):
         def probed(*args, **kwargs):
+            if name.startswith("conv3d_dgrad"):
+                self.dgrad_kinds[_dgrad_kind(*args, **kwargs)] += 1
             t0 = time.perf_counter()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2636,6 +2652,8 @@ def phase_train(dev, tmp):
           + f"; {busy / steps:.1f} ms a step against the steady "
           f"{steady_ms:.1f}: busy {busy / steps / steady_ms:.4f}")
 
+    print(f"K9 conv3d_dgrad_f32 launches a step by layer kind: " + ", ".join(
+        f"{k} {v / steps:g}" for k, v in sorted(probe.dgrad_kinds.items())))
     _train_profile(dev)
     _train_golden(dev)
     _train_inference(dev, tmp, kdir)
@@ -3028,6 +3046,9 @@ def phase_train_lowp(dev, tmp):
                 f"train {prec} step 1: kernels against plain")
         if probe is not None:
             ms = probe.ms()
+            print(f"K17 conv3d_dgrad_{sfx} launches a step by layer kind: "
+                  + ", ".join(f"{k} {v / steps:g}" for k, v in sorted(
+                      probe.dgrad_kinds.items())))
             print(f"train {prec}, CUDA-event ms a step by kernel (events "
                   f"around each call, {len(krec.metrics)} steps from the "
                   f"first; they span host gaps where the queue runs dry): "

@@ -38,7 +38,9 @@
 //   for SAME padding on both sides, so a tap is one fixed row offset and a
 //   33^3 sample is 33 * 9 tiles of 128 (5.8% padded slots; an 8x4x4 box
 //   wasted 44%). The tile's halo is three planes of R = kTileRows + 2P + 2
-//   rows, zero outside the volume, staged by cp.async (zero-filled).
+//   rows, zero outside the volume, staged by cp.async (zero-filled). The
+//   tiles, their staging and the tap-row sums are conv16.cuh's, shared
+//   with K17.
 // - Persistent CTAs of 8 warps, two an SM at 33^3 (one stage each: the
 //   other CTA's MMAs run while one loads its next tile or sums in float64;
 //   one CTA with a ring of two stages, or 4 warps of two m16 tiles, lost),
@@ -77,39 +79,13 @@
 
 namespace {
 
-constexpr int kTileRows = 128;
-constexpr int kWarps = kTileRows / 16;  // one m16 tile a warp
-constexpr int kThreads = 32 * kWarps;
-constexpr int kSmemLimit = 232448;  // a CTA's shared memory on an H100
-
-// The implicit GEMM of a 3^3 layer with CIN input and COUT output channels:
-// K = 27 CIN in (tap, channel) order, padded to k16 steps. Strides in 16-bit
-// values: weights [co][WK], halo rows CS (+8: the 8 rows an ldmatrix reads
-// hit distinct banks; CIN = 2 reads 32-bit words and needs none).
-template <int CIN, int COUT>
-struct K15Geo {
-  static constexpr int K = 27 * CIN;
-  static constexpr int KPAD = (K + 15) / 16 * 16;
-  static constexpr int WK = KPAD + 8;
-  static constexpr int CS = CIN % 16 == 0 ? CIN + 8 : CIN;
-  static constexpr int NT = COUT / 8;
-  static constexpr int W_BYTES = COUT * WK * 2;
-  static constexpr int QUEUE_BYTES = kTileRows * COUT * 2;
-};
-
-// A stage's bytes (three planes of R rows), in 128s; a CTA's shared
-// memory: weights, the stage, the queue, the warps' counts of it and the
-// bias in float32.
-template <int CIN, int COUT>
-__host__ __device__ inline int stage_bytes(int R) {
-  return (3 * R * K15Geo<CIN, COUT>::CS * 2 + 127) / 128 * 128;
-}
-
+// A CTA's shared memory: weights, the stage, the queue, the warps' counts
+// of it and the bias in float32.
 template <int CIN, int COUT>
 inline size_t k15_smem(int R) {
   using G = K15Geo<CIN, COUT>;
   return (size_t)G::W_BYTES + stage_bytes<CIN, COUT>(R) + G::QUEUE_BYTES +
-         kWarps * 4 + COUT * 4;
+         kTileWarps * 4 + COUT * 4;
 }
 
 // The conv's float32 sum to its 16-bit output before the residual:
@@ -169,220 +145,6 @@ __device__ __forceinline__ void store_y2(void* y, const void* res,
     v1 += r1;
   }
   *reinterpret_cast<uint32_t*>(static_cast<T*>(y) + i) = pack16<T>(v0, v1);
-}
-
-// relu of both 16-bit halves of T.
-template <typename T>
-__device__ __forceinline__ uint32_t relu2(uint32_t v) {
-  uint32_t r;
-  if constexpr (kIsHalf<T>)
-    asm("max.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(v), "r"(0u));
-  else
-    asm("max.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(v), "r"(0u));
-  return r;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// cp.async of BYTES (16 or 4) from src to shared dst, zero-filled (and src
-// not read) unless `valid`.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         bool valid) {
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                 :: "r"(dst), "l"(src), "n"(BYTES), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// The tile's place: sample n, plane z, first position q0.
-struct Tile {
-  int n, z, q0;
-};
-
-__device__ __forceinline__ Tile tile_at(long long t, int D, int per_plane) {
-  const long long plane = t / per_plane;
-  return Tile{(int)(plane / D), (int)(plane % D),
-              (int)(t - plane * per_plane) * kTileRows};
-}
-
-// Stages tile `tl`'s halo: plane dz (z + dz - 1) rows h = 0..R-1 hold the
-// voxel at q = q0 - P - 1 + h, zero outside the volume and in the zero
-// column. 16-bit x by cp.async (the caller commits), float32 x rounded
-// through registers.
-template <typename T, int CIN, int COUT>
-__device__ __forceinline__ void stage_tile(T* st, const void* x, int x_f32,
-                                           Tile tl, int D, int H, int W,
-                                           int P, int R) {
-  using G = K15Geo<CIN, COUT>;
-  constexpr int CH = CIN < 8 ? CIN : 8;  // values a copy
-  constexpr int CPR = CIN / CH;           // copies a row
-  const int hp = H * P;
-  for (int i = threadIdx.x; i < R * CPR; i += kThreads) {
-    const int h = i / CPR, c = (i - h * CPR) * CH;
-    const int q = tl.q0 - P - 1 + h;
-    const bool in_plane = q >= 0 && q < hp;
-    const int gy = in_plane ? q / P : 0, gx = q - gy * P;
-    const bool in_row = in_plane && gx < W;
-#pragma unroll
-    for (int dz = 0; dz < 3; ++dz) {
-      const int zz = tl.z + dz - 1;
-      const bool valid = in_row && zz >= 0 && zz < D;
-      const size_t src =
-          valid ? ((((size_t)tl.n * D + zz) * H + gy) * W + gx) * CIN + c
-                : 0;
-      T* dst = st + (dz * R + h) * G::CS + c;
-      if (!x_f32) {
-        cp_async<CH * 2>(
-            static_cast<uint32_t>(__cvta_generic_to_shared(dst)),
-            static_cast<const T*>(x) + src, valid);
-        continue;
-      }
-      const float* p = static_cast<const float*>(x) + src;
-      if constexpr (CH == 8) {
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-        if (valid) {
-          a = *reinterpret_cast<const float4*>(p);
-          b = *reinterpret_cast<const float4*>(p + 4);
-        }
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(pack16<T>(a.x, a.y), pack16<T>(a.z, a.w),
-                       pack16<T>(b.x, b.y), pack16<T>(b.z, b.w));
-      } else {
-        float2 a = make_float2(0.f, 0.f);
-        if (valid) a = *reinterpret_cast<const float2*>(p);
-        *reinterpret_cast<uint32_t*>(dst) = pack16<T>(a.x, a.y);
-      }
-    }
-  }
-}
-
-// The implicit GEMM's sums of warp `warp`'s 16 rows of the staged tile st:
-// acc[nt] the float32 sums of n-tile nt in C fragment order; with MAG also
-// the sums of |x| * |w| (in the tensor core).
-template <typename T, int CIN, int COUT, bool MAG>
-__device__ __forceinline__ void tile_sums(const T* st, const T* s_w,
-                                          int warp, int lane, int P, int R,
-                                          int pre_relu,
-                                          float (&acc)[COUT / 8][4],
-                                          float (&mag)[COUT / 8][4]) {
-  using G = K15Geo<CIN, COUT>;
-#pragma unroll
-  for (int nt = 0; nt < G::NT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[nt][j] = mag[nt][j] = 0.f;
-  // ldmatrix B: lane supplies row (co) (lane & 7) + 8 (lane >> 4), k half
-  // (lane >> 3) & 1: matrices 0-1 are n-tile 2p's k 0-7 and 8-15, 2-3 those
-  // of 2p + 1.
-  const uint32_t b_lane = static_cast<uint32_t>(__cvta_generic_to_shared(
-      s_w + ((lane & 7) + (lane >> 4) * 8) * G::WK + ((lane >> 3) & 1) * 8));
-
-  // One k16 step: its sums from zero added to `into` (a tap row's partial
-  // sum, or acc at Cin = 2).
-  auto step = [&](const uint32_t (&a)[4], int k0, float (&into)[G::NT][4]) {
-    uint32_t b[G::NT][2], bm[G::NT][2], am[4];
-#pragma unroll
-    for (int p = 0; p < G::NT / 2; ++p) {
-      uint32_t r[4];
-      ldmatrix_x4(r, b_lane + (p * 16 * G::WK + k0) * 2);
-      b[2 * p][0] = r[0];
-      b[2 * p][1] = r[1];
-      b[2 * p + 1][0] = r[2];
-      b[2 * p + 1][1] = r[3];
-    }
-    if constexpr (MAG) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) am[j] = abs2(a[j]);
-#pragma unroll
-      for (int nt = 0; nt < G::NT; ++nt) {
-        bm[nt][0] = abs2(b[nt][0]);
-        bm[nt][1] = abs2(b[nt][1]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < G::NT; ++nt) {
-#ifdef FFN_K15_IN_MMA
-      mma16<T, true>(into[nt], a, b[nt][0], b[nt][1]);
-#else
-      float d[4];
-      mma16<T, false>(d, a, b[nt][0], b[nt][1]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) into[nt][j] += d[j];
-#endif
-      if constexpr (MAG) mma16<T, true>(mag[nt], am, bm[nt][0], bm[nt][1]);
-    }
-  };
-
-  if constexpr (CIN % 16 == 0) {
-    // A by ldmatrix: lane supplies row lane & 15, k half lane >> 4
-    // (matrices: rows 0-7 and 8-15 of k 0-7, then of k 8-15).
-    // Each tap row (dz, dy): its 3 CIN / 16 steps summed from zero, then
-    // added to acc.
-    const uint32_t a_lane = static_cast<uint32_t>(__cvta_generic_to_shared(
-        st + (warp * 16 + (lane & 15)) * G::CS + (lane >> 4) * 8));
-#pragma unroll 1
-    for (int zy = 0; zy < 9; ++zy) {
-      const int dz = zy / 3, dy = zy - dz * 3;
-      const int base = (dz * R + dy * P) * G::CS;
-      float row[G::NT][4] = {};
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-        for (int s = 0; s < CIN / 16; ++s) {
-          uint32_t a[4];
-          ldmatrix_x4(a, a_lane + (base + dx * G::CS + s * 16) * 2);
-          if (pre_relu) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) a[j] = relu2<T>(a[j]);
-          }
-          step(a, (zy * 3 + dx) * CIN + s * 16, row);
-        }
-#pragma unroll
-      for (int nt = 0; nt < G::NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[nt][j] += row[nt][j];
-    }
-  } else {
-    // CIN = 2: the pairs k0 + 2t and k0 + 2t + 8 are taps (k0 + 2t) / 2 and
-    // that + 4, both channels one 32-bit word; a tap past 26 reads zero.
-    static_assert(CIN == 2, "K15's 3^3 kernel takes Cin 2, 16 or 32");
-    const int g = lane >> 2, t = lane & 3;
-    const uint32_t* st32 = reinterpret_cast<const uint32_t*>(st);
-#pragma unroll
-    for (int k0 = 0; k0 < G::KPAD; k0 += 16) {
-      uint32_t a[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int tap = (k0 + 2 * t + 8 * half) / 2;
-        const bool live = tap < 27;
-        const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
-        const int off = live ? dz * R + dy * P + dx : 0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t v = live ? st32[warp * 16 + g + 8 * h + off] : 0u;
-          a[2 * half + h] = pre_relu ? relu2<T>(v) : v;
-        }
-      }
-      step(a, k0, acc);
-    }
-  }
 }
 
 #if !defined(FFN_K15_UNCORRECTED) && !defined(FFN_K15_NO_EXACT)
@@ -463,7 +225,7 @@ __device__ __forceinline__ double exact_sum(const T* st, const T* s_w, int r,
 #endif
 
 template <typename T, int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kTileThreads, 2)
 conv3d_16_tc_kernel(const void* __restrict__ x, int x_f32,
                     const T* __restrict__ wt, const T* __restrict__ bias,
                     const void* __restrict__ res, void* __restrict__ y,
@@ -478,14 +240,14 @@ conv3d_16_tc_kernel(const void* __restrict__ x, int x_f32,
       smem + G::W_BYTES + stage_bytes<CIN, COUT>(R));
   int* w_count = reinterpret_cast<int*>(  // flagged outputs a warp
       reinterpret_cast<unsigned char*>(queue) + G::QUEUE_BYTES);
-  float* s_bias = reinterpret_cast<float*>(w_count + kWarps);
+  float* s_bias = reinterpret_cast<float*>(w_count + kTileWarps);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
   // Weights: row co holds k = tap * Cin + ci of the DHWIO tensor, k past K
   // zero.
-  for (int i = tid; i < G::KPAD * (COUT / 8); i += kThreads) {
+  for (int i = tid; i < G::KPAD * (COUT / 8); i += kTileThreads) {
     const int k = i / (COUT / 8), c = (i - k * (COUT / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (k < G::K)
@@ -591,13 +353,13 @@ conv3d_16_tc_kernel(const void* __restrict__ x, int x_f32,
     __syncthreads();
     int nq = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) nq += w_count[w];
+    for (int w = 0; w < kTileWarps; ++w) nq += w_count[w];
     // The CTA sums the queue in rounds, each output on L lanes: a round
     // takes the most lanes, up to 8, that leave no output of the rest for
     // a later round (the queue's order, so L, is the tile's own).
     for (int e0 = 0; e0 < nq;) {
       int L = 1;
-      while (L < 8 && (nq - e0) * 2 * L <= kThreads) L *= 2;
+      while (L < 8 && (nq - e0) * 2 * L <= kTileThreads) L *= 2;
       const int e = e0 + tid / L, sub = tid % L;
       const bool live = e < nq;
       int ent = 0;
@@ -615,7 +377,7 @@ conv3d_16_tc_kernel(const void* __restrict__ x, int x_f32,
                    (plane0 + (size_t)gy * W + gx) * COUT + co,
                    finish<T>((float)sum, s_bias[co], post_relu));
       }
-      e0 += kThreads / L;
+      e0 += kTileThreads / L;
     }
 #endif
     __syncthreads();  // the stage, the queue and the counts are free
@@ -674,22 +436,13 @@ cudaError_t launch_tc(const void* x, int x_f32, const T* w, const T* bias,
   const size_t smem = k15_smem<CIN, COUT>(R);
   if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
   if (tiles == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  unsigned grid = 0;
+  const cudaError_t err =
+      persistent_grid(kernel, kTileThreads, smem, tiles, &grid);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return err;
-  const long long ctas = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid = (unsigned)(tiles < ctas ? tiles : ctas);
-  kernel<<<grid, kThreads, smem, s>>>(x, x_f32, w, bias, res, y, D, H, W, P,
-                                      R, per_plane, tiles, pre_relu,
-                                      post_relu, out_f32);
+  kernel<<<grid, kTileThreads, smem, s>>>(x, x_f32, w, bias, res, y, D, H,
+                                          W, P, R, per_plane, tiles,
+                                          pre_relu, post_relu, out_f32);
   return cudaGetLastError();
 }
 

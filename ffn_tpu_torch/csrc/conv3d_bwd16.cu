@@ -17,12 +17,23 @@
 // Bound on the H100: a 3^3 32->32 layer at B=4 is 7.95 GFLOP (8.0 us at
 // 989 TFLOP/s) and 18-46 MB for K17 (5.5-13.7 us at 3.35 TB/s: a block's
 // first layer reads dy, both masks and the residual's cotangent), 18-28 MB
-// for K18. K17: K15's tensor-core tile and MMA loop (conv16.cuh) on g, the
-// taps flipped and the weights transposed while staged (dx is the SAME
-// convolution of g with W'[tap][co][ci] = W[26 - tap][ci][co]); the
-// post_relu mask as g is staged, pre_relu, rounding and `accum` in the
-// epilogue; no exact-sum correction. 1^3 layers (conv_lom: dx = r(r(dy) w))
-// on the CUDA cores, dy read as float32.
+// for K18. dx is the SAME convolution of g with W'[tap'][co][ci] =
+// W[26 - tap'][ci][co], so K17 runs on K15's plane-position tiles
+// (conv16.cuh): persistent CTAs of 8 warps, two an SM at 33^3, stage W' once
+// as rows [ci][k'], k' = tap' * Cout + co (for a fixed tap and ci the co lie
+// contiguous in the DHWIO tensor: 16-byte copies, no scatter), and walk
+// tiles of 128 positions y(W+1)+x of a z-plane (5.8% padded slots at 33^3,
+// the old 4x4x8 box 44%); g's three-plane halo comes in by cp.async and
+// each thread zeroes its own copies where the forward output ym was not > 0
+// (ym by 16-byte loads, not staged); A and B by ldmatrix, mma.sync, each
+// tap row (dz, dy) summed from zero and then added to acc in order (K15's
+// order); the next tile's halo is in flight during the epilogue (pre_relu
+// mask, rounding, `accum`). What bounds it (tools_torch/dgrad_variants.py
+// --split on an H100): mma.sync's issue, ~28 of 43 us at 32->32 B=4 (29%
+// of the tensor cores' peak), the staging ~6 us, which the second CTA of
+// an SM mostly hides; a block's first layer adds the masks' and the
+// cotangent's bytes and ym's latency (59 us). 1^3 layers (conv_lom: dx =
+// r(r(dy) w)) on the CUDA cores, dy read as float32.
 //
 // K18's 3^3 layers (Cout 16 or 32, Cin <= 32, dy of the type) on the tensor
 // cores, two stages. Stage 1: a CTA owns a fixed set of chunks (chunk c, c +
@@ -51,54 +62,54 @@
 
 namespace {
 
-// The CI x CO dx channel pairs of K17's tensor-core kernel: the stack's 3^3
-// layers whose input gradient training needs, at 32 and 16 features.
-template <typename T, int CI, int CO>
-__global__ void __launch_bounds__(kTcThreads)
-dgrad16_tc_kernel(const T* __restrict__ dy, const T* __restrict__ ym,
-                  const T* __restrict__ wt, const T* __restrict__ xm,
-                  const T* __restrict__ accum, T* __restrict__ dx, int D,
-                  int H, int W, int tiles_x) {
-  using G = Geo<CO, CI>;  // the GEMM's input channels are g's (CO)
-  static_assert(G::K == G::KPAD && CO % 8 == 0, "K17 shape");
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_w = reinterpret_cast<T*>(smem);  // [27 * CO][WS]: W' rows
-  T* s_x = s_w + G::KPAD * G::WS;       // [SVOX][CS]: g with its halo
+// -- K17's 3^3 layers on K15's plane-position tiles -------------------------
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int x0 = (blockIdx.x % tiles_x) * TX;
-  const int y0 = (blockIdx.x / tiles_x) * TY;
-  const int z0 = blockIdx.y * TZ;
-  const size_t vox0 = (size_t)blockIdx.z * D * H * W;
+// Shared memory of a K17 CTA (CI dx and CO g channels): W' and one stage.
+template <int CI, int CO>
+inline size_t dgrad16_smem(int R) {
+  return (size_t)K15Geo<CO, CI>::W_BYTES + stage_bytes<CO, CI>(R);
+}
 
-  // W'[tap'][co][ci] = W[26 - tap'][ci][co]: 8 consecutive co of the DHWIO
-  // tensor per load, scattered into 8 rows of column ci.
-  unsigned short* s_w16 = reinterpret_cast<unsigned short*>(s_w);
-  for (int i = tid; i < 27 * CI * (CO / 8); i += kTcThreads) {
-    const int c8 = (i % (CO / 8)) * 8, ci = (i / (CO / 8)) % CI;
-    const int tap = i / (CO / 8 * CI);
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        wt + ((size_t)tap * CI + ci) * CO + c8);
-    const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
-    const int r0 = (26 - tap) * CO + c8;
+// Zeroes g where the forward output ym was not > 0, on the copies that
+// stage_tile had this thread make of tile `tl` (they have landed): its
+// indices, ym by 16-byte loads, CPR iterations' loads in flight at once
+// (a 33^3 tile's rows in one round; more cost the 16->16 kernel registers
+// and occupancy). The planes outside the volume hold zeros, which stay.
+template <typename T, int CO>
+__device__ __forceinline__ void mask_tile(T* st, const T* ym, Tile tl, int D,
+                                          int H, int W, int P, int R) {
+  constexpr int CS = K15Geo<CO, 8>::CS, CPR = CO / 8;
+  const int hp = H * P;
+  for (int i0 = threadIdx.x; i0 < R * CPR; i0 += CPR * kTileThreads) {
+    uint4 m[CPR][3];
+    int at[CPR];  // the slot of iteration b in plane 0, or -1
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      s_w16[(r0 + j) * G::WS + ci] =
-          (unsigned short)(w4[j >> 1] >> (16 * (j & 1)));
-  }
-  // g with its halo: dy masked where the forward output was not > 0.
-  for (int i = tid; i < SVOX * (CO / 8); i += kTcThreads) {
-    const int v = i / (CO / 8), c = (i % (CO / 8)) * 8;
-    const int sx = v % SX, sy = (v / SX) % SY, sz = v / (SX * SY);
-    const int gz = z0 + sz - 1, gy = y0 + sy - 1, gx = x0 + sx - 1;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (gz >= 0 && gz < D && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const size_t at = (vox0 + ((size_t)gz * H + gy) * W + gx) * CO + c;
-      u = *reinterpret_cast<const uint4*>(dy + at);
-      if (ym != nullptr) {
-        const uint4 m = *reinterpret_cast<const uint4*>(ym + at);
+    for (int b = 0; b < CPR; ++b) {
+      const int i = i0 + b * kTileThreads;
+      const int h = i / CPR, c = (i - h * CPR) * 8;
+      const int q = tl.q0 - P - 1 + h;
+      const bool in_plane = i < R * CPR && q >= 0 && q < hp;
+      const int gy = in_plane ? q / P : 0, gx = q - gy * P;
+      at[b] = in_plane && gx < W ? h * CS + c : -1;
+#pragma unroll
+      for (int dz = 0; dz < 3; ++dz) {
+        const int zz = tl.z + dz - 1;
+        m[b][dz] = make_uint4(0u, 0u, 0u, 0u);
+        if (at[b] >= 0 && zz >= 0 && zz < D)
+          m[b][dz] = *reinterpret_cast<const uint4*>(
+              ym + ((((size_t)tl.n * D + zz) * H + gy) * W + gx) * CO + c);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < CPR; ++b) {
+      if (at[b] < 0) continue;
+#pragma unroll
+      for (int dz = 0; dz < 3; ++dz) {
+        uint4* dst = reinterpret_cast<uint4*>(st + dz * R * CS + at[b]);
+        uint4 u = *dst;
         uint32_t* uw = reinterpret_cast<uint32_t*>(&u);
-        const uint32_t mw[4] = {m.x, m.y, m.z, m.w};
+        const uint32_t mw[4] = {m[b][dz].x, m[b][dz].y, m[b][dz].z,
+                                m[b][dz].w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float lo, hi;
@@ -106,35 +117,86 @@ dgrad16_tc_kernel(const T* __restrict__ dy, const T* __restrict__ ym,
           if (!(lo > 0.f)) uw[j] &= 0xffff0000u;
           if (!(hi > 0.f)) uw[j] &= 0x0000ffffu;
         }
+        *dst = u;
       }
     }
-    *reinterpret_cast<uint4*>(s_x + v * G::CS + c) = u;
   }
-  __syncthreads();
+}
 
-  float acc[2][G::NT][4], unused[2][G::NT][4];
-  tc_sums<T, CO, CI, false>(s_x, s_w, warp, lane, acc, unused);
+// The CI x CO dx channel pairs of K17's tensor-core kernel: the stack's 3^3
+// layers whose input gradient training needs, at 32 and 16 features. dy,
+// ym (N,D,H,W,CO), xm, accum, dx (N,D,H,W,CI); the GEMM's K runs over
+// (tap', co), its N over ci.
+template <typename T, int CI, int CO>
+__global__ void __launch_bounds__(kTileThreads, 2)
+dgrad16_tc_kernel(const T* __restrict__ dy, const T* __restrict__ ym,
+                  const T* __restrict__ wt, const T* __restrict__ xm,
+                  const T* __restrict__ accum, T* __restrict__ dx, int D,
+                  int H, int W, int P, int R, int per_plane,
+                  long long tiles) {
+  using G = K15Geo<CO, CI>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_w = reinterpret_cast<T*>(smem);             // [CI][WK]
+  T* st = reinterpret_cast<T*>(smem + G::W_BYTES);  // [3][R][CS]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int gz = z0 + warp, gx = x0 + g;
-  if (gz >= D || gx >= W) return;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+
+  // Row ci of W' holds k' = tap' * CO + co: W[26 - tap'][ci][co], 8 co a
+  // copy.
+  for (int i = tid; i < 27 * CI * (CO / 8); i += kTileThreads) {
+    const int c8 = (i % (CO / 8)) * 8, ci = (i / (CO / 8)) % CI;
+    const int tap = i / (CO / 8 * CI);
+    *reinterpret_cast<uint4*>(s_w + ci * G::WK + tap * CO + c8) =
+        *reinterpret_cast<const uint4*>(
+            wt + ((size_t)(26 - tap) * CI + ci) * CO + c8);
+  }
+  long long tile = blockIdx.x;
+  stage_tile<T, CO, CI>(st, dy, 0, tile_at(tile, D, per_plane), D, H, W, P,
+                        R);
+  cp_async_commit();
+
+  for (; tile < tiles; tile += gridDim.x) {
+    const Tile tl = tile_at(tile, D, per_plane);
+    cp_async_wait<0>();
+    if (ym != nullptr) mask_tile<T, CO>(st, ym, tl, D, H, W, P, R);
+    __syncthreads();
+    float acc[G::NT][4], unused[G::NT][4];
+    tile_sums<T, CO, CI, false>(st, s_w, warp, lane, P, R, 0, acc, unused);
+    __syncthreads();  // the stage is free: the next tile lands meanwhile
+    if (tile + gridDim.x < tiles) {
+      stage_tile<T, CO, CI>(st, dy, 0, tile_at(tile + gridDim.x, D,
+                                               per_plane), D, H, W, P, R);
+      cp_async_commit();
+    }
+    // dx = r(r(acc) [xm > 0] + accum), channel pairs 2t, 2t + 1 of each
+    // n-tile; rows past the plane or in the zero column store nothing.
+    const size_t plane0 = ((size_t)tl.n * D + tl.z) * H * W;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int gy = y0 + 2 * mt + h;
-      if (gy >= H) continue;
-      const size_t o = (vox0 + ((size_t)gz * H + gy) * W + gx) * CI;
+      const int q = tl.q0 + warp * 16 + g + 8 * h;
+      const int gy = q / P, gx = q - gy * P;
+      if (gy >= H || gx >= W) continue;
+      const size_t o0 = (plane0 + (size_t)gy * W + gx) * CI + 2 * t;
 #pragma unroll
-      for (int nt = 0; nt < G::NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const size_t i = o + nt * 8 + 2 * t + j;
-          float v = round16<T>(acc[mt][nt][2 * h + j]);
-          if (xm != nullptr && !(to_f<T>(xm[i]) > 0.f)) v = 0.f;
-          if (accum != nullptr) v += to_f<T>(accum[i]);
-          dx[i] = from_f<T>(v);
+      for (int nt = 0; nt < G::NT; ++nt) {
+        const size_t o = o0 + nt * 8;
+        float v0 = round16<T>(acc[nt][2 * h]);
+        float v1 = round16<T>(acc[nt][2 * h + 1]);
+        float a0, a1;
+        if (xm != nullptr) {
+          unpack16<T>(*reinterpret_cast<const uint32_t*>(xm + o), a0, a1);
+          if (!(a0 > 0.f)) v0 = 0.f;
+          if (!(a1 > 0.f)) v1 = 0.f;
         }
+        if (accum != nullptr) {
+          unpack16<T>(*reinterpret_cast<const uint32_t*>(accum + o), a0, a1);
+          v0 += a0;
+          v1 += a1;
+        }
+        *reinterpret_cast<uint32_t*>(dx + o) = pack16<T>(v0, v1);
+      }
     }
+  }
 }
 
 // 1^3 layers: one thread per dx entry, the Cout products summed in order.
@@ -163,19 +225,25 @@ __global__ void dgrad16_k1_kernel(const void* __restrict__ dy, int dy_f32,
   dx[i] = from_f<T>(r);
 }
 
+// K15's host geometry (ops/conv3d.py's k15_geometry): pitch P, halo rows
+// R, tiles a plane; a persistent grid.
 template <typename T, int CI, int CO>
 cudaError_t launch_dgrad_tc(const T* dy, const T* ym, const T* w,
                             const T* xm, const T* accum, T* dx, int N, int D,
                             int H, int W, cudaStream_t s) {
-  constexpr size_t smem = Geo<CO, CI>::SMEM;
-  const cudaError_t err = cudaFuncSetAttribute(
-      dgrad16_tc_kernel<T, CI, CO>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = dgrad16_tc_kernel<T, CI, CO>;
+  const int P = W + 1, R = kTileRows + 2 * P + 2;
+  const int per_plane = (H * P - 1 + kTileRows - 1) / kTileRows;
+  const long long tiles = (long long)N * D * per_plane;
+  const size_t smem = dgrad16_smem<CI, CO>(R);
+  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  if (tiles == 0) return cudaSuccess;
+  unsigned grid = 0;
+  const cudaError_t err =
+      persistent_grid(kernel, kTileThreads, smem, tiles, &grid);
   if (err != cudaSuccess) return err;
-  const int tiles_x = (W + TX - 1) / TX, tiles_y = (H + TY - 1) / TY;
-  const dim3 grid(tiles_x * tiles_y, (D + TZ - 1) / TZ, N);
-  dgrad16_tc_kernel<T, CI, CO><<<grid, kTcThreads, smem, s>>>(
-      dy, ym, w, xm, accum, dx, D, H, W, tiles_x);
+  kernel<<<grid, kTileThreads, smem, s>>>(dy, ym, w, xm, accum, dx, D, H, W,
+                                          P, R, per_plane, tiles);
   return cudaGetLastError();
 }
 
@@ -240,8 +308,6 @@ __device__ __forceinline__ uint4 relu8(uint4 u) {
 // fragments) and the bias warp.
 constexpr int kW16Tpw = 3;
 constexpr int kW16Threads = (27 / kW16Tpw + 1) * 32;
-
-constexpr int kW16MaxSmem = 232448;  // shared memory a CTA may use (H100)
 
 // Shared memory of a stage-1 CTA: x's halo and a zero voxel, CIP + 8
 // values a voxel; g and the mask (ym), Cout + 8 values a position; the
@@ -484,7 +550,7 @@ cudaError_t launch_wgrad_tc(const void* x, const T* dy, const T* ym,
                             int cz, int cy, int ctas, cudaStream_t s) {
   static const cudaError_t err = cudaFuncSetAttribute(
       wgrad16_tc_kernel<T, CIP, CO, XF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kW16MaxSmem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (err != cudaSuccess) return err;
   const size_t smem = wgrad16_smem(cz, cy, W, CIP, CO);
   const int nzc = (D + cz - 1) / cz, nyc = (H + cy - 1) / cy;
@@ -519,7 +585,7 @@ int wgrad16_tc(const void* x, int x_f32, const void* dy, const void* ym,
                int ctas, cudaStream_t s) {
   const int cip = Cin <= 16 ? 16 : 32;
   if (Cin < 1 || Cin > 32 || (Cout != 16 && Cout != 32) || cz < 1 ||
-      cy < 1 || ctas < 1 || wgrad16_smem(cz, cy, W, cip, Cout) > kW16MaxSmem)
+      cy < 1 || ctas < 1 || wgrad16_smem(cz, cy, W, cip, Cout) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   const T *g = static_cast<const T*>(dy), *m = static_cast<const T*>(ym);
 #define FFN_WGRAD_TC_W(CIP, CO)                                            \
@@ -539,7 +605,8 @@ int wgrad16_tc(const void* x, int x_f32, const void* dy, const void* ym,
 // (the forward output, for post_relu) or null; w (k,k,k,Cin,Cout); xm (the
 // forward input, for pre_relu) or null; accum (N,D,H,W,Cin) or null; dx
 // (N,D,H,W,Cin). 16-bit tensors of one type (f16: float16, else bfloat16),
-// contiguous, 16-byte aligned; k = 3 takes Cin = Cout in {16, 32}.
+// contiguous, 16-byte aligned; k = 3 takes Cin = Cout in {16, 32} and rows
+// whose halo fits in shared memory (ops/conv3d.py's k15_geometry).
 extern "C" int ffn_conv3d_dgrad_16(const void* dy, int dy_f32, const void* ym,
                                    const void* w, const void* xm,
                                    const void* accum, void* dx, int N, int D,

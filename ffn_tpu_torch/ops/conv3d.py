@@ -170,12 +170,13 @@ def _check_bf16(x, weight, bias, residual):
     return tensors
 
 
-# The 3^3 kernel's geometry (conv3d_bf16.cu's launch_tc): tiles of
-# K15_TILE_ROWS voxels at positions q = y * P + x of one z-plane, P = W + 1
-# (a zero column after each row), each staged with a halo of three planes
+# The 3^3 kernel's geometry (conv3d_bf16.cu's launch_tc; conv16.cuh): tiles
+# of K15_TILE_ROWS voxels at positions q = y * P + x of one z-plane, P = W +
+# 1 (a zero column after each row), each staged with a halo of three planes
 # of R = K15_TILE_ROWS + 2P + 2 rows; a CTA holds the weights as
 # [Cout][k], one stage and a queue of flagged outputs. Two CTAs share an
-# SM while each fits K15_SMEM_TWO bytes (the 33^3 FOV does).
+# SM while each fits K15_SMEM_TWO bytes (the 33^3 FOV does). K17 runs on
+# the same tiles of its g (k15_geometry with Cin and Cout swapped).
 K15_TILE_ROWS = 128
 K15_SMEM = 232448        # shared memory a CTA may use on an H100
 K15_SMEM_TWO = 115712    # ... and each of two on one SM (228 KB, 1 KB a CTA)
@@ -290,6 +291,104 @@ def _masked(dy: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
                                               device=dy.device))
 
 
+# K9's 3^3 geometry (conv3d_bwd.cu's K9Plan): tiles of K9_TILE_POS plane
+# positions q = y * P + x (K15's, longer, P = W + 1 rounded up to even) and
+# 4 * cig dx channels, the dx channel block the slowest index; a tile's
+# halo three planes of three row bands K9_TILE_POS + 2 rows long,
+# band_stride = min(P, K9_TILE_POS + 2) apart (one run of rows while they
+# overlap); threads of K9_RUN positions x 4 channels, K9_RUNS x cig a CTA;
+# W' staged for g_block g channels at a time and g's halo (and y's, with
+# post_relu) in chunks of `chunk` g channels, one stage.
+K9_RUN, K9_RUNS = 4, 96
+K9_TILE_POS = K9_RUN * K9_RUNS
+K9_GBLOCK, K9_CHUNK_MAX = 32, 16
+
+
+@dataclasses.dataclass(frozen=True)
+class K9Geometry:
+    """Tile t of K9 on dy (n, d, h, w, cout): dx channel block t //
+    (n d per_plane), then sample, plane and positions as K15Geometry's;
+    `smem` bytes a CTA."""
+    n: int
+    d: int
+    h: int
+    w: int
+    cig: int
+    threads: int
+    pitch: int
+    band_stride: int
+    halo_rows: int
+    per_plane: int
+    ci_blocks: int
+    tiles: int
+    g_block: int
+    chunk: int
+    w_row: int
+    stage: int
+    smem: int
+
+    def voxels(self, t):
+        """(ci block, n, z, ys, xs): tile t's dx channel block and voxels
+        (its other positions, past the plane or in the zero column, store
+        nothing)."""
+        per_block = self.n * self.d * self.per_plane
+        b, r = t // per_block, t % per_block
+        n, z = r // (self.d * self.per_plane), r // self.per_plane % self.d
+        q = r % self.per_plane * K9_TILE_POS + torch.arange(K9_TILE_POS)
+        ys, xs = q // self.pitch, q % self.pitch
+        keep = (ys < self.h) & (xs < self.w)
+        return b, n, z, ys[keep], xs[keep]
+
+    def halo_positions(self, t):
+        """Plane positions of tile t's staged rows h = 0..halo_rows-1:
+        q0 + (b - 1) P - 1 + h - b S, b = min(h // S, 2)."""
+        q0 = t % self.per_plane * K9_TILE_POS
+        h = torch.arange(self.halo_rows)
+        b = torch.clamp(h // self.band_stride, max=2)
+        return q0 + (b - 1) * self.pitch - 1 + h - b * self.band_stride
+
+
+def _below_pow2(v):
+    p = 1
+    while 2 * p < v:
+        p *= 2
+    return p
+
+
+@functools.lru_cache(maxsize=256)
+def k9_geometry(n, d, h, w, cin, cout, masked):
+    """K9's 3^3 tiles for dy (n, d, h, w, cout), dx with cin channels,
+    `masked` when y (post_relu) is staged beside g: the first (g_block,
+    chunk), largest g_block first, whose W' rows and stage fit a
+    CTA (half an SM when cig < 8, so two share it, else the whole);
+    ValueError when none does."""
+    cig = 8 if cin > 16 else 4 if cin > 8 else 2 if cin > 4 else 1
+    cip = 4 * cig
+    pitch = (w + 2) // 2 * 2     # even: 8-byte aligned windows
+    band = min(pitch, K9_TILE_POS + 2)
+    halo_rows = 2 * band + K9_TILE_POS + 2
+    per_plane = -(-(h * pitch - 1) // K9_TILE_POS)
+    ci_blocks = -(-cin // cip)
+    w_row = 27 * cip + 4
+    g0 = min(cout, K9_GBLOCK)
+    for budget in (K15_SMEM_TWO if cig < 8 else K15_SMEM, K15_SMEM):
+        gb = g0
+        while gb >= 1:
+            cc = K9_CHUNK_MAX
+            while cc >= 1:
+                stage = -(-cc * 3 * halo_rows * (2 if masked else 1) // 4) * 4
+                smem = 4 * (gb * w_row + stage)
+                if cc <= gb and smem <= budget:
+                    return K9Geometry(n, d, h, w, cig, K9_RUNS * cig, pitch,
+                                      band, halo_rows, per_plane, ci_blocks,
+                                      ci_blocks * n * d * per_plane, gb, cc,
+                                      w_row, stage, smem)
+                cc //= 2
+            gb = _below_pow2(gb) if gb > 1 else 0
+    raise ValueError(f"{DGRAD}: a {cin}->{cout} layer does not fit the 3^3 "
+                     f"kernel's shared memory")
+
+
 def conv3d_dgrad_plain(dy: torch.Tensor, weight: torch.Tensor, *,
                        x: Optional[torch.Tensor] = None,
                        y: Optional[torch.Tensor] = None,
@@ -369,6 +468,8 @@ def conv3d_dgrad_f32(dy: torch.Tensor, weight: torch.Tensor, *,
         return conv3d_dgrad_plain(dy, weight, x=x, y=y, accum=accum)
     n, d, h, w, cout = dy.shape
     k, cin = weight.shape[0], weight.shape[3]
+    if k == 3:
+        k9_geometry(n, d, h, w, cin, cout, y is not None)
     dx = torch.empty((n, d, h, w, cin), device=dy.device,
                      dtype=torch.float32)
     err = _build.lib().ffn_conv3d_dgrad_f32(
@@ -567,7 +668,8 @@ def _check16(name, tensors, dev):
 def conv3d_dgrad_16(dy, weight, *, x=None, y=None, accum=None):
     """K17 (launches conv3d_dgrad_bf16 or _f16). Arguments and result as
     conv3d_dgrad_16_plain's; on the card a 3^3 layer takes (Cin, Cout) in
-    DGRAD16_SHAPES and a 16-bit dy, a 1^3 layer any widths."""
+    DGRAD16_SHAPES, a 16-bit dy and rows k15_geometry takes, a 1^3 layer
+    any widths."""
     dt = weight.dtype
     if dt not in HALF or dy.dtype not in (dt, torch.float32) or any(
             t is not None and t.dtype != dt for t in (x, y, accum)):
@@ -587,6 +689,8 @@ def conv3d_dgrad_16(dy, weight, *, x=None, y=None, accum=None):
         raise ValueError(f"conv3d_dgrad_16: the 3^3 kernel takes a 16-bit "
                          f"dy and (Cin, Cout) in {DGRAD16_SHAPES}, got "
                          f"{tuple(weight.shape)} {dy.dtype}")
+    if k == 3:   # K15's tiles of g: raises where K15's forward would
+        k15_geometry(n, d, h, w, cout, cin)
     dx = torch.empty((n, d, h, w, cin), device=dy.device, dtype=dt)
     name = "conv3d_dgrad_" + SUFFIX[dt]
     err = _build.lib().ffn_conv3d_dgrad_16(

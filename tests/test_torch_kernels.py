@@ -905,6 +905,53 @@ def test_k9_k10_match_plain(card, case):
     assert torch.equal(again[0], gw) and torch.equal(again[1], gb)
 
 
+# K9's 3^3 kernel beyond the stack's FOV: one voxel, H = 1, W = 1, rows
+# across tiles, the card tests' (2, 9, 10, 11), N = 20 at 9^3 (several tiles
+# a persistent CTA), rows wider than a tile (three row bands a plane, g in
+# the smallest chunks).
+K9_SHAPES = [(1, 1, 1, 1), (2, 3, 1, 5), (1, 4, 5, 1), (1, 3, 4, 200),
+             (2, 9, 10, 11), (20, 9, 9, 9), (1, 2, 3, 700)]
+K9_CASES = dict(K1_CASES, **{"16->16": (3, 16, 16, True, True, False)})
+
+
+def _same_alone_and_again(fn, dy, w, kw):
+    """fn's result on the batch; a repeat bit for bit, the middle sample
+    alone bit for bit as in the batch."""
+    got = fn(dy, w, **kw)
+    assert torch.equal(got, fn(dy, w, **kw))
+    i = dy.shape[0] // 2
+    one = fn(dy[i:i + 1].clone(), w, **{k: None if v is None else
+                                        v[i:i + 1].clone()
+                                        for k, v in kw.items()})
+    assert torch.equal(one[0], got[i])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K9_CASES))
+@pytest.mark.parametrize("shape", K9_SHAPES)
+def test_k9_matches_plain_on_odd_shapes(card, case, shape):
+    # Within 1e-4 of max|plain| (test_k9_k10_match_plain's bound), every
+    # layer kind, deterministic and N-independent.
+    k, cin, cout, pre, post, _ = K9_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(sum(shape) + cin)
+    x = torch.randn(*shape, cin, generator=gen, device=card)
+    w = torch.randn(k, k, k, cin, cout, generator=gen, device=card) * 0.2
+    dy = torch.randn(*shape, cout, generator=gen, device=card)
+    y = torch.randn(*shape, cout, generator=gen, device=card) \
+        if post else None
+    acc = torch.randn(*shape, cin, generator=gen, device=card) \
+        if pre and post else None
+    kw = dict(x=x if pre else None, y=y, accum=acc)
+    if shape == (1, 2, 3, 700) and k == 3:
+        geo = conv3d.k9_geometry(*shape, cin, cout, post)
+        assert geo.band_stride < geo.pitch and geo.chunk <= 8
+    got = _same_alone_and_again(conv3d.conv3d_dgrad_f32, dy, w, kw)
+    want = conv3d.conv3d_dgrad_plain(dy, w, **kw)
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), (case, shape, err)
+
+
 @pytest.mark.cuda
 def test_conv3d_function_backward_matches_autograd_of_plain(card):
     from ffn_tpu_torch.models import convstack_3d
@@ -1553,6 +1600,117 @@ def test_k15_halo_rows_and_tap_offsets_give_the_convolution(shape):
     np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
 
 
+# K9's 3^3 geometry (conv3d.k9_geometry, mirrored from conv3d_bwd.cu's
+# K9Plan): tiles of K9_TILE_POS plane positions and a block of dx channels;
+# W' and g's halo chunks in shared memory. Widths of the stack, the CI
+# checkpoint, the card tests' odd ones and dx channels beyond a block.
+K9_GEO_WIDTHS = [(32, 32), (16, 16), (13, 40), (2, 32), (40, 13)]
+K9_GEO_SHAPES = [(1, 33, 33, 33), (2, 5, 7, 9), (1, 1, 1, 1), (2, 3, 1, 5),
+                 (1, 2, 3, 200), (1, 2, 3, 700)]
+
+
+@pytest.mark.parametrize("shape", K9_GEO_SHAPES)
+@pytest.mark.parametrize("widths", K9_GEO_WIDTHS)
+def test_k9_tiles_cover_every_voxel_and_channel_once(shape, widths):
+    n, d, h, w = shape
+    cin, cout = widths
+    geo = conv3d.k9_geometry(n, d, h, w, cin, cout, True)
+    cip = 4 * geo.cig
+    assert (geo.ci_blocks - 1) * cip < cin <= geo.ci_blocks * cip
+    assert geo.tiles == geo.ci_blocks * n * d * geo.per_plane
+    seen = np.zeros((geo.ci_blocks, n, d, h, w), np.int64)
+    for t in range(geo.tiles):
+        b, i, z, ys, xs = geo.voxels(t)
+        np.add.at(seen, (b, i, z, ys.numpy(), xs.numpy()), 1)
+    assert (seen == 1).all()
+    assert geo.smem == 4 * (geo.g_block * geo.w_row + geo.stage)
+    assert geo.smem <= conv3d.K15_SMEM and geo.threads == 96 * geo.cig
+
+
+def test_k9_geometry_at_33_stages_the_weights_once():
+    # 33 * 34 - 1 positions in 3 tiles of 384: 5.5% padded slots (the 3x8x4
+    # box 24%); 396 tiles at B=4, three for each of 132 persistent CTAs;
+    # W' for all 32 g channels (110.6 KB) beside one stage of 8 (masked: y
+    # beside g) or 16 g channels.
+    for masked, chunk in ((True, 8), (False, 16)):
+        geo = conv3d.k9_geometry(4, 33, 33, 33, 32, 32, masked)
+        assert geo.per_plane == 3 and geo.tiles == 3 * 132
+        assert geo.per_plane * conv3d.K9_TILE_POS / 33 ** 2 < 1.06
+        assert (geo.g_block, geo.chunk, geo.threads) == (32, chunk, 768)
+        assert geo.halo_rows == 2 * 34 + conv3d.K9_TILE_POS + 2
+        assert geo.smem <= conv3d.K15_SMEM
+    # 16->16 (the CI checkpoint): 12 warps a CTA, two CTAs an SM.
+    geo = conv3d.k9_geometry(4, 33, 33, 33, 16, 16, True)
+    assert geo.threads == 384 and geo.smem <= conv3d.K15_SMEM_TWO
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k9_wide_rows_take_three_row_bands(masked):
+    # Rows wider than a tile: each tile stages three bands of 386 rows a
+    # plane, so the halo, and W' for 32 g channels, fit whatever W is; the
+    # chunk of g channels shrinks as the rows grow, then stays.
+    geos = [conv3d.k9_geometry(1, 2, 2, w, 32, 32, masked)
+            for w in (33, 200, 384, 385, 600, 5000, 100000)]
+    assert [g.band_stride for g in geos] == [34, 202, 386, 386, 386, 386, 386]
+    assert all(g.halo_rows == 2 * g.band_stride + conv3d.K9_TILE_POS + 2
+               for g in geos)
+    assert all(g.g_block == 32 and g.smem <= conv3d.K15_SMEM for g in geos)
+    chunks = [g.chunk for g in geos]
+    assert chunks == sorted(chunks, reverse=True) and chunks[-1] == (
+        4 if masked else 8) and chunks[-1] == chunks[-3]
+
+
+@pytest.mark.parametrize("shape,widths", [((1, 5, 7, 9), (13, 40)),
+                                          ((2, 3, 4, 33), (32, 32)),
+                                          ((1, 1, 1, 1), (4, 3)),
+                                          ((1, 2, 40, 3), (16, 16)),
+                                          ((1, 2, 2, 300), (40, 13)),
+                                          ((1, 2, 2, 500), (8, 4))])
+def test_k9_halo_rows_and_windows_give_the_input_gradient(shape, widths):
+    # The kernel's index arithmetic in numpy: each tile's g (plane dz row h
+    # the voxel at halo position h of plane z + dz - 1, zero outside the
+    # volume and in the zero column), y's mask on the staged copies,
+    # W'[c][tap'][ci] = W[26 - tap'][ci][c], output row r reading row
+    # dy S + r + dx of plane dz, the dx channel block, the x mask and accum;
+    # against conv3d_dgrad_plain.
+    n, d, h, w = shape
+    cin, cout = widths
+    rng = np.random.default_rng(sum(shape) + cin)
+    dy, y = (rng.standard_normal((n, d, h, w, cout)) for _ in "dy")
+    x, acc = (rng.standard_normal((n, d, h, w, cin)) for _ in "xa")
+    wt = rng.standard_normal((3, 3, 3, cin, cout))
+    geo = conv3d.k9_geometry(n, d, h, w, cin, cout, True)
+    p, band, cip = geo.pitch, geo.band_stride, 4 * geo.cig
+    wf = wt.reshape(27, cin, cout)[::-1].transpose(2, 0, 1)
+    rows = np.arange(conv3d.K9_TILE_POS)
+    out = np.full((n, d, h, w, cin), np.nan)
+    for t in range(geo.tiles):
+        b, i, z, ys, xs = geo.voxels(t)
+        q0 = t % geo.per_plane * conv3d.K9_TILE_POS
+        q = geo.halo_positions(t).numpy()
+        ok = (q >= 0) & (q < h * p) & (q % p < w)
+        stage = np.zeros((cout, 3, geo.halo_rows))
+        for dz in range(3):
+            if 0 <= z + dz - 1 < d:
+                at = (i, z + dz - 1, q[ok] // p, q[ok] % p)
+                stage[:, dz, ok] = np.where(y[at] > 0, dy[at], 0.0).T
+        ci = slice(b * cip, min(b * cip + cip, cin))
+        tile = np.zeros((conv3d.K9_TILE_POS, ci.stop - ci.start))
+        for c in range(cout):
+            for tap in range(27):
+                dz, dyy, dx = tap // 9, tap // 3 % 3, tap % 3
+                tile += np.outer(stage[c, dz, rows + dyy * band + dx],
+                                 wf[c, tap, ci])
+        ys, xs = ys.numpy(), xs.numpy()
+        at = (i, z, ys, xs, ci)
+        out[at] = np.where(x[at] > 0, tile[ys * p + xs - q0], 0) + acc[at]
+    want = conv3d.conv3d_dgrad_plain(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in (dy, wt)),
+        x=torch.from_numpy(x), y=torch.from_numpy(y),
+        accum=torch.from_numpy(acc)).numpy()
+    np.testing.assert_allclose(out, want, rtol=1e-10, atol=1e-10)
+
+
 # Layer kinds of K15_CASES that cover the four (Cin, Cout) pairs with every
 # flag: float32 x, pre_relu and post_relu, a 16-bit residual.
 K15_3X3_CASES = ["conv0_a", "block_a", "block_b", "ci_conv0_a", "ci_block_b"]
@@ -1666,6 +1824,87 @@ def test_k17_matches_plain(card, dtype, case):
     # K17_DIFFER_SHARE).
     assert differ_share(got, want) <= {torch.bfloat16: 1e-3,
                                        torch.float16: 5e-3}[dtype]
+
+
+def _k17_bound(dy, w, kw, want, dtype):
+    """test_k17_matches_plain's bound on K17's error: one ulp of the type
+    per rounding (at the sum s; with accum also at the result) plus 2^-20
+    of the sum of |w||g|."""
+    from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp
+    s = conv3d.conv3d_dgrad_16_plain(dy, w, x=kw.get("x"),
+                                     y=kw.get("y")).float().abs()
+    y = kw.get("y")
+    mag = conv3d.conv3d_dgrad_plain(dy.float().abs(), w.float().abs(),
+                                    y=y.float() if y is not None else None)
+    tol = bf16_ulp(s, dtype) + mag * 2.0 ** -20
+    if kw.get("accum") is not None:
+        tol = tol + bf16_ulp(torch.maximum(s, want.float().abs()), dtype)
+    return tol
+
+
+# K17's 3^3 kernel on K15's tiles: shapes ending mid-tile, H = 1, W = 1,
+# rows across tiles, N = 20 at 9^3 (several tiles a persistent CTA).
+K17_SHAPES = [(1, 1, 1, 1), (2, 3, 1, 5), (1, 4, 5, 1), (2, 5, 7, 9),
+              (1, 3, 17, 40), (2, 9, 10, 11), (20, 9, 9, 9)]
+
+
+def _k17_args(card, dtype, case, shape, seed=171):
+    gen = torch.Generator(device=card).manual_seed(seed + sum(shape))
+    c = 16 if case == "16->16" else 32
+
+    def randn(scale, *s):
+        return (torch.randn(*s, generator=gen, device=card) * scale).to(dtype)
+    x, a = randn(1.0, *shape, c), randn(1.0, *shape, c)
+    dy, acc = randn(0.01, *shape, c), randn(0.01, *shape, c)
+    w = randn((2 / (27 * c)) ** 0.5, 3, 3, 3, c, c)
+    return dy, w, ({} if case == "block_b" else dict(x=x, y=a, accum=acc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("case", ["block_a", "block_b", "16->16"])
+@pytest.mark.parametrize("shape", K17_SHAPES)
+def test_k17_matches_plain_on_odd_shapes(card, dtype, case, shape):
+    dy, w, kw = _k17_args(card, dtype, case, shape)
+    got = _same_alone_and_again(conv3d.conv3d_dgrad_16, dy, w, kw)
+    want = conv3d.conv3d_dgrad_16_plain(dy, w, **kw)
+    tol = _k17_bound(dy, w, kw, want, dtype)
+    assert got.dtype == dtype
+    assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HALF)
+def test_k17_cancelling_sums_stay_in_bound(card, dtype):
+    # g's channels in equal pairs against weights a and -a, one in eight of
+    # the latter nudged: each sum cancels to a small part of the sum of
+    # |w||g|, where only the 2^-20 term of the bound holds K17 to plain.
+    gen = torch.Generator(device=card).manual_seed(172)
+    dy = torch.randn(3, 9, 10, 11, 16, generator=gen, device=card)
+    dy = (dy.repeat_interleave(2, dim=-1) * 0.01).to(dtype)
+    a = torch.randn(3, 3, 3, 32, 16, generator=gen, device=card) * 0.05
+    nudge = torch.rand(a.shape, generator=gen, device=card) < 0.125
+    odd = torch.where(nudge, -a * (1 + 2.0 ** -6), -a)
+    w = torch.stack([a, odd], dim=-1).reshape(3, 3, 3, 32, 32).to(dtype)
+    got = _same_alone_and_again(conv3d.conv3d_dgrad_16, dy, w, {})
+    want = conv3d.conv3d_dgrad_16_plain(dy, w)
+    s = want.float().abs()
+    mag = conv3d.conv3d_dgrad_plain(dy.float().abs(), w.float().abs())
+    assert float((s / mag).median()) < 0.1   # the sums cancel
+    tol = _k17_bound(dy, w, {}, want, dtype)
+    assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_k17_refuses_rows_k15_refuses(card):
+    # K17 runs on K15's tiles of g, so rows of 300 voxels, which K15's
+    # forward of the layer refuses (test_k15_geometry_refuses_rows_too_wide),
+    # raise here too.
+    dy = torch.zeros(1, 2, 2, 300, 32, device=card, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 3, 32, 32, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        conv3d.conv3d_dgrad_16(dy, w)
+    conv3d.conv3d_dgrad_16(dy[..., :200, :].contiguous(), w)
 
 
 # Which K18 body takes each layer of the stack (wgrad16_route): (k, Cin,
