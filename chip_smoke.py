@@ -2809,13 +2809,7 @@ def phase_lowp_kernels(dev):
                          ("32->32", {})):
             got = conv3d.conv3d_dgrad_16(dy, w, **kw)
             want = conv3d.conv3d_dgrad_16_plain(dy, w, **kw)
-            s = conv3d.conv3d_dgrad_16_plain(dy, w, x=kw.get("x"),
-                                             y=kw.get("y")).float().abs()
-            mag = conv3d.conv3d_dgrad_plain(
-                dy.float().abs(), w.float().abs(),
-                y=kw["y"].float() if kw else None)
-            tol = ulp(s) + mag * 2.0 ** -20 + (
-                ulp(torch.maximum(s, want.float().abs())) if kw else 0)
+            tol = check.k17_tolerance(dy, w, want, **kw)
             delta = (got.float() - want.float()).abs()
             worst = float((delta / tol).max())
             differ = float((delta > 0).float().mean())

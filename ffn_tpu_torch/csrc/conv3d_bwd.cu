@@ -50,32 +50,20 @@
 // post_relu (y staged and applied) and pre_relu (x and accum read).
 // Each output is summed in one order (g channels, tap rows, dx taps)
 // whatever the tile list, grid or chunk size:
-// deterministic, and a sample's result does not depend on N. Measurement
-// variants (never defined by the library; dgrad_variants.py): FFN_K9_RUNS,
-// FFN_K9_RUN, FFN_K9_CHUNK_MAX (a power of two). ops/conv3d.py's
-// k9_geometry mirrors K9Plan. 1^3 layers (conv_lom): one thread per dx
-// entry, the Cout products summed in order.
+// deterministic, and a sample's result does not depend on N.
+// ops/conv3d.py's k9_geometry mirrors K9Plan. 1^3 layers (conv_lom): one
+// thread per dx entry, the Cout products summed in order.
 
 #include "wgrad.cuh"
 
-#ifndef FFN_K9_RUNS
-#define FFN_K9_RUNS 96
-#endif
-#ifndef FFN_K9_RUN
-#define FFN_K9_RUN 4
-#endif
-#ifndef FFN_K9_CHUNK_MAX
-#define FFN_K9_CHUNK_MAX 16
-#endif
-
 namespace {
 
-constexpr int kRun = FFN_K9_RUN;        // consecutive positions a thread
-constexpr int kRuns = FFN_K9_RUNS;      // runs a tile
+constexpr int kRun = 4;                 // consecutive positions a thread
+constexpr int kRuns = 96;               // runs a tile
 constexpr int kTilePos = kRun * kRuns;  // positions a tile
 constexpr int kCiT = 4;                 // dx channels a thread
 constexpr int kGBlock = 32;             // g channels of W' at most
-constexpr int kChunkMax = FFN_K9_CHUNK_MAX;  // g channels a stage at most
+constexpr int kChunkMax = 16;           // g channels a stage at most
 constexpr int kSmemTwo = 115712;        // each of two CTAs on an H100 SM
 
 // The host geometry of a 3^3 layer (ops/conv3d.py's k9_geometry): cig
@@ -84,8 +72,9 @@ constexpr int kSmemTwo = 115712;        // each of two CTAs on an H100 SM
 // slowest tile index); g channels of W' at a time (gb) and a stage (cc, a
 // power of two); floats of a W' row (g channel) and of the stage; shared
 // bytes. The first (gb, cc), largest gb first, whose W' and stage fit a
-// CTA: half an SM when cig < 8, so two share it, else (or if none fits so)
-// the whole.
+// CTA: half an SM when cig < 8, so two share it, else the whole. Every
+// shape fits: gb = cc = 1 takes at most 4 (27 * 32 + 4 + 6 * 1158) bytes,
+// 31.3 KB (cip <= 32, R <= 3 (kTilePos + 2)), so the search ends there.
 struct K9Plan {
   int cig, threads, P, S, R, per_plane, ci_blocks, gb, cc, w_row, stage;
   long long tiles;
@@ -99,35 +88,33 @@ inline int below_pow2(int v) {
   return p;
 }
 
-inline bool k9_plan(int N, int D, int H, int W, int Cin, int Cout,
-                    bool masked, K9Plan* p) {
-  p->cig = Cin > 16 ? 8 : Cin > 8 ? 4 : Cin > 4 ? 2 : 1;
-  const int cip = kCiT * p->cig;
-  p->threads = kRuns * p->cig;
-  p->P = (W + 2) & ~1;  // even, as kTilePos: every window 8-byte aligned
-  p->S = p->P < kTilePos + 2 ? p->P : kTilePos + 2;
-  p->R = 2 * p->S + kTilePos + 2;
-  p->per_plane = (H * p->P - 1 + kTilePos - 1) / kTilePos;
-  p->ci_blocks = (Cin + cip - 1) / cip;
-  p->tiles = (long long)p->ci_blocks * N * D * p->per_plane;
-  p->w_row = 27 * cip + 4;
-  const int g0 = Cout < kGBlock ? Cout : kGBlock;
-  const int budgets[2] = {p->cig < 8 ? kSmemTwo : kSmemLimit, kSmemLimit};
-  for (int budget : budgets)
-    for (int gb = g0; gb >= 1; gb = gb > 1 ? below_pow2(gb) : 0)
-      for (int cc = kChunkMax; cc >= 1; cc /= 2) {
-        if (cc > gb) continue;
-        const int stage = (cc * 3 * p->R * (masked ? 2 : 1) + 3) / 4 * 4;
-        const size_t smem = 4 * ((size_t)gb * p->w_row + stage);
-        if (smem <= (size_t)budget) {
-          p->gb = gb;
-          p->cc = cc;
-          p->stage = stage;
-          p->smem = smem;
-          return true;
-        }
+inline K9Plan k9_plan(int N, int D, int H, int W, int Cin, int Cout,
+                      bool masked) {
+  K9Plan p{};
+  p.cig = Cin > 16 ? 8 : Cin > 8 ? 4 : Cin > 4 ? 2 : 1;
+  const int cip = kCiT * p.cig;
+  p.threads = kRuns * p.cig;
+  p.P = (W + 2) & ~1;  // even, as kTilePos: every window 8-byte aligned
+  p.S = p.P < kTilePos + 2 ? p.P : kTilePos + 2;
+  p.R = 2 * p.S + kTilePos + 2;
+  p.per_plane = (H * p.P - 1 + kTilePos - 1) / kTilePos;
+  p.ci_blocks = (Cin + cip - 1) / cip;
+  p.tiles = (long long)p.ci_blocks * N * D * p.per_plane;
+  p.w_row = 27 * cip + 4;
+  const size_t budget = p.cig < 8 ? kSmemTwo : kSmemLimit;
+  for (int gb = Cout < kGBlock ? Cout : kGBlock;; gb = below_pow2(gb))
+    for (int cc = kChunkMax; cc >= 1; cc /= 2) {
+      if (cc > gb) continue;
+      const int stage = (cc * 3 * p.R * (masked ? 2 : 1) + 3) / 4 * 4;
+      const size_t smem = 4 * ((size_t)gb * p.w_row + stage);
+      if (smem <= budget || gb == 1) {
+        p.gb = gb;
+        p.cc = cc;
+        p.stage = stage;
+        p.smem = smem;
+        return p;
       }
-  return false;
+    }
 }
 
 // A unit of a CTA's work: chunk k (g channels k cc ..) of tile `tile`.
@@ -386,9 +373,8 @@ extern "C" int ffn_conv3d_dgrad_f32(const float* dy, const float* y,
         dy, y, x, w, accum, dx, n, Cin, Cout);
     return static_cast<int>(cudaGetLastError());
   }
-  K9Plan p;
-  if (k != 3 || !k9_plan(N, D, H, W, Cin, Cout, y != nullptr, &p))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (k != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const K9Plan p = k9_plan(N, D, H, W, Cin, Cout, y != nullptr);
   if (p.tiles == 0) return static_cast<int>(cudaSuccess);
   auto aligned = [](const float* q) {
     return q == nullptr || (reinterpret_cast<size_t>(q) & 15) == 0;

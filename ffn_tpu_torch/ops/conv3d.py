@@ -359,9 +359,10 @@ def _below_pow2(v):
 def k9_geometry(n, d, h, w, cin, cout, masked):
     """K9's 3^3 tiles for dy (n, d, h, w, cout), dx with cin channels,
     `masked` when y (post_relu) is staged beside g: the first (g_block,
-    chunk), largest g_block first, whose W' rows and stage fit a
-    CTA (half an SM when cig < 8, so two share it, else the whole);
-    ValueError when none does."""
+    chunk), largest g_block first, whose W' rows and stage fit a CTA (half
+    an SM when cig < 8, so two share it, else the whole). Every shape
+    fits: g_block = chunk = 1 takes at most 31.3 KB (4 * cig <= 32 dx
+    channels, halo_rows <= 3 * (K9_TILE_POS + 2)), where the search ends."""
     cig = 8 if cin > 16 else 4 if cin > 8 else 2 if cin > 4 else 1
     cip = 4 * cig
     pitch = (w + 2) // 2 * 2     # even: 8-byte aligned windows
@@ -370,23 +371,20 @@ def k9_geometry(n, d, h, w, cin, cout, masked):
     per_plane = -(-(h * pitch - 1) // K9_TILE_POS)
     ci_blocks = -(-cin // cip)
     w_row = 27 * cip + 4
-    g0 = min(cout, K9_GBLOCK)
-    for budget in (K15_SMEM_TWO if cig < 8 else K15_SMEM, K15_SMEM):
-        gb = g0
-        while gb >= 1:
-            cc = K9_CHUNK_MAX
-            while cc >= 1:
-                stage = -(-cc * 3 * halo_rows * (2 if masked else 1) // 4) * 4
-                smem = 4 * (gb * w_row + stage)
-                if cc <= gb and smem <= budget:
-                    return K9Geometry(n, d, h, w, cig, K9_RUNS * cig, pitch,
-                                      band, halo_rows, per_plane, ci_blocks,
-                                      ci_blocks * n * d * per_plane, gb, cc,
-                                      w_row, stage, smem)
-                cc //= 2
-            gb = _below_pow2(gb) if gb > 1 else 0
-    raise ValueError(f"{DGRAD}: a {cin}->{cout} layer does not fit the 3^3 "
-                     f"kernel's shared memory")
+    budget = K15_SMEM_TWO if cig < 8 else K15_SMEM
+    gb = min(cout, K9_GBLOCK)
+    while True:
+        cc = K9_CHUNK_MAX
+        while cc >= 1:
+            stage = -(-cc * 3 * halo_rows * (2 if masked else 1) // 4) * 4
+            smem = 4 * (gb * w_row + stage)
+            if cc <= gb and (smem <= budget or gb == 1):
+                return K9Geometry(n, d, h, w, cig, K9_RUNS * cig, pitch,
+                                  band, halo_rows, per_plane, ci_blocks,
+                                  ci_blocks * n * d * per_plane, gb, cc,
+                                  w_row, stage, smem)
+            cc //= 2
+        gb = _below_pow2(gb)
 
 
 def conv3d_dgrad_plain(dy: torch.Tensor, weight: torch.Tensor, *,
@@ -468,8 +466,6 @@ def conv3d_dgrad_f32(dy: torch.Tensor, weight: torch.Tensor, *,
         return conv3d_dgrad_plain(dy, weight, x=x, y=y, accum=accum)
     n, d, h, w, cout = dy.shape
     k, cin = weight.shape[0], weight.shape[3]
-    if k == 3:
-        k9_geometry(n, d, h, w, cin, cout, y is not None)
     dx = torch.empty((n, d, h, w, cin), device=dy.device,
                      dtype=torch.float32)
     err = _build.lib().ffn_conv3d_dgrad_f32(

@@ -1,5 +1,6 @@
 """How K15 (conv3d_ndhwc_bf16, also in float16) is held to its plain version
-and to the exact sum; shared by the tests, chip_smoke.py and tools_torch/.
+and to the exact sum, and K17 (conv3d_dgrad_16) to its plain version;
+shared by the tests, chip_smoke.py and tools_torch/.
 
 A sum taken in another float32 order can round to the neighbouring 16-bit
 value, so a layer is held to one ulp per rounding it makes
@@ -15,7 +16,9 @@ import itertools
 import torch
 import torch.nn.functional as F
 
-from ffn_tpu_torch.ops.conv3d import conv3d_ndhwc_bf16_plain
+from ffn_tpu_torch.ops.conv3d import (conv3d_dgrad_16_plain,
+                                      conv3d_dgrad_plain,
+                                      conv3d_ndhwc_bf16_plain)
 
 # The layer kinds of the bfloat16 stack at 32 features (model-r2) and 16
 # (the CI checkpoint): (k, Cin, Cout, pre_relu, post_relu, residual dtype or
@@ -89,6 +92,21 @@ def k15_tolerance(x, w, b, *, pre_relu=False, post_relu=False,
                   residual=residual).float().abs()
         tol += (bf16_ulp(torch.maximum(t, y), dt)
                 if residual.dtype == dt else y * 2.0 ** -23)
+    return tol
+
+
+def k17_tolerance(dy, w, want, *, x=None, y=None, accum=None):
+    """Per output, how far K17's input gradient may lie from `want`, its
+    plain version on the same inputs: one ulp of the type per rounding (at
+    the masked sum s; with `accum` also at the larger of s and the result)
+    plus 2^-20 of the sum of |w||g| where the float32 sum cancels."""
+    dt = want.dtype
+    s = conv3d_dgrad_16_plain(dy, w, x=x, y=y).float().abs()
+    mag = conv3d_dgrad_plain(dy.float().abs(), w.float().abs(),
+                             y=y.float() if y is not None else None)
+    tol = bf16_ulp(s, dt) + mag * 2.0 ** -20
+    if accum is not None:
+        tol = tol + bf16_ulp(torch.maximum(s, want.float().abs()), dt)
     return tol
 
 

@@ -17,7 +17,7 @@ from ffn_tpu_torch.ops import conv3d
 from ffn_tpu_torch.ops.conv3d_bf16_check import (DIFFER_SHARE, K15_CASES,
                                                  conv3d_ndhwc_bf16_exact,
                                                  differ_share, k15_inputs,
-                                                 k15_tolerance)
+                                                 k15_tolerance, k17_tolerance)
 from ffn_tpu_torch.ops import step as step_ops
 
 FOV = 9
@@ -1660,6 +1660,23 @@ def test_k9_wide_rows_take_three_row_bands(masked):
         4 if masked else 8) and chunks[-1] == chunks[-3]
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("widths", [(1, 1), (3, 7), (16, 16), (32, 32),
+                                    (64, 256), (300, 3)])
+def test_k9_geometry_fits_every_shape(widths, masked):
+    # The search ends at g_block = chunk = 1 at the latest, which fits the
+    # CTA's budget however wide the rows and the layer are.
+    cin, cout = widths
+    for w in (1, 385, 10 ** 6):
+        geo = conv3d.k9_geometry(1, 3, 2, w, cin, cout, masked)
+        budget = conv3d.K15_SMEM_TWO if geo.cig < 8 else conv3d.K15_SMEM
+        assert 1 <= geo.chunk <= geo.g_block <= min(cout, 32)
+        assert geo.smem == 4 * (geo.g_block * geo.w_row + geo.stage)
+        assert geo.smem <= budget
+    last = conv3d.k9_geometry(1, 3, 2, 10 ** 6, 300, 300, True)
+    assert 4 * (last.w_row + 3 * last.halo_rows * 2) <= 31.3e3
+
+
 @pytest.mark.parametrize("shape,widths", [((1, 5, 7, 9), (13, 40)),
                                           ((2, 3, 4, 33), (32, 32)),
                                           ((1, 1, 1, 1), (4, 3)),
@@ -1801,7 +1818,6 @@ def _k17_inputs(card, dtype, case, n=2):
 @pytest.mark.parametrize("dtype", HALF)
 @pytest.mark.parametrize("case", ["block_a", "block_b", "conv_lom"])
 def test_k17_matches_plain(card, dtype, case):
-    from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp
     dy, w, kw = _k17_inputs(card, dtype, case)
     got = conv3d.conv3d_dgrad_16(dy, w, **kw)
     want = conv3d.conv3d_dgrad_16_plain(dy, w, **kw)
@@ -1810,36 +1826,13 @@ def test_k17_matches_plain(card, dtype, case):
     if case == "conv_lom":   # one product per output: exact
         assert torch.equal(got, want)
         return
-    s = conv3d.conv3d_dgrad_16_plain(dy, w, x=kw.get("x"),
-                                     y=kw.get("y")).float().abs()
-    # One ulp per rounding: at the sum s, and with accum at the result's
-    # magnitude as well; and 2^-20 of the sum of |w||g| where the float32
-    # sum cancels (chip_smoke.py phase_lowp_kernels).
-    mag = conv3d.conv3d_dgrad_plain(dy.float().abs(), w.float().abs(),
-                                    y=kw["y"].float() if kw else None)
-    tol = bf16_ulp(s, dtype) + mag * 2.0 ** -20 + (
-        bf16_ulp(torch.maximum(s, want.float().abs()), dtype) if kw else 0)
+    # One ulp per rounding and 2^-20 of the sum of |w||g| (k17_tolerance).
+    tol = k17_tolerance(dy, w, want, **kw)
     assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
     # float16's finer ulp meets more rounding points (chip_smoke.py's
     # K17_DIFFER_SHARE).
     assert differ_share(got, want) <= {torch.bfloat16: 1e-3,
                                        torch.float16: 5e-3}[dtype]
-
-
-def _k17_bound(dy, w, kw, want, dtype):
-    """test_k17_matches_plain's bound on K17's error: one ulp of the type
-    per rounding (at the sum s; with accum also at the result) plus 2^-20
-    of the sum of |w||g|."""
-    from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp
-    s = conv3d.conv3d_dgrad_16_plain(dy, w, x=kw.get("x"),
-                                     y=kw.get("y")).float().abs()
-    y = kw.get("y")
-    mag = conv3d.conv3d_dgrad_plain(dy.float().abs(), w.float().abs(),
-                                    y=y.float() if y is not None else None)
-    tol = bf16_ulp(s, dtype) + mag * 2.0 ** -20
-    if kw.get("accum") is not None:
-        tol = tol + bf16_ulp(torch.maximum(s, want.float().abs()), dtype)
-    return tol
 
 
 # K17's 3^3 kernel on K15's tiles: shapes ending mid-tile, H = 1, W = 1,
@@ -1868,7 +1861,7 @@ def test_k17_matches_plain_on_odd_shapes(card, dtype, case, shape):
     dy, w, kw = _k17_args(card, dtype, case, shape)
     got = _same_alone_and_again(conv3d.conv3d_dgrad_16, dy, w, kw)
     want = conv3d.conv3d_dgrad_16_plain(dy, w, **kw)
-    tol = _k17_bound(dy, w, kw, want, dtype)
+    tol = k17_tolerance(dy, w, want, **kw)
     assert got.dtype == dtype
     assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
 
@@ -1891,7 +1884,7 @@ def test_k17_cancelling_sums_stay_in_bound(card, dtype):
     s = want.float().abs()
     mag = conv3d.conv3d_dgrad_plain(dy.float().abs(), w.float().abs())
     assert float((s / mag).median()) < 0.1   # the sums cancel
-    tol = _k17_bound(dy, w, {}, want, dtype)
+    tol = k17_tolerance(dy, w, want)
     assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
 
 

@@ -1,22 +1,21 @@
 #!/usr/bin/env python3
-"""Measures K9's and K17's design options on the card: the input gradient
-of a 3^3 layer in float32 (K9, `conv3d_dgrad_f32`, csrc/conv3d_bwd.cu) and
-in bfloat16 and float16 (K17, `conv3d_dgrad_16`, csrc/conv3d_bwd16.cu),
-against cuDNN's `conv3d_input` (TF32 off; 16-bit) on the same inputs.
+"""Measures K9 and K17 on the card, whole and with parts cut out: the
+input gradient of a 3^3 layer in float32 (K9, `conv3d_dgrad_f32`,
+csrc/conv3d_bwd.cu) and in bfloat16 and float16 (K17, `conv3d_dgrad_16`,
+csrc/conv3d_bwd16.cu), against cuDNN's `conv3d_input` (TF32 off; 16-bit) on the same inputs.
 
-Each option is a library built from the kernel's source with measurement
-macros defined (one nvcc each, in parallel) or with a part cut out of the
-source (--split: the results are then wrong, only their times count), its
-C entry called directly. Layer kinds of the training step at the train
+Each kernel is a library built from its source as it is and, with
+--split, with a part cut out (the results are then wrong, only their times
+count; variant_libs.py builds them, one nvcc each, in parallel), its C
+entry called directly. Layer kinds of the training step at the train
 CLI's batch (4; the host-loop trainer's is 4 too), 33^3: conv0_b and
 block_b (no masks, no cotangent: one call kind), block_a (both relu masks
-and the residual's cotangent) and the CI checkpoint's 16->16 block_a. Each
-option is first held to its plain version (K9 within 1e-4 of max|plain|,
-K17 within its bound of one ulp a rounding plus 2^-20 of the sum of
-|w||g|; a repeat bit for bit); then torch.profiler gives each call's device
-time (the sum of its kernels), and CUDA events the time per call through
-the wrapper, medians of samples taken in turns. Each result is one JSON
-line on stdout and in --out.
+and the residual's cotangent) and the CI checkpoint's 16->16 block_a. The
+kernel is first held to its plain version (K9 within 1e-4 of max|plain|,
+K17 within conv3d_bf16_check.k17_tolerance; a repeat bit for bit); then
+torch.profiler gives each call's device time (the sum of its kernels), and
+CUDA events the time per call through the wrapper, medians of samples
+taken in turns. Each result is one JSON line on stdout and in --out.
 
   python tools_torch/dgrad_variants.py [--k9] [--k17] [--split] [--ptxas]
                                        [--out FILE]
@@ -26,10 +25,7 @@ spill report of the input-gradient kernels.
 """
 
 import argparse
-import ctypes
-import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -42,18 +38,15 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from ffn_tpu_torch import _build  # noqa: E402
 from ffn_tpu_torch.ops import conv3d  # noqa: E402
-from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp  # noqa: E402
+from ffn_tpu_torch.ops.conv3d_bf16_check import k17_tolerance  # noqa: E402
+from tools_torch import variant_libs  # noqa: E402
 
-CSRC = os.path.join(REPO, "ffn_tpu_torch", "csrc")
-K9_SRC = os.path.join(CSRC, "conv3d_bwd.cu")
-K17_SRC = os.path.join(CSRC, "conv3d_bwd16.cu")
-# Options: name -> macros. K9: positions a thread (and threads a tile), g
-# channels a stage. (Measured and removed: K9's tiles of 256 and 512
-# positions and a ring of two stages, K17's one CTA a tile; PERF.md.)
-K9_OPTIONS = {"K9: 96 runs of 4, chunks up to 16": [],
-              "runs of 8 (48 a tile)": ["FFN_K9_RUN=8", "FFN_K9_RUNS=48"],
-              "chunks up to 8": ["FFN_K9_CHUNK_MAX=8"]}
-K17_OPTIONS = {"K17": []}
+K9_SRC = os.path.join(variant_libs.CSRC, "conv3d_bwd.cu")
+K17_SRC = os.path.join(variant_libs.CSRC, "conv3d_bwd16.cu")
+# The options that lost (K9's tiles of 256 and 512 positions, runs of 8
+# positions, chunks of at most 8 g channels and a ring of two stages; K17's
+# one CTA a tile) left the source; PERF.md has their times.
+
 # Parts cut out of each source (anchor -> replacement), for --split.
 K9_SPLIT = {
     "no FMA loop": [("c < cn; ++c) {\n      const float* gc",
@@ -76,75 +69,6 @@ LAYERS = {"conv0_b, block_b": (32, 32, False, False, False),
           "block_a": (32, 32, True, True, True),
           "ci 16->16 block_a": (16, 16, True, True, True)}
 ENTRY = {"K9": "ffn_conv3d_dgrad_f32", "K17": "ffn_conv3d_dgrad_16"}
-
-
-def build(tmp, src, variants):
-    """{name: the library built from `src` with variants[name] = (macros,
-    cuts)}, compiled in parallel."""
-    text = open(src).read()
-    procs = {}
-    for i, (name, (macros, cuts)) in enumerate(variants.items()):
-        t = text
-        for a, b in cuts:
-            if t.count(a) != 1:
-                raise RuntimeError(f"{name}: anchor {a!r} not found once")
-            t = t.replace(a, b)
-        cu, lib = (os.path.join(tmp, f"v{i}{e}") for e in (".cu", ".so"))
-        with open(cu, "w") as f:
-            f.write(t)
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc()] + _build.NVCC_FLAGS
-            + [f"-D{m}" for m in macros]
-            + ["-I", CSRC, "-shared", "-o", lib, cu]))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {name}")
-        libs[name] = ctypes.CDLL(lib)
-    return libs
-
-
-def entry_of(lib, kernel):
-    fn = getattr(lib, ENTRY[kernel])
-    fn.argtypes = _build._SIGNATURES[ENTRY[kernel]]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def ptxas_report():
-    keep = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for src in (K9_SRC, K17_SRC):
-            proc = subprocess.run(
-                [_build._nvcc()] + _build.NVCC_FLAGS
-                + ["-Xptxas", "-v", "-c", "-o", os.path.join(tmp, "k.o"),
-                   src], capture_output=True, text=True, check=True)
-            lines = proc.stderr.splitlines()
-            for i, line in enumerate(lines):
-                if "Compiling entry function" in line and "dgrad" in line:
-                    keep += lines[i:i + 4]
-    return keep
-
-
-def device_us(fn, calls=20):
-    """Device microseconds a call (the sum of its kernels' device time,
-    torch.profiler), by kernel name too."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = ev.cuda_time_total
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by[ev.key[:60]] = us / calls
-    return sum(by.values()), by
 
 
 def layer_inputs(gen, dev, dt, n, cin, cout, pre, post, res):
@@ -184,22 +108,15 @@ def caller(fn, kernel, dy, w, kw, dt):
     return run
 
 
-def within(kernel, got, want, dy, w, kw, dt):
-    """The option's largest error in units of the kernel's check."""
+def within(kernel, got, want, dy, w, kw):
+    """The kernel's largest error in units of its check."""
     err = (got.float() - want.float()).abs()
     if kernel == "K9":
         return float(err.max()) / (1e-4 * float(want.abs().max()))
-    s = conv3d.conv3d_dgrad_16_plain(dy, w, x=kw["x"], y=kw["y"]).float()
-    y = kw["y"]
-    mag = conv3d.conv3d_dgrad_plain(dy.float().abs(), w.float().abs(),
-                                    y=y.float() if y is not None else None)
-    tol = bf16_ulp(s.abs(), dt) + mag * 2.0 ** -20
-    if kw["accum"] is not None:
-        tol = tol + bf16_ulp(torch.maximum(s.abs(), want.float().abs()), dt)
-    return float((err / tol).max())
+    return float((err / k17_tolerance(dy, w, want, **kw)).max())
 
 
-def measure(emit, dev, gen, kernel, libs, split_libs):
+def measure(emit, dev, gen, kernel, lib, split_libs):
     dts = [torch.float32] if kernel == "K9" else [torch.bfloat16,
                                                   torch.float16]
     wrapper = conv3d.conv3d_dgrad_f32 if kernel == "K9" \
@@ -213,29 +130,27 @@ def measure(emit, dev, gen, kernel, libs, split_libs):
                                      res)
             want = plain(dy, w, **kw)
             base = dict(kernel=kernel, dtype=str(dt), layer=layer, n=n)
-            runs = {}
-            for name, lib in libs.items():
-                run = caller(entry_of(lib, kernel), kernel, dy, w, kw, dt)
-                got = run().clone()
-                worst = within(kernel, got, want, dy, w, kw, dt)
-                same = torch.equal(got, run())
-                emit(dict(base, option=name, worst=worst,
-                          repeat_equal=same))
-                cs.require(worst <= 1.0 and same, f"{kernel} {name} "
-                           f"{layer} {dt} against plain")
-                runs[name] = run
-            for name, lib in split_libs.items():
-                runs[f"cut: {name}"] = caller(entry_of(lib, kernel), kernel,
-                                              dy, w, kw, dt)
+            run = caller(getattr(lib, ENTRY[kernel]), kernel, dy, w, kw, dt)
+            got = run().clone()
+            worst = within(kernel, got, want, dy, w, kw)
+            same = torch.equal(got, run())
+            emit(dict(base, option=kernel, worst=worst, repeat_equal=same))
+            cs.require(worst <= 1.0 and same,
+                       f"{kernel} {layer} {dt} against plain")
+            runs = {kernel: run}
+            for name, cut in split_libs.items():
+                runs[f"cut: {name}"] = caller(getattr(cut, ENTRY[kernel]),
+                                              kernel, dy, w, kw, dt)
             gc = dy.permute(0, 4, 1, 2, 3).contiguous()
             wc = w.permute(4, 3, 0, 1, 2).contiguous()
             shape = (n, cin) + tuple(dy.shape[1:4])
             runs["cuDNN conv3d_input"] = lambda: torch.nn.grad.conv3d_input(
                 shape, wc, gc, padding=1)
-            for name, run in runs.items():
-                total, by = device_us(run)
-                emit(dict(base, option=name, device_us=total,
-                          device_by_kernel=by))
+            for name, fn in runs.items():
+                t = variant_libs.device_split(fn)
+                emit(dict(base, option=name, host_us=t["host_us"],
+                          device_us=sum(t["device_us"].values()),
+                          device_by_kernel=t["device_us"]))
             ms = cs.time_many(lambda: wrapper(dy, w, **kw),
                               runs["cuDNN conv3d_input"], reps=10)
             emit(dict(base, option="per call: the wrapper, cuDNN",
@@ -256,46 +171,27 @@ def main():
         raise SystemExit("needs a CUDA card")
     kernels = [k for k, on in (("K9", args.k9), ("K17", args.k17)) if on] \
         or ["K9", "K17"]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.ptxas:
-        print("\n".join(ptxas_report()))
-    _build.lib()
+    lib = _build.lib()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(15)
-    out = open(args.out, "w") if args.out else None
-
-    def emit(rec):
-        rec["card"] = smi
-        line = json.dumps(rec)
-        print(line, flush=True)
-        if out:
-            out.write(line + "\n")
-
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with variant_libs.emitter(args.out) as emit, \
+            tempfile.TemporaryDirectory() as tmp:
+        if args.ptxas:
+            print("\n".join(variant_libs.ptxas_report((K9_SRC, K17_SRC),
+                                                      "dgrad")))
         for kernel in kernels:
-            src, options, split = ((K9_SRC, K9_OPTIONS, K9_SPLIT)
-                                   if kernel == "K9" else
-                                   (K17_SRC, K17_OPTIONS, K17_SPLIT))
-            variants = {n: (m, []) for n, m in options.items()}
-            cut = {n: ([], c) for n, c in split.items()} if args.split \
+            src, split = ((K9_SRC, K9_SPLIT) if kernel == "K9" else
+                          (K17_SRC, K17_SPLIT))
+            cuts = {n: ([], c) for n, c in split.items()} if args.split \
                 else {}
             os.makedirs(os.path.join(tmp, kernel))
-            libs = build(os.path.join(tmp, kernel), src, dict(variants, **{
-                "cut: " + n: v for n, v in cut.items()}))
-            split_libs = {n[len("cut: "):]: lib for n, lib in libs.items()
-                          if n.startswith("cut: ")}
-            libs = {n: lib for n, lib in libs.items()
-                    if not n.startswith("cut: ")}
-            measure(emit, dev, gen, kernel, libs, split_libs)
+            split_libs = variant_libs.build(os.path.join(tmp, kernel), src,
+                                            cuts, [ENTRY[kernel]])
+            measure(emit, dev, gen, kernel, lib, split_libs)
             emit(dict(kernel=kernel, seconds=time.perf_counter() - t0))
-    if out:
-        out.close()
 
 
 if __name__ == "__main__":

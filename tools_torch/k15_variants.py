@@ -29,11 +29,9 @@ defined, one nvcc each, in parallel.
 """
 
 import argparse
-import ctypes
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 from unittest import mock
@@ -48,8 +46,9 @@ from ffn_tpu_torch import _build  # noqa: E402
 from ffn_tpu_torch.models import convstack_3d, params_io  # noqa: E402
 from ffn_tpu_torch.ops import conv3d  # noqa: E402
 from ffn_tpu_torch.ops import conv3d_bf16_check as check  # noqa: E402
+from tools_torch import variant_libs  # noqa: E402
 
-SOURCE = os.path.join(REPO, "ffn_tpu_torch", "csrc", "conv3d_bf16.cu")
+SOURCE = os.path.join(variant_libs.CSRC, "conv3d_bf16.cu")
 VARIANTS = {"raw_sum": ["FFN_K15_RAW_SUM"],
             "raw_sum_in_mma": ["FFN_K15_RAW_SUM", "FFN_K15_IN_MMA"]}
 # Timed options: name -> (macros, whether its outputs are K15's function).
@@ -63,27 +62,6 @@ ERR_BITS = 21   # K15's bound, 2^-ERR_BITS mag (conv3d_bf16.cu)
 SHARE_KINDS = ("conv0_a", "block_a", "block_b", "ci_conv0_a", "ci_block_b")
 R2 = os.path.join(REPO, "models", "phantom", "model-r2.npz")
 CAL_BITS = (18, 19, 20, 21, 22, 23, 24)
-
-
-def build_variants(tmp, variants):
-    """{name: the library built with macros variants[name]}, compiled in
-    parallel."""
-    procs = {}
-    for i, (name, macros) in enumerate(variants.items()):
-        lib = os.path.join(tmp, f"v{i}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc()] + _build.NVCC_FLAGS
-            + [f"-D{m}" for m in macros] + ["-shared", "-o", lib, SOURCE]))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for the {name} variant")
-        libs[name] = ctypes.CDLL(lib)
-        for entry in ("ffn_conv3d_ndhwc_bf16", "ffn_conv3d_ndhwc_f16"):
-            fn = getattr(libs[name], entry)
-            fn.argtypes = _build._SIGNATURES[entry]
-            fn.restype = ctypes.c_int
-    return libs
 
 
 def phantom_inputs(n, dev):
@@ -287,8 +265,10 @@ def main():
             out.flush()
 
     tmp = tempfile.mkdtemp()
-    libs = build_variants(tmp, dict(VARIANTS, **{
-        name: macros for name, (macros, _) in TIMED.items()}))
+    libs = variant_libs.build(tmp, SOURCE, {
+        name: (macros, []) for name, macros in dict(VARIANTS, **{
+            name: macros for name, (macros, _) in TIMED.items()}).items()},
+        ["ffn_conv3d_ndhwc_bf16", "ffn_conv3d_ndhwc_f16"])
     dev = torch.device("cuda")
     if args.calibrate:
         calibrate({k: libs[k] for k in VARIANTS},

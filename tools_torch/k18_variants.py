@@ -19,13 +19,9 @@ results are then wrong; only their times count).
 """
 
 import argparse
-import ctypes
-import json
 import os
-import subprocess
 import sys
 import tempfile
-import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -36,28 +32,15 @@ import chip_smoke as cs  # noqa: E402
 from ffn_tpu_torch import _build  # noqa: E402
 from ffn_tpu_torch.ops import conv3d  # noqa: E402
 from ffn_tpu_torch.ops.conv3d_bf16_check import bf16_ulp  # noqa: E402
+from tools_torch import variant_libs  # noqa: E402
+
+SRC = os.path.join(variant_libs.CSRC, "conv3d_bwd16.cu")
 
 # Stage 1's geometry: (chunk rows (z, y), CTAs); the first is the
 # wrapper's (conv3d.WGRAD16_CHUNK, WGRAD16_CTAS).
 OPTIONS = [((3, 3), 132), ((4, 4), 132), ((2, 3), 132), ((3, 3), 66)]
 CASES = {"32->32 pre_relu, mask": (32, True, True),
          "2->32 float32 x, mask": (2, False, True)}
-
-
-def ptxas_report():
-    src = os.path.join(REPO, "ffn_tpu_torch", "csrc", "conv3d_bwd16.cu")
-    with tempfile.TemporaryDirectory() as tmp:
-        proc = subprocess.run(
-            [_build._nvcc()] + _build.NVCC_FLAGS + ["-Xptxas", "-v", "-c",
-                                                    "-o", os.path.join(
-                                                        tmp, "k.o"), src],
-            capture_output=True, text=True, check=True)
-    lines = proc.stderr.splitlines()
-    keep = []
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "wgrad" in line:
-            keep += lines[i:i + 4]
-    return keep
 
 
 # Stage 1's parts, cut out of the source by replacing an anchor line.
@@ -70,40 +53,14 @@ SPLIT = {"as is": [],
                      (ROWS, ROWS.replace("r < hz", "r < 0 * hz"))]}
 
 
-def split_libs(tmp):
-    """{part cut: the library built from the cut source}, compiled in
-    parallel."""
-    src = os.path.join(REPO, "ffn_tpu_torch", "csrc", "conv3d_bwd16.cu")
-    text = open(src).read()
-    procs = {}
-    for i, (name, cuts) in enumerate(SPLIT.items()):
-        t = text
-        for a, b in cuts:
-            assert t.count(a) == 1, a
-            t = t.replace(a, b)
-        cu, lib = (os.path.join(tmp, f"v{i}{e}") for e in (".cu", ".so"))
-        with open(cu, "w") as f:
-            f.write(t)
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc()] + _build.NVCC_FLAGS
-            + ["-I", os.path.dirname(src), "-shared", "-o", lib, cu]))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {name}")
-        libs[name] = ctypes.CDLL(lib)
-        fn = libs[name].ffn_conv3d_wgrad16_tc
-        fn.argtypes = _build._SIGNATURES["ffn_conv3d_wgrad16_tc"]
-        fn.restype = ctypes.c_int
-    return libs
-
-
 def split(emit, dev, gen):
     """Stage 1's device time with each part cut, 32->32 (pre_relu, mask)
     and 2->32 (float32 x, mask), bfloat16, B=4."""
     n, fov = cs.TRAIN_B, (33, 33, 33)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = split_libs(tmp)
+        libs = variant_libs.build(tmp, SRC, {
+            name: ([], cuts) for name, cuts in SPLIT.items()},
+            ["ffn_conv3d_wgrad16_tc"])
         for cin, xdt in ((32, torch.bfloat16), (2, torch.float32)):
             x = torch.randn(n, *fov, cin, generator=gen, device=dev).to(xdt)
             dy, ym = (torch.randn(n, *fov, 32, generator=gen, device=dev)
@@ -122,7 +79,7 @@ def split(emit, dev, gen):
                         torch.cuda.current_stream().cuda_stream),
                         name)
                 emit(dict(dtype="torch.bfloat16", case=f"{cin}->32 split",
-                          option=name, **device_split(run)))
+                          option=name, **variant_libs.device_split(run)))
 
 
 def tc_body(x, dy, y, pre_relu, chunk, ctas):
@@ -145,63 +102,18 @@ def tc_body(x, dy, y, pre_relu, chunk, ctas):
     return dw, db
 
 
-def device_split(fn, calls=20):
-    """Host microseconds a call (no sync), and device microseconds a call
-    by kernel name (torch.profiler)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    host_us = 1e6 * (time.perf_counter() - t0) / calls
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    device = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = ev.cuda_time_total
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            device[ev.key[:60]] = us / calls
-    return dict(host_us=host_us, device_us=device)
-
-
 def worst_of(got, want, mag, dt):
     return max(float(((g - p).abs() / (bf16_ulp(p, dt) + m * 2.0 ** -16))
                      .max()) for g, p, m in zip(got, want, mag))
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--split", action="store_true")
-    ap.add_argument("--out", default=None)
-    args = ap.parse_args()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
-    torch.backends.cudnn.allow_tf32 = False
-    if args.ptxas:
-        print("\n".join(ptxas_report()))
+def measure(emit, with_split):
+    """Each option held to plain, then timed beside cuDNN's
+    conv3d_weight; with_split, stage 1's parts first (split)."""
     _build.lib()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(18)
-    out = open(args.out, "w") if args.out else None
-
-    def emit(rec):
-        rec["card"] = smi
-        line = json.dumps(rec)
-        print(line, flush=True)
-        if out:
-            out.write(line + "\n")
-
-    if args.split:
+    if with_split:
         split(emit, dev, gen)
     n, fov = cs.TRAIN_B, (33, 33, 33)
     for dt in (torch.bfloat16, torch.float16):
@@ -239,12 +151,23 @@ def main():
                 emit(dict(dtype=str(dt), case=case, option=name, ms=ms))
             for name, fn in zip(names, fns):
                 emit(dict(dtype=str(dt), case=case, option=name,
-                          **device_split(fn)))
+                          **variant_libs.device_split(fn)))
             del x, xc, gc
         del a, dy
         torch.cuda.empty_cache()
-    if out:
-        out.close()
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    torch.backends.cudnn.allow_tf32 = False
+    with variant_libs.emitter(args.out) as emit:
+        if args.ptxas:
+            print("\n".join(variant_libs.ptxas_report([SRC], "wgrad")))
+        measure(emit, args.split)
 
 
 if __name__ == "__main__":
