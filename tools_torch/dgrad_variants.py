@@ -43,9 +43,8 @@ from tools_torch import variant_libs  # noqa: E402
 
 K9_SRC = os.path.join(variant_libs.CSRC, "conv3d_bwd.cu")
 K17_SRC = os.path.join(variant_libs.CSRC, "conv3d_bwd16.cu")
-# The options that lost (K9's tiles of 256 and 512 positions, runs of 8
-# positions, chunks of at most 8 g channels and a ring of two stages; K17's
-# one CTA a tile) left the source; PERF.md has their times.
+# PERF.md holds the times of the design options measured before
+# each kernel's design was chosen.
 
 # Parts cut out of each source (anchor -> replacement), for --split.
 K9_SPLIT = {
