@@ -249,9 +249,11 @@ def check_k1(randn, n, reps):
                                                    padding=k // 2),
                 reps=reps)
             del xc, wc
+        bound_ms, bound_by = bound_of(*k1_work(n, k, cin, cout))
         print(f"K1 conv3d_ndhwc_f32 N={n} {name}: max_abs_err {err:.3e} "
               f"(bound {bound:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} "
-              f"ms library conv3d {lib_ms:.4f} ms")
+              f"ms library conv3d {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by})")
         require(err <= bound, f"K1 N={n} {name}: error {err} above {bound}")
         out.append((name, err, ms, plain_ms, lib_ms))
     return out
@@ -3437,11 +3439,11 @@ def _q_layer(rng, dev, n, k, cin, cout, res):
 def phase_int8_kernels(dev):
     """K19 qconv3d_s8 and K20 act_absmax against their plain versions bit
     for bit on model-r2's int8 layer kinds at N = 1 and 64 (a lane alone
-    equal to the batch's), timed at N = 1 (block_a) and 64, there beside
-    one library call (K19:
-    torch._int_mm on the int8 im2col, the GEMM alone, 32->32 layers; K20:
-    torch.linalg.vector_norm(ord=inf), max|x| per lane); the int8 model-r2
-    stack at N = 8 on kernels equal to its plain versions."""
+    equal to the batch's), timed at N = 1 (block_a) and 64 beside one
+    library call (K19: torch._int_mm on the int8 im2col, the GEMM alone,
+    32->32 layers; K20: torch.linalg.vector_norm(ord=inf), max|x| per
+    lane); K20 one launch a call (torch.profiler); the int8 model-r2 stack
+    at N = 8 on kernels equal to its plain versions."""
     from ffn_tpu_torch.models import convstack_3d, params_io
     from ffn_tpu_torch.ops import quantized as q
     rng = np.random.RandomState(19)
@@ -3460,14 +3462,7 @@ def phase_int8_kernels(dev):
                   f"equal {same[1]}, last lane alone equal {same[2]}")
             require(all(same) and bool(got.isfinite().all()),
                     f"K19/K20 N={n} {name} against plain: {same}")
-            if n != LANES:
-                if name == "block_a":   # the serial path's shape
-                    ms = time_many(lambda: q.qconv3d(x, layer, am, **kw),
-                                   lambda: q.qconv3d_plain(x, layer, am, **kw),
-                                   lambda: q.act_absmax(x, ri),
-                                   lambda: q.act_absmax_plain(x, ri), reps=5)
-                    print(f"K19/K20 N={n} {name}: K19 {ms[0]:.4f} ms plain "
-                          f"{ms[1]:.4f}; K20 {ms[2]:.4f} plain {ms[3]:.4f}")
+            if n != LANES and name != "block_a":
                 continue
             lib = [lambda: torch.linalg.vector_norm(x, float("inf"),
                                                     dim=(1, 2, 3, 4))]
@@ -3485,7 +3480,8 @@ def phase_int8_kernels(dev):
                            lambda: q.qconv3d_plain(x, layer, am, **kw),
                            lambda: q.act_absmax(x, ri),
                            lambda: q.act_absmax_plain(x, ri), *lib,
-                           reps=REPS if name == "block_a" else 5, inner=3)
+                           reps=REPS if name == "block_a" and n == LANES
+                           else 5, inner=3)
             vox = n * 33 ** 3
             k19 = entry(0.0, ms[0], ms[1], 4 * vox * (
                 cin + cout * (2 if res else 1)) + k ** 3 * cin * cout
@@ -3498,11 +3494,30 @@ def phase_int8_kernels(dev):
                   f"{k19['bound_ms']:.4f} ({k19['bound_by']}); K20 "
                   f"act_absmax {ms[2]:.4f} plain {ms[3]:.4f} library "
                   f"(vector_norm) {ms[4]:.4f} bound {k20['bound_ms']:.4f}")
-            if name == "block_a":
+            if name == "block_a" and n == LANES:
                 out["qconv3d_s8"], out["act_absmax"] = k19, k20
             del x, r, got, lib, layer
             cols = None
         torch.cuda.empty_cache()
+    # K20 is one launch a call: its counters stay zero between calls, no
+    # memset (torch.profiler's device events of one steady call).
+    x = torch.randn(LANES, 33, 33, 33, 32, device=dev)
+    q.act_absmax(x, True)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        q.act_absmax(x, True)
+        torch.cuda.synchronize()
+    device = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    events = [ev.name for ev in device]
+    us = sum(getattr(ev, "device_time", None) or ev.cuda_time
+             for ev in device)
+    print(f"K20 act_absmax at N={LANES}, one call under torch.profiler: "
+          f"device events {events}, {us:.1f} us")
+    require(len(events) == 1 and "act_absmax" in events[0],
+            f"K20 launched {events}, not one kernel")
+    del x
     base = convstack_3d.ConvStack3DFFNModel(fov_size=[33] * 3,
                                             deltas=[8] * 3, depth=12)
     base.load_params(params_io.load_params_npz(

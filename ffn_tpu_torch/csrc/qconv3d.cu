@@ -26,9 +26,16 @@
 // m16 tiles (two y rows of 8 x). Cin = 2 packs two taps in each 4-byte A
 // word. 1^3 layers (conv_lom) are an int32 dot product per output on the
 // CUDA cores. A CTA never mixes samples, so a lane's result does not depend
-// on N. K20: blocks of one lane reduce a slice each, atomicMax on the bits
-// of non-negative floats (exact, order-free), and the lane's last block
-// writes m. Left for later: TMA, wgmma, K20 fused into K19's epilogue, the
+// on N. K20 reads each lane's slice once by float4 (bound by bytes: 294 MB
+// at N = 64 and 32 channels, 0.088 ms): blocks of 256 threads, 4 loads in
+// flight a thread, a grid of about two waves over (lane, slice); the
+// floats before the lane's first 16-byte boundary and after its last
+// float4 go to its first block (the 2-channel input layer's lanes, 33^3 * 2
+// floats, start 16-byte aligned every other lane). Each block
+// folds its maximum into the lane's by atomicMax on the bits of non-negative
+// floats (exact, order-free); the lane's last block writes m and zeroes the
+// lane's two counters, so the wrapper's buffer needs no memset per call.
+// Left for later: TMA, wgmma, K20 fused into K19's epilogue, the
 // quantized tile shared across output tiles.
 
 #include <cuda_runtime.h>
@@ -252,32 +259,76 @@ cudaError_t launch_tc(const float* x, const int8_t* w, const float* w_scale,
   return cudaGetLastError();
 }
 
-// K20: blocks (blockIdx.x) of lane blockIdx.y; work[n] the running max's
-// bits, work[N + n] the lane's finished blocks.
-__global__ void act_absmax_kernel(const float* __restrict__ x, int relu,
-                                  unsigned* __restrict__ work,
-                                  float* __restrict__ absmax, int N,
-                                  long long per_lane) {
-  __shared__ float warp_max[8];
-  const int n = blockIdx.y;
+// K20: blocks of 256 threads, 4 float4 loads in flight a thread.
+constexpr int kAbsThreads = 256;
+constexpr int kAbsLoads = 4;
+
+// Blocks a lane: one pass of 4 float4s a thread covers the lane, at most
+// about two waves of 8 blocks an SM over all N lanes (ops/quantized.py's
+// k20_blocks mirrors it).
+inline int absmax_blocks(long long per_lane, int N, int sms) {
+  const long long pass = 4LL * kAbsThreads * kAbsLoads;
+  const long long want = (per_lane + pass - 1) / pass;
+  const long long cap = (2LL * sms * (2048 / kAbsThreads) + N - 1) / N;
+  const long long b = want < cap ? want : cap;
+  return (int)(b < 1 ? 1 : b);
+}
+
+__device__ __forceinline__ float magnitude(float v, int relu) {
+  return relu ? (v > 0.f ? v : 0.f) : fabsf(v);  // never -0
+}
+
+__device__ __forceinline__ float magnitude4(float4 v, int relu) {
+  return fmaxf(fmaxf(magnitude(v.x, relu), magnitude(v.y, relu)),
+               fmaxf(magnitude(v.z, relu), magnitude(v.w, relu)));
+}
+
+// Block b of lane n = blockIdx.x / blocks; work[n] the lane's running
+// max's bits, work[N + n] its finished blocks, both zero between calls.
+__global__ void __launch_bounds__(kAbsThreads)
+act_absmax_kernel(const float* __restrict__ x, int relu,
+                  unsigned* __restrict__ work, float* __restrict__ absmax,
+                  int N, long long per_lane, int blocks) {
+  __shared__ float warp_max[kAbsThreads / 32];
+  const int n = blockIdx.x / blocks, blk = blockIdx.x % blocks;
   const float* p = x + (size_t)n * per_lane;
-  float mx = 0.f;  // +0: every value below is >= +0, never -0
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < per_lane; i += (long long)gridDim.x * blockDim.x) {
-    const float v = p[i];
-    mx = fmaxf(mx, relu ? (v > 0.f ? v : 0.f) : fabsf(v));
+  // head floats before the lane's first 16-byte boundary, nb float4s, then
+  // tail floats.
+  const long long to16 = ((16 - (reinterpret_cast<size_t>(p) & 15)) & 15) / 4;
+  const int head = (int)(to16 < per_lane ? to16 : per_lane);
+  const long long nb = (per_lane - head) / 4;
+  const int tail = (int)(per_lane - head - 4 * nb);
+  const float4* body = reinterpret_cast<const float4*>(p + head);
+  const long long stride = (long long)blocks * kAbsThreads;
+  long long i = (long long)blk * kAbsThreads + threadIdx.x;
+  float mx = 0.f;  // +0: every magnitude is >= +0, never -0
+  for (; i + (kAbsLoads - 1) * stride < nb; i += kAbsLoads * stride) {
+    float4 v[kAbsLoads];
+#pragma unroll
+    for (int u = 0; u < kAbsLoads; ++u) v[u] = __ldg(body + i + u * stride);
+#pragma unroll
+    for (int u = 0; u < kAbsLoads; ++u) mx = fmaxf(mx, magnitude4(v[u], relu));
   }
+  for (; i < nb; i += stride) mx = fmaxf(mx, magnitude4(__ldg(body + i), relu));
+  if (blk == 0 && (int)threadIdx.x < head)
+    mx = fmaxf(mx, magnitude(__ldg(p + threadIdx.x), relu));
+  if (blk == 0 && (int)threadIdx.x < tail)
+    mx = fmaxf(mx, magnitude(__ldg(p + head + 4 * nb + threadIdx.x), relu));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     mx = fmaxf(mx, __shfl_down_sync(0xffffffffu, mx, o));
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
   __syncthreads();
   if (threadIdx.x != 0) return;
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) mx = fmaxf(mx, warp_max[w]);
+  for (int w = 1; w < kAbsThreads / 32; ++w) mx = fmaxf(mx, warp_max[w]);
   atomicMax(&work[n], __float_as_uint(mx));
   __threadfence();
-  if (atomicAdd(&work[N + n], 1u) == gridDim.x - 1) {
-    const float a = __uint_as_float(atomicMax(&work[n], 0u));
+  if (atomicAdd(&work[N + n], 1u) == (unsigned)blocks - 1) {
+    // Every block of the lane has folded its maximum in: read it, then
+    // leave both counters zero for the next call.
+    __threadfence();
+    const float a = __uint_as_float(atomicExch(&work[n], 0u));
+    atomicExch(&work[N + n], 0u);
     absmax[n] = fmaxf(a, kFloor);
   }
 }
@@ -318,16 +369,27 @@ extern "C" int ffn_qconv3d_s8(const float* x, const int8_t* w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x (N, per_lane) float32, contiguous; work (2N) zeroed int32; absmax (N)
-// float32: max(max|relu?(x[n])|, 1e-12).
+// x (N, per_lane) float32, contiguous; work (2N) int32, zero before the
+// first call and left zero by each; absmax (N) float32: max(max|relu?(x[n])|,
+// 1e-12). Calls that share `work` must not overlap: one stream.
 extern "C" int ffn_act_absmax(const float* x, int relu, unsigned* work,
                               float* absmax, int N, long long per_lane,
                               void* stream) {
-  const int threads = 256;
-  long long blocks = (per_lane + threads * 16 - 1) / (threads * 16);
-  blocks = blocks < 1 ? 1 : (blocks > 1024 ? 1024 : blocks);
-  act_absmax_kernel<<<dim3((unsigned)blocks, N), threads, 0,
+  if (N == 0) return static_cast<int>(cudaSuccess);
+  static int sms_of[16];  // each device's SMs, found once
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 16 && sms_of[dev] > 0) {
+    sms = sms_of[dev];
+  } else {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 16) sms_of[dev] = sms;
+  }
+  const int blocks = absmax_blocks(per_lane, N, sms);
+  act_absmax_kernel<<<(unsigned)((long long)blocks * N), kAbsThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      x, relu, work, absmax, N, per_lane);
+      x, relu, work, absmax, N, per_lane, blocks);
   return static_cast<int>(cudaGetLastError());
 }

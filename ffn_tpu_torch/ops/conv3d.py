@@ -52,6 +52,8 @@ def _check(x, weight, bias, residual):
     if x.shape[-1] != cin or tuple(bias.shape) != (cout,):
         raise ValueError(f"channel mismatch: x {tuple(x.shape)}, weight "
                          f"{tuple(weight.shape)}, bias {tuple(bias.shape)}")
+    if cin < 1:
+        raise ValueError(f"{NAME} needs at least one input channel")
     tensors = [x, weight, bias]
     if residual is not None:
         if tuple(residual.shape) != tuple(x.shape[:4]) + (cout,):
@@ -291,24 +293,31 @@ def _masked(dy: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
                                               device=dy.device))
 
 
-# K9's 3^3 geometry (conv3d_bwd.cu's K9Plan): tiles of K9_TILE_POS plane
-# positions q = y * P + x (K15's, longer, P = W + 1 rounded up to even) and
-# 4 * cig dx channels, the dx channel block the slowest index; a tile's
-# halo three planes of three row bands K9_TILE_POS + 2 rows long,
-# band_stride = min(P, K9_TILE_POS + 2) apart (one run of rows while they
-# overlap); threads of K9_RUN positions x 4 channels, K9_RUNS x cig a CTA;
-# W' staged for g_block g channels at a time and g's halo (and y's, with
-# post_relu) in chunks of `chunk` g channels, one stage.
+# The float32 plane-position tiles K1 and K9 share (conv32.cuh's TilePlan):
+# tiles of K9_TILE_POS positions q = y * P + x of one z-plane (K15's,
+# longer, P = W + 1 rounded up to even) and 4 * cig output channels, the
+# output's channel block the slowest index; a tile's halo three planes of
+# three row bands K9_TILE_POS + 2 rows long, band_stride = min(P,
+# K9_TILE_POS + 2) apart (one run of rows while they overlap); threads of
+# K9_RUN positions x 4 channels, K9_RUNS x cig a CTA; the weights staged
+# for g_block input channels at a time and the input's halo (and a mask's
+# beside it) in chunks of `chunk` input channels, one stage; K1 keeps a
+# table of each halo row's voxel beside it (`table` ints, halo_rows). K9's
+# input is g (the layer's Cout channels) and its output dx (Cin); K1's are
+# x and y.
 K9_RUN, K9_RUNS = 4, 96
 K9_TILE_POS = K9_RUN * K9_RUNS
 K9_GBLOCK, K9_CHUNK_MAX = 32, 16
+SMEM_SM = 233472     # an H100 SM's shared memory; each CTA reserves 1 KB
+H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
-class K9Geometry:
-    """Tile t of K9 on dy (n, d, h, w, cout): dx channel block t //
-    (n d per_plane), then sample, plane and positions as K15Geometry's;
-    `smem` bytes a CTA."""
+class TileGeometry:
+    """Tile t of K1 or K9 on an input (n, d, h, w, channels): output
+    channel block t // (n d per_plane) (`ci_blocks` of them: K9's dx
+    channels are the layer's Cin), then sample, plane and positions as
+    K15Geometry's; `smem` bytes a CTA."""
     n: int
     d: int
     h: int
@@ -326,11 +335,12 @@ class K9Geometry:
     w_row: int
     stage: int
     smem: int
+    table: int = 0
 
     def voxels(self, t):
-        """(ci block, n, z, ys, xs): tile t's dx channel block and voxels
-        (its other positions, past the plane or in the zero column, store
-        nothing)."""
+        """(channel block, n, z, ys, xs): tile t's output channel block and
+        voxels (its other positions, past the plane or in the zero column,
+        store nothing)."""
         per_block = self.n * self.d * self.per_plane
         b, r = t // per_block, t % per_block
         n, z = r // (self.d * self.per_plane), r // self.per_plane % self.d
@@ -355,36 +365,74 @@ def _below_pow2(v):
     return p
 
 
-@functools.lru_cache(maxsize=256)
-def k9_geometry(n, d, h, w, cin, cout, masked):
-    """K9's 3^3 tiles for dy (n, d, h, w, cout), dx with cin channels,
-    `masked` when y (post_relu) is staged beside g: the first (g_block,
-    chunk), largest g_block first, whose W' rows and stage fit a CTA (half
-    an SM when cig < 8, so two share it, else the whole). Every shape
-    fits: g_block = chunk = 1 takes at most 31.3 KB (4 * cig <= 32 dx
-    channels, halo_rows <= 3 * (K9_TILE_POS + 2)), where the search ends."""
-    cig = 8 if cin > 16 else 4 if cin > 8 else 2 if cin > 4 else 1
-    cip = 4 * cig
+def _tile_cig(cy):
+    return 8 if cy > 16 else 4 if cy > 8 else 2 if cy > 4 else 1
+
+
+def _pitch_and_per_plane(h, w):
     pitch = (w + 2) // 2 * 2     # even: 8-byte aligned windows
+    return pitch, -(-(h * pitch - 1) // K9_TILE_POS)
+
+
+def _tile_geometry(n, d, h, w, cy, cx, masked, cig, budget, table=False):
+    """conv32.cuh's tile_plan: cy output and cx input channels; the first
+    (g_block, chunk), largest g_block first, whose weight rows and stage
+    (twice the stage when `masked`; the halo table's ints with `table`) fit
+    `budget`. Every shape fits: g_block = chunk = 1 takes at most 31.3 KB
+    (4 * cig <= 32 output channels, halo_rows <= 3 * (K9_TILE_POS + 2)),
+    where the search ends."""
+    cip = 4 * cig
+    pitch, per_plane = _pitch_and_per_plane(h, w)
     band = min(pitch, K9_TILE_POS + 2)
     halo_rows = 2 * band + K9_TILE_POS + 2
-    per_plane = -(-(h * pitch - 1) // K9_TILE_POS)
-    ci_blocks = -(-cin // cip)
+    ci_blocks = -(-cy // cip)
     w_row = 27 * cip + 4
-    budget = K15_SMEM_TWO if cig < 8 else K15_SMEM
-    gb = min(cout, K9_GBLOCK)
+    gb = min(cx, K9_GBLOCK)
     while True:
         cc = K9_CHUNK_MAX
         while cc >= 1:
             stage = -(-cc * 3 * halo_rows * (2 if masked else 1) // 4) * 4
-            smem = 4 * (gb * w_row + stage)
+            extra = halo_rows if table else 0
+            smem = 4 * (gb * w_row + stage + extra)
             if cc <= gb and (smem <= budget or gb == 1):
-                return K9Geometry(n, d, h, w, cig, K9_RUNS * cig, pitch,
-                                  band, halo_rows, per_plane, ci_blocks,
-                                  ci_blocks * n * d * per_plane, gb, cc,
-                                  w_row, stage, smem)
+                return TileGeometry(n, d, h, w, cig, K9_RUNS * cig, pitch,
+                                    band, halo_rows, per_plane, ci_blocks,
+                                    ci_blocks * n * d * per_plane, gb, cc,
+                                    w_row, stage, smem, extra)
             cc //= 2
         gb = _below_pow2(gb)
+
+
+@functools.lru_cache(maxsize=256)
+def k9_geometry(n, d, h, w, cin, cout, masked):
+    """K9's 3^3 tiles for dy (n, d, h, w, cout), dx with cin channels,
+    `masked` when y (post_relu) is staged beside g: a CTA has half an SM
+    when cig < 8 (two share it), else the whole (conv3d_bwd.cu's
+    k9_plan)."""
+    cig = _tile_cig(cin)
+    return _tile_geometry(n, d, h, w, cin, cout, masked, cig,
+                          K15_SMEM_TWO if cig < 8 else K15_SMEM)
+
+
+@functools.lru_cache(maxsize=256)
+def k1_geometry(n, d, h, w, cin, cout, sms=H100_SMS):
+    """K1's 3^3 tiles for x (n, d, h, w, cin) and cout output channels on a
+    card of `sms` SMs (conv3d.cu's k1_plan, which the C entry computes):
+    cig by the output width, halved while the tiles are fewer than two an
+    SM (a 33^3 sample at N = 1: 99 tiles of 384 positions, 396 in four
+    blocks of 8 channels at 32->32); a CTA's share of the SM is that of as
+    many CTAs as an SM has tiles, at most 8 / cig; the halo table beside
+    the stage."""
+    _, per_plane = _pitch_and_per_plane(h, w)
+    cig = _tile_cig(cout)
+
+    def tiles():
+        return n * d * per_plane * -(-cout // (4 * cig))
+    while cig > 1 and tiles() < 2 * sms:
+        cig //= 2
+    share = max(1, min(8 // cig, -(-tiles() // sms)))
+    return _tile_geometry(n, d, h, w, cout, cin, False, cig,
+                          SMEM_SM // share - 1024, table=True)
 
 
 def conv3d_dgrad_plain(dy: torch.Tensor, weight: torch.Tensor, *,

@@ -98,8 +98,94 @@ def act_absmax_plain(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
     return torch.amax(mag, dim=1).clamp_min(float(_FLOOR))
 
 
+# K20's grid (qconv3d.cu): blocks of K20_THREADS threads, K20_LOADS float4
+# loads in flight a thread; a lane's blocks read its float4s at a stride of
+# blocks * K20_THREADS, its first block also the floats before its first
+# 16-byte boundary (head) and after its last float4 (tail).
+K20_THREADS, K20_LOADS = 256, 4
+H100_SMS = 132
+
+
+def k20_blocks(per_lane, n, sms=H100_SMS):
+    """Blocks a lane (qconv3d.cu's absmax_blocks): one pass of K20_LOADS
+    float4s a thread covers the lane, at most about two waves of 8 blocks an
+    SM over all n lanes."""
+    want = -(-per_lane // (4 * K20_THREADS * K20_LOADS))
+    cap = -(-2 * sms * (2048 // K20_THREADS) // n)
+    return max(1, min(want, cap))
+
+
+def k20_reads(per_lane, n, lane, start, sms=H100_SMS):
+    """[(block, element indices)] of the reads of lane `lane`, whose first
+    float lies `start` floats past a 16-byte boundary: each block's float4s
+    in the kernel's loop order (K20_LOADS strides a pass, then one at a
+    time), the head and tail floats in the first block's."""
+    blocks = k20_blocks(per_lane, n, sms)
+    head = min((4 - start % 4) % 4, per_lane)
+    nb = (per_lane - head) // 4
+    tail = per_lane - head - 4 * nb
+    stride = blocks * K20_THREADS
+    out = []
+    for blk in range(blocks):
+        i = blk * K20_THREADS + np.arange(K20_THREADS)
+        quads = []
+        while True:
+            full = i + (K20_LOADS - 1) * stride < nb
+            if not full.any():
+                break
+            quads += [i[full] + u * stride for u in range(K20_LOADS)]
+            i = np.where(full, i + K20_LOADS * stride, i)
+        while (i < nb).any():
+            quads.append(i[i < nb])
+            i = i + stride
+        q = np.concatenate(quads + [np.zeros(0, np.int64)]).astype(np.int64)
+        idx = (head + 4 * q[:, None] + np.arange(4)).ravel()
+        if blk == 0:
+            idx = np.concatenate([np.arange(head), idx,
+                                  head + 4 * nb + np.arange(tail)])
+        out.append((blk, idx))
+    return out
+
+
+def act_absmax_model(x: np.ndarray, relu: bool, start: int = 0,
+                     sms=H100_SMS) -> np.ndarray:
+    """K20's arithmetic in numpy on x (N, per_lane) float32 whose first
+    float lies `start` floats past a 16-byte boundary: each block's maximum
+    magnitude (relu: v if v > 0 else +0; else |v|) over its reads, the
+    lane's the largest of its blocks', floored at 1e-12."""
+    n, per_lane = x.shape
+    out = np.empty(n, np.float32)
+    for lane in range(n):
+        mags = np.where(x[lane] > 0, x[lane], np.float32(0)) if relu \
+            else np.abs(x[lane])
+        best = np.float32(0)
+        for _, idx in k20_reads(per_lane, n, lane, start + lane * per_lane,
+                                sms):
+            if idx.size:
+                best = max(best, mags[idx].max())
+        out[lane] = max(best, _FLOOR)
+    return out
+
+
+# K20's counters, zeroed once a (device, stream, lane count): the lane's
+# last block leaves them zero again, so a call is one launch and no memset.
+# Calls on one stream run one after another and never share a buffer at
+# once; the port launches K20 on the current stream only.
+_ABSMAX_WORK: dict = {}
+
+
+def _absmax_work(x: torch.Tensor, n: int, stream: int) -> torch.Tensor:
+    key = (x.device.index, stream, n)
+    work = _ABSMAX_WORK.get(key)
+    if work is None:
+        work = torch.zeros(2 * n, device=x.device, dtype=torch.int32)
+        _ABSMAX_WORK[key] = work
+    return work
+
+
 def act_absmax(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-    """K20. CPU tensors take the plain version; CUDA tensors the kernel."""
+    """K20. CPU tensors take the plain version; CUDA tensors the kernel,
+    one launch a call."""
     if x.dtype != torch.float32 or x.dim() < 2:
         raise TypeError(f"{ABSMAX} takes float32 (N, ...), got {x.dtype} "
                         f"{tuple(x.shape)}")
@@ -110,11 +196,12 @@ def act_absmax(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError(f"{ABSMAX} takes a contiguous tensor")
     n = x.shape[0]
-    work = torch.zeros(2 * n, device=x.device, dtype=torch.int32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    work = _absmax_work(x, n, stream)
     absmax = torch.empty(n, device=x.device, dtype=torch.float32)
     err = _build.lib().ffn_act_absmax(
         x.data_ptr(), int(relu), work.data_ptr(), absmax.data_ptr(), n,
-        x.numel() // n, torch.cuda.current_stream(x.device).cuda_stream)
+        x.numel() // n, stream)
     _build.check(err, ABSMAX)
     _build.launches[ABSMAX] += 1
     return absmax

@@ -84,3 +84,13 @@ def test_no_source_imports_ffn_tpu():
         if re.search(r"^\s*(import|from)\s+(jax|flax)\b", text, re.MULTILINE):
             offenders.append(f"{os.path.relpath(path, REPO)}: jax/flax")
     assert len(paths) > 40 and not offenders, offenders
+
+
+def test_card_tools_import_without_jax_or_ffn_tpu():
+    # The kernel tools run on the card's machine, which has no jax: each
+    # imports alone (the ones that time the port's kernels; not
+    # jax_bf16_round.py or round_vs_serial.py, which run the JAX package).
+    tools = ["tools_torch.variant_libs", "tools_torch.k1_variants",
+             "tools_torch.dgrad_variants", "tools_torch.k15_variants",
+             "tools_torch.k18_variants", "chip_smoke"]
+    assert_imports_alone(tools)

@@ -1728,6 +1728,216 @@ def test_k9_halo_rows_and_windows_give_the_input_gradient(shape, widths):
     np.testing.assert_allclose(out, want, rtol=1e-10, atol=1e-10)
 
 
+# K1's 3^3 geometry (conv3d.k1_geometry, mirrored from conv3d.cu's
+# k1_plan): K9's tiles with x staged and y written, the output channels
+# split into blocks while the tiles are fewer than two an SM. K9's shapes
+# and widths (Cin, Cout), the input layers at 2 channels, the train
+# batch's 33^3 volume.
+K1_GEO_WIDTHS = K9_GEO_WIDTHS + [(2, 16)]
+K1_GEO_SHAPES = K9_GEO_SHAPES + [(4, 33, 33, 33)]
+
+
+@pytest.mark.parametrize("shape", K1_GEO_SHAPES)
+@pytest.mark.parametrize("widths", K1_GEO_WIDTHS)
+def test_k1_tiles_cover_every_voxel_and_channel_once(shape, widths):
+    n, d, h, w = shape
+    cin, cout = widths
+    geo = conv3d.k1_geometry(n, d, h, w, cin, cout)
+    cip = 4 * geo.cig
+    assert (geo.ci_blocks - 1) * cip < cout <= geo.ci_blocks * cip
+    assert geo.tiles == geo.ci_blocks * n * d * geo.per_plane
+    seen = np.zeros((n, d, h, w, cout), np.int64)
+    for t in range(geo.tiles):
+        b, i, z, ys, xs = geo.voxels(t)
+        co = np.arange(b * cip, min(b * cip + cip, cout))
+        np.add.at(seen, (i, z, ys.numpy()[:, None], xs.numpy()[:, None],
+                         co[None, :]), 1)
+    assert (seen == 1).all()
+    # The stage holds real input channels only: 2 at the input layers.
+    assert geo.chunk <= geo.g_block <= min(cin, conv3d.K9_GBLOCK)
+
+
+def _k1_share(geo, sms=conv3d.H100_SMS):
+    """The CTAs whose share of an SM a K1 CTA takes: as many as an SM has
+    tiles, at most 8 / cig (24 warps)."""
+    return max(1, min(8 // geo.cig, -(-geo.tiles // sms)))
+
+
+def test_k1_splits_the_output_channels_to_fill_the_card():
+    # A 33^3 sample has 99 tiles of 384 positions for 132 SMs. At N = 1,
+    # 32->32 splits into four blocks of 8 channels (396 tiles, three an SM,
+    # each CTA a third of its shared memory, so all run at once, in chunks
+    # of 8 channels); at N = 2 into two; at N = 4 (the train batch) 396
+    # tiles of 32 channels, W (110.6 KB) staged once a CTA beside 16
+    # channels' stage. The CI checkpoint's 16->16 at N = 1: four blocks of
+    # 4. Beside each stage, the halo table of its rows' voxels.
+    for n, cig, blocks, share, chunk in ((1, 2, 4, 3, 8), (2, 4, 2, 2, 8),
+                                         (4, 8, 1, 1, 16), (64, 8, 1, 1, 16)):
+        geo = conv3d.k1_geometry(n, 33, 33, 33, 32, 32)
+        assert (geo.cig, geo.ci_blocks, _k1_share(geo), geo.chunk) == (
+            cig, blocks, share, chunk), n
+        assert geo.tiles >= 2 * conv3d.H100_SMS
+        assert share * (geo.smem + 1024) <= conv3d.SMEM_SM
+        assert geo.g_block == 32 and geo.table == geo.halo_rows
+    geo = conv3d.k1_geometry(4, 33, 33, 33, 32, 32)
+    assert (geo.tiles, geo.w_row) == (396, 27 * 32 + 4)
+    assert geo.per_plane * conv3d.K9_TILE_POS / 33 ** 2 < 1.06
+    geo = conv3d.k1_geometry(1, 33, 33, 33, 16, 16)
+    assert (geo.cig, geo.ci_blocks, geo.tiles) == (1, 4, 396)
+    # The input layer stages its 2 channels, none padded.
+    geo = conv3d.k1_geometry(64, 33, 33, 33, 2, 32)
+    assert geo.g_block == geo.chunk == 2 and geo.cig == 8
+    # A card with fewer SMs splits less.
+    assert conv3d.k1_geometry(1, 33, 33, 33, 32, 32, sms=40).cig == 8
+
+
+@pytest.mark.parametrize("n", [1, 4, 64])
+@pytest.mark.parametrize("widths", [(1, 1), (2, 32), (3, 7), (16, 16),
+                                    (32, 32), (64, 256), (300, 3)])
+def test_k1_geometry_fits_every_shape(widths, n):
+    # A CTA's weights, stage and halo table fit its share of the SM however
+    # wide the rows and the layer are (one input channel at a time takes at
+    # most 31.3 KB).
+    cin, cout = widths
+    for w in (1, 33, 385, 10 ** 6):
+        geo = conv3d.k1_geometry(n, 3, 2, w, cin, cout)
+        assert 1 <= geo.chunk <= geo.g_block <= min(cin, 32)
+        assert geo.smem == 4 * (geo.g_block * geo.w_row + geo.stage
+                                + geo.halo_rows)
+        assert geo.smem <= conv3d.SMEM_SM // _k1_share(geo) - 1024
+        assert geo.threads == conv3d.K9_RUNS * geo.cig
+
+
+# K1's layer kinds at the full width: (k, Cin, Cout, pre_relu, post_relu,
+# residual); shapes (N, D, H, W) ending mid-tile, rows wider than a tile
+# (three row bands), one voxel.
+K1_KINDS = {k: K1_CASES[k] for k in ("conv0_a", "block_a", "block_b",
+                                     "conv_lom")}
+K1_ODD_SHAPES = [(1, 1, 1, 1), (2, 5, 7, 9), (1, 2, 3, 200), (1, 2, 3, 700)]
+
+
+def _k1_model(x, wt, b, r, pre, post):
+    """K1's index arithmetic in numpy (float64 sums): 3^3 layers tile by
+    tile on k1_geometry's plan (x's halo rows staged channel-major, pre_relu
+    on the staged copies, output row m reading row dy S + m + dx of plane
+    dz, weight rows [ci][tap][co] of the tile's output block; then + bias,
+    post_relu, + residual); 1^3 layers a voxel's channels in order."""
+    n, d, h, w, cin = x.shape
+    k, cout = wt.shape[0], wt.shape[-1]
+    if k == 1:
+        xs = np.maximum(x, 0) if pre else x
+        y = xs.reshape(-1, cin).astype(np.float64) @ wt.reshape(cin, cout)
+        y = y.reshape(n, d, h, w, cout) + b
+        y = np.maximum(y, 0) if post else y
+        return y + r if r is not None else y
+    geo = conv3d.k1_geometry(n, d, h, w, cin, cout)
+    p, band, cip = geo.pitch, geo.band_stride, 4 * geo.cig
+    wf = wt.reshape(27, cin, cout).astype(np.float64)
+    rows = np.arange(conv3d.K9_TILE_POS)
+    y = np.full((n, d, h, w, cout), np.nan)
+    for t in range(geo.tiles):
+        blk, i, z, ys, xs = geo.voxels(t)
+        q0 = t % geo.per_plane * conv3d.K9_TILE_POS
+        q = geo.halo_positions(t).numpy()
+        ok = (q >= 0) & (q < h * p) & (q % p < w)
+        stage = np.zeros((cin, 3, geo.halo_rows))
+        for dz in range(3):
+            if 0 <= z + dz - 1 < d:
+                stage[:, dz, ok] = x[i, z + dz - 1, q[ok] // p, q[ok] % p].T
+        if pre:
+            stage = np.maximum(stage, 0)
+        co = slice(blk * cip, min(blk * cip + cip, cout))
+        tile = np.zeros((conv3d.K9_TILE_POS, co.stop - co.start))
+        for tap in range(27):
+            dz, dyy, dx = tap // 9, tap // 3 % 3, tap % 3
+            tile += stage[:, dz, rows + dyy * band + dx].T @ wf[tap, :, co]
+        ys, xs = ys.numpy(), xs.numpy()
+        v = tile[ys * p + xs - q0] + b[co]
+        v = np.maximum(v, 0) if post else v
+        if r is not None:
+            v = v + r[i, z, ys, xs, co]
+        y[i, z, ys, xs, co] = v
+    return y
+
+
+@pytest.mark.parametrize("kind", list(K1_KINDS))
+@pytest.mark.parametrize("shape", K1_ODD_SHAPES)
+def test_k1_index_model_matches_lax_conv(kind, shape):
+    # Within 1e-5 of max|ref| (float32 against float64 sums), as
+    # test_torch_convstack.py's test_k1_plain_matches_lax_conv.
+    jnp = pytest.importorskip("jax.numpy")
+    from jax import lax
+    k, cin, cout, pre, post, res = K1_KINDS[kind]
+    rng = np.random.default_rng(sum(shape) + cin)
+    x = rng.standard_normal(shape + (cin,)).astype(np.float32)
+    wt = (rng.standard_normal((k, k, k, cin, cout))
+          * (2.0 / (k ** 3 * cin)) ** 0.5).astype(np.float32)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    r = rng.standard_normal(shape + (cout,)).astype(np.float32) \
+        if res else None
+    got = _k1_model(x, wt, b, r, pre, post)
+    xin = np.maximum(x, 0) if pre else x
+    want = np.asarray(lax.conv_general_dilated(
+        jnp.asarray(xin), jnp.asarray(wt), (1, 1, 1), "SAME",
+        dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
+        precision=lax.Precision.HIGHEST) + b)
+    if post:
+        want = np.maximum(want, 0)
+    if res:
+        want = want + r
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 8, 64, 256])
+@pytest.mark.parametrize("spatial", [s[1:] for s in K1_ODD_SHAPES])
+def test_k1_matches_plain_on_odd_shapes(card, n, spatial):
+    # Every layer kind within 1e-4 of max|plain|, a repeat bit for bit, the
+    # middle sample alone (N = 1, its own plan) bit for bit as in the batch.
+    gen = torch.Generator(device=card).manual_seed(n + sum(spatial))
+    for case, (k, cin, cout, pre, post, res) in K1_CASES.items():
+        shape = (n,) + spatial
+        x = torch.randn(*shape, cin, generator=gen, device=card)
+        w = torch.randn(k, k, k, cin, cout, generator=gen, device=card) \
+            * (2.0 / (k ** 3 * cin)) ** 0.5
+        b = torch.randn(cout, generator=gen, device=card) * 0.1
+        r = torch.randn(*shape, cout, generator=gen, device=card) \
+            if res else None
+        kw = dict(pre_relu=pre, post_relu=post, residual=r)
+        got = conv3d.conv3d_ndhwc_f32(x, w, b, **kw)
+        assert torch.equal(got, conv3d.conv3d_ndhwc_f32(x, w, b, **kw))
+        want = conv3d.conv3d_ndhwc_plain(x, w, b, **kw)
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (case, shape, err)
+        i = n // 2
+        one = conv3d.conv3d_ndhwc_f32(
+            x[i:i + 1].clone(), w, b, pre_relu=pre, post_relu=post,
+            residual=None if r is None else r[i:i + 1].clone())
+        assert torch.equal(one[0], got[i]), (case, shape)
+
+
+@pytest.mark.cuda
+def test_k1_sample_alone_equals_it_inside_a_batch_of_64(card):
+    # The 33^3 FOV: N = 1 takes four channel blocks a tile, N = 64 one;
+    # every output sums in the same order, so the two agree bit for bit.
+    gen = torch.Generator(device=card).manual_seed(64)
+    for case in ("conv0_a", "block_a", "block_b", "conv_lom"):
+        k, cin, cout, pre, post, res = K1_CASES[case]
+        x = torch.randn(64, 33, 33, 33, cin, generator=gen, device=card)
+        w = torch.randn(k, k, k, cin, cout, generator=gen, device=card) * 0.1
+        b = torch.randn(cout, generator=gen, device=card)
+        r = torch.randn(64, 33, 33, 33, cout, generator=gen, device=card) \
+            if res else None
+        kw = dict(pre_relu=pre, post_relu=post)
+        got = conv3d.conv3d_ndhwc_f32(x, w, b, residual=r, **kw)
+        for i in (0, 37, 63):
+            one = conv3d.conv3d_ndhwc_f32(
+                x[i:i + 1].clone(), w, b,
+                residual=None if r is None else r[i:i + 1].clone(), **kw)
+            assert torch.equal(one[0], got[i]), (case, i)
+
+
 # Layer kinds of K15_CASES that cover the four (Cin, Cout) pairs with every
 # flag: float32 x, pre_relu and post_relu, a 16-bit residual.
 K15_3X3_CASES = ["conv0_a", "block_a", "block_b", "ci_conv0_a", "ci_block_b"]
@@ -2106,6 +2316,90 @@ def test_int8_cuda_tensors_never_reach_the_plain_versions(card, monkeypatch):
     torch.cuda.synchronize()
     assert out.shape == (2, 9, 9, 9, 1) and bool(out.isfinite().all())
     assert _build.launches["qconv3d_s8"] == _build.launches["act_absmax"] == 5
+
+
+# K20's reads (quantized.k20_reads, mirrored from qconv3d.cu): each lane's
+# float4s split over its blocks, the floats before its first 16-byte
+# boundary and after its last float4 in its first block's; lanes of
+# 33^3 * 2 floats start unaligned every other lane.
+@pytest.mark.parametrize("cin", [2, 32])
+@pytest.mark.parametrize("n", [1, 3, 64])
+@pytest.mark.parametrize("start", [0, 1, 2, 3])
+def test_k20_reads_cover_every_element_once(cin, n, start):
+    from ffn_tpu_torch.ops import quantized
+    per_lane = 33 ** 3 * cin
+    blocks = quantized.k20_blocks(per_lane, n)
+    # About two waves of 8 blocks a SM at most, at least one pass a lane.
+    assert blocks * n <= 2 * 8 * quantized.H100_SMS + n
+    for lane in sorted({0, 1, n - 1}):
+        reads = quantized.k20_reads(per_lane, n, lane,
+                                    start + lane * per_lane)
+        assert [blk for blk, _ in reads] == list(range(blocks))
+        seen = np.zeros(per_lane, np.int64)
+        for _, idx in reads:
+            np.add.at(seen, idx, 1)
+        assert (seen == 1).all()
+        head = (4 - (start + lane * per_lane) % 4) % 4
+        assert list(reads[0][1][:head]) == list(range(head))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("cin", [2, 32])
+def test_k20_model_equals_the_jax_lane_absmax(relu, cin):
+    # Bit for bit the JAX package's per-lane abs-max
+    # (_dyn_quantize_activation's jnp.maximum(jnp.max(jnp.abs(x)), 1e-12)
+    # under jax.vmap, on the relu'd input where the layer has pre_relu):
+    # lanes of magnitudes 1e-2 to 1e2, one all zero with a -0, one all
+    # negative (relu: the floor), an unaligned lane start.
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from ffn_tpu_torch.ops import quantized
+    rng = np.random.RandomState(cin + relu)
+    n = 4
+    x = (rng.randn(n, 33, 33, 33, cin)
+         * 10.0 ** rng.randint(-2, 3, (n, 1, 1, 1, 1))).astype(np.float32)
+    x[1] = 0
+    x[1, 3, 4, 5, 0] = -0.0
+    x[2] = -np.abs(x[2]) - 1e-3
+    xin = np.maximum(x, 0) if relu else x
+    want = np.asarray(jax.vmap(
+        lambda v: jnp.maximum(jnp.max(jnp.abs(v)), 1e-12))(jnp.asarray(xin)))
+    for start in (0, 1):
+        got = quantized.act_absmax_model(x.reshape(n, -1), relu, start)
+        assert got.dtype == np.float32
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    plain = quantized.act_absmax_plain(torch.from_numpy(x), relu).numpy()
+    assert np.array_equal(plain.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [2, 32])
+@pytest.mark.parametrize("n", [1, 3, 64])
+def test_k20_one_launch_a_call_bit_for_bit(card, cin, n):
+    # Two calls back to back on one buffer, both relu flags, an unaligned
+    # view: each equal to the plain version bit for bit, one launch a call,
+    # the buffer zero again after each.
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.ops import quantized
+    rng = np.random.RandomState(20 + n + cin)
+    x = (rng.randn(n, 33, 33, 33, cin)
+         * 10.0 ** rng.randint(-2, 3, (n, 1, 1, 1, 1))).astype(np.float32)
+    if n > 1:
+        x[1] = 0
+    xs = torch.from_numpy(x).to(card)
+    flat = torch.zeros(x.size + 1, device=card)
+    flat[1:] = xs.reshape(-1)
+    shifted = flat[1:].view(xs.shape)   # 4 bytes past the allocation
+    for relu in (False, True):
+        before = _build.launches[quantized.ABSMAX]
+        got = [quantized.act_absmax(t, relu) for t in (xs, xs, shifted)]
+        torch.cuda.synchronize()
+        assert _build.launches[quantized.ABSMAX] == before + 3
+        want = quantized.act_absmax_plain(xs, relu)
+        assert all(torch.equal(g, want) for g in got)
+        for work in quantized._ABSMAX_WORK.values():
+            assert not bool(work.any())
+
 
 
 # -- K21 layernorm_channels, K22 edges_sobel, K23 edges_blur ------------------

@@ -5,7 +5,8 @@ csrc/conv3d_bwd.cu) and in bfloat16 and float16 (K17, `conv3d_dgrad_16`,
 csrc/conv3d_bwd16.cu), against cuDNN's `conv3d_input` (TF32 off; 16-bit) on the same inputs.
 
 Each kernel is a library built from its source as it is and, with
---split, with a part cut out (the results are then wrong, only their times
+--split, with a part cut out (K9's in the tiles it shares with K1,
+csrc/conv32.cuh) (the results are then wrong, only their times
 count; variant_libs.py builds them, one nvcc each, in parallel), its C
 entry called directly. Layer kinds of the training step at the train
 CLI's batch (4; the host-loop trainer's is 4 too), 33^3: conv0_b and
@@ -48,13 +49,13 @@ K17_SRC = os.path.join(variant_libs.CSRC, "conv3d_bwd16.cu")
 
 # Parts cut out of each source (anchor -> replacement), for --split.
 K9_SPLIT = {
-    "no FMA loop": [("c < cn; ++c) {\n      const float* gc",
-                     "c < 0 * cn; ++c) {\n      const float* gc")],
-    "no staging copies": [("  const long long r = it.tile % a.per_block;\n"
-                           "  const int n = (int)(r / ((long long)a.D",
-                           "  return;\n  const long long r = it.tile % "
-                           "a.per_block;\n  const int n = (int)(r / "
-                           "((long long)a.D")]}
+    "no FMA loop": [("conv32.cuh", "c < cn; ++c) {\n    const float* gc",
+                     "c < 0 * cn; ++c) {\n    const float* gc")],
+    "no staging copies": [("conv32.cuh",
+                           "  const TilePos t = tile_pos(it.tile, a);\n"
+                           "  const int c0 = it.k * a.cc;",
+                           "  return;\n  const TilePos t = tile_pos("
+                           "it.tile, a);\n  const int c0 = it.k * a.cc;")]}
 K17_SPLIT = {
     "no MMAs": [("    tile_sums<T, CO, CI, false>(st, s_w, warp, lane, P, "
                  "R, 0, acc, unused);\n",

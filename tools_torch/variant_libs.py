@@ -1,5 +1,5 @@
 """What the kernel-variant tools share (k15_variants.py, k18_variants.py,
-dgrad_variants.py): a kernel's source built as libraries with measurement
+dgrad_variants.py, k1_variants.py): a kernel's source built as libraries with measurement
 macros defined or parts cut out, nvcc's register and spill report, a
 call's host and device time, and JSON lines stamped with the card's name
 and power limit. Needs nvcc and, for the times, a CUDA card."""
@@ -23,19 +23,21 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 def build(tmp, src, variants, entries):
     """{name: the library built from `src` with variants[name] = (macros,
     cuts)}: macros defined, each cut an (anchor, replacement) pair whose
-    anchor the source holds once. One nvcc each, all in parallel; the C
-    functions `entries` typed as the library's own."""
-    text = open(src).read()
+    anchor the source holds once, or a (header, anchor, replacement) triple
+    cutting a copy of one of csrc's headers, which the variant's source then
+    includes in its place. One nvcc each, all in parallel; the C functions
+    `entries` typed as the library's own."""
+    sources = {name: cut_sources(src, cuts)
+               for name, (_, cuts) in variants.items()}
     procs = {}
-    for i, (name, (macros, cuts)) in enumerate(variants.items()):
-        t = text
-        for a, b in cuts:
-            if t.count(a) != 1:
-                raise RuntimeError(f"{name}: anchor {a!r} not found once")
-            t = t.replace(a, b)
-        cu, lib = (os.path.join(tmp, f"v{i}{e}") for e in (".cu", ".so"))
-        with open(cu, "w") as f:
-            f.write(t)
+    for i, (name, (macros, _)) in enumerate(variants.items()):
+        vdir = os.path.join(tmp, f"v{i}")
+        os.makedirs(vdir)
+        for path, text in sources[name].items():
+            with open(os.path.join(vdir, path), "w") as f:
+                f.write(text)
+        cu = os.path.join(vdir, os.path.basename(src))
+        lib = os.path.join(vdir, "variant.so")
         procs[name] = (lib, subprocess.Popen(
             [_build._nvcc()] + _build.NVCC_FLAGS
             + [f"-D{m}" for m in macros]
@@ -50,6 +52,21 @@ def build(tmp, src, variants, entries):
             fn.argtypes = _build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
     return libs
+
+
+def cut_sources(src, cuts):
+    """{file name: text} of `src` and of the headers that `cuts` cut (see
+    build), each cut applied; raises if an anchor is not found once."""
+    texts = {os.path.basename(src): open(src).read()}
+    for cut in cuts:
+        path, a, b = cut if len(cut) == 3 else (os.path.basename(src),) \
+            + tuple(cut)
+        if path not in texts:
+            texts[path] = open(os.path.join(CSRC, path)).read()
+        if texts[path].count(a) != 1:
+            raise RuntimeError(f"anchor {a!r} not once in {path}")
+        texts[path] = texts[path].replace(a, b)
+    return texts
 
 
 def ptxas_report(srcs, match):
