@@ -17,7 +17,8 @@ what it holds):
      as the stack against plain and the float64 sums; the 16-bit training
      kernels (K15 in float16, K17, K18 on both bodies, K12's scale); K19
      and K20 (int8)
-     bit for bit per layer and as the stack;
+     bit for bit per layer and as the stack; K10 (B = 4, 1) and K19 (N =
+     1, 64) on the device alone beside their library calls;
   4. the fib25 model against the JAX package's stored logits;
   5. the serial slice (Runner -> Canvas) on the padded 100^3 phantom,
      kernels and plain, then model-r2 held to 0.95;
@@ -179,6 +180,31 @@ def time_many(*fns, reps=REPS, inner=10):
             end.synchronize()
             out.append(start.elapsed_time(end) / inner)
     return tuple(statistics.median(t) for t in times)
+
+
+def device_alone_ms(*fns, calls=10):
+    """Device ms a call of each fn with the host's gaps left out: the sum of
+    its kernels' times under torch.profiler, each kernel's mean over the
+    events the profiler kept times its launches a call."""
+    out = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            if us > 0 and ev.count and \
+                    ev.device_type == torch.autograd.DeviceType.CUDA:
+                total += us / ev.count * max(1, round(ev.count / calls))
+        out.append(total / 1e3)
+    return tuple(out)
 
 
 def time_pair(kernel_fn, plain_fn, reps=REPS, inner=10):
@@ -2175,7 +2201,20 @@ def phase_train_kernels(dev):
         results["conv3d_wgrad_f32"] = entry(
             dw_err, ms, plain_ms, 4 * (3 * vox * 32 + w.numel() + 32), flops,
             library_ms=lib_ms)
-        del xc, gc, wc
+        # K10 at the host loop's batch of one.
+        x1, dy1, y1 = x[:1].clone(), dy[:1].clone(), y[:1].clone()
+        xc1, gc1 = xc[:1].clone(), gc[:1].clone()
+        ms1 = time_many(
+            lambda: conv3d.conv3d_wgrad_f32(x1, dy1, k, pre_relu=pre, y=y1),
+            lambda: conv3d.conv3d_wgrad_plain(x1, dy1, k, pre_relu=pre,
+                                              y=y1),
+            lambda: torch.nn.grad.conv3d_weight(xc1, wc.shape, gc1,
+                                                padding=1), reps=REPS)
+        bound1 = bound_of(4 * (3 * 33 ** 3 * 32 + w.numel() + 32), flops / n)
+        print(f"K10 conv3d_wgrad_f32 {name} B=1: kernel {ms1[0]:.4f} ms "
+              f"plain {ms1[1]:.4f} ms library conv3d_weight {ms1[2]:.4f} ms "
+              f"bound {bound1[0]:.4f} ms ({bound1[1]})")
+        del xc, gc, wc, x1, dy1, y1, xc1, gc1
     for name in ("conv3d_dgrad_f32", "conv3d_wgrad_f32"):
         r = results[name]
         r["max_abs_err"] = worst[name]
@@ -3540,6 +3579,52 @@ def phase_int8_kernels(dev):
     return out
 
 
+def phase_device_alone(dev):
+    """K10 (32->32 pre+post_relu, B = 4 and 1) and K19 (block_a, N = 1 and
+    64) on the device alone beside their library calls (cuDNN's
+    conv3d_weight; torch._int_mm on the int8 im2col), by torch.profiler:
+    the wrappers' host time left out. Runs after every other profiled check
+    of phase 3 (K20's one-launch check needs the process's first profiler
+    run: after others it saw no device events)."""
+    from ffn_tpu_torch.ops import conv3d
+    from ffn_tpu_torch.ops import quantized as q
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for b in (TRAIN_B, 1):
+        x = torch.randn(b, 33, 33, 33, 32, generator=gen, device=dev)
+        dy = torch.randn(b, 33, 33, 33, 32, generator=gen, device=dev)
+        y = torch.randn(b, 33, 33, 33, 32, generator=gen, device=dev)
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        gc = dy.permute(0, 4, 1, 2, 3).contiguous()
+        ms = device_alone_ms(
+            lambda: conv3d.conv3d_wgrad_f32(x, dy, 3, pre_relu=True, y=y),
+            lambda: torch.nn.grad.conv3d_weight(xc, (32, 32, 3, 3, 3), gc,
+                                                padding=1))
+        print(f"K10 conv3d_wgrad_f32 32->32 pre+post_relu B={b}: device "
+              f"alone {ms[0]:.4f} ms, library conv3d_weight {ms[1]:.4f} ms "
+              f"(torch.profiler)")
+        del x, dy, y, xc, gc
+    rng = np.random.RandomState(17)
+    k, cin, cout, ri, ro, res = Q_LAYERS["block_a"]
+    for n in (1, LANES):
+        layer, x, _ = _q_layer(rng, dev, n, k, cin, cout, res)
+        am = q.act_absmax(x, ri)
+        xq = torch.nn.functional.pad(torch.clamp(torch.round(
+            x / (am * q.C127).view(-1, 1, 1, 1, 1)), -127, 127).to(
+            torch.int8), (0, 0, 1, 1, 1, 1, 1, 1))
+        cols = torch.cat([xq[:, t // 9:t // 9 + 33,
+                             t // 3 % 3:t // 3 % 3 + 33, t % 3:t % 3 + 33]
+                          for t in range(27)], dim=-1).reshape(-1, 27 * cin)
+        del xq
+        ms = device_alone_ms(
+            lambda: q.qconv3d(x, layer, am, relu_in=ri, relu_out=ro),
+            lambda: torch._int_mm(cols, layer.w_q))
+        print(f"K19 qconv3d_s8 N={n} block_a: device alone {ms[0]:.4f} ms, "
+              f"library _int_mm {ms[1]:.4f} ms (torch.profiler)")
+        del layer, x, am, cols
+    torch.cuda.empty_cache()
+    return {}
+
+
 def phase_int8_slices(dev, phantom, r2, tmp):
     """int8 inference at full width (model-r2 through FFN_TPU_PRECISION=int8,
     the JAX CLIs' switch) on phase 5's phantom: the serial slice, the
@@ -3857,7 +3942,8 @@ def main():
     results = {}
     for phase in (phase_kernels, phase_hop_kernels, phase_fused_kernels,
                   phase_train_kernels, phase_select_kernels,
-                  phase_bf16_kernels, phase_lowp_kernels, phase_int8_kernels):
+                  phase_bf16_kernels, phase_lowp_kernels, phase_int8_kernels,
+                  phase_device_alone):
         results.update(phase(dev))
         _clock(t0, phase.__name__)
     phase_golden(dev)

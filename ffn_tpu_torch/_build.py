@@ -57,7 +57,7 @@ _SIGNATURES = {
     "ffn_finalize_pass": [_P] * 26 + [_I] * 6 + [_L] + [_I] * 12
                          + [_F] * 4 + [_I, _P],
     "ffn_conv3d_dgrad_f32": [_P] * 6 + [_I] * 7 + [_P],
-    "ffn_conv3d_wgrad_f32": [_P] * 6 + [_I] * 9 + [_P],
+    "ffn_conv3d_wgrad_f32": [_P] * 6 + [_I] * 10 + [_P],
     "ffn_train_prep": [_P] * 5 + [_L, _L] + [_I] * 4 + [_F] * 6 + [_P],
     "ffn_train_gather": [_P] * 7 + [_I, _P, _I, _I, _F, _F, _P],
     "ffn_train_loss": [_P] * 11 + [_I, _P, _I, _P],

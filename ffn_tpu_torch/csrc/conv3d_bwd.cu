@@ -8,7 +8,9 @@
 //                    input takes its dy too, added in the epilogue)
 //   K10: dW[tap, ci, co] = sum relu?(x)[n, v + tap - P, ci] g[n, v, co],
 //        db[co] = sum g[n, v, co]
-// The relu gradient at 0 is 0. K10: K18's two-stage deterministic body
+// The relu gradient at 0 is 0. K10: the stack's 3^3 layers on the chunk
+// tiles of wgrad32.cuh (each chunk staged once for all 27 taps); the 1^3
+// layers and other widths on K18's two-stage deterministic body
 // (wgrad.cuh) on float inputs.
 //
 // K9 on the H100: float32 FMAs on the CUDA cores (TF32 would not keep its
@@ -32,6 +34,7 @@
 
 #include "conv32.cuh"
 #include "wgrad.cuh"
+#include "wgrad32.cuh"
 
 namespace {
 
@@ -207,17 +210,64 @@ extern "C" int ffn_conv3d_dgrad_f32(const float* dy, const float* y,
   return static_cast<int>(err);
 }
 
+// K10's 3^3 layers on wgrad32.cuh's chunk tiles: stage 1 writes one row of
+// partials a CTA, stage 2 sums them in row order.
+template <int CIN, int COUT>
+cudaError_t wgrad_tiles(const float* x, const float* dy, const float* y,
+                        float* partial, float* dw, float* db,
+                        const W10Plan& p, int D, int H, int W, int pre_relu,
+                        cudaStream_t s) {
+  auto kernel = wgrad_tile_kernel<CIN, COUT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  const int xf = w10_x_floats(p.cy, p.cx, CIN);
+  const int gf = p.cy * (p.cx + 2) * COUT;
+  const W10Args a{D, H, W, p.cy, p.cx, p.ny, p.nx,
+                  w10_stage_floats(p.cy, p.cx, CIN, COUT, y != nullptr), xf,
+                  xf + gf, pre_relu, p.chunks};
+  kernel<<<p.ctas, kW10Threads, p.smem, s>>>(x, dy, y, partial, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int nw = 27 * CIN * COUT, total = nw + COUT;
+  wgrad_sum_kernel<float><<<(total + 255) / 256, 256, 0, s>>>(
+      partial, dw, db, p.ctas, nw, COUT);
+  return cudaGetLastError();
+}
+
 // x (N,D,H,W,Cin), the forward input (relu applied here when pre_relu);
 // dy (N,D,H,W,Cout); y, the forward output, or null without post_relu;
-// partial (chunks, k^3*Cin*Cout + Cout) scratch; dw (k,k,k,Cin,Cout); db
-// (Cout). `rows` output rows (n, z, y) per chunk; chunks = ceil(N*D*H/rows).
-// Needs ceil(Cin/4)*ceil(Cout/4) <= 256 and Cout <= 256.
+// partial (partial_rows, k^3*Cin*Cout + Cout) scratch; dw (k,k,k,Cin,Cout);
+// db (Cout). 3^3 layers with (Cin, Cout) in {(2,32), (32,32), (2,16),
+// (16,16)} run on the chunk tiles (w10_plan: ctas rows of partials; the
+// `rows` argument unused); the others on wgrad.cuh's rows: `rows` output
+// rows (n, z, y) a chunk, ceil(N*D*H/rows) rows of partials, needing
+// ceil(Cin/4)*ceil(Cout/4) <= 256 and Cout <= 256. cudaErrorInvalidValue
+// when partial_rows is fewer than the body needs.
 extern "C" int ffn_conv3d_wgrad_f32(const float* x, const float* dy,
                                     const float* y, float* partial, float* dw,
                                     float* db, int N, int D, int H, int W,
                                     int Cin, int Cout, int k, int pre_relu,
-                                    int rows, void* stream) {
+                                    int rows, int partial_rows,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  W10Plan p;
+  const bool tiles = k == 3 && (Cin == 2 || Cin == Cout) &&
+                     (Cout == 16 || Cout == 32) &&
+                     w10_plan(N, D, H, W, Cin, Cout, y != nullptr, &p);
+  if (tiles) {
+    if (p.ctas > partial_rows) return static_cast<int>(cudaErrorInvalidValue);
+#define FFN_K10_CASE(CI, CO)                                                 \
+  if (Cin == CI && Cout == CO)                                               \
+    return static_cast<int>(wgrad_tiles<CI, CO>(x, dy, y, partial, dw, db, p, \
+                                                D, H, W, pre_relu, s));
+    FFN_K10_CASE(2, 32)
+    FFN_K10_CASE(32, 32)
+    FFN_K10_CASE(2, 16)
+    FFN_K10_CASE(16, 16)
+#undef FFN_K10_CASE
+  }
+  if (rows < 1 || (N * D * H + rows - 1) / rows > partial_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
   return wgrad_launch<float>(x, 1, dy, 1, y, partial, dw, db, N, D, H, W, Cin,
-                             Cout, k, pre_relu, rows,
-                             static_cast<cudaStream_t>(stream));
+                             Cout, k, pre_relu, rows, s);
 }

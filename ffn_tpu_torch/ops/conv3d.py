@@ -282,7 +282,9 @@ def conv3d_ndhwc_bf16(x: torch.Tensor, weight: torch.Tensor,
 
 DGRAD = "conv3d_dgrad_f32"
 WGRAD = "conv3d_wgrad_f32"
-WGRAD_ROWS = 32   # K10: output rows (n, z, y) per chunk of its first stage
+# K10's row body (wgrad.cuh: 1^3 layers and widths the chunk tiles do not
+# take): output rows (n, z, y) per chunk of its first stage.
+WGRAD_ROWS = 32
 
 
 def _masked(dy: torch.Tensor, y: Optional[torch.Tensor]) -> torch.Tensor:
@@ -527,10 +529,102 @@ def conv3d_dgrad_f32(dy: torch.Tensor, weight: torch.Tensor, *,
     return dx
 
 
+# K10's chunk tiles (wgrad32.cuh) for the stack's 3^3 layers: (Cin, Cout)
+# pairs; threads a CTA; CTAs at most (fixed: the chunk -> CTA assignment
+# depends on the shape alone).
+K10_SHAPES = ((2, 32), (32, 32), (2, 16), (16, 16))
+K10_THREADS, K10_CTAS = 864, 132
+
+
+def k10_smem(cy, cx, cin, cout, masked):
+    """Bytes of a K10 CTA (wgrad32.cuh's w10_smem): two stages of x's halo
+    (3 (cy + 2) (cx + 2) voxels, two of slack, rounded to 4 floats), g and,
+    masked, y at cy (cx + 2) positions; or the thread groups' sums."""
+    xf = -(-(3 * (cy + 2) * (cx + 2) + 2) * cin // 4) * 4
+    stage = xf + cy * (cx + 2) * cout * (2 if masked else 1)
+    cb = 2 if cin == 2 else 4
+    return max(2 * 4 * stage, 4 * K10_THREADS * cb * 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class K10Geometry:
+    """K10's chunks on x (n, d, h, w, cin): cy rows of cx columns of one
+    z-plane of one sample, chunk c = ((n * d + z) * ny + iy) * nx + ix;
+    CTA b sums chunks b, b + ctas, ... and writes partial row b; threads of
+    one tap x cb input channels x 8 output channels, `groups` groups of
+    them a CTA (group j takes a chunk's positions j, j + groups, ...);
+    `smem` bytes a CTA."""
+    n: int
+    d: int
+    h: int
+    w: int
+    cy: int
+    cx: int
+    ny: int
+    nx: int
+    chunks: int
+    ctas: int
+    cb: int
+    groups: int
+    smem: int
+
+    def chunk(self, c):
+        """(n, z, y0, y1, x0, x1): chunk c's voxels."""
+        ix, rest = c % self.nx, c // self.nx
+        iy, rest = rest % self.ny, rest // self.ny
+        z, n = rest % self.d, rest // self.d
+        y0, x0 = iy * self.cy, ix * self.cx
+        return (n, z, y0, min(y0 + self.cy, self.h), x0,
+                min(x0 + self.cx, self.w))
+
+    def cta_chunks(self, b):
+        """CTA b's chunks, in the order it sums them."""
+        return list(range(b, self.chunks, self.ctas))
+
+
+@functools.lru_cache(maxsize=256)
+def k10_geometry(n, d, h, w, cin, cout, masked):
+    """K10's chunk plan (wgrad32.cuh's w10_plan) for a 3^3 layer on x (n, d,
+    h, w, cin), or None where the chunk tiles do not take the layer (other
+    widths; no chunk fits): the least rounds of chunks over the CTAs times
+    a chunk's positions cy (cx + 2), ties to the larger chunk; full rows
+    (cx = w) while one row fits, else the widest columns that fit one
+    row. None for an empty input too."""
+    if (cin, cout) not in K10_SHAPES or n * d * h * w == 0:
+        return None
+    best = None
+
+    def consider(cy, cx):
+        nonlocal best
+        smem = k10_smem(cy, cx, cin, cout, masked)
+        if smem > K15_SMEM:
+            return
+        ny, nx = -(-h // cy), -(-w // cx)
+        chunks = n * d * ny * nx
+        ctas = min(K10_CTAS, chunks)
+        cost = -(-chunks // ctas) * cy * (cx + 2)
+        if best is None or cost < best[0] or (
+                cost == best[0] and cy * cx > best[1].cy * best[1].cx):
+            cb = 2 if cin == 2 else 4
+            groups = K10_THREADS // (27 * (cin // cb) * (cout // 8))
+            best = (cost, K10Geometry(n, d, h, w, cy, cx, ny, nx, chunks,
+                                      ctas, cb, groups, smem))
+    for cy in range(1, h + 1):
+        consider(cy, w)
+    if best is None:
+        for cx in range(w - 1, 0, -1):
+            consider(1, cx)
+            if best is not None:
+                break
+    return None if best is None else best[1]
+
+
 def conv3d_wgrad_f32(x: torch.Tensor, dy: torch.Tensor, k: int, *,
                      pre_relu: bool = False,
                      y: Optional[torch.Tensor] = None):
-    """K10: (dW, db). Deterministic on the card (no float atomics)."""
+    """K10: (dW, db). Deterministic on the card (no float atomics): the
+    stack's 3^3 layers on the chunk tiles (k10_geometry), the others on the
+    row body (WGRAD_ROWS)."""
     if x.dim() != 5 or dy.dim() != 5 or tuple(x.shape[:4]) != tuple(
             dy.shape[:4]) or k not in (1, 3):
         raise ValueError(f"{WGRAD}: want x (N,D,H,W,Cin), dy (N,D,H,W,Cout) "
@@ -555,8 +649,14 @@ def conv3d_wgrad_f32(x: torch.Tensor, dy: torch.Tensor, k: int, *,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{WGRAD} takes contiguous tensors")
     n, d, h, w, _ = x.shape
-    chunks = -(-(n * d * h) // WGRAD_ROWS)
-    partial = torch.empty((chunks, k ** 3 * cin * cout + cout),
+    geo = k10_geometry(n, d, h, w, cin, cout, y is not None) if k == 3 \
+        else None
+    rows = geo.ctas if geo is not None else -(-(n * d * h) // WGRAD_ROWS)
+    if geo is not None and (x.data_ptr() % (16 if cin % 4 == 0 else 8) or
+                            any(t.data_ptr() % 16 for t in tensors[1:])):
+        raise ValueError(f"{WGRAD}: the chunk tiles take x 16-byte aligned "
+                         f"(8 at Cin 2), dy and y 16-byte")
+    partial = torch.empty((max(rows, 1), k ** 3 * cin * cout + cout),
                           device=x.device, dtype=torch.float32)
     dw = torch.empty((k, k, k, cin, cout), device=x.device,
                      dtype=torch.float32)
@@ -564,7 +664,7 @@ def conv3d_wgrad_f32(x: torch.Tensor, dy: torch.Tensor, k: int, *,
     err = _build.lib().ffn_conv3d_wgrad_f32(
         x.data_ptr(), dy.data_ptr(), y.data_ptr() if y is not None else None,
         partial.data_ptr(), dw.data_ptr(), db.data_ptr(), n, d, h, w, cin,
-        cout, k, int(pre_relu), WGRAD_ROWS,
+        cout, k, int(pre_relu), WGRAD_ROWS, partial.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, WGRAD)
     _build.launches[WGRAD] += 1

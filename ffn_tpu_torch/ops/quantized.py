@@ -23,6 +23,7 @@ these integers (`_int_conv`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -52,6 +53,19 @@ def _quantize_symmetric(w: np.ndarray, axis) -> tuple:
     return q, scale
 
 
+def kernel_layout(w_q: torch.Tensor) -> torch.Tensor:
+    """K19's resident weights of a 3^3 layer: (Cout, KPAD + 16) int8, row co
+    holding w_q[:, co] (K = 27 Cin in (tap, channel) order), zero from K to
+    KPAD (K rounded up to k32 steps) and in the 16 bytes that put an
+    ldmatrix's 8 rows on distinct banks."""
+    k, cout = w_q.shape
+    kpad = -(-k // 32) * 32
+    w_k = torch.zeros((cout, kpad + 16), dtype=torch.int8,
+                      device=w_q.device)
+    w_k[:, :k] = w_q.t()
+    return w_k
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantizedConv:
     """One conv layer's folded int8 weights, as tensors.
@@ -60,16 +74,24 @@ class QuantizedConv:
     w_scale: (Cout,) float32 per-output-channel scales.
     bias: (Cout,) float32.
     kernel_zyx: spatial kernel shape.
+    w_k: 3x3x3 layers, K19's packing of w_q (kernel_layout), made once when
+      the layer is built and moved with it; the plain version reads w_q.
     """
     w_q: torch.Tensor
     w_scale: torch.Tensor
     bias: torch.Tensor
     kernel_zyx: tuple
+    w_k: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.w_k is None and tuple(self.kernel_zyx) == (3, 3, 3):
+            object.__setattr__(self, "w_k", kernel_layout(self.w_q))
 
     def to(self, device) -> "QuantizedConv":
         return dataclasses.replace(
             self, w_q=self.w_q.to(device), w_scale=self.w_scale.to(device),
-            bias=self.bias.to(device))
+            bias=self.bias.to(device),
+            w_k=None if self.w_k is None else self.w_k.to(device))
 
 
 def fold_convstack_params(params) -> dict:
@@ -209,6 +231,144 @@ def act_absmax(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
 
 # -- K19: the int8 SAME convolution ------------------------------------------
 
+# K19's 3^3 plan (qconv3d.cu's q_plan): CTAs of K19_WARPS warps, each warp
+# taking pairs of m16 tiles (K19_PAIR positions); at most K19_PER_SM CTAs an
+# SM, as shared memory allows (K19_SMEM_SM an SM's, 1 KB reserved a CTA).
+K19_WARPS, K19_PAIR, K19_PER_SM = 6, 32, 2
+K19_SMEM_SM = 233472
+
+
+def k19_smem(halo_rows, cin, cout):
+    """Bytes of a K19 CTA: the packed weights, the halo table (halo_rows
+    ints) and four ring slots of halo_rows rows of cin bytes, each rounded
+    to 128 bytes."""
+    kpad = -(-27 * cin // 32) * 32
+
+    def r128(v):
+        return -(-v // 128) * 128
+    return cout * (kpad + 16) + r128(4 * halo_rows) + 4 * r128(
+        halo_rows * cin)
+
+
+@dataclasses.dataclass(frozen=True)
+class K19Geometry:
+    """K19's work items on x (n, d, h, w, cin): item i = ((lane * nseg +
+    segment) * bands + band); a band is `band_pos` plane positions q = y
+    pitch + x from band * band_pos, its halo `halo_rows` rows from q0 -
+    pitch - 1; a segment `seg` planes from segment * seg. CTA b takes items
+    b, b + ctas, ..."""
+    n: int
+    d: int
+    h: int
+    w: int
+    pitch: int
+    band_pos: int
+    halo_rows: int
+    bands: int
+    seg: int
+    nseg: int
+    per_sm: int
+    smem: int
+    items: int
+    ctas: int
+
+    def item(self, i):
+        """(lane, q0, z0, z1) of item i: plane positions q0 .. q0 +
+        band_pos - 1 of planes z0 .. z1 - 1."""
+        b, rest = i % self.bands, i // self.bands
+        s, lane = rest % self.nseg, rest // self.nseg
+        z0 = s * self.seg
+        return lane, b * self.band_pos, z0, min(z0 + self.seg, self.d)
+
+    def voxels(self, i):
+        """(lane, zs, ys, xs) of item i's output voxels: its positions that
+        lie on the plane (not in the zero columns), on each of its planes;
+        as the kernel's epilogue stores them."""
+        lane, q0, z0, z1 = self.item(i)
+        q = q0 + np.arange(self.band_pos)
+        ys, xs = q // self.pitch, q % self.pitch
+        keep = (ys < self.h) & (xs < self.w)
+        zs = np.repeat(np.arange(z0, z1), keep.sum())
+        return (lane, zs, np.tile(ys[keep], z1 - z0),
+                np.tile(xs[keep], z1 - z0))
+
+    def halo_voxels(self, q0):
+        """The halo rows' voxels (y * w + x, or -1 off the plane and in the
+        zero columns) of the band at q0: qconv3d.cu's halo table."""
+        q = q0 - self.pitch - 1 + np.arange(self.halo_rows)
+        ys, xs = q // self.pitch, q % self.pitch
+        ok = (q >= 0) & (q < self.h * self.pitch) & (xs < self.w)
+        return np.where(ok, ys * self.w + xs, -1)
+
+    def planes_per_output(self):
+        """Planes staged (in the volume or not) per output plane."""
+        return (self.d + 2 * self.nseg) / self.d
+
+    def quantized_per_element(self):
+        """Quantizations per input element: each item quantizes its halo
+        rows' voxels on each of its planes z0 - 1 .. z1 inside the
+        volume."""
+        total = 0
+        for b in range(self.bands):
+            rows = int((self.halo_voxels(b * self.band_pos) >= 0).sum())
+            for s in range(self.nseg):
+                z0 = s * self.seg
+                z1 = min(z0 + self.seg, self.d)
+                total += rows * (min(z1 + 1, self.d) - max(z0 - 1, 0))
+        return total / (self.d * self.h * self.w)
+
+
+@functools.lru_cache(maxsize=256)
+def k19_geometry(n, d, h, w, cin, cout, sms=H100_SMS):
+    """K19's plan for x (n, d, h, w, cin) on a card of `sms` SMs (q_plan,
+    which the C entry computes once a shape): pitch P = w + 1 rounded up to
+    even; bands of K19_PAIR pp positions; for each band count and segment
+    count, the cost is the rounds of items over sms * per_sm CTAs, times
+    per_sm, times an item's bytes ((L + 2) planes of R rows in, L planes of
+    the band's pairs in whole rounds of the warps out); the least cost wins,
+    ties to fewer items, among the bands that let K19_PER_SM CTAs share an
+    SM (any band where none does). ValueError if no band fits."""
+    pitch = (w + 2) // 2 * 2
+    pairs = -(-(h * pitch - 1) // K19_PAIR)
+    best = None
+    for min_per_sm in range(K19_PER_SM, 0, -1):
+        if best is None:
+            best = _k19_best(n, d, h, w, cin, cout, sms, pitch, pairs,
+                             min_per_sm)
+    if best is None:
+        raise ValueError(f"{QCONV}: rows of {w} voxels do not fit K19's "
+                         f"shared memory")
+    return best[1]
+
+
+def _k19_best(n, d, h, w, cin, cout, sms, pitch, pairs, min_per_sm):
+    best = None
+    for nb in range(1, pairs + 1):
+        pp = -(-pairs // nb)
+        if -(-pairs // pp) != nb:
+            continue
+        m = K19_PAIR * pp
+        r = m + 2 * pitch + 2
+        smem = k19_smem(r, cin, cout)
+        per_sm = min(K19_PER_SM, K19_SMEM_SM // (smem + 1024))
+        if per_sm < min_per_sm:
+            continue
+        ctas = sms * per_sm
+        m_eff = K19_PAIR * K19_WARPS * -(-pp // K19_WARPS)
+        for nseg in range(1, d + 1):
+            seg = -(-d // nseg)
+            if -(-d // seg) != nseg:
+                continue
+            items = n * nb * nseg
+            cost = float(-(-items // ctas) * per_sm) * (
+                float(seg + 2) * r * cin + float(seg) * m_eff * cout)
+            if best is None or cost < best[0] or (
+                    cost == best[0] and items < best[1].items):
+                best = (cost, K19Geometry(n, d, h, w, pitch, m, r, nb, seg,
+                                          nseg, per_sm, smem, items, ctas))
+    return best
+
+
 def _int_conv(q: torch.Tensor, w_q: torch.Tensor, k: int) -> torch.Tensor:
     """The exact int32 sums of a SAME conv of integer-valued q (N,D,H,W,Cin)
     with w_q (k^3 Cin, Cout), no im2col: on the zero-padded input's rows,
@@ -340,9 +500,19 @@ def qconv3d(x: torch.Tensor, layer: QuantizedConv, absmax: torch.Tensor, *,
                          f"{QCONV_SHAPES}, got ({cin}, {cout})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{QCONV} takes contiguous tensors")
+    if k == 3:
+        if layer.w_k is None or layer.w_k.device != x.device:
+            raise ValueError(f"{QCONV}: the layer has no packed weights on "
+                             f"{x.device} (QuantizedConv.w_k)")
+        if x.data_ptr() % (8 if cin == 2 else 16) or (
+                residual is not None and residual.data_ptr() % 8):
+            raise ValueError(f"{QCONV} takes x 16-byte aligned (8 at Cin "
+                             f"2) and the residual 8-byte")
+        k19_geometry(n, d, h, w, cin, cout)   # raises where no band fits
     y = torch.empty((n, d, h, w, cout), device=x.device, dtype=torch.float32)
     err = _build.lib().ffn_qconv3d_s8(
-        x.data_ptr(), layer.w_q.data_ptr(), layer.w_scale.data_ptr(),
+        x.data_ptr(), (layer.w_k if k == 3 else layer.w_q).data_ptr(),
+        layer.w_scale.data_ptr(),
         layer.bias.data_ptr(), absmax.data_ptr(),
         residual.data_ptr() if residual is not None else None, y.data_ptr(),
         n, d, h, w, cin, cout, k, int(relu_in), int(relu_out),

@@ -92,5 +92,6 @@ def test_card_tools_import_without_jax_or_ffn_tpu():
     # jax_bf16_round.py or round_vs_serial.py, which run the JAX package).
     tools = ["tools_torch.variant_libs", "tools_torch.k1_variants",
              "tools_torch.dgrad_variants", "tools_torch.k15_variants",
-             "tools_torch.k18_variants", "chip_smoke"]
+             "tools_torch.k18_variants", "tools_torch.k19_variants",
+             "tools_torch.k10_variants", "chip_smoke"]
     assert_imports_alone(tools)

@@ -952,6 +952,36 @@ def test_k9_matches_plain_on_odd_shapes(card, case, shape):
     assert err <= 1e-4 * float(want.abs().max()), (case, shape, err)
 
 
+# K10's chunk tiles across their plan (conv3d.k10_geometry): B = 1 and 4
+# on the FOV, odd volumes, rows split into columns (W = 700); every 3^3
+# layer kind of the stack and the CI checkpoint's 16->16. Within 1e-4 of
+# max|plain| (test_k9_k10_match_plain's bound), two runs bit for bit.
+K10_SHAPES = [(1, 33, 33, 33), (4, 33, 33, 33), (1, 1, 1, 1), (2, 3, 1, 5),
+              (1, 3, 4, 200), (1, 2, 3, 700), (3, 9, 10, 11)]
+K10_CASES = {name: K9_CASES[name] for name in
+             ("conv0_a", "conv0_b", "block_a", "block_b", "16->16")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K10_CASES))
+@pytest.mark.parametrize("shape", K10_SHAPES)
+def test_k10_matches_plain_across_its_plan(card, case, shape):
+    k, cin, cout, pre, post, _ = K10_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(sum(shape) + cin + cout)
+    x = torch.randn(*shape, cin, generator=gen, device=card)
+    dy = torch.randn(*shape, cout, generator=gen, device=card)
+    y = torch.randn(*shape, cout, generator=gen, device=card) \
+        if post else None
+    assert conv3d.k10_geometry(*shape, cin, cout, post) is not None
+    gw, gb = conv3d.conv3d_wgrad_f32(x, dy, k, pre_relu=pre, y=y)
+    ww, wb = conv3d.conv3d_wgrad_plain(x, dy, k, pre_relu=pre, y=y)
+    for g, want in ((gw, ww), (gb, wb)):
+        err = float((g - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (case, shape, err)
+    again = conv3d.conv3d_wgrad_f32(x, dy, k, pre_relu=pre, y=y)
+    assert torch.equal(again[0], gw) and torch.equal(again[1], gb)
+
+
 @pytest.mark.cuda
 def test_conv3d_function_backward_matches_autograd_of_plain(card):
     from ffn_tpu_torch.models import convstack_3d
@@ -2316,6 +2346,42 @@ def test_int8_cuda_tensors_never_reach_the_plain_versions(card, monkeypatch):
     torch.cuda.synchronize()
     assert out.shape == (2, 9, 9, 9, 1) and bool(out.isfinite().all())
     assert _build.launches["qconv3d_s8"] == _build.launches["act_absmax"] == 5
+
+
+# K19's 3^3 kernel across its plan (quantized.k19_geometry): N = 1, 3, 64
+# at every width, on the FOV and odd volumes (rows wider than a band, one
+# voxel); the flags vary with the shape. Bit for bit with plain, the first
+# and last lanes alone as in the batch.
+K19_SHAPES = [(33, 33, 33), (5, 7, 9), (3, 5, 200), (1, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(2, 32), (32, 32), (2, 16), (16, 16)])
+@pytest.mark.parametrize("shape", K19_SHAPES)
+@pytest.mark.parametrize("n", [1, 3, 64])
+def test_k19_matches_plain_across_its_plan(card, n, shape, widths):
+    from ffn_tpu_torch.ops import quantized
+    cin, cout = widths
+    rng = np.random.RandomState(n + sum(shape) + cin + cout)
+    relu_in, relu_out, res = cin > 2, shape[0] % 2 == 1, cin == cout
+    layer = quantized.fold_convstack_params({"c": {
+        "kernel": rng.randn(3, 3, 3, cin, cout).astype(np.float32) * 0.05,
+        "bias": rng.randn(cout).astype(np.float32)}})["c"].to(card)
+    mag = 10.0 ** rng.randint(-2, 3, (n, 1, 1, 1, 1))
+    x = torch.from_numpy((rng.randn(n, *shape, cin) * mag).astype(
+        np.float32)).to(card)
+    if n > 1:
+        x[n // 2] = 0
+    r = torch.randn(n, *shape, cout, device=card) if res else None
+    am = quantized.act_absmax(x, relu_in)
+    kw = dict(relu_in=relu_in, relu_out=relu_out, residual=r)
+    got = quantized.qconv3d(x, layer, am, **kw)
+    assert torch.equal(got, quantized.qconv3d_plain(x, layer, am, **kw))
+    for i in (0, n - 1):
+        one = quantized.qconv3d(x[i:i + 1].clone(), layer, am[i:i + 1],
+                                **dict(kw, residual=None if r is None
+                                       else r[i:i + 1].clone()))
+        assert torch.equal(one[0], got[i])
 
 
 # K20's reads (quantized.k20_reads, mirrored from qconv3d.cu): each lane's

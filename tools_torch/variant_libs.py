@@ -88,7 +88,9 @@ def ptxas_report(srcs, match):
 
 def device_split(fn, calls=20):
     """Host microseconds a call (launches only, no sync), and device
-    microseconds a call by kernel name (torch.profiler)."""
+    microseconds a call by kernel name (torch.profiler): each kernel's mean
+    over the events the profiler kept, times its launches a call (it may
+    drop events of a long run)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -108,7 +110,8 @@ def device_split(fn, calls=20):
         if us is None:
             us = ev.cuda_time_total
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            device[ev.key[:60]] = us / calls
+            device[ev.key[:60]] = us / ev.count * max(
+                1, round(ev.count / calls))
     return dict(host_us=host_us, device_us=device)
 
 
