@@ -649,14 +649,12 @@ def phase_hop_kernels(dev):
     return results
 
 
-def _k8_kernels(dev, seed_dtype):
-    """K8 against its plain version, bit for bit, over two passes of a crafted
-    state (64 lanes, 4 slots of 82^3, every branch; bfloat16: thresholds that
-    round down and two lanes on the origin bf16(move_t) < move_t)."""
-    from ffn_tpu_torch.ops import finalize as fin_ops
+def _k8_state(dev, seed_dtype):
+    """K8's crafted state (64 lanes, 4 slots of 82^3, every branch;
+    bfloat16: thresholds that round down and two lanes on the origin
+    bf16(move_t) < move_t): (the tests' helpers, a factory of lane and
+    finalize states, blocked, fin_opts, the pass's keywords, lanes)."""
     tk = _tests()
-    bf16 = seed_dtype == torch.bfloat16
-    sfx, nbytes = ("_bf16", 2) if bf16 else ("", 4)
     rng = np.random.RandomState(1)
     shape = (FUSED_SUB,) * 3
     fov, deltas, Q = 33, (8, 8, 8), 32768
@@ -665,7 +663,7 @@ def _k8_kernels(dev, seed_dtype):
         rng, LANES, FUSED_SLOTS, shape, Q, fifo, fov, deltas, MAX_ITERS,
         1000)
     move_t = tk.MOVE_T
-    if bf16:
+    if seed_dtype == torch.bfloat16:
         move_t = tk.MOVE_T_LO
         tk.bf16_finalize_edges(rng, lanes, fin, opts, move_t)
     blk = torch.from_numpy(blocked).to(dev)
@@ -674,10 +672,29 @@ def _k8_kernels(dev, seed_dtype):
         lane_state = tk.to_torch(lanes, dev)
         lane_state["seeds"] = lane_state["seeds"].to(seed_dtype)
         return lane_state, tk.to_torch(fin, dev)
-
-    ks, ps, snap = state(), state(), state()
     kw = dict(fov=fov, deltas=deltas, max_iters=MAX_ITERS,
               move_threshold=move_t)
+    return tk, state, blk, opts, kw, lanes
+
+
+def _k8_empty(work):
+    """The state of a pass that finalizes nothing (the common case: every
+    lane running and fresh), in place."""
+    work[0]["status"].fill_(1)
+    work[0]["fresh"].fill_(True)
+    work[0]["iters"].fill_(1)
+
+
+def _k8_kernels(dev, seed_dtype):
+    """K8 against its plain version, bit for bit, over two passes of
+    _k8_state's crafted state, and a pass that finalizes nothing; their
+    times through the wrapper (CUDA events) and its host time."""
+    from ffn_tpu_torch.ops import finalize as fin_ops
+    bf16 = seed_dtype == torch.bfloat16
+    sfx, nbytes = ("_bf16", 2) if bf16 else ("", 4)
+    shape, fov, deltas = (FUSED_SUB,) * 3, 33, (8, 8, 8)
+    tk, state, blk, opts, kw, lanes = _k8_state(dev, seed_dtype)
+    ks, ps, snap = state(), state(), state()
     for turn in range(2):
         got = tk.finalize_step(fin_ops.finalize_pass, *ks, blk, opts, **kw)
         want = tk.finalize_step(fin_ops.finalize_pass_plain, *ps, blk, opts,
@@ -740,6 +757,35 @@ def _k8_kernels(dev, seed_dtype):
     print(f"finalize_pass{sfx}: bit-exact; kernel {r['ms']:.4f} ms plain "
           f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.5f} ms "
           f"({r['bound_by']})")
+
+    # A pass that finalizes nothing: the dud kill and the cond alone. With
+    # every lane fresh it needs each lane's status, iters and fresh, and
+    # writes alive.
+    restore()
+    _k8_empty(ks)
+    ps = ({k: t.clone() for k, t in ks[0].items()},
+          {k: t.clone() for k, t in ks[1].items()})
+    empty = [lambda: tk.finalize_step(fin_ops.finalize_pass, *ks, blk, opts,
+                                      **kw),
+             lambda: tk.finalize_step(fin_ops.finalize_pass_plain, *ps, blk,
+                                      opts, **kw)]
+    got, want = empty[0](), empty[1]()
+    torch.cuda.synchronize()
+    require(int(got) == int(want) == 1 and all(
+        tk.nan_equal(k[name], p[name]) for k, p in zip(ks, ps) for name in p),
+            f"K8 finalize_pass{sfx}: the empty pass differs from plain")
+    r["empty_ms"], r["empty_plain_ms"] = time_many(*empty)
+    r["empty_bound_ms"] = bound_of(LANES * (4 + 4 + 1) + 4)[0]
+    calls = 200
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        empty[0]()
+    r["host_us"] = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    print(f"finalize_pass{sfx}, a pass that finalizes nothing ({LANES} "
+          f"lanes running): kernel {r['empty_ms']:.4f} ms plain "
+          f"{r['empty_plain_ms']:.4f} ms bound {r['empty_bound_ms']:.6f} ms; "
+          f"the wrapper's host time {r['host_us']:.1f} us a call")
     del ks, ps, snap, blk
     torch.cuda.empty_cache()
     return {"finalize_pass" + sfx: r}
@@ -999,16 +1045,11 @@ def phase_fused_slice(dev, tmp):
             ("fused_host", ["--no-device_finalize"], FUSED_HOST_AGREE_FLOOR,
              ("conv3d_ndhwc_f32", "hop_pop", "hop_gather", "hop_update",
               "hop_screen", "lane_threshold", "lane_masks"))):
-        probe = _HopProbe()
+        probe = _K8Probe()
         run = _fused(f"{path} slice on kernels", path, tmp, model_args,
-                     flags, patches=[mock.patch.object(
-                         fin_ops, "finalize_pass", probe.wrap(
-                             "finalize_pass", fin_ops.finalize_pass))])
-        calls = len(probe.events.get("finalize_pass", []))
-        if calls:
-            ms = probe.device_ms()["finalize_pass"]
-            print(f"K8 finalize_pass in the {path} slice: {calls} launches, "
-                  f"{ms:.1f} device ms, {ms / calls:.4f} ms per call")
+                     flags, patches=[probe.patch()])
+        if probe.events:
+            probe.report(f"the {path} slice")
         _require_launched(run["launches"], f"the {path} path", needed)
         kernel_launches[path] = run["launches"]
         stitch_s, stitched = _stitch(run["argv"], os.path.join(
@@ -1443,6 +1484,44 @@ class _HopProbe:
             + f"; sum {device:.1f} ms of {1e3 * wall:.1f} ms wall: host "
               f"and idle {1e3 * wall - device:.1f} ms")
         return ms
+
+
+class _K8Probe:
+    """K8's device time by CUDA events around each call (no
+    synchronization) and the finalizations (log rows) each call wrote."""
+
+    def __init__(self):
+        self.events = []   # (start, end, log_n before, log_n after)
+
+    def patch(self):
+        from ffn_tpu_torch.ops import finalize as fin_ops
+        inner = fin_ops.finalize_pass
+
+        def timed(state, fstate, *args, **kwargs):
+            before = fstate.log_n.clone()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(state, fstate, *args, **kwargs)
+            end.record()
+            self.events.append((start, end, before, fstate.log_n.clone(),
+                                state.seeds.dtype))
+            return out
+        return mock.patch.object(fin_ops, "finalize_pass", timed)
+
+    def report(self, path):
+        """Prints K8's launches, device ms a launch and finalizations a
+        launch on `path`; returns them."""
+        torch.cuda.synchronize()
+        n = len(self.events)
+        ms = sum(s.elapsed_time(e) for s, e, *_ in self.events)
+        fins = int(sum(int(a - b) for _, _, b, a, _ in self.events))
+        name = "finalize_pass" + ("_bf16" if self.events[0][4] ==
+                                  torch.bfloat16 else "")
+        print(f"K8 {name} in {path}: {n} launches, {ms:.1f} device ms, "
+              f"{ms / n:.4f} ms a launch, {fins / n:.3f} finalizations a "
+              f"launch ({fins} in all)")
+        return dict(launches=n, ms=ms, fins=fins)
 
 
 def phase_hop_slice(dev, phantom, r2, seg_serial, tmp):
@@ -1982,8 +2061,12 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
                 run(label, sfx, phantom), plain)
         else:
             _build.launches.clear()
-            got = run("on kernels", "", phantom)
+            probe = _K8Probe()
+            with probe.patch():
+                got = run("on kernels", "", phantom)
             launches[path] = dict(_build.launches)
+            if probe.events:
+                probe.report(f"the bf16-seed {path} slice")
             _pair(f"the bf16-seed {path} slice on {edge}^3",
                   lambda label, sfx: run(f"{edge}^3, {label}", "_pair" + sfx,
                                          corner), plain)
@@ -2017,9 +2100,12 @@ def phase_bf16_seed_slice(dev, phantom, r2, fused_f32_seeds, tmp):
                  ("hop_pop", "hop_gather", "hop_update", "lane_threshold",
                   "lane_masks"))):
             if not flags:   # the whole phantom on kernels
+                probe = _K8Probe()
                 fused[path] = _fused(f"bf16-seed {path} slice on kernels",
-                                     f"seeds_{path}", tmp, model_args)
+                                     f"seeds_{path}", tmp, model_args,
+                                     patches=[probe.patch()])
                 launches[path] = fused[path]["launches"]
+                probe.report(f"the bf16-seed {path} slice")
             got, pair_launches = _pair(
                 f"the bf16-seed {path} slice on {edge}^3", lambda label, sfx:
                 _fused(f"bf16-seed {path} slice {label}",
@@ -3582,7 +3668,8 @@ def phase_int8_kernels(dev):
 def phase_device_alone(dev):
     """K10 (32->32 pre+post_relu, B = 4 and 1) and K19 (block_a, N = 1 and
     64) on the device alone beside their library calls (cuDNN's
-    conv3d_weight; torch._int_mm on the int8 im2col), by torch.profiler:
+    conv3d_weight; torch._int_mm on the int8 im2col), and K8's crafted and
+    empty passes (_k8_state), by torch.profiler:
     the wrappers' host time left out. Runs after every other profiled check
     of phase 3 (K20's one-launch check needs the process's first profiler
     run: after others it saw no device events)."""
@@ -3622,6 +3709,41 @@ def phase_device_alone(dev):
               f"library _int_mm {ms[1]:.4f} ms (torch.profiler)")
         del layer, x, am, cols
     torch.cuda.empty_cache()
+
+    # K8 on _k8_state's crafted pass (each call from the restored state)
+    # and on a pass that finalizes nothing: its kernel's events alone.
+    from ffn_tpu_torch.ops import finalize as fin_ops
+    for seed_dtype in (torch.bfloat16, torch.float32):
+        tk, state, blk, opts, kw, _ = _k8_state(dev, seed_dtype)
+        work, snap = state(), state()
+
+        def restore():
+            for w, s in zip(work, snap):
+                for name in w:
+                    w[name].copy_(s[name])
+        out = []
+        for empty in (False, True):
+            if empty:
+                _k8_empty(snap)
+            restore()
+            tk.finalize_step(fin_ops.finalize_pass, *work, blk, opts, **kw)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    restore()
+                    tk.finalize_step(fin_ops.finalize_pass, *work, blk, opts,
+                                     **kw)
+                torch.cuda.synchronize()
+            out.append(sum(
+                getattr(ev, "device_time_total", None) or ev.cuda_time_total
+                for ev in prof.key_averages()
+                if "finalize_pass" in ev.key) / 10 / 1e3)
+        print(f"K8 finalize_pass{'_bf16' if seed_dtype == torch.bfloat16 else ''}"
+              f": device alone {out[0]:.4f} ms a crafted pass, {out[1]:.4f} "
+              f"ms a pass that finalizes nothing (torch.profiler)")
+        del work, snap, blk
+        torch.cuda.empty_cache()
     return {}
 
 

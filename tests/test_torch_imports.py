@@ -93,5 +93,6 @@ def test_card_tools_import_without_jax_or_ffn_tpu():
     tools = ["tools_torch.variant_libs", "tools_torch.k1_variants",
              "tools_torch.dgrad_variants", "tools_torch.k15_variants",
              "tools_torch.k18_variants", "tools_torch.k19_variants",
-             "tools_torch.k10_variants", "chip_smoke"]
+             "tools_torch.k10_variants", "tools_torch.k8_variants",
+             "chip_smoke"]
     assert_imports_alone(tools)

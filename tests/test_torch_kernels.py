@@ -842,6 +842,234 @@ def test_finalize_plain_drives_every_branch():
     assert len(idx) and (idx.min(0) >= np.array(SHAPE) - 13).all()
 
 
+def random_finalize(rng, B, K, shape, S, *, max_iters=5, min_size=1,
+                    claimed_run=0, in_turn=0, fov=FOV, deltas=(2, 2, 2),
+                    Q=8):
+    """A random LaneState, FinalizeState and blocked stack (numpy) for K8:
+    lanes of every status, each a noisy box of seeds around its origin (NaN,
+    weak and strong origins) in a random slot, prior claims in seg and in
+    blocked. Lane 0 finishes as a candidate and lane 1 (B > 1) finishes
+    with its origin inside lane 0's mask in the same slot, claimed by lane
+    0's turn if that turn writes. The FIFO opens with `claimed_run` entries
+    on claimed voxels of slots 0 and 1 (alternating), then `in_turn` on
+    lane 0's mask, where the first turn writes ids if its count reaches
+    `min_size`, then free and claimed entries mixed."""
+    dims = tuple(int(v) for v in shape)
+    ext = np.array(dims)
+    grid, _ = grid_geometry(dims, deltas)
+    seeds = np.full((B,) + dims, np.nan, np.float32)
+    start = np.stack([rng.randint(0, d, size=B) for d in dims],
+                     1).astype(np.int32)
+    minp, maxp = start.copy(), start.copy()
+    sv = rng.randint(0, K, size=B).astype(np.int32)
+    for b in range(B):
+        r = rng.randint(1, 4, size=3)
+        lo = np.maximum(start[b] - r, 0)
+        hi = np.minimum(start[b] + r + 1, ext)
+        box = (b,) + tuple(slice(int(a), int(c)) for a, c in zip(lo, hi))
+        seeds[box] = rng.uniform(-1.0, 4.0, seeds[box].shape)
+        seeds[(b,) + tuple(start[b])] = rng.choice([3.0, 3.0, 0.5, np.nan])
+        minp[b], maxp[b] = lo, hi - 1
+    status = rng.choice([0, 1, 2, 2, 2, 3, 4, 5, 6], size=B).astype(np.int32)
+    iters = rng.randint(0, max_iters + 1, size=B).astype(np.int32)
+    fresh = rng.rand(B) < 0.2
+    hold = rng.rand(B) < 0.1
+    seg = np.where(rng.rand(K, *dims) < 0.05,
+                   rng.randint(1, 50, size=(K,) + dims), 0).astype(np.int32)
+    blocked = ((rng.rand(K, *dims) < 0.05) * 2
+               | (rng.rand(K, *dims) < 0.03)).astype(np.uint8)
+
+    # Lane 0: a finisher that counts; lane 1: its origin in lane 0's mask.
+    status[0], iters[0], hold[0] = 2, max(1, int(iters[0])), False
+    s0 = (int(sv[0]),) + tuple(int(v) for v in start[0])
+    seeds[(0,) + s0[1:]] = 3.0
+    seg[s0], blocked[s0] = 0, blocked[s0] & 2
+    mask0 = ((seeds[0] >= SEG_T) & (seg[sv[0]] == 0)
+             & ((blocked[sv[0]] & 1) == 0))
+    inside = np.argwhere(mask0)
+    if B > 1:
+        p1 = inside[rng.randint(len(inside))]
+        status[1], iters[1], hold[1], sv[1] = 2, max(1, int(iters[1])), \
+            False, sv[0]
+        start[1] = p1
+        minp[1], maxp[1] = np.minimum(minp[1], p1), np.maximum(maxp[1], p1)
+        seeds[(1,) + tuple(p1)] = 3.0
+
+    entries = []
+    for i in range(claimed_run):
+        k = i % min(K, 2)
+        taken = np.argwhere((seg[k] > 0) | ((blocked[k] & 1) == 1))
+        entries.append((k, taken[rng.randint(len(taken))]))
+    for _ in range(in_turn):
+        entries.append((int(sv[0]), inside[rng.randint(len(inside))]))
+    while len(entries) < S:
+        k = int(rng.randint(K))
+        taken = np.argwhere((seg[k] > 0) | ((blocked[k] & 1) == 1))
+        p = taken[rng.randint(len(taken))] if rng.rand() < 0.5 else \
+            np.array([rng.randint(d) for d in dims])
+        entries.append((k, p))
+    fifo_pos = np.zeros((S, 3), np.int32)
+    fifo_sv = np.zeros(S, np.int32)
+    for i, (k, p) in enumerate(entries[:S]):
+        fifo_sv[i], fifo_pos[i] = k, p
+    n = int(rng.randint(max(1, S - 8), S + 1)) if S > claimed_run + \
+        in_turn else S
+    head = rng.randint(0, Q, size=B).astype(np.int32)
+    z = np.zeros(B, np.int32)
+    lanes = dict(
+        seeds=seeds, sv=sv,
+        qpos=rng.randint(0, min(dims), size=(B, Q, 3)).astype(np.int32),
+        qscore=rng.rand(B, Q).astype(np.float32), head=head,
+        tail=head + rng.randint(0, 4, size=B).astype(np.int32),
+        done=(rng.rand(B, *grid) < 0.1).astype(np.uint8), start=start,
+        minp=minp.astype(np.int32), maxp=maxp.astype(np.int32), iters=iters,
+        status=status, fresh=fresh, overflow=z.copy(),
+        skip_threshold=z.copy(), skip_invalid=z.copy(),
+        skip_restricted=z.copy())
+    fin = dict(seg=seg, next_sid=rng.randint(50, 60, size=K).astype(np.int32),
+               fifo_pos=fifo_pos, fifo_sv=fifo_sv,
+               fifo_n=np.array(n, np.int32), fifo_head=np.array(0, np.int32),
+               log=np.zeros((S + B + 4, 10), np.int32),
+               log_n=np.array(0, np.int32), hold=hold,
+               claimed=np.zeros(K, np.int32))
+    opts = np.array([SEG_T, min_size, INIT_T], np.float32)
+    return lanes, fin, blocked, opts
+
+
+def _k8_against_plain(card, lanes, fin, blocked, opts, passes=2,
+                      seed_dtype=torch.float32, move_threshold=MOVE_T,
+                      max_iters=5, fov=FOV):
+    """K8 and finalize_pass_plain from the same state, `passes` passes:
+    equal bit for bit (NaN-equal seeds) after each; each K8 call one launch
+    and one device kernel. Returns the plain state."""
+    from ffn_tpu_torch import _build
+    from ffn_tpu_torch.ops import finalize as fin_ops
+    name = "finalize_pass_bf16" if seed_dtype == torch.bfloat16 else \
+        "finalize_pass"
+    blk = torch.from_numpy(blocked).to(card)
+    ks = (to_torch(lanes, card), to_torch(fin, card))
+    ps = (to_torch(lanes, card), to_torch(fin, card))
+    for st in (ks, ps):
+        st[0]["seeds"] = st[0]["seeds"].to(seed_dtype)
+    kw = dict(fov=fov, deltas=(2, 2, 2), max_iters=max_iters,
+              move_threshold=move_threshold)
+    # The wrapper's scratch, made (zeroed) on a stream's first call.
+    dev = ks[0]["seeds"].device
+    fin_ops._scratch(dev, torch.cuda.current_stream(dev).cuda_stream)
+    for _ in range(passes):
+        before = _build.launches[name]
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            got = finalize_step(fin_ops.finalize_pass, *ks, blk, opts, **kw)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert _build.launches[name] == before + 1
+        assert len(kernels) == 1 and "finalize_pass" in kernels[0].name, \
+            [e.name for e in kernels]
+        want = finalize_step(fin_ops.finalize_pass_plain, *ps, blk, opts,
+                             **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for k, p in zip(ks, ps):
+            for key in p:
+                assert nan_equal(k[key], p[key]), key
+    return ps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alive", [0, 1])
+@pytest.mark.parametrize("seed_dtype", [torch.float32, torch.bfloat16])
+def test_finalize_pass_empty(card, alive, seed_dtype):
+    # A pass that finalizes nothing: no finisher and no idle lane with the
+    # FIFO dry (alive 0), or lanes still running (alive 1).
+    rng = np.random.RandomState(40 + alive)
+    lanes, fin, blocked, opts = random_finalize(rng, 64, 2, SHAPE, 16)
+    lanes["status"][:] = 5   # STALLED_FULL
+    if alive:
+        lanes["status"][::3] = 1   # running, fresh: not killed
+        lanes["fresh"][:] = True
+        lanes["iters"][:] = 1
+    ps = _k8_against_plain(card, lanes, fin, blocked, opts,
+                           seed_dtype=seed_dtype)
+    assert int(ps[1]["log_n"]) == 0 and int(ps[1]["fifo_head"]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 33, 64, 1024])
+def test_finalize_pass_lane_counts(card, B):
+    rng = np.random.RandomState(100 + B)
+    shape = (12, 13, 14) if B == 1024 else SHAPE
+    lanes, fin, blocked, opts = random_finalize(
+        rng, B, 3, shape, max(8, B // 2), claimed_run=3, in_turn=2)
+    ps = _k8_against_plain(card, lanes, fin, blocked, opts)
+    assert int(ps[1]["log_n"]) >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed_dtype", [torch.float32, torch.bfloat16])
+def test_finalize_pass_long_claimed_run(card, seed_dtype):
+    # More than 64 claimed FIFO entries in slots 0 and 1 before a free
+    # one: the pop skips them 32 a step and counts each slot's.
+    rng = np.random.RandomState(51)
+    lanes, fin, blocked, opts = random_finalize(
+        rng, 24, 3, SHAPE, 120, claimed_run=70)
+    ps = _k8_against_plain(card, lanes, fin, blocked, opts,
+                           seed_dtype=seed_dtype)
+    claimed = ps[1]["claimed"].cpu().numpy()
+    assert claimed[0] >= 35 and claimed[1] >= 35
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_size", [1, 10 ** 6])
+def test_finalize_pass_in_turn_candidate(card, min_size):
+    # The FIFO's head inside the mask that lane 0's turn writes: claimed by
+    # the write when the count reaches min_size, free when too small.
+    rng = np.random.RandomState(52)
+    lanes, fin, blocked, opts = random_finalize(
+        rng, 16, 2, SHAPE, 24, min_size=min_size, in_turn=3)
+    ps = _k8_against_plain(card, lanes, fin, blocked, opts)
+    log = ps[1]["log"][:int(ps[1]["log_n"])].cpu().numpy()
+    assert log[0, 9] == 0
+    assert log[0, 8] == (1 if min_size == 1 else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(33, 33, 33), (41, 48, 57),
+                                   (132, 132, 132)])
+@pytest.mark.parametrize("seed_dtype", [torch.float32, torch.bfloat16])
+def test_finalize_pass_volumes(card, shape, seed_dtype):
+    # Odd volumes put every lane and slot offset off the 16-byte grid
+    # (scalar scans); 132^3, the devfin slice's, aligns them.
+    rng = np.random.RandomState(sum(shape))
+    lanes, fin, blocked, opts = random_finalize(
+        rng, 6, 3, shape, 12, claimed_run=2, in_turn=2, fov=33)
+    _k8_against_plain(card, lanes, fin, blocked, opts,
+                      seed_dtype=seed_dtype, fov=33)
+
+
+@pytest.mark.cuda
+def test_finalize_pass_repeats(card):
+    # The same state through K8 three times: identical results (the
+    # scratch is left ready, nothing depends on the blocks' order).
+    from ffn_tpu_torch.ops import finalize as fin_ops
+    rng = np.random.RandomState(53)
+    lanes, fin, blocked, opts = random_finalize(
+        rng, 64, 4, (40, 41, 42), 64, claimed_run=5, in_turn=3)
+    blk = torch.from_numpy(blocked).to(card)
+    outs = []
+    for _ in range(3):
+        ls, fs = to_torch(lanes, card), to_torch(fin, card)
+        alive = finalize_step(fin_ops.finalize_pass, ls, fs, blk, opts,
+                              fov=FOV, deltas=(2, 2, 2), max_iters=5)
+        torch.cuda.synchronize()
+        outs.append((alive, {**ls, **fs}))
+    for alive, st in outs[1:]:
+        assert torch.equal(alive, outs[0][0])
+        for key, t in st.items():
+            assert nan_equal(t, outs[0][1][key]), key
+
+
 # -- K9-K12: the training path's kernels ---------------------------------------
 
 from ffn_tpu_torch.ops import optim as optim_ops  # noqa: E402
